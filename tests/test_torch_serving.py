@@ -1,0 +1,158 @@
+"""The port's serving slice as a whole against the JAX package: export,
+model size, probabilities, bucketed engine and micro-batcher."""
+
+import dataclasses
+import functools
+import threading
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from deep_quantized_recommendation_model_dqrm_tpu import config as jcfg
+from deep_quantized_recommendation_model_dqrm_tpu import serving as jserving
+from deep_quantized_recommendation_model_dqrm_tpu.data import synthetic as jsyn
+from deep_quantized_recommendation_model_dqrm_tpu.models import dlrm as jdlrm
+from deep_quantized_recommendation_model_dqrm_tpu_torch import config as tcfg
+from deep_quantized_recommendation_model_dqrm_tpu_torch import serving as tserving
+from deep_quantized_recommendation_model_dqrm_tpu_torch.data import synthetic as tsyn
+from deep_quantized_recommendation_model_dqrm_tpu_torch.tools.jax_weights import (
+    params_from_numpy,
+    serving_model_from_numpy,
+)
+
+torch.set_num_threads(1)
+
+SMALL = dict(table_sizes=(512, 128, 64), embedding_dim=8, mlp_bot=(4, 16, 8), mlp_top=(14, 8, 1))
+
+
+def configs(name):
+    """(JAX config, port config) built from the same fields."""
+    if name.startswith("kaggle"):
+        pair = []
+        for m in (jcfg, tcfg):
+            k = m.kaggle_config()
+            pair.append(dataclasses.replace(k, table_sizes=tuple(min(n, 1000) for n in k.table_sizes)))
+        return tuple(pair)
+    kw = dict(SMALL)
+    if name == "small_cat":
+        kw.update(interaction="cat", mlp_top=(32, 8, 1))
+    if name == "small_clip":
+        kw.update(loss_threshold=0.3)
+    return jcfg.DLRMConfig(**kw), tcfg.DLRMConfig(**kw)
+
+
+@functools.lru_cache(maxsize=None)  # the Kaggle export is shared by two tests
+def exported(name, emb_bits, mlp_bits, rowwise):
+    jc, tc = configs(name)
+    jp = jdlrm.init_params(jc, seed=0)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    jsm = jserving.ptq_export(jc, jp, emb_bits, mlp_bits, rowwise)
+    tsm = tserving.ptq_export(tc, tp, emb_bits, mlp_bits, rowwise)
+    return jc, tc, jsm, tsm
+
+
+CASES = [
+    ("small", 4, 8, False, 1),
+    ("small", 8, 8, False, 1),
+    ("small", 4, 8, True, 1),
+    ("small", 8, 32, False, 1),
+    ("small", 4, 8, False, 3),
+    ("small_cat", 8, 8, True, 2),
+    ("small_clip", 4, 8, False, 1),
+    ("small", 8, 8, True, 2),
+    ("kaggle_capped", 4, 8, False, 1),
+]
+
+
+@pytest.mark.parametrize("name,emb_bits,mlp_bits,rowwise,P", CASES)
+def test_serving_matches_jax(name, emb_bits, mlp_bits, rowwise, P):
+    jc, tc, jsm, tsm = exported(name, emb_bits, mlp_bits, rowwise)
+    assert tserving.serving_model_bytes(tsm) == jserving.serving_model_bytes(jsm)
+    kw = dict(num_indices_per_lookup=P, variable_pooling=P > 1)
+    jb = jsyn.random_batch(jc, 64, np.random.RandomState(P), **kw)
+    tb = tsyn.random_batch(tc, 64, np.random.RandomState(P), device="cpu", **kw)
+    assert (tb.mask is not None) == (P > 1)
+    want = np.asarray(jserving.make_serving_fn(jsm)(jb))
+    got = tserving.make_serving_fn(tsm)(tb).numpy()
+    assert got.shape == (64,) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    # the JAX model's own packed arrays serve the same probabilities
+    carried = serving_model_from_numpy(tc, jsm, device="cpu")
+    np.testing.assert_allclose(
+        tserving.make_serving_fn(carried)(tb).numpy(), got, rtol=0, atol=1e-6
+    )
+
+
+def test_kaggle_model_bytes():
+    """The full Kaggle arch's INT4/INT8 export size, computed from the config
+    alone: 8 packed bytes per row, one scale per table, int8 MLP weights
+    plus float32 scale and bias per output channel."""
+    tc = tcfg.kaggle_config()
+    layers = list(zip(tc.mlp_bot[:-1], tc.mlp_bot[1:])) + list(zip(tc.mlp_top[:-1], tc.mlp_top[1:]))
+    expect = sum(tc.table_sizes) * 8 + 4 * tc.num_tables + sum(i * o + 8 * o for i, o in layers)
+    assert expect == 270_588_024
+    _, small_tc, _, tsm = exported("kaggle_capped", 4, 8, False)
+    capped = sum(small_tc.table_sizes) * 8 + 4 * small_tc.num_tables + sum(
+        i * o + 8 * o for i, o in layers
+    )
+    assert tserving.serving_model_bytes(tsm) == capped
+
+
+def engine_requests(tc, sizes, seed):
+    rng = np.random.RandomState(seed)
+    out = []
+    for n in sizes:
+        dense = rng.rand(n, tc.num_dense).astype(np.float32)
+        idx = np.stack([rng.randint(0, t, size=(n, 1)).astype(np.int32) for t in tc.table_sizes])
+        out.append((dense, idx))
+    return out
+
+
+def test_engine_padding_and_chunking_match_direct():
+    jc, tc, jsm, tsm = exported("small", 4, 8, False)
+    eng = tserving.ServingEngine(tsm, buckets=(16, 64))
+    jeng = jserving.ServingEngine(jsm, buckets=(16, 64))
+    for dense, idx in engine_requests(tc, (50, 16, 3, 150), seed=3):
+        got = eng.predict(dense, idx)
+        batch = tsyn.random_batch(tc, 1, np.random.RandomState(0), device="cpu")._replace(
+            dense=torch.from_numpy(dense), indices=torch.from_numpy(idx),
+            labels=torch.zeros(len(dense)),
+        )
+        np.testing.assert_allclose(got, eng.fn(batch).numpy(), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got, jeng.predict(dense, idx), rtol=0, atol=1e-6)
+    # 50 -> 64, 16 -> 16, 3 -> 16, 150 -> 64 + 64 + 22 (padded to 64)
+    assert eng.batches == 6
+
+
+def test_micro_batcher_threads_match_direct():
+    _, tc, _, tsm = exported("small", 4, 8, False)
+    eng = tserving.ServingEngine(tsm, buckets=(16, 64))
+    mb = tserving.MicroBatcher(eng, max_batch=64, max_wait_ms=5.0)
+    reqs = engine_requests(tc, [int(n) for n in np.random.RandomState(5).randint(1, 7, 12)], 6)
+    results = [None] * len(reqs)
+
+    def client(i):
+        results[i] = mb.predict(*reqs[i])
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    mb.close()
+    for (dense, idx), got in zip(reqs, results):
+        np.testing.assert_allclose(got, eng.predict(dense, idx), rtol=0, atol=1e-6)
+    with pytest.raises(RuntimeError):
+        mb.predict(*reqs[0])
+
+
+def test_later_slices_raise():
+    _, tc, _, tsm = exported("small", 4, 8, False)
+    for kw in (dict(mlp_impl="int8"), dict(onehot_lookup_max_rows=100), dict(fused_gather=True)):
+        with pytest.raises(NotImplementedError):
+            tserving.make_serving_fn(tsm, **kw)
+    with pytest.raises(ValueError):
+        tserving.ptq_export(tc, {"emb": [], "bot": [], "top": []}, emb_bits=2)
