@@ -1,15 +1,29 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Smoke run of the PyTorch/CUDA port's main path on one NVIDIA card:
+INT4 QAT training, evaluation, export and packed serving of the full Kaggle
+DQRM.
 
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a card and the CUDA toolkit.
-It builds the port's CUDA kernels from the sources in the checkout, holds
-each kernel against its plain PyTorch version at the serving shapes of the
-full Kaggle DQRM, times both beside the least time the card could take and a
-PyTorch library yardstick, then serves requests through `ServingEngine` and
-`MicroBatcher` with the launch counters reset just before and read just
-after. Every check raises, so any failure exits non-zero.
+It builds the port's CUDA kernels from the sources in the checkout and holds
+each kernel against its plain PyTorch version at the shapes of the main path,
+timed beside the least time the card could take and a PyTorch library
+yardstick. Then it runs the main path as users run it, each part with the
+launch counters of its kernels set to 0 just before and read just after:
+
+1. train: the INT4 QAT sparse step (`make_multi_train_step`, k = 16, B = 128,
+   SGD) for 216 steps, so the scale refresh fires at steps 0 and 200, after
+   32 steps of the kernel path against the plain path (`plain=True`);
+2. eval: `make_eval_step` and ROC AUC on a held-out batch;
+3. export: `ptq_export` of the trained params (INT4 tables, INT8 MLP);
+4. serve: `ServingEngine` and `MicroBatcher` (kernels K2 and K3);
+5. serve_onehot: a second engine with `onehot_lookup_max_rows=20000`
+   (kernel K4 on the 18 small tables) answering the same requests.
+
+Every check raises, so any failure exits non-zero. Phases in order: device,
+build, model, kernel (K2, K3, K1, K4), train, profile (train), eval, export,
+serve, profile (serve), serve_onehot, kernels.
 
 Output: one JSON line per phase; then the {"kernels": [...]} summary; then
 the card's name and power limit as nvidia-smi gives them; and last
@@ -43,6 +57,18 @@ KAGGLE_BYTES = 270_588_024  # INT4 tables + INT8 MLP of the full Kaggle model
 K2_TOL = 1e-5  # fp32 sums of <= 4 terms below 1 in magnitude, another order
 K3_RTOL = 2e-5  # fp32 sums of <= 512 products in another order, x max|plain|
 SERVE_ATOL = 1e-5  # probabilities, kernel path vs plain path on the card
+U32 = 2.0 ** -24  # float32 unit roundoff
+SMALL_ROWS = 20000  # onehot_update_max_rows / onehot_lookup_max_rows of the main path
+B_TRAIN = 128  # the training batch of bench.py and the paper
+K_MEGA = 16  # steps per megastep call
+TRAIN_STEPS = 216  # 13.5 megasteps: refreshes at steps 0 and 200
+K4_TOL = 1e-5  # sums of <= 4 weighted rows below 1 in magnitude, another order
+# kernel path vs plain path after 32 steps: the atomics of K1 and of
+# index_add_ sum duplicate ids in a run-dependent order, and the rounding
+# differences compound through 32 updates of tables and MLP
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_ATOL = 1e-5
+A5000_MS_PER_STEP = 22.0  # the paper's Kaggle INT4 QAT step on one A5000 (BASELINE.md)
 PKG = "deep_quantized_recommendation_model_dqrm_tpu_torch"
 JAX_PKG = "deep_quantized_recommendation_model_dqrm_tpu"
 
@@ -280,6 +306,359 @@ def phase_kernel_k3(cfg, sm, flush):
     return row
 
 
+def random_batch(*args, **kwargs):
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.data.synthetic import random_batch as rb
+
+    return rb(*args, **kwargs)
+
+
+def small_tables(cfg):
+    return [k for k, n in enumerate(cfg.table_sizes) if n <= SMALL_ROWS]
+
+
+def atomic_order_bound(ids, vals, n):
+    """Per-element bound on the difference of two float32 scatter-adds of
+    (ids, vals) into n rows that sum duplicates in different orders: two
+    orders of a c-term sum differ by at most 2 (c - 1) u sum|v| (0 for rows
+    with one update)."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        dense_grad_plain,
+    )
+
+    count = dense_grad_plain(ids, torch.ones_like(vals[:, :1]), n)
+    return 2 * (count - 1).clamp_min(0) * U32 * dense_grad_plain(ids, vals.abs(), n)
+
+
+def k1_check(ids, vals, n, label):
+    """K1 against its plain version on one (ids, vals); both sum duplicate
+    ids with atomics in a run-dependent order. Returns the largest
+    difference."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        dense_grad_plain,
+        onehot_dense_grad,
+    )
+
+    got = onehot_dense_grad(ids, vals, n)
+    want = dense_grad_plain(ids, vals, n)
+    tol = atomic_order_bound(ids, vals, n)
+    err = (got - want).abs()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"K1 {label}: finite")
+    check(bool((err <= tol).all()), f"K1 {label}: |kernel - plain| within 2 (c-1) u sum|v|")
+    return err.max().item()
+
+
+def k1_work(cfg, B, seed):
+    """(ids, vals, rows) of the 18 small tables' sparse gradients at batch B:
+    the ids of a random batch, vals from a seeded normal."""
+    batch = random_batch(cfg, B, np.random.RandomState(seed))
+    rng = np.random.RandomState(seed + 1)
+    work = []
+    for k in small_tables(cfg):
+        ids = batch.indices[k].reshape(-1)
+        vals = torch.from_numpy(rng.normal(size=(ids.numel(), cfg.embedding_dim)).astype(np.float32))
+        work.append((ids, vals.to(DEVICE), cfg.table_sizes[k]))
+    return work
+
+
+def phase_kernel_k1(cfg, flush):
+    """K1 (dense gradient by scatter-add) on the 18 small Kaggle tables at the
+    main path's B = 128 and at B = 8192, and 8192 updates into 3 rows."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        dense_grad_plain,
+        onehot_dense_grad,
+    )
+
+    t0 = time.perf_counter()
+    rows = []
+    for B in (B_TRAIN, 8192):
+        work = k1_work(cfg, B, seed=10 + B)
+        err = max(k1_check(*a, f"B={B} rows={a[2]}") for a in work)
+        d = cfg.embedding_dim
+
+        def library():
+            return [torch.zeros((n, d), device=DEVICE).index_add_(0, i, v) for i, v, n in work]
+
+        row = {
+            "phase": "kernel", "kernel": "onehot_dense_grad", "case": f"18_small_tables_b{B}",
+            "calls": len(work), "batch": B, "rows": sum(n for _, _, n in work),
+            "max_abs_err": err, "tol": "2 (c-1) u sum|v| per element",
+            "kernel_ms": time_ms(lambda: [onehot_dense_grad(*a) for a in work], flush),
+            "plain_ms": time_ms(lambda: [dense_grad_plain(*a) for a in work], flush),
+            "library_ms": time_ms(library, flush),
+            "kernel_device_ms": device_ms(lambda: [onehot_dense_grad(*a) for a in work]),
+            "plain_device_ms": device_ms(lambda: [dense_grad_plain(*a) for a in work]),
+            "library_device_ms": device_ms(library),
+            # the gradient written once, vals and ids read once
+            "bytes": sum(n * d * 4 + i.numel() * (d * 4 + 4) for i, _, n in work),
+        }
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        row["bound_by"] = "bytes"
+        emit(row)
+        rows.append(row)
+    rng = np.random.RandomState(12)
+    ids = torch.from_numpy(rng.randint(0, 3, size=8192).astype(np.int32)).to(DEVICE)
+    vals = torch.from_numpy(rng.normal(size=(8192, cfg.embedding_dim)).astype(np.float32)).to(DEVICE)
+    heavy = k1_check(ids, vals, 3, "8192 updates into 3 rows")
+    emit({"phase": "kernel", "kernel": "onehot_dense_grad", "case": "heavy_duplicates_8192_into_3",
+          "max_abs_err": heavy, "tol": "2 (c-1) u sum|v| per element",
+          "phase_s": time.perf_counter() - t0})
+    return rows[0], max([heavy] + [r["max_abs_err"] for r in rows])
+
+
+def phase_kernel_k4(cfg, params, flush):
+    """K4 (small-table weighted pooled lookup) on the 18 small Kaggle tables:
+    the forward at B = 16384 and 128, P = 1 and P = 4 with the
+    variable-pooling mask; the backward (d_table through K1, d_w) at B = 128
+    against autograd through the plain version."""
+    import torch.nn.functional as F
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_pooled_lookup,
+        onehot_pooled_lookup_fwd,
+        pooled_lookup_weighted_plain,
+    )
+
+    t0 = time.perf_counter()
+    ks = small_tables(cfg)
+    d = cfg.embedding_dim
+    rows = {}
+    for B, P in ((B_MAIN, 1), (B_MAIN, 4), (B_TRAIN, 1), (B_TRAIN, 4)):
+        batch = random_batch(cfg, B, np.random.RandomState(20 + B + P),
+                             num_indices_per_lookup=P, variable_pooling=P > 1)
+        ones = torch.ones((B, P), device=DEVICE)
+        work = [(params["emb"][k], batch.indices[k], ones if batch.mask is None else batch.mask[k])
+                for k in ks]
+        err = lib_err = 0.0
+        for t, i, w in work:
+            got, want = onehot_pooled_lookup_fwd(t, i, w), pooled_lookup_weighted_plain(t, i, w)
+            lib = F.embedding_bag(i, t, mode="sum", per_sample_weights=w)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"K4 B={B} P={P}: finite")
+            err = max(err, (got - want).abs().max().item())
+            lib_err = max(lib_err, (lib - want).abs().max().item())
+        check(err <= K4_TOL, f"K4 B={B} P={P}: max_abs_err {err} <= {K4_TOL}")
+
+        def library():
+            return [F.embedding_bag(i, t, mode="sum", per_sample_weights=w) for t, i, w in work]
+
+        row = {
+            "phase": "kernel", "kernel": "onehot_pooled_lookup", "case": f"18_small_tables_b{B}_p{P}",
+            "calls": len(work), "batch": B, "pooling": P, "max_abs_err": err, "tol": K4_TOL,
+            "library_max_abs_err": lib_err,
+            "kernel_ms": time_ms(lambda: [onehot_pooled_lookup_fwd(*a) for a in work], flush),
+            "plain_ms": time_ms(lambda: [pooled_lookup_weighted_plain(*a) for a in work], flush),
+            "library_ms": time_ms(library, flush),
+            "kernel_device_ms": device_ms(lambda: [onehot_pooled_lookup_fwd(*a) for a in work]),
+            "plain_device_ms": device_ms(lambda: [pooled_lookup_weighted_plain(*a) for a in work]),
+            "library_device_ms": device_ms(library),
+            # ids and weights read once, the distinct rows read once, the output written once
+            "bytes": sum(i.numel() * 8 + B * d * 4 + torch.unique(i).numel() * d * 4
+                         for _, i, _ in work),
+        }
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        row["bound_by"] = "bytes"
+        emit(row)
+        rows[(B, P)] = row
+        if B != B_TRAIN:
+            continue
+        # backward: the kernel path's autograd function against autograd through the plain version
+        g_rng = np.random.RandomState(30 + P)
+        err_t = err_w = 0.0
+        for t, i, w in work:
+            g = torch.from_numpy(g_rng.normal(size=(B, d)).astype(np.float32)).to(DEVICE)
+            grads = []
+            for fn in (onehot_pooled_lookup, pooled_lookup_weighted_plain):
+                tt, ww = t.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
+                grads.append(torch.autograd.grad(fn(tt, i, ww), (tt, ww), g))
+            (kt, kw), (pt, pw) = grads
+            tol = atomic_order_bound(i.reshape(-1), (g[:, None, :] * w[..., None]).reshape(-1, d),
+                                     t.shape[0])
+            torch.cuda.synchronize()
+            check(bool(((kt - pt).abs() <= tol).all()), f"K4 backward P={P}: d_table")
+            err_t = max(err_t, (kt - pt).abs().max().item())
+            err_w = max(err_w, (kw - pw).abs().max().item())
+        check(err_w <= K4_TOL, f"K4 backward P={P}: d_w {err_w} <= {K4_TOL}")
+        emit({"phase": "kernel", "kernel": "onehot_pooled_lookup", "case": f"backward_b{B}_p{P}",
+              "d_table_max_abs_err": err_t, "d_w_max_abs_err": err_w,
+              "tol": "d_table 2 (c-1) u sum|v|, d_w 1e-5"})
+        rows[(B, P)]["max_abs_err"] = max(err, err_t, err_w)
+    emit({"phase": "kernel", "kernel": "onehot_pooled_lookup", "phase_s": time.perf_counter() - t0})
+    return rows[(B_MAIN, 1)], max(r["max_abs_err"] for r in rows.values())
+
+
+def train_step_bound(cfg, B):
+    """The least time of one sparse QAT step at batch B on this card, worked
+    out from the code: MLP flops (forward, and gradients w.r.t. inputs and
+    weights) and interaction flops; MLP bytes (weights read, fake-quant
+    weights written and read, gradients written and read, weights written);
+    the small-table dense update (K1's gradient written and read, the tables
+    read and written); the big tables' touched rows read and written; the
+    batch; and the scale refresh (every table read once), amortized over its
+    period."""
+    layers = list(zip(cfg.mlp_bot[:-1], cfg.mlp_bot[1:])) + list(zip(cfg.mlp_top[:-1], cfg.mlp_top[1:]))
+    n_w = sum(i * o + o for i, o in layers)
+    F_ = cfg.num_tables + 1
+    d = cfg.embedding_dim
+    flop = 3 * 2 * B * sum(i * o for i, o in layers) + 3 * 2 * B * F_ * F_ * d
+    small = sum(n for n in cfg.table_sizes if n <= SMALL_ROWS)
+    big_tables = sum(1 for n in cfg.table_sizes if n > SMALL_ROWS)
+    parts = {
+        "mlp_bytes": 6 * 4 * n_w,
+        "small_table_update_bytes": 4 * small * d * 4,
+        "big_table_rows_bytes": 2 * big_tables * B * d * 4,
+        "batch_bytes": B * (cfg.num_dense + cfg.num_tables + 1) * 4,
+        "scale_refresh_bytes_per_step": sum(cfg.table_sizes) * d * 4 / cfg.quant.scale_update_period,
+    }
+    nbytes = sum(parts.values())
+    t_ops, t_bytes = flop / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return {"train_step_bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flop": flop, "bytes": nbytes, **parts}
+
+
+def phase_train(cfg, params):
+    """The main training path: Kaggle INT4 QAT, B = 128, SGD at 0.1, the
+    explicit sparse step with K1 on the 18 tables of at most 20000 rows, run
+    as megasteps of 16 over 16 batches uploaded once (bench.py:216-232).
+    Trains `params` in place and returns the trained state."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import TrainConfig
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import (
+        Batch,
+        compute_emb_scales,
+        init_quant_state,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_dense_grad as k1,
+        onehot_pooled_lookup_fwd as k4,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import (
+        TrainState,
+        clone_state,
+        make_multi_train_step,
+        stack_batches,
+    )
+
+    t0 = time.perf_counter()
+    tc = TrainConfig(batch_size=B_TRAIN, learning_rate=0.1, onehot_update_max_rows=SMALL_ROWS)
+    rng = np.random.RandomState(0)
+    host = stack_batches([random_batch(cfg, B_TRAIN, rng, device="cpu") for _ in range(K_MEGA)])
+    batches = Batch(*(None if t is None else t.to(DEVICE) for t in host))
+    multi = make_multi_train_step(cfg, tc, K_MEGA, sparse_emb_grad=True)
+    state = TrainState(params=params, opt_state=None, qstate=init_quant_state(cfg))
+
+    # kernel path against plain path: 32 steps each from one start
+    paths = {}
+    for plain in (False, True):
+        st = clone_state(state)
+        run = make_multi_train_step(cfg, tc, K_MEGA, sparse_emb_grad=True, plain=plain)
+        losses = []
+        for _ in range(2):
+            st, _ = run(st, batches)
+            losses.append(run.losses)
+        paths[plain] = (st, torch.cat(losses))
+    (sk, lk), (sp, lp) = paths[False], paths[True]
+    loss_err = ((lk - lp).abs() / lp.abs()).max().item()
+    param_err = max((a - b).abs().max().item() for a, b in zip(
+        sk.params["emb"] + [l[n] for part in ("bot", "top") for l in sk.params[part] for n in ("w", "b")],
+        sp.params["emb"] + [l[n] for part in ("bot", "top") for l in sp.params[part] for n in ("w", "b")]))
+    check(bool(torch.isfinite(lk).all()), "32 kernel-path losses finite")
+    check(loss_err <= TRAIN_LOSS_RTOL, f"32 steps: loss kernel vs plain {loss_err} <= {TRAIN_LOSS_RTOL}")
+    check(param_err <= TRAIN_PARAM_ATOL, f"32 steps: params kernel vs plain {param_err} <= {TRAIN_PARAM_ATOL}")
+    del sk, sp, paths
+    compare_s = time.perf_counter() - t0
+
+    # the main path, counters from 0: 192 steps, 8, then 16 more
+    scales0 = compute_emb_scales(cfg, params)
+    tail = make_multi_train_step(cfg, tc, 8, sparse_emb_grad=True)
+    torch.cuda.synchronize()
+    k1.launches = k4.launches = 0
+    t1 = time.perf_counter()
+    losses = []
+    state, _ = multi(state, batches)
+    losses.append(multi.losses)
+    check(bool(torch.equal(state.qstate.emb_scales, scales0)), "scales refreshed at step 0")
+    for _ in range(192 // K_MEGA - 1):
+        state, _ = multi(state, batches)
+        losses.append(multi.losses)
+    check(bool(torch.equal(state.qstate.emb_scales, scales0)), "no refresh between steps 1 and 191")
+    state, _ = tail(state, Batch(*(None if t is None else t[:8] for t in batches)))
+    losses.append(tail.losses)
+    scales200 = compute_emb_scales(cfg, state.params)
+    state, _ = multi(state, batches)
+    losses.append(multi.losses)
+    losses = torch.cat(losses)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = {"onehot_dense_grad": k1.launches, "onehot_pooled_lookup": k4.launches}
+    check(state.qstate.step == TRAIN_STEPS, f"qstate.step {state.qstate.step} == {TRAIN_STEPS}")
+    check(bool(torch.equal(state.qstate.emb_scales, scales200)), "scales refreshed at step 200")
+    check(not torch.equal(scales200, scales0), "the refresh at step 200 saw the trained tables")
+    check(losses.numel() == TRAIN_STEPS and bool(torch.isfinite(losses).all()), "every loss finite")
+    n_small = len(small_tables(cfg))
+    check(launches["onehot_dense_grad"] == n_small * TRAIN_STEPS,
+          f"K1 launches {launches} == {n_small} per step x {TRAIN_STEPS}")
+    check(launches["onehot_pooled_lookup"] == 0, f"K4 launches {launches} == 0 in training")
+
+    # time: CUDA events around chains of 4 megasteps (64 steps), three chains
+    chains = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        start.record()
+        for _ in range(4):
+            state, _ = multi(state, batches)
+        end.record()
+        end.synchronize()
+        chains.append((start.elapsed_time(end) / (4 * K_MEGA), (time.perf_counter() - h0) * 1e3 / (4 * K_MEGA)))
+    ms = statistics.median(c[0] for c in chains)
+
+    holder = [state]
+
+    def megastep():
+        holder[0], _ = multi(holder[0], batches)
+
+    ops, wall_ms = device_ops(megastep, 1)
+    busy = sum(o["ms_per_call"] for o in ops)
+    per_step = [{"name": o["name"], "ms_per_step": o["ms_per_call"] / K_MEGA,
+                 "launches_per_step": o["launches_per_call"] / K_MEGA} for o in ops]
+    emit({"phase": "profile", "of": "train", "megasteps": 1, "steps": K_MEGA,
+          "wall_ms_per_step": wall_ms / K_MEGA,
+          "device_busy_ms_per_step": busy / K_MEGA if ops else "not measured",
+          "device_idle_share": 1.0 - busy / wall_ms if ops else "not measured",
+          "device_launches_per_step": sum(o["launches_per_step"] for o in per_step)
+          if ops else "not measured",
+          "top_device_ops": per_step[:15]})
+    state = holder[0]
+    bound = train_step_bound(cfg, B_TRAIN)
+    row = {"phase": "train", "config": "kaggle_int4_qat", "batch": B_TRAIN, "k": K_MEGA,
+           "steps": TRAIN_STEPS, "first_loss": losses[0].item(), "last_loss": losses[-1].item(),
+           "launches": launches, "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+           "kernel_vs_plain_32_steps": {"loss_max_rel_err": loss_err, "param_max_abs_err": param_err,
+                                        "loss_rtol": TRAIN_LOSS_RTOL, "param_atol": TRAIN_PARAM_ATOL},
+           "train_step_ms": ms, "train_step_ms_chains": [c[0] for c in chains],
+           "host_ms_per_step_chains": [c[1] for c in chains],
+           "samples_per_s": B_TRAIN / ms * 1e3,
+           "paper_a5000_ms_per_step": A5000_MS_PER_STEP, **bound,
+           "compare_s": compare_s, "main_run_s": run_s, "phase_s": time.perf_counter() - t0}
+    emit(row)
+    return state, launches
+
+
+def phase_eval(cfg, state):
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import make_eval_step
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.metrics import roc_auc
+
+    t0 = time.perf_counter()
+    batch = random_batch(cfg, B_MAIN, np.random.RandomState(99))
+    probs = make_eval_step(cfg)(state, batch)
+    p = probs.cpu().numpy()
+    check(p.shape == (B_MAIN,) and bool(np.all(np.isfinite(p))), "eval: finite, shape")
+    check(bool(np.all((p >= 0) & (p <= 1))), "eval: in [0, 1]")
+    emit({"phase": "eval", "batch": B_MAIN, "roc_auc": roc_auc(p, batch.labels.cpu().numpy()),
+          "mean_p": float(p.mean()), "phase_s": time.perf_counter() - t0})
+
+
 def requests(cfg, sizes, seed):
     rng = np.random.RandomState(seed)
     out = []
@@ -405,6 +784,53 @@ def phase_serve(cfg, sm, nbytes, flush):
           "batch_ms_device": batch_ms, "preds_per_s_device": B_MAIN / batch_ms * 1e3,
           "batch_ms_device_plain": plain_ms,
           "preds_per_s_host": B_MAIN / latency[str(B_MAIN)] * 1e3})
+    return launches, reqs, outs
+
+
+def phase_serve_onehot(cfg, sm, reqs, outs, flush):
+    """A second engine with `onehot_lookup_max_rows=20000` answers the same
+    requests: the 18 small tables are unpacked per call and looked up by K4,
+    the other 8 by K2. The fp32 tables are the INT4 tables unpacked, so both
+    engines compute the same function."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_pooled_lookup_fwd as k4,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
+        packed_pooled_lookup_kernel as k2,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import (
+        int8_linear as k3,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    eng = ServingEngine(sm, buckets=BUCKETS, onehot_lookup_max_rows=SMALL_ROWS)
+    for dense, idx in requests(cfg, BUCKETS, seed=5):
+        eng.predict(dense, idx)  # warm-up of every bucket shape
+    torch.cuda.synchronize()
+    k2.launches = k3.launches = k4.launches = eng.batches = 0
+    err, latency = 0.0, {}
+    for n, (dense, idx), want in zip(SIZES, reqs, outs):
+        h0 = time.perf_counter()
+        got = eng.predict(dense, idx)
+        latency[str(n)] = (time.perf_counter() - h0) * 1e3
+        check(got.shape == (n,) and bool(np.all(np.isfinite(got))), f"serve_onehot {n}: finite, shape")
+        err = max(err, float(np.max(np.abs(got - want))))
+    batches = eng.batches
+    launches = {"onehot_pooled_lookup": k4.launches, "packed_pooled_lookup": k2.launches,
+                "int8_linear": k3.launches}
+    n_small = len(small_tables(cfg))
+    check(launches["onehot_pooled_lookup"] == n_small * batches, f"K4 {launches} == {n_small} x {batches}")
+    check(launches["packed_pooled_lookup"] == (cfg.num_tables - n_small) * batches,
+          f"K2 {launches} == {cfg.num_tables - n_small} x {batches}")
+    check(launches["int8_linear"] == 7 * batches, f"K3 {launches} == 7 x {batches}")
+    check(err <= SERVE_ATOL, f"serve_onehot vs the K2 engine {err} <= {SERVE_ATOL}")
+    batch = random_batch(cfg, B_MAIN, np.random.RandomState(8))
+    emit({"phase": "serve_onehot", "onehot_lookup_max_rows": SMALL_ROWS, "device_batches": batches,
+          "launches": launches, "launches_per_batch": {k: v / batches for k, v in launches.items()},
+          "max_abs_err_vs_serve": err, "request_latency_ms": latency,
+          "batch_ms_device": time_ms(lambda: eng.fn(batch), flush),
+          "phase_s": time.perf_counter() - t0})
     return launches
 
 
@@ -414,7 +840,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import kaggle_config
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import QuantConfig, kaggle_config
     from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_params
     from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import (
         ptq_export,
@@ -426,7 +852,8 @@ def main() -> int:
     smi = phase_device()
     phase_build()
 
-    cfg = kaggle_config()
+    # the training configuration of bench.py:216-232; serving ignores `quant`
+    cfg = kaggle_config(QuantConfig(enabled=True, embedding_bit=4, weight_bit=4, scale_update_period=200))
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0)
     torch.cuda.synchronize()
@@ -441,12 +868,28 @@ def main() -> int:
           "init_s": t1 - t0, "export_s": time.perf_counter() - t1, "serving_model_bytes": nbytes})
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    # the K2 phase packs side formats from the untrained tables: before training
     k2_row, k2_err = phase_kernel_k2(cfg, params, sm, flush)
-    del params
     k3_row = phase_kernel_k3(cfg, sm, flush)
-    launches = phase_serve(cfg, sm, nbytes, flush)
-    for name in ("packed_pooled_lookup", "int8_linear"):
-        check(launches[name] > 0, f"{name} launched on the serving path")
+    del sm
+    k1_row, k1_err = phase_kernel_k1(cfg, flush)
+    k4_row, k4_err = phase_kernel_k4(cfg, params, flush)
+
+    state, train_launches = phase_train(cfg, params)
+    phase_eval(cfg, state)
+    t2 = time.perf_counter()
+    sm = ptq_export(cfg, state.params, emb_bits=4, mlp_bits=8)
+    del state, params
+    torch.cuda.synchronize()
+    check(serving_model_bytes(sm) == KAGGLE_BYTES, "trained export size")
+    emit({"phase": "export", "of": "trained params", "serving_model_bytes": serving_model_bytes(sm),
+          "export_s": time.perf_counter() - t2})
+    launches, reqs, outs = phase_serve(cfg, sm, nbytes, flush)
+    launches.update(train_launches)
+    onehot_launches = phase_serve_onehot(cfg, sm, reqs, outs, flush)
+    launches["onehot_pooled_lookup"] = onehot_launches["onehot_pooled_lookup"]
+    for name in ("packed_pooled_lookup", "int8_linear", "onehot_dense_grad", "onehot_pooled_lookup"):
+        check(launches[name] > 0, f"{name} launched on the main path")
 
     def entry(name, src, replaces, row, err):
         return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{src}",
@@ -455,11 +898,15 @@ def main() -> int:
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"]}
 
-    emit({"phase": "kernels", "checked_by": {"packed_pooled_lookup": ["kernel", "serve"],
-                                             "int8_linear": ["kernel", "serve"]}})
+    emit({"phase": "kernels", "checked_by": {"onehot_dense_grad": ["kernel", "train"],
+                                             "packed_pooled_lookup": ["kernel", "serve", "serve_onehot"],
+                                             "int8_linear": ["kernel", "serve", "serve_onehot"],
+                                             "onehot_pooled_lookup": ["kernel", "serve_onehot"]}})
     emit({"kernels": [
+        entry("onehot_dense_grad", "onehot_update.cu", "onehot_update.py:116", k1_row, k1_err),
         entry("packed_pooled_lookup", "packed_embedding.cu", "packed_embedding.py:261", k2_row, k2_err),
         entry("int8_linear", "quant_matmul.cu", "quant_matmul.py:68", k3_row, k3_row["max_abs_err"]),
+        entry("onehot_pooled_lookup", "onehot_update.cu", "onehot_update.py:203", k4_row, k4_err),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,7 @@ package's ops/interaction.py.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -23,6 +24,17 @@ def _tril_indices(num_fea: int, interact_itself: bool) -> Tuple[np.ndarray, np.n
     return li, lj
 
 
+@functools.lru_cache(maxsize=None)
+def _tril_flat_index(num_fea: int, interact_itself: bool, device: torch.device) -> torch.Tensor:
+    """The flat index li * num_fea + lj on `device`, uploaded once per
+    (num_fea, interact_itself, device) instead of on every call. Made outside
+    inference mode, so that a first call from serving leaves a tensor that
+    training's autograd may save."""
+    li, lj = _tril_indices(num_fea, interact_itself)
+    with torch.inference_mode(False):
+        return torch.from_numpy(li * num_fea + lj).to(device)
+
+
 def dot_interaction(
     x: torch.Tensor,  # [B, D] bottom MLP output
     ly: torch.Tensor,  # [T, B, D] pooled embeddings
@@ -32,8 +44,7 @@ def dot_interaction(
     in float32 (a plain product, as XLA computed it)."""
     tb = torch.cat([x[None], ly], dim=0).transpose(0, 1)  # [B, F, D]
     z = torch.bmm(tb, tb.transpose(1, 2))  # [B, F, F]
-    li, lj = _tril_indices(tb.shape[1], interact_itself)
-    flat = z.reshape(z.shape[0], -1)[:, torch.from_numpy(li * tb.shape[1] + lj).to(z.device)]
+    flat = z.reshape(z.shape[0], -1)[:, _tril_flat_index(tb.shape[1], interact_itself, z.device)]
     return torch.cat([x, flat], dim=1)
 
 

@@ -1,7 +1,7 @@
-"""Forward quantization math: scales, quantize, dequantize.
+"""Quantization math: scales, quantize, dequantize, straight-through fake-quant.
 
-Port of the JAX package's ops/quant.py forward functions, numerics matched
-bit for bit (both `jnp.round` and `torch.round` round half to even):
+Port of the JAX package's ops/quant.py, numerics matched bit for bit (both
+`jnp.round` and `torch.round` round half to even):
 
 - symmetric scale = clamp(max(|min|,|max|), 1e-8) / (2^(b-1) - 1)
   (quant_utils.py:196-221 `symmetric_linear_quantization_params`)
@@ -9,7 +9,11 @@ bit for bit (both `jnp.round` and `torch.round` round half to even):
 - quantize = clamp(round(x / scale), -n-1, n), n = 2^(b-1)-1
   (quant_utils.py:337-365)
 
-The straight-through, PACT and LSQ functions belong to the training slice.
+- quantize_ste / fake_quant / ste_round: the straight-through estimators of
+  QAT (quant_utils.py:284-365), as `torch.autograd.Function`s where the JAX
+  package has a `custom_vjp`
+
+The PACT and LSQ functions belong to a later slice.
 """
 
 from __future__ import annotations
@@ -87,3 +91,48 @@ def dequantize(
     """q * scale (quant_utils.py:103-129 with zero_point = 0)."""
     s = _broadcast_scale(torch.as_tensor(scale), q)
     return q.to(dtype) * s.to(dtype)
+
+
+class _QuantizeSTE(torch.autograd.Function):
+    """clamp(round(x / s), -n-1, n) forward; g / s backward to x, nothing to
+    the scale (the JAX package's `quantize_ste` custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bits):
+        n = intmax(bits)
+        s = _broadcast_scale(scale, x)
+        ctx.save_for_backward(s)
+        return torch.clamp(torch.round(x / s), -n - 1, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g / s, None, None
+
+
+def quantize_ste(x: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:
+    """Float-typed integers clamp(round(x / scale), -n-1, n) with the
+    straight-through gradient g / scale (quant_utils.py:337-365)."""
+    return _QuantizeSTE.apply(x, scale, bits)
+
+
+def fake_quant(x: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:
+    """Quantize-dequantize with the scale held constant: the net gradient
+    w.r.t. x is (g * s) / s, the identity up to rounding, as in JAX."""
+    s = _broadcast_scale(scale, x).detach()
+    return quantize_ste(x, s, bits) * s
+
+
+class _SteRound(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def ste_round(x: torch.Tensor) -> torch.Tensor:
+    """round(x) with the identity gradient (quant_utils.py:284-300)."""
+    return _SteRound.apply(x)

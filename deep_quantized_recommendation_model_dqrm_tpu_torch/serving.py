@@ -6,15 +6,17 @@ Port of the JAX package's serving.py for plain embedding tables:
   bit-packed to INT4/INT8 (symmetric per-table, or rowwise ATen-style),
   MLP weights INT8 per output channel (or kept float32);
 - `make_serving_fn` builds the inference function over the packed model:
-  per-table gather-dequant-pool lookups (kernel K2), int8 dequant matmuls
-  (kernel K3), dot or cat interaction, sigmoid, `loss_threshold` clip;
+  per-table gather-dequant-pool lookups (kernel K2), or for tables with at
+  most `onehot_lookup_max_rows` rows an unpack per call and the weighted
+  lookup of kernel K4, int8 dequant matmuls (kernel K3), dot or cat
+  interaction, sigmoid, `loss_threshold` clip;
 - `ServingEngine` pads requests on the host to the nearest bucket size and
   chunks large ones; `MicroBatcher` aggregates concurrent requests from many
   threads into one device batch per dispatch.
 
-The QR/MD/weighted-pooling entries, `fused_gather`, `onehot_lookup_max_rows`,
-`mlp_impl="int8"`, `ptq_export_streaming` and `export_stablehlo` wait for
-later slices of the port.
+The QR/MD/weighted-pooling entries, `fused_gather`, `mlp_impl="int8"`,
+`ptq_export_streaming` and `export_stablehlo` wait for later slices of the
+port.
 """
 
 from __future__ import annotations
@@ -29,11 +31,15 @@ import torch
 
 from deep_quantized_recommendation_model_dqrm_tpu_torch.config import DLRMConfig
 from deep_quantized_recommendation_model_dqrm_tpu_torch.models import dlrm
+from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+    pooled_lookup_onehot_auto,
+)
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
     PackedTable,
     pack_table,
     packed_pooled_lookup,
     packed_pooled_lookup_kernel,
+    unpack_table,
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import (
     QuantLinearWeights,
@@ -119,29 +125,33 @@ def make_serving_fn(
 
     The lookups go through `packed_pooled_lookup_kernel` and the int8 layers
     through `int8_linear`: kernels on the card, their plain versions on the
-    CPU. `plain=True` calls the plain versions on any device — the
-    reference the kernels are checked against on the card."""
+    CPU. A packed table with at most `onehot_lookup_max_rows` rows is
+    unpacked on every call (the 18 such Kaggle tables hold 47,398 rows) and
+    looked up by `pooled_lookup_onehot_auto` (kernel K4). `plain=True` calls
+    the plain versions on any device — the reference the kernels are checked
+    against on the card."""
     if mlp_impl == "int8":
         raise NotImplementedError(
             "mlp_impl='int8' (dynamic activation quant + int8 GEMM): a later slice of the port"
         )
     if mlp_impl is not None:
         raise ValueError(f"unknown mlp_impl {mlp_impl!r}")
-    if onehot_lookup_max_rows:
-        raise NotImplementedError(
-            "onehot_lookup_max_rows (kernel K4): the training slice of the port"
-        )
     if fused_gather:
         raise NotImplementedError("fused_gather: a later slice of the port")
     cfg = sm.config
     lookup = packed_pooled_lookup if plain else packed_pooled_lookup_kernel
     linear8 = int8_linear_xla if plain else int8_linear
 
+    def lookup_one(pt: PackedTable, ids, msk):
+        if 0 < pt.rows <= onehot_lookup_max_rows:
+            return pooled_lookup_onehot_auto(unpack_table(pt), ids, msk, plain=plain)
+        return lookup(pt, ids, msk)
+
     @torch.inference_mode()
     def fn(batch: dlrm.Batch) -> torch.Tensor:
         ly = torch.stack(
             [
-                lookup(e, batch.indices[k], batch.mask[k] if batch.mask is not None else None)
+                lookup_one(e, batch.indices[k], batch.mask[k] if batch.mask is not None else None)
                 for k, e in enumerate(sm.emb)
             ]
         )

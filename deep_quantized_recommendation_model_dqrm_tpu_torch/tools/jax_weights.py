@@ -16,7 +16,7 @@ import torch
 
 from deep_quantized_recommendation_model_dqrm_tpu_torch.config import DLRMConfig
 from deep_quantized_recommendation_model_dqrm_tpu_torch.device import resolve_device
-from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import Params
+from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import Params, QuantState
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
     PackedTable,
 )
@@ -24,6 +24,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul im
     QuantLinearWeights,
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import ServingModel
+from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import TrainState
 
 Device = Optional[Union[str, torch.device]]
 
@@ -37,12 +38,38 @@ def params_from_numpy(np_params: Any, device: Device = None) -> Params:
     [..]} of plain tables) as the port's `Params` on `device`."""
     dev = resolve_device(device)
     if any(isinstance(t, dict) for t in np_params["emb"]) or "v_W" in np_params:
-        raise NotImplementedError("QR/MD tables and v_W: training slice of the port")
+        raise NotImplementedError("QR/MD tables and v_W: a later slice of the port")
     return {
         "emb": [_tensor(t, dev) for t in np_params["emb"]],
         "bot": [{"w": _tensor(l["w"], dev), "b": _tensor(l["b"], dev)} for l in np_params["bot"]],
         "top": [{"w": _tensor(l["w"], dev), "b": _tensor(l["b"], dev)} for l in np_params["top"]],
     }
+
+
+def params_to_numpy(params: Params) -> dict:
+    """The port's params as numpy arrays in the same nest of dicts and lists."""
+    def arr(t: torch.Tensor) -> np.ndarray:
+        return t.detach().cpu().numpy()
+
+    return {
+        "emb": [arr(t) for t in params["emb"]],
+        "bot": [{"w": arr(l["w"]), "b": arr(l["b"])} for l in params["bot"]],
+        "top": [{"w": arr(l["w"]), "b": arr(l["b"])} for l in params["top"]],
+    }
+
+
+def train_state_from_numpy(np_params: Any, np_qstate: Any, device: Device = None) -> TrainState:
+    """A JAX SGD `TrainState`'s params and `QuantState` (read by attribute
+    name) as the port's `TrainState` on `device`, bit for bit."""
+    dev = resolve_device(device)
+    qs = QuantState(
+        emb_scales=_tensor(np_qstate.emb_scales, dev),
+        act_min=_tensor(np_qstate.act_min, dev),
+        act_max=_tensor(np_qstate.act_max, dev),
+        step=int(np.asarray(np_qstate.step)),
+        act_fixed=int(np.asarray(np_qstate.act_fixed)),
+    )
+    return TrainState(params=params_from_numpy(np_params, dev), opt_state=None, qstate=qs)
 
 
 def serving_model_from_numpy(config: DLRMConfig, sm: Any, device: Device = None) -> ServingModel:

@@ -29,9 +29,16 @@ SCRIPT = textwrap.dedent(
     from deep_quantized_recommendation_model_dqrm_tpu_torch.config import DLRMConfig
     from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_params
     from deep_quantized_recommendation_model_dqrm_tpu_torch.data.synthetic import random_batch
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import TrainConfig
+    from deep_quantized_recommendation_model_dqrm_tpu_torch import train_step as ts
     import numpy as np
-    cfg = DLRMConfig()
-    for call in (lambda: init_params(cfg), lambda: random_batch(cfg, 4, np.random.RandomState(0))):
+    cfg = DLRMConfig(mlp_top=(10, 4, 1))
+    tc = TrainConfig()
+    for call in (lambda: init_params(cfg), lambda: random_batch(cfg, 4, np.random.RandomState(0)),
+                 lambda: ts.init_train_state(cfg, tc),
+                 lambda: ts.make_train_step(cfg, tc, sparse_emb_grad=True),
+                 lambda: ts.make_multi_train_step(cfg, tc, 2),
+                 lambda: ts.make_eval_step(cfg)):
         try:
             call()
         except RuntimeError as e:
@@ -39,6 +46,10 @@ SCRIPT = textwrap.dedent(
         else:
             raise AssertionError("an entry point fell back to the CPU")
     init_params(cfg, device="cpu")
+    state = ts.init_train_state(cfg, tc, device="cpu")
+    step = ts.make_train_step(cfg, tc, sparse_emb_grad=True, device="cpu")
+    state, loss = step(state, random_batch(cfg, 4, np.random.RandomState(0), device="cpu"))
+    assert state.qstate.step == 1 and loss.device.type == "cpu"
     print("OK", len(names))
     """
 )
@@ -52,4 +63,4 @@ def test_port_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     n_modules = int(res.stdout.split()[-1])
-    assert n_modules >= 12  # config, device, models, data, ops, kernels, serving, tools
+    assert n_modules >= 18  # config, device, models, data, ops, kernels, optim, train, serving, ...

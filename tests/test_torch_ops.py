@@ -59,3 +59,25 @@ def test_interactions_match_jax(T, D, interact_itself):
          tint.cat_interaction(torch.from_numpy(x), torch.from_numpy(ly)))
     for j, t in zip(jint._tril_indices(T + 1, interact_itself), tint._tril_indices(T + 1, interact_itself)):
         np.testing.assert_array_equal(t, j)
+
+
+def test_dot_interaction_index_cached_per_shape():
+    """The tril index is uploaded once per (num_fea, interact_itself, device);
+    a second call reuses it and gives the same numbers."""
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.normal(size=(8, 4)).astype(np.float32))
+    ly = torch.from_numpy(rng.normal(size=(5, 8, 4)).astype(np.float32))
+    tint._tril_flat_index.cache_clear()
+    with torch.inference_mode():  # serving builds the index first
+        first = tint.dot_interaction(x, ly)
+    idx = tint._tril_flat_index(6, False, x.device)
+    second = tint.dot_interaction(x, ly)
+    assert tint._tril_flat_index(6, False, x.device) is idx
+    assert tint._tril_flat_index.cache_info().misses == 1
+    np.testing.assert_array_equal(first.numpy(), second.numpy())
+    # then training differentiates through the same cached index
+    xg = x.clone().requires_grad_()
+    tint.dot_interaction(xg, ly).sum().backward()
+    assert xg.grad is not None and tint._tril_flat_index.cache_info().misses == 1
+    tint.dot_interaction(x, ly, interact_itself=True)
+    assert tint._tril_flat_index.cache_info().misses == 2

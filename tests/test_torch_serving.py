@@ -149,9 +149,29 @@ def test_micro_batcher_threads_match_direct():
         mb.predict(*reqs[0])
 
 
+@pytest.mark.parametrize("name,P", [("small", 1), ("small", 3), ("kaggle_capped", 1)])
+def test_onehot_lookup_serving_matches_jax(name, P, monkeypatch):
+    """Tables with at most `onehot_lookup_max_rows` rows are unpacked and
+    looked up through K4's path; the JAX side runs its one-hot Pallas kernel
+    in interpret mode. The two lookups sum in another order: 1e-6."""
+    monkeypatch.setenv("DQRM_ONEHOT_INTERPRET", "1")
+    jc, tc, jsm, tsm = exported(name, 4, 8, False)
+    kw = dict(num_indices_per_lookup=P, variable_pooling=P > 1)
+    jb = jsyn.random_batch(jc, 64, np.random.RandomState(9), **kw)
+    tb = tsyn.random_batch(tc, 64, np.random.RandomState(9), device="cpu", **kw)
+    max_rows = 200
+    assert 0 < sum(n <= max_rows for n in tc.table_sizes) < tc.num_tables
+    want = np.asarray(jserving.make_serving_fn(jsm, onehot_lookup_max_rows=max_rows)(jb))
+    got = tserving.make_serving_fn(tsm, onehot_lookup_max_rows=max_rows)(tb).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    plain = tserving.make_serving_fn(tsm, onehot_lookup_max_rows=max_rows, plain=True)(tb).numpy()
+    np.testing.assert_array_equal(plain, got)
+    np.testing.assert_allclose(got, tserving.make_serving_fn(tsm)(tb).numpy(), rtol=0, atol=1e-6)
+
+
 def test_later_slices_raise():
     _, tc, _, tsm = exported("small", 4, 8, False)
-    for kw in (dict(mlp_impl="int8"), dict(onehot_lookup_max_rows=100), dict(fused_gather=True)):
+    for kw in (dict(mlp_impl="int8"), dict(fused_gather=True)):
         with pytest.raises(NotImplementedError):
             tserving.make_serving_fn(tsm, **kw)
     with pytest.raises(ValueError):

@@ -1,0 +1,207 @@
+"""The port's train and eval steps against the JAX package's: the learning
+rate bit for bit, a 30-step sparse-step trajectory on the Kaggle table count
+(both the K1 branch and the scatter branch), the coalesce branch, megasteps,
+the dense step through K4's backward, and evaluation with ROC AUC."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deep_quantized_recommendation_model_dqrm_tpu import config as jcfg
+from deep_quantized_recommendation_model_dqrm_tpu import train_step as jts
+from deep_quantized_recommendation_model_dqrm_tpu.data import synthetic as jsyn
+from deep_quantized_recommendation_model_dqrm_tpu.optim.lr_policy import lr_policy as j_lr_policy
+from deep_quantized_recommendation_model_dqrm_tpu.utils import metrics as jmetrics
+from deep_quantized_recommendation_model_dqrm_tpu_torch import config as tcfg
+from deep_quantized_recommendation_model_dqrm_tpu_torch import train_step as tts
+from deep_quantized_recommendation_model_dqrm_tpu_torch.data import synthetic as tsyn
+from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import Batch
+from deep_quantized_recommendation_model_dqrm_tpu_torch.optim.lr_policy import lr_policy
+from deep_quantized_recommendation_model_dqrm_tpu_torch.tools.jax_weights import (
+    params_to_numpy,
+    train_state_from_numpy,
+)
+from deep_quantized_recommendation_model_dqrm_tpu_torch.utils import metrics as tmetrics
+
+torch.set_num_threads(1)
+
+INT4 = dict(enabled=True, embedding_bit=4, weight_bit=4)
+
+
+def configs(name, quant=None, **kw):
+    """(JAX config, port config) from the same fields. "kaggle_narrow" is
+    the Kaggle table count at D = 16, tables capped at 1000 rows, MLPs
+    13-64-16 / 367-64-1."""
+    pair = []
+    for m in (jcfg, tcfg):
+        qc = m.QuantConfig(**quant) if quant else m.QuantConfig()
+        if name == "kaggle_narrow":
+            c = m.kaggle_config(qc)
+            c = dataclasses.replace(c, table_sizes=tuple(min(n, 1000) for n in c.table_sizes),
+                                    mlp_bot=(13, 64, 16), mlp_top=(367, 64, 1), **kw)
+        else:
+            c = m.DLRMConfig(table_sizes=name, embedding_dim=8, mlp_bot=(4, 16, 8),
+                             mlp_top=(8 + len(name) * (len(name) + 1) // 2, 8, 1), quant=qc, **kw)
+        pair.append(c)
+    return tuple(pair)
+
+
+def train_configs(**kw):
+    return jcfg.TrainConfig(**kw), tcfg.TrainConfig(**kw)
+
+
+def start(jc, jtc):
+    js = jts.init_train_state(jc, jtc, seed=0)
+    return js, train_state_from_numpy(jax.tree_util.tree_map(np.asarray, js.params), js.qstate, "cpu")
+
+
+def to_torch(b) -> Batch:
+    return Batch(*(None if x is None else torch.from_numpy(np.array(x)) for x in b))
+
+
+def assert_params_close(jparams, tparams, atol):
+    jp = jax.tree_util.tree_map(np.asarray, jparams)
+    tp = params_to_numpy(tparams)
+    for a, b in zip(jax.tree_util.tree_leaves(jp), jax.tree_util.tree_leaves(tp)):
+        np.testing.assert_allclose(b, a, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize(
+    "warm,ds,nd", [(0, 0, 0), (10, 0, 0), (10, 50, 100), (25, 100, 150), (0, 40, 77), (7, 7, 300)]
+)
+@pytest.mark.parametrize("base_lr", [0.1, 1.0, 0.0123])
+def test_lr_policy_bit_exact(base_lr, warm, ds, nd):
+    """Bit for bit against JAX's lr_policy evaluated op by op in float32.
+    Compiled (as in JAX's train step), XLA turns its divisions by the
+    constants warmup and decay into products with reciprocals, which moves
+    the result by a few float32 ulps of base_lr at most."""
+    steps = np.arange(0, 301)
+    want = np.asarray(jax.vmap(lambda s: j_lr_policy(base_lr, s, warm, ds, nd))(jnp.asarray(steps)))
+    got = np.array([lr_policy(base_lr, int(s), warm, ds, nd) for s in steps], np.float32)
+    np.testing.assert_array_equal(got, want)
+    jitted = jax.jit(jax.vmap(lambda s: j_lr_policy(base_lr, s, warm, ds, nd)))(jnp.asarray(steps))
+    np.testing.assert_allclose(got, np.asarray(jitted), rtol=0, atol=4 * 2.0**-24 * base_lr)
+    assert all(float(np.float32(v)) == v for v in (lr_policy(base_lr, s, warm, ds, nd) for s in (1, 99)))
+
+
+def test_sparse_step_trajectory_30_steps(monkeypatch):
+    """30 INT4 QAT sparse steps against JAX's `_build_sparse_step_fn` with
+    K1 interpreted: the 9 tables of at most 500 rows take K1's branch, the
+    other 17 the scatter branch, and the scales refresh at steps 0, 10, 20.
+    Both sides are deterministic on the CPU. The JAX step is compiled, and
+    XLA computes its scales' division by 7 as a product with the reciprocal
+    (one ulp off the port's quotient); no 4-bit rounding flip at a .5
+    boundary followed from it in these 30 steps: losses agree to 1e-5
+    relative, parameters to 1e-6."""
+    monkeypatch.setenv("DQRM_ONEHOT_INTERPRET", "1")
+    jc, tc = configs("kaggle_narrow", dict(INT4, scale_update_period=10))
+    jtc, ttc = train_configs(batch_size=128, learning_rate=0.1, onehot_update_max_rows=500)
+    assert sum(n <= 500 for n in tc.table_sizes) == 9
+    js, ts = start(jc, jtc)
+    jstep = jax.jit(jts._build_sparse_step_fn(jc, jtc))
+    tstep = tts.make_train_step(tc, ttc, sparse_emb_grad=True, device="cpu")
+    rng = np.random.RandomState(3)
+    for i in range(30):
+        b = jsyn.random_batch(jc, 128, rng)
+        js, jl = jstep(js, b)
+        ts, tl = tstep(ts, to_torch(b))
+        np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5, err_msg=f"step {i}")
+    assert ts.qstate.step == int(js.qstate.step) == 30
+    np.testing.assert_allclose(ts.qstate.emb_scales.numpy(), np.asarray(js.qstate.emb_scales),
+                               rtol=2.4e-7, atol=0)
+    assert_params_close(js.params, ts.params, atol=1e-6)
+
+
+def test_sparse_step_coalesce_branch():
+    """B = 4096 updates into a 5000-row table take the coalesce branch; the
+    300- and 20-row tables take K1's branch (plain version here)."""
+    jc, tc = configs((5000, 300, 20), INT4)
+    jtc, ttc = train_configs(batch_size=4096, learning_rate=0.5, onehot_update_max_rows=500)
+    js, ts = start(jc, jtc)
+    b = jsyn.random_batch(jc, 4096, np.random.RandomState(4))
+    js, jl = jax.jit(jts._build_sparse_step_fn(jc, jtc))(js, b)
+    ts, tl = tts.make_train_step(tc, ttc, sparse_emb_grad=True, device="cpu")(ts, to_torch(b))
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    assert_params_close(js.params, ts.params, atol=1e-6)
+
+
+def test_multi_step_equals_single_steps():
+    jc, tc = configs((300, 40, 7), INT4)
+    _, ttc = train_configs(batch_size=32, learning_rate=0.2, onehot_update_max_rows=100,
+                           lr_num_warmup_steps=3)
+    s0 = tts.init_train_state(tc, ttc, seed=1, device="cpu")
+    rng = np.random.RandomState(5)
+    bs = [tsyn.random_batch(tc, 32, rng, device="cpu") for _ in range(4)]
+    single = tts.make_train_step(tc, ttc, sparse_emb_grad=True, device="cpu")
+    s1, losses = tts.clone_state(s0), []
+    for b in bs:
+        s1, loss = single(s1, b)
+        losses.append(float(loss))
+    multi = tts.make_multi_train_step(tc, ttc, 4, sparse_emb_grad=True, device="cpu")
+    for arg in (tts.stack_batches(bs), bs):  # the stacked form and the list form
+        s2, last = multi(tts.clone_state(s0), arg)
+        assert float(last) == losses[-1] and multi.losses.tolist() == losses
+        assert s2.qstate.step == s1.qstate.step == 4
+        for a, b in zip(jax.tree_util.tree_leaves(params_to_numpy(s1.params)),
+                        jax.tree_util.tree_leaves(params_to_numpy(s2.params))):
+            np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError):
+        multi(s0, bs[:3])
+
+
+def test_dense_step_through_k4_backward(monkeypatch):
+    """The dense-autograd step with `onehot_lookup_max_rows` set: the small
+    tables' lookups take K4's autograd function, whose table gradient goes
+    through K1's path; JAX runs both Pallas kernels interpreted."""
+    monkeypatch.setenv("DQRM_ONEHOT_INTERPRET", "1")
+    jc, tc = configs((100, 50, 10), INT4, onehot_lookup_max_rows=60)
+    jtc, ttc = train_configs(batch_size=32, learning_rate=0.1)
+    js, ts = start(jc, jtc)
+    jstep = jax.jit(jts._build_step_fn(jc, jtc))
+    tstep = tts.make_train_step(tc, ttc, device="cpu")
+    rng = np.random.RandomState(5)
+    for _ in range(3):
+        b = jsyn.random_batch(jc, 32, rng)
+        js, jl = jstep(js, b)
+        ts, tl = tstep(ts, to_torch(b))
+        np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    assert_params_close(js.params, ts.params, atol=1e-6)
+
+
+def test_eval_step_and_auc_match_jax():
+    jc, tc = configs("kaggle_narrow", INT4)
+    jtc, ttc = train_configs(batch_size=256)
+    js, ts = start(jc, jtc)
+    js = js._replace(qstate=js.qstate._replace(
+        emb_scales=jnp.stack([jnp.max(jnp.abs(t)) / 7 for t in js.params["emb"]])))
+    ts = ts._replace(qstate=ts.qstate._replace(emb_scales=torch.from_numpy(np.array(js.qstate.emb_scales))))
+    b = jsyn.random_batch(jc, 512, np.random.RandomState(6))
+    want = np.asarray(jts.make_eval_step(jc)(js, b))
+    got = tts.make_eval_step(tc, device="cpu")(ts, to_torch(b)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    labels = np.asarray(b.labels)
+    assert tmetrics.roc_auc(got, labels) == pytest.approx(jmetrics.roc_auc(want, labels), abs=1e-6)
+    assert tmetrics.binary_metrics(got, labels) == pytest.approx(jmetrics.binary_metrics(want, labels),
+                                                                 abs=1e-6)
+
+
+def test_later_slices_raise():
+    _, tc = configs((30, 20), INT4)
+    for kw in (dict(optimizer="adagrad"), dict(optimizer="rwsadagrad"),
+               dict(stream_update_max_rows=1000)):
+        ttc = tcfg.TrainConfig(**kw)
+        with pytest.raises(NotImplementedError):
+            tts.make_train_step(tc, ttc, sparse_emb_grad=True, device="cpu")
+        with pytest.raises(NotImplementedError):
+            tts.init_train_state(tc, ttc, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tts.config_for_epoch(tc, tcfg.TrainConfig(), 0)
+    with pytest.raises(NotImplementedError):
+        tts.make_grad_probe(tc, tcfg.TrainConfig())
+    _, qr = configs((300, 20), qr_flag=True, qr_threshold=100)
+    with pytest.raises(NotImplementedError):
+        tts.make_train_step(qr, tcfg.TrainConfig(), device="cpu")
