@@ -66,16 +66,17 @@ def clamp_ids(ids: torch.Tensor, num_rows: int) -> Tuple[torch.Tensor, torch.Ten
 
 
 def scatter_add_drop(
-    table: torch.Tensor,  # [rows, D], updated in place
+    table: torch.Tensor,  # [rows, ...], updated in place
     ids: torch.Tensor,  # [K]
-    values: torch.Tensor,  # [K, D]
+    values: torch.Tensor,  # [K, ...]
 ) -> torch.Tensor:
     """table[ids] += values in place, summing duplicates and dropping ids
     outside [0, rows) (`.at[ids].add(values, mode="drop")`). The ids are
     clamped and the dropped values zeroed, so `index_add_` never sees an
     out-of-range id and nothing waits for the device."""
     cids, keep = clamp_ids(ids, table.shape[0])
-    vals = values.to(table.dtype) * keep[:, None].to(table.dtype)
+    keep = keep.view(-1, *([1] * (values.dim() - 1)))
+    vals = values.to(table.dtype) * keep.to(table.dtype)
     return table.index_add_(0, cids, vals)
 
 

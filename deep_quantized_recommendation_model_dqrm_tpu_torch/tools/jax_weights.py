@@ -25,6 +25,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul im
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import ServingModel
 from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import TrainState
+from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
 
 Device = Optional[Union[str, torch.device]]
 
@@ -58,9 +59,11 @@ def params_to_numpy(params: Params) -> dict:
     }
 
 
-def train_state_from_numpy(np_params: Any, np_qstate: Any, device: Device = None) -> TrainState:
-    """A JAX SGD `TrainState`'s params and `QuantState` (read by attribute
-    name) as the port's `TrainState` on `device`, bit for bit."""
+def train_state_from_numpy(np_params: Any, np_qstate: Any, device: Device = None,
+                           np_opt_state: Any = None) -> TrainState:
+    """A JAX `TrainState`'s params, `QuantState` (read by attribute name) and
+    optimizer state (None for SGD; the Adagrad or RWSAdagrad nest of dicts
+    and lists) as the port's `TrainState` on `device`, bit for bit."""
     dev = resolve_device(device)
     qs = QuantState(
         emb_scales=_tensor(np_qstate.emb_scales, dev),
@@ -69,7 +72,20 @@ def train_state_from_numpy(np_params: Any, np_qstate: Any, device: Device = None
         step=int(np.asarray(np_qstate.step)),
         act_fixed=int(np.asarray(np_qstate.act_fixed)),
     )
-    return TrainState(params=params_from_numpy(np_params, dev), opt_state=None, qstate=qs)
+    opt = None
+    if np_opt_state is not None:
+        if any(isinstance(t, dict) for t in np_opt_state.get("emb", [])) or "v_W" in np_opt_state:
+            raise NotImplementedError("QR/MD tables and v_W: a later slice of the port")
+        opt = tree_map(lambda a: _tensor(a, dev), np_opt_state)
+    return TrainState(params=params_from_numpy(np_params, dev), opt_state=opt, qstate=qs)
+
+
+def opt_state_to_numpy(opt_state: Any) -> Any:
+    """The port's optimizer state as numpy arrays in the same nest (None
+    stays None)."""
+    if opt_state is None:
+        return None
+    return tree_map(lambda t: t.detach().cpu().numpy(), opt_state)
 
 
 def serving_model_from_numpy(config: DLRMConfig, sm: Any, device: Device = None) -> ServingModel:

@@ -1,32 +1,39 @@
-"""Single-device train and eval steps with SGD.
+"""Single-device train and eval steps with SGD, Adagrad and RWSAdagrad.
 
 Port of the JAX package's train_step.py: forward -> loss -> backward -> LR
-policy -> SGD, with the QAT scale refresh folded in as explicit state.
+policy -> optimizer, with the QAT scale refresh folded in as explicit state.
 
 - `_build_step_fn`: autograd through everything, tables included (dense
   table gradients). The cross-check, and the path on which kernel K4's
   backward (through K1) runs when `onehot_lookup_max_rows` is set.
 - `_build_sparse_step_fn`: autograd is cut at the pooled lookups; each
-  table takes its gradient as (ids, rows) pairs. Tables with at most
-  `onehot_update_max_rows` rows get a dense gradient from kernel K1 and
-  `table + (-lr * dense)`; the others a scatter-add (`index_add_`), pre-
-  coalesced when the table has at most 1M rows and the step at least 4096
-  updates (train_step.py:427-443 of the JAX package).
+  table takes its gradient as (ids, rows) pairs:
+  - tables with at most `onehot_update_max_rows` rows get a dense gradient
+    from kernel K1 and a dense optimizer update;
+  - tables above that and with at most `stream_update_max_rows` rows have
+    their gradients sorted in one batched sort and applied by kernel K5:
+    straight into the table under SGD, into a zeroed dense gradient under
+    Adagrad and RWSAdagrad, which then take the dense update;
+  - the others take a scatter-add: under SGD the duplicate scatter,
+    pre-coalesced when the table has at most 1M rows and the step at least
+    4096 updates (train_step.py:427-443 of the JAX package); under Adagrad
+    and RWSAdagrad a coalesced update of the touched rows.
 
 The steps run eagerly; there is no jit to donate the state to, so the sparse
-step updates the embedding tables in place and returns a state that shares
-them. A caller that needs the old state clones it first (`clone_state`).
-`plain=True` makes the steps call the plain versions of K1 and K4 on any
-device: the reference the kernels are held against on the card.
+step updates the embedding tables and their optimizer accumulators in place
+and returns a state that shares them. A caller that needs the old state
+clones it first (`clone_state`). `plain=True` makes the steps call the plain
+versions of K1, K4 and K5 on any device: the reference the kernels are held
+against on the card.
 
-Not in this slice (each raises `NotImplementedError`): Adagrad and
-RWSAdagrad, `stream_update_max_rows > 0` (kernel K5), `config_for_epoch` and
-`make_grad_probe`.
+Not in this slice (each raises `NotImplementedError`): QR/MD tables, weighted
+pooling (`v_W`), bf16 tables (`dlrm.check_supported`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
+import dataclasses
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -36,13 +43,26 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.models import dlrm
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
     dense_grad_auto,
 )
+from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.stream_update import (
+    sort_sparse_grads_batched,
+    stream_update_auto,
+)
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import (
+    clamp_ids,
     coalesce_sparse_grad,
     rows_grad_from_pooled,
     scatter_add_drop,
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.optim.lr_policy import lr_policy
-from deep_quantized_recommendation_model_dqrm_tpu_torch.optim.sgd import sgd_update
+from deep_quantized_recommendation_model_dqrm_tpu_torch.optim.sgd import (
+    EPS,
+    adagrad_init,
+    adagrad_update,
+    rwsadagrad_init,
+    rwsadagrad_update,
+    sgd_update,
+)
+from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_leaves, tree_map
 
 Device = Optional[Union[str, torch.device]]
 Step = Callable[["TrainState", dlrm.Batch], Tuple["TrainState", torch.Tensor]]
@@ -60,66 +80,74 @@ class TrainState(NamedTuple):
 
 def _check(config: DLRMConfig, tc: TrainConfig) -> None:
     dlrm.check_supported(config)
-    if tc.optimizer in ("adagrad", "rwsadagrad"):
-        raise NotImplementedError(
-            f"the {tc.optimizer} optimizer: the next slice of the port (with kernel K5)"
-        )
-    if tc.optimizer != "sgd":
+    if tc.optimizer not in ("sgd", "adagrad", "rwsadagrad"):
         raise ValueError(f"unknown optimizer {tc.optimizer!r}")
-    if tc.stream_update_max_rows > 0:
-        raise NotImplementedError(
-            "stream_update_max_rows (kernel K5): the next slice of the port"
-        )
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def _leaves(tree) -> List[torch.Tensor]:
-    out: List[torch.Tensor] = []
-    _map(out.append, tree)
-    return out
 
 
 def _unflatten(tree, leaves: Sequence[torch.Tensor]):
     it = iter(leaves)
-    return _map(lambda _: next(it), tree)
+    return tree_map(lambda _: next(it), tree)
 
 
 def clone_state(state: TrainState) -> TrainState:
-    """A copy of `state` that shares no tensor with it."""
+    """A copy of `state` that shares no tensor with it, optimizer state
+    included."""
     qs = state.qstate
     return TrainState(
-        params=_map(torch.clone, state.params),
-        opt_state=state.opt_state,
+        params=tree_map(torch.clone, state.params),
+        opt_state=None if state.opt_state is None else tree_map(torch.clone, state.opt_state),
         qstate=qs._replace(emb_scales=qs.emb_scales.clone(), act_min=qs.act_min.clone(),
                            act_max=qs.act_max.clone()),
     )
 
 
 def config_for_epoch(config: DLRMConfig, tc: TrainConfig, epoch: int) -> DLRMConfig:
-    raise NotImplementedError("QAT epoch schedules (config_for_epoch): a later slice of the port")
+    """QAT epoch schedule (comm_grad.py:1849-1872 of the reference): FP32
+    pretrain epochs, delayed MLP quantization, a mid-training bit-width
+    shift. Returns the effective config for `epoch` (`config` itself when
+    nothing changes); callers rebuild the step when it changes."""
+    qc = config.quant
+    if not qc.enabled:
+        return config
+    if epoch < tc.pretrain_epochs:
+        return dataclasses.replace(config, quant=dataclasses.replace(qc, enabled=False))
+    quantize_mlp = qc.quantize_mlp and (
+        tc.quantize_mlp_from_epoch < 0 or epoch >= tc.quantize_mlp_from_epoch
+    )
+    wb, bb = qc.weight_bit, qc.bias_bit
+    if 0 <= tc.shift_bit_width_at_epoch <= epoch:
+        wb = tc.shift_bit_width_to
+        if bb == qc.weight_bit:
+            # the reference's change_bitw shifts weight and bias width
+            # together (comm_grad.py:576-581); an explicit bias_bit override
+            # (e.g. 32) stays pinned
+            bb = wb
+    if quantize_mlp == qc.quantize_mlp and wb == qc.weight_bit and bb == qc.bias_bit:
+        return config
+    return dataclasses.replace(
+        config, quant=dataclasses.replace(qc, quantize_mlp=quantize_mlp, weight_bit=wb, bias_bit=bb)
+    )
 
 
-def make_grad_probe(config: DLRMConfig, tc: TrainConfig):
-    raise NotImplementedError("make_grad_probe: a later slice of the port")
+def _init_opt_state(tc: TrainConfig, params: dlrm.Params) -> Any:
+    if tc.optimizer == "adagrad":
+        return adagrad_init(params)
+    if tc.optimizer == "rwsadagrad":
+        return rwsadagrad_init(params)
+    return None
 
 
 def init_train_state(
     config: DLRMConfig, tc: TrainConfig, seed: Optional[int] = None, device: Device = None
 ) -> TrainState:
-    """Params from `init_params` (bit-identical to the JAX package's), no
-    optimizer state (SGD), a fresh QuantState; on the card unless `device`
-    says otherwise."""
+    """Params from `init_params` (bit-identical to the JAX package's), the
+    optimizer's zeroed state (None for SGD), a fresh QuantState; on the card
+    unless `device` says otherwise."""
     _check(config, tc)
     dev = resolve_device(device)
     params = dlrm.init_params(config, seed if seed is not None else tc.seed, device=dev)
-    return TrainState(params=params, opt_state=None, qstate=dlrm.init_quant_state(config, dev))
+    return TrainState(params=params, opt_state=_init_opt_state(tc, params),
+                      qstate=dlrm.init_quant_state(config, dev))
 
 
 def _lr(tc: TrainConfig, step: int) -> float:
@@ -133,10 +161,10 @@ def _on(batch: dlrm.Batch, dev: torch.device) -> dlrm.Batch:
     return dlrm.Batch(*(None if t is None else t.to(dev, non_blocking=True) for t in batch))
 
 
-def _state_device(state: TrainState, dev: torch.device) -> None:
-    got = state.params["bot"][0]["w"].device
+def _params_device(params: dlrm.Params, dev: torch.device) -> None:
+    got = params["bot"][0]["w"].device
     if got.type != dev.type or (dev.index is not None and got != dev):
-        raise ValueError(f"train state lies on {got}, the step was built for {dev}")
+        raise ValueError(f"params lie on {got}, the step was built for {dev}")
 
 
 def _build_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = False,
@@ -147,74 +175,150 @@ def _build_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = False,
     dev = resolve_device(device)
 
     def step_fn(state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
-        _state_device(state, dev)
+        _params_device(state.params, dev)
         batch = _on(batch, dev)
         qstate = state.qstate
         if config.quant.enabled:
             # periodic scale refresh before the forward (paper section 3.2)
             qstate = dlrm.update_emb_scales(config, state.params, qstate)
-        params = _map(lambda t: t.detach().requires_grad_(), state.params)
+        params = tree_map(lambda t: t.detach().requires_grad_(), state.params)
         logits, new_qs = dlrm.forward(config, params, batch, qstate, train=True, plain=plain)
         loss = dlrm.training_loss(config, logits, batch.labels)
-        grads = torch.autograd.grad(loss, _leaves(params))
+        grads = torch.autograd.grad(loss, tree_leaves(params))
         if tc.loss_scale != 1.0:
             grads = [g * tc.loss_scale for g in grads]
         lr = _lr(tc, qstate.step + 1)
+        grads = _unflatten(state.params, grads)
         with torch.no_grad():
-            new_params = sgd_update(state.params, _unflatten(state.params, grads), lr)
+            if tc.optimizer == "sgd":
+                new_params, opt = sgd_update(state.params, grads, lr), state.opt_state
+            elif tc.optimizer == "adagrad":
+                new_params, opt = adagrad_update(state.params, grads, state.opt_state, lr)
+            else:
+                new_params, opt = rwsadagrad_update(state.params, grads, state.opt_state, lr)
         new_qs = new_qs._replace(step=qstate.step + 1)
-        return TrainState(new_params, state.opt_state, new_qs), loss.detach()
+        return TrainState(new_params, opt, new_qs), loss.detach()
 
     return step_fn
+
+
+def _dense_table_update(optimizer: str, table: torch.Tensor, acc: Optional[torch.Tensor],
+                        dense: torch.Tensor, lr: float) -> None:
+    """A table's update from its dense gradient, in place (rows the batch did
+    not touch see 0 and keep their values and accumulators)."""
+    if optimizer == "sgd":
+        table.add_(-lr * dense)
+    elif optimizer == "adagrad":
+        acc.add_(dense * dense)
+        table.add_(-lr * dense / (torch.sqrt(acc) + EPS))
+    else:  # rwsadagrad: one accumulator per row
+        acc.add_(torch.mean(dense * dense, dim=1))
+        table.add_(-lr * dense / (torch.sqrt(acc)[:, None] + EPS))
+
+
+def _sparse_table_update(optimizer: str, table: torch.Tensor, acc: Optional[torch.Tensor],
+                         ids: torch.Tensor, vals: torch.Tensor, lr: float) -> None:
+    """A table's update from its (ids, rows) gradient by scatter-adds, in
+    place. Adagrad and RWSAdagrad coalesce duplicates first (torch sparse
+    `.coalesce()` semantics) and touch only those rows; the padding ids of
+    the coalesce read a clamped row and their updates are dropped."""
+    n_rows = table.shape[0]
+    if optimizer == "sgd":
+        if n_rows <= _SORTED_SCATTER_MAX_ROWS and ids.shape[0] >= _SORTED_SCATTER_MIN_UPDATES:
+            uids, uvals = coalesce_sparse_grad(ids, vals, n_rows, max_unique=ids.shape[0])
+            scatter_add_drop(table, uids, -lr * uvals)
+        else:
+            scatter_add_drop(table, ids, -lr * vals)
+        return
+    uids, uvals = coalesce_sparse_grad(ids, vals, n_rows, max_unique=ids.shape[0])
+    cids, _ = clamp_ids(uids, n_rows)
+    if optimizer == "adagrad":
+        scatter_add_drop(acc, uids, uvals * uvals)
+        denom = torch.sqrt(acc[cids]) + EPS
+    else:
+        scatter_add_drop(acc, uids, torch.mean(uvals * uvals, dim=1))
+        denom = torch.sqrt(acc[cids])[:, None] + EPS
+    scatter_add_drop(table, uids, -lr * uvals / denom)
 
 
 def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = False,
                           device: Device = None) -> Step:
     """The train step with explicit sparse embedding updates (the reference's
-    nn.EmbeddingBag(sparse=True) + manual SGD, sgd_quantized_gradients_
-    parallel_comm.py:601-685). Updates the embedding tables in place."""
+    nn.EmbeddingBag(sparse=True) + manual optimizer, sgd_quantized_gradients_
+    parallel_comm.py:601-685). Updates the embedding tables and their
+    accumulators in place."""
     _check(config, tc)
     dev = resolve_device(device)
     qc = config.quant
+    opt = tc.optimizer
 
     def step_fn(state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
-        _state_device(state, dev)
+        _params_device(state.params, dev)
         batch = _on(batch, dev)
         params, qstate = state.params, state.qstate
         if qc.enabled:
             qstate = dlrm.update_emb_scales(config, params, qstate)
         with torch.no_grad():
             raw_pooled = dlrm.lookup_all(config, params, batch.indices, batch.mask, plain=plain)
-        mlp = {part: _map(lambda t: t.detach().requires_grad_(), params[part])
+        mlp = {part: tree_map(lambda t: t.detach().requires_grad_(), params[part])
                for part in ("bot", "top")}
         pooled = raw_pooled.requires_grad_()
         logits, new_qs = dlrm.forward(config, {**mlp, "emb": params["emb"]}, batch, qstate,
                                       train=True, raw_pooled=pooled)
         loss = dlrm.training_loss(config, logits, batch.labels)
-        *mlp_grads, g_pooled = torch.autograd.grad(loss, _leaves(mlp) + [pooled])
+        *mlp_grads, g_pooled = torch.autograd.grad(loss, tree_leaves(mlp) + [pooled])
         if tc.loss_scale != 1.0:
             mlp_grads = [g * tc.loss_scale for g in mlp_grads]
             g_pooled = g_pooled * tc.loss_scale
         lr = _lr(tc, qstate.step + 1)
 
+        def grad(k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+            m = batch.mask[k] if batch.mask is not None else None
+            return rows_grad_from_pooled(g_pooled[k], batch.indices[k], m)
+
         with torch.no_grad():
             mlp_params = {part: params[part] for part in ("bot", "top")}
-            new_params = dict(params, **sgd_update(mlp_params, _unflatten(mlp_params, mlp_grads), lr))
+            mlp_grads = _unflatten(mlp_params, mlp_grads)
+            opt_state = state.opt_state
+            if opt == "sgd":
+                new_params = dict(params, **sgd_update(mlp_params, mlp_grads, lr))
+            else:  # classic Adagrad on the MLP under both optimizers
+                new_mlp, new_acc = adagrad_update(
+                    mlp_params, mlp_grads, {part: opt_state[part] for part in mlp_params}, lr)
+                new_params = dict(params, **new_mlp)
+                opt_state = dict(opt_state, **new_acc)
+            emb_acc = opt_state["emb"] if opt != "sgd" else [None] * len(params["emb"])
+
+            # mid-size tables: every one's gradient sorted in one batched sort
+            stream_ks = [k for k, t in enumerate(params["emb"])
+                         if tc.onehot_update_max_rows < t.shape[0] <= tc.stream_update_max_rows]
+            stream: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+            if stream_ks:
+                sids, svals = sort_sparse_grads_batched(*zip(*(grad(k) for k in stream_ks)))
+                stream = {k: (sids[i], svals[i]) for i, k in enumerate(stream_ks)}
+
             for k, table in enumerate(params["emb"]):
-                m = batch.mask[k] if batch.mask is not None else None
-                ids, vals = rows_grad_from_pooled(g_pooled[k], batch.indices[k], m)
                 n_rows = table.shape[0]
+                if k in stream:
+                    sids_k, svals_k = stream[k]
+                    if opt == "sgd":  # K5 straight into the table
+                        stream_update_auto(table, sids_k, -lr * svals_k, presorted=True, plain=plain)
+                        continue
+                    # Adagrad needs each row's summed gradient before the
+                    # square: K5 into zeros, then the dense update
+                    zeros = torch.zeros((n_rows, svals_k.shape[-1]), dtype=torch.float32, device=dev)
+                    dense = stream_update_auto(zeros, sids_k, svals_k, presorted=True, plain=plain)
+                    _dense_table_update(opt, table, emb_acc[k], dense, lr)
+                    continue
+                ids, vals = grad(k)
                 if 0 < n_rows <= tc.onehot_update_max_rows:
                     # small table: K1's dense gradient, then a dense update
-                    # (untouched rows see dense == 0)
-                    table.add_(-lr * dense_grad_auto(ids, vals, n_rows, plain=plain))
-                elif n_rows <= _SORTED_SCATTER_MAX_ROWS and ids.shape[0] >= _SORTED_SCATTER_MIN_UPDATES:
-                    uids, uvals = coalesce_sparse_grad(ids, vals, n_rows, max_unique=ids.shape[0])
-                    scatter_add_drop(table, uids, -lr * uvals)
+                    _dense_table_update(opt, table, emb_acc[k],
+                                        dense_grad_auto(ids, vals, n_rows, plain=plain), lr)
                 else:
-                    scatter_add_drop(table, ids, -lr * vals)
+                    _sparse_table_update(opt, table, emb_acc[k], ids, vals, lr)
         new_qs = new_qs._replace(step=qstate.step + 1)
-        return TrainState(new_params, state.opt_state, new_qs), loss.detach()
+        return TrainState(new_params, opt_state, new_qs), loss.detach()
 
     return step_fn
 
@@ -276,7 +380,41 @@ def make_eval_step(config: DLRMConfig, plain: bool = False, device: Device = Non
 
     @torch.no_grad()
     def eval_fn(state: TrainState, batch: dlrm.Batch) -> torch.Tensor:
-        _state_device(state, dev)
+        _params_device(state.params, dev)
         return dlrm.predict(config, state.params, _on(batch, dev), state.qstate, plain=plain)
 
     return eval_fn
+
+
+def make_grad_probe(config: DLRMConfig, tc: TrainConfig, device: Device = None):
+    """Per-batch embedding gradients for `--documenting-table-grads` (the
+    JAX package's make_grad_probe, train_step.py:771-858).
+
+    Returns fn(params, qstate, batch) -> (out, loss), where `out` maps
+    "table_<k>_ids" to the [B*P] row ids the batch touches and
+    "table_<k>_rows" to the [B*P, D] per-occurrence row gradients
+    (duplicates not coalesced), taken w.r.t. the parameters before the
+    update, as the train step takes them. Plain tables only."""
+    dlrm.check_supported(config)
+    dev = resolve_device(device)
+
+    def probe(params: dlrm.Params, qstate: dlrm.QuantState,
+              batch: dlrm.Batch) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        _params_device(params, dev)
+        batch = _on(batch, dev)
+        if config.quant.enabled:
+            qstate = dlrm.update_emb_scales(config, params, qstate)
+        with torch.no_grad():
+            pooled = dlrm.lookup_all(config, params, batch.indices, batch.mask)
+        pooled.requires_grad_()
+        logits, _ = dlrm.forward(config, params, batch, qstate, train=True, raw_pooled=pooled)
+        loss = dlrm.training_loss(config, logits, batch.labels)
+        (g_pooled,) = torch.autograd.grad(loss, [pooled])
+        out = {}
+        for k in range(config.num_tables):
+            m = batch.mask[k] if batch.mask is not None else None
+            out[f"table_{k}_ids"], out[f"table_{k}_rows"] = rows_grad_from_pooled(
+                g_pooled[k], batch.indices[k], m)
+        return out, loss.detach()
+
+    return probe

@@ -36,6 +36,8 @@ SCRIPT = textwrap.dedent(
     tc = TrainConfig()
     for call in (lambda: init_params(cfg), lambda: random_batch(cfg, 4, np.random.RandomState(0)),
                  lambda: ts.init_train_state(cfg, tc),
+                 lambda: ts.init_train_state(cfg, TrainConfig(optimizer="adagrad")),
+                 lambda: ts.make_grad_probe(cfg, tc),
                  lambda: ts.make_train_step(cfg, tc, sparse_emb_grad=True),
                  lambda: ts.make_multi_train_step(cfg, tc, 2),
                  lambda: ts.make_eval_step(cfg)):
@@ -50,6 +52,12 @@ SCRIPT = textwrap.dedent(
     step = ts.make_train_step(cfg, tc, sparse_emb_grad=True, device="cpu")
     state, loss = step(state, random_batch(cfg, 4, np.random.RandomState(0), device="cpu"))
     assert state.qstate.step == 1 and loss.device.type == "cpu"
+    tc = TrainConfig(optimizer="rwsadagrad", stream_update_max_rows=10**6)
+    state = ts.init_train_state(cfg, tc, device="cpu")
+    step = ts.make_train_step(cfg, tc, sparse_emb_grad=True, device="cpu")
+    state, loss = step(state, random_batch(cfg, 4, np.random.RandomState(0), device="cpu"))
+    acc = state.opt_state["top"][-1]["b"]  # the logit's bias always has a gradient
+    assert acc.device.type == "cpu" and bool(acc.any())
     print("OK", len(names))
     """
 )

@@ -1,7 +1,10 @@
 """The port's train and eval steps against the JAX package's: the learning
 rate bit for bit, a 30-step sparse-step trajectory on the Kaggle table count
-(both the K1 branch and the scatter branch), the coalesce branch, megasteps,
-the dense step through K4's backward, and evaluation with ROC AUC."""
+(both the K1 branch and the scatter branch), the coalesce branch, the
+streaming (K5) branch and the Adagrad/RWSAdagrad branches of the sparse step,
+megasteps, the dense step through K4's backward and under Adagrad and
+RWSAdagrad, `clone_state`, `config_for_epoch`, `make_grad_probe`, and
+evaluation with ROC AUC."""
 
 import dataclasses
 
@@ -22,10 +25,12 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.data import synthetic as
 from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import Batch
 from deep_quantized_recommendation_model_dqrm_tpu_torch.optim.lr_policy import lr_policy
 from deep_quantized_recommendation_model_dqrm_tpu_torch.tools.jax_weights import (
+    opt_state_to_numpy,
     params_to_numpy,
     train_state_from_numpy,
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.utils import metrics as tmetrics
+from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_leaves
 
 torch.set_num_threads(1)
 
@@ -56,7 +61,8 @@ def train_configs(**kw):
 
 def start(jc, jtc):
     js = jts.init_train_state(jc, jtc, seed=0)
-    return js, train_state_from_numpy(jax.tree_util.tree_map(np.asarray, js.params), js.qstate, "cpu")
+    np_tree = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
+    return js, train_state_from_numpy(np_tree(js.params), js.qstate, "cpu", np_tree(js.opt_state))
 
 
 def to_torch(b) -> Batch:
@@ -64,10 +70,16 @@ def to_torch(b) -> Batch:
 
 
 def assert_params_close(jparams, tparams, atol):
-    jp = jax.tree_util.tree_map(np.asarray, jparams)
-    tp = params_to_numpy(tparams)
-    for a, b in zip(jax.tree_util.tree_leaves(jp), jax.tree_util.tree_leaves(tp)):
-        np.testing.assert_allclose(b, a, rtol=0, atol=atol)
+    assert_tree_close(jparams, params_to_numpy(tparams), rtol=0, atol=atol)
+
+
+def assert_tree_close(jtree, np_tree, rtol, atol):
+    jt = jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray, jtree))
+    nt = jax.tree_util.tree_leaves(np_tree)
+    assert len(jt) == len(nt)
+    for a, b in zip(jt, nt):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(b, a, rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize(
@@ -189,19 +201,152 @@ def test_eval_step_and_auc_match_jax():
                                                                  abs=1e-6)
 
 
+# Adagrad's update is lr * g / sqrt(acc). Where g comes out of cancellation
+# (a pooled gradient summed over samples of opposite sign), its float32
+# relative error is large, and the update inherits it, up to lr in one
+# element (the first update of an element is lr * sign(g)). So these tests
+# run Adagrad at lr = 0.01, where 6 steps keep the parameters within 1e-5
+# and the accumulators within 1e-4 relative. At lr = 0.1 the first step
+# moves every MLP weight by 0.1, an INT4 rounding flips, and the JAX and port
+# trajectories part after two steps.
+ADAGRAD_LR = 0.01
+ADAGRAD_PARAM_ATOL = 1e-5
+ACC_RTOL, ACC_ATOL = 1e-4, 1e-12
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "rwsadagrad"])
+def test_sparse_step_streams_under_each_optimizer(monkeypatch, optimizer):
+    """Six INT4 QAT sparse steps against JAX's `_build_sparse_step_fn` with
+    K1 and K5 interpreted: the 20-row table takes K1's branch, the 600- and
+    300-row tables K5's (SGD into the table, Adagrad and RWSAdagrad into
+    zeros and then the dense update), the 5000-row table the scatter branch
+    (coalesced under Adagrad and RWSAdagrad); the scales refresh at steps 0
+    and 3."""
+    monkeypatch.setenv("DQRM_ONEHOT_INTERPRET", "1")
+    monkeypatch.setenv("DQRM_STREAM_INTERPRET", "1")
+    jc, tc = configs((5000, 600, 300, 20), dict(INT4, scale_update_period=3))
+    lr = 0.1 if optimizer == "sgd" else ADAGRAD_LR
+    jtc, ttc = train_configs(batch_size=256, learning_rate=lr, optimizer=optimizer,
+                             onehot_update_max_rows=100, stream_update_max_rows=1000)
+    js, ts = start(jc, jtc)
+    jstep = jax.jit(jts._build_sparse_step_fn(jc, jtc))
+    tstep = tts.make_train_step(tc, ttc, sparse_emb_grad=True, device="cpu")
+    rng = np.random.RandomState(8)
+    for i in range(6):
+        b = jsyn.random_batch(jc, 256, rng)
+        js, jl = jstep(js, b)
+        ts, tl = tstep(ts, to_torch(b))
+        np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5, err_msg=f"step {i}")
+    assert_params_close(js.params, ts.params, atol=1e-6 if optimizer == "sgd" else ADAGRAD_PARAM_ATOL)
+    if optimizer == "sgd":
+        assert ts.opt_state is None and js.opt_state is None
+    else:
+        assert_tree_close(js.opt_state, opt_state_to_numpy(ts.opt_state), ACC_RTOL, ACC_ATOL)
+
+
+def test_sparse_step_streams_masked_variable_pooling(monkeypatch):
+    """P = 3 with the variable-pooling mask, every table but the 20-row one
+    streaming, under RWSAdagrad."""
+    monkeypatch.setenv("DQRM_ONEHOT_INTERPRET", "1")
+    monkeypatch.setenv("DQRM_STREAM_INTERPRET", "1")
+    jc, tc = configs((600, 300, 20), dict(INT4, scale_update_period=2), pooling_size=3)
+    jtc, ttc = train_configs(batch_size=64, learning_rate=ADAGRAD_LR, optimizer="rwsadagrad",
+                             onehot_update_max_rows=30, stream_update_max_rows=1000)
+    js, ts = start(jc, jtc)
+    jstep = jax.jit(jts._build_sparse_step_fn(jc, jtc))
+    tstep = tts.make_train_step(tc, ttc, sparse_emb_grad=True, device="cpu")
+    rng = np.random.RandomState(7)
+    for _ in range(3):
+        b = jsyn.random_batch(jc, 64, rng)
+        assert b.mask is not None
+        js, jl = jstep(js, b)
+        ts, tl = tstep(ts, to_torch(b))
+        np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    assert_params_close(js.params, ts.params, atol=ADAGRAD_PARAM_ATOL)
+    assert_tree_close(js.opt_state, opt_state_to_numpy(ts.opt_state), ACC_RTOL, ACC_ATOL)
+
+
+@pytest.mark.parametrize("optimizer", ["adagrad", "rwsadagrad"])
+def test_dense_step_under_adagrad(optimizer):
+    jc, tc = configs((100, 50, 10), INT4)
+    jtc, ttc = train_configs(batch_size=32, learning_rate=ADAGRAD_LR, optimizer=optimizer)
+    js, ts = start(jc, jtc)
+    jstep = jax.jit(jts._build_step_fn(jc, jtc))
+    tstep = tts.make_train_step(tc, ttc, device="cpu")
+    rng = np.random.RandomState(9)
+    for _ in range(3):
+        b = jsyn.random_batch(jc, 32, rng)
+        js, jl = jstep(js, b)
+        ts, tl = tstep(ts, to_torch(b))
+        np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    assert_params_close(js.params, ts.params, atol=ADAGRAD_PARAM_ATOL)
+    assert_tree_close(js.opt_state, opt_state_to_numpy(ts.opt_state), ACC_RTOL, ACC_ATOL)
+
+
+def test_clone_state_copies_optimizer_state():
+    """Two paths from clones of one Adagrad state: each has its own
+    accumulators (the sparse step updates them in place), and the source
+    state is untouched."""
+    _, tc = configs((300, 40, 7), INT4)
+    _, ttc = train_configs(batch_size=32, learning_rate=0.2, optimizer="adagrad",
+                           onehot_update_max_rows=10, stream_update_max_rows=100)
+    s0 = tts.init_train_state(tc, ttc, seed=1, device="cpu")
+    before = params_to_numpy(tts.clone_state(s0).params)
+    step = tts.make_train_step(tc, ttc, sparse_emb_grad=True, device="cpu")
+    rng = np.random.RandomState(10)
+    c = tts.clone_state(s0)
+    assert not {t.data_ptr() for t in tree_leaves(c.opt_state)} & {
+        t.data_ptr() for t in tree_leaves(s0.opt_state)}
+    a, _ = step(tts.clone_state(c), tsyn.random_batch(tc, 32, rng, device="cpu"))
+    b, _ = step(tts.clone_state(c), tsyn.random_batch(tc, 32, rng, device="cpu"))
+    for k in range(3):
+        assert not torch.equal(a.opt_state["emb"][k], b.opt_state["emb"][k])
+    for tree in (s0.opt_state, c.opt_state):
+        assert all(bool((t == 0).all()) for t in tree_leaves(tree))
+    for x, y in zip(jax.tree_util.tree_leaves(before), jax.tree_util.tree_leaves(params_to_numpy(s0.params))):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("quant", [dict(enabled=False), INT4, dict(INT4, bias_bit=32),
+                                   dict(INT4, quantize_mlp=False)])
+def test_config_for_epoch_matches_jax(quant):
+    jc, tc = configs((30, 20), quant)
+    for kw in (dict(), dict(pretrain_epochs=2), dict(quantize_mlp_from_epoch=3),
+               dict(shift_bit_width_at_epoch=2, shift_bit_width_to=2),
+               dict(pretrain_epochs=1, quantize_mlp_from_epoch=2, shift_bit_width_at_epoch=4)):
+        jtc, ttc = train_configs(**kw)
+        for epoch in range(6):
+            want = jts.config_for_epoch(jc, jtc, epoch)
+            got = tts.config_for_epoch(tc, ttc, epoch)
+            assert (got is tc) == (want is jc), (kw, epoch)
+            assert dataclasses.asdict(got.quant) == dataclasses.asdict(want.quant), (kw, epoch)
+
+
+def test_grad_probe_matches_jax():
+    jc, tc = configs((100, 50, 10), dict(INT4, scale_update_period=1), pooling_size=2)
+    jtc, ttc = train_configs(batch_size=32)
+    js, ts = start(jc, jtc)
+    b = jsyn.random_batch(jc, 32, np.random.RandomState(11))
+    jout, jl = jts.make_grad_probe(jc, jtc)(js.params, js.qstate, b)
+    tout, tl = tts.make_grad_probe(tc, ttc, device="cpu")(ts.params, ts.qstate, to_torch(b))
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-6)
+    assert sorted(tout) == sorted(jout)
+    for k in range(3):
+        np.testing.assert_array_equal(tout[f"table_{k}_ids"].numpy(), np.asarray(jout[f"table_{k}_ids"]))
+        np.testing.assert_allclose(tout[f"table_{k}_rows"].numpy(), np.asarray(jout[f"table_{k}_rows"]),
+                                   rtol=1e-5, atol=1e-8)
+
+
 def test_later_slices_raise():
-    _, tc = configs((30, 20), INT4)
-    for kw in (dict(optimizer="adagrad"), dict(optimizer="rwsadagrad"),
-               dict(stream_update_max_rows=1000)):
-        ttc = tcfg.TrainConfig(**kw)
+    """What the port does not run yet: QR/MD tables, weighted pooling
+    (`v_W`), bf16 tables."""
+    for kw in (dict(qr_flag=True, qr_threshold=100), dict(weighted_pooling="fixed"),
+               dict(table_dtype="bfloat16")):
+        _, cfg = configs((300, 20), INT4, **kw)
+        for sparse in (False, True):
+            with pytest.raises(NotImplementedError):
+                tts.make_train_step(cfg, tcfg.TrainConfig(), sparse_emb_grad=sparse, device="cpu")
         with pytest.raises(NotImplementedError):
-            tts.make_train_step(tc, ttc, sparse_emb_grad=True, device="cpu")
-        with pytest.raises(NotImplementedError):
-            tts.init_train_state(tc, ttc, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tts.config_for_epoch(tc, tcfg.TrainConfig(), 0)
-    with pytest.raises(NotImplementedError):
-        tts.make_grad_probe(tc, tcfg.TrainConfig())
-    _, qr = configs((300, 20), qr_flag=True, qr_threshold=100)
-    with pytest.raises(NotImplementedError):
-        tts.make_train_step(qr, tcfg.TrainConfig(), device="cpu")
+            tts.make_grad_probe(cfg, tcfg.TrainConfig(), device="cpu")
+    with pytest.raises(ValueError):
+        tts.make_train_step(configs((30, 20), INT4)[1], tcfg.TrainConfig(optimizer="adam"), device="cpu")
