@@ -28,9 +28,11 @@ launch counters of its kernels set to 0 just before and read just after:
    far): those checks state their own bounds;
 3. eval: `make_eval_step` and ROC AUC on a held-out batch;
 4. export: `ptq_export` of the trained params (INT4 tables, INT8 MLP);
-5. serve: `ServingEngine` and `MicroBatcher` (kernels K2 and K3);
+5. serve: `ServingEngine` and `MicroBatcher` (kernel K2, one grouped launch
+   for the 26 tables, and kernel K3, 7 launches, per device batch);
 6. serve_onehot: a second engine with `onehot_lookup_max_rows=20000`
-   (kernel K4 on the 18 small tables) answering the same requests.
+   (kernel K4 on the 18 small tables, one grouped K2 launch for the other 8)
+   answering the same requests.
 
 Kernel K6 (`dma_row_update`) is on no path; its kernel phase holds it
 against its plain version on the 2,202,608-row table.
@@ -60,9 +62,11 @@ import numpy as np
 import torch
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, at the 700 W limit):
-# 3.35 TB/s of device memory, 67 TFLOP/s float32 outside the tensor cores.
+# 3.35 TB/s of device memory, 67 TFLOP/s float32 outside the tensor cores,
+# 989 TFLOP/s bf16 on the tensor cores (dense).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 SECTOR = 32  # bytes the memory system moves for one random read
 DEVICE = "cuda"
 B_MAIN = 16384  # the largest serving bucket
@@ -223,45 +227,60 @@ def k2_bytes(pt, ids, mask) -> int:
     return n
 
 
-def run_k2(label, tables, ids, masks, flush):
-    """K2 against its plain version on every (table, ids, mask) of one batch;
-    times the whole batch of lookups."""
+def run_k2(label, tables, ids, mask, flush, grouped=False):
+    """K2 against its plain version on one batch of lookups: `ids` and
+    `mask` (or None) [T, B, P], slot k for table k, through the per-table
+    entry (one launch per table) or, `grouped`, the serving path's one
+    launch for all tables. The library yardstick is one `embedding_bag` per
+    table."""
     import torch.nn.functional as F
 
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
+        make_packed_group,
         packed_pooled_lookup,
+        packed_pooled_lookup_grouped,
+        packed_pooled_lookup_grouped_plain,
         packed_pooled_lookup_kernel,
         unpack_table,
     )
 
-    err = 0.0
-    for pt, i, m in zip(tables, ids, masks):
-        got = packed_pooled_lookup_kernel(pt, i, m)
-        want = packed_pooled_lookup(pt, i, m)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"K2 {label}: finite")
-        err = max(err, (got - want).abs().max().item())
-    check(err <= K2_TOL, f"K2 {label}: max_abs_err {err} <= {K2_TOL}")
+    work = list(zip(tables, ids, [None] * len(tables) if mask is None else mask))
+    if grouped:
+        group = make_packed_group(tables)
+
+        def kernel():
+            return packed_pooled_lookup_grouped(group, ids, mask)
+
+        def plain():
+            return packed_pooled_lookup_grouped_plain(group, ids, mask)
+    else:
+        def kernel():
+            return [packed_pooled_lookup_kernel(*a) for a in work]
+
+        def plain():
+            return [packed_pooled_lookup(*a) for a in work]
+
     dense = [unpack_table(pt) for pt in tables]
-    lib_err = 0.0
-    for w, pt, i, m in zip(dense, tables, ids, masks):
-        lib = F.embedding_bag(i, w, mode="sum", per_sample_weights=m)
-        lib_err = max(lib_err, (lib - packed_pooled_lookup(pt, i, m)).abs().max().item())
-    work = list(zip(tables, ids, masks))
+
+    def library():
+        return [F.embedding_bag(i, w, mode="sum", per_sample_weights=m) for w, (_, i, m) in zip(dense, work)]
+
+    got, want = torch.stack(list(kernel())), torch.stack(list(plain()))
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"K2 {label}: finite")
+    err = (got - want).abs().max().item()
+    check(err <= K2_TOL, f"K2 {label}: max_abs_err {err} <= {K2_TOL}")
+    if ids.shape[2] == 1:  # one term per bag: the plain version's float32 operations
+        check(err == 0.0, f"K2 {label}: max_abs_err {err} == 0 at P = 1")
     row = {
         "phase": "kernel", "kernel": "packed_pooled_lookup", "case": label,
-        "calls": len(work), "batch": int(ids[0].shape[0]), "pooling": int(ids[0].shape[1]),
-        "max_abs_err": err, "tol": K2_TOL, "library_max_abs_err": lib_err,
-        "kernel_ms": time_ms(lambda: [packed_pooled_lookup_kernel(*a) for a in work], flush),
-        "plain_ms": time_ms(lambda: [packed_pooled_lookup(*a) for a in work], flush),
-        "library_ms": time_ms(
-            lambda: [F.embedding_bag(i, w, mode="sum", per_sample_weights=m)
-                     for w, (_, i, m) in zip(dense, work)], flush),
-        "kernel_device_ms": device_ms(lambda: [packed_pooled_lookup_kernel(*a) for a in work]),
-        "plain_device_ms": device_ms(lambda: [packed_pooled_lookup(*a) for a in work]),
-        "library_device_ms": device_ms(
-            lambda: [F.embedding_bag(i, w, mode="sum", per_sample_weights=m)
-                     for w, (_, i, m) in zip(dense, work)]),
+        "entry": "grouped" if grouped else "per_table", "tables": len(work),
+        "launches_per_call": 1 if grouped else len(work), "batch": int(ids.shape[1]),
+        "pooling": int(ids.shape[2]), "max_abs_err": err, "tol": K2_TOL,
+        "library_max_abs_err": (torch.stack(library()) - want).abs().max().item(),
+        "kernel_ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
+        "library_ms": time_ms(library, flush), "kernel_device_ms": device_ms(kernel),
+        "plain_device_ms": device_ms(plain), "library_device_ms": device_ms(library),
         "bytes": sum(k2_bytes(*a) for a in work),
     }
     row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -271,32 +290,37 @@ def run_k2(label, tables, ids, masks, flush):
 
 
 def phase_kernel_k2(cfg, params, sm, flush):
+    """K2 through its per-table entry (26 launches) and as the serving path
+    runs it (one grouped launch) on the 26 Kaggle tables at B = 16384, P = 1
+    and P = 4 with the variable-pooling mask; the other formats through the
+    per-table entry. Returns the grouped P = 1 row, the main path's."""
     from deep_quantized_recommendation_model_dqrm_tpu_torch.data.synthetic import random_batch
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
         pack_table,
     )
 
-    T = cfg.num_tables
     batch = random_batch(cfg, B_MAIN, np.random.RandomState(1))
-    main = run_k2("int4_symmetric_all_tables", sm.emb, list(batch.indices), [None] * T, flush)
+    rows = [run_k2("int4_symmetric_all_tables", sm.emb, batch.indices, None, flush)]
+    main = run_k2("int4_symmetric_all_tables", sm.emb, batch.indices, None, flush, grouped=True)
+    rows.append(main)
     # other formats on a large, a middle and a small table
-    ks = (2, 23, 0)
-    sub = [batch.indices[k] for k in ks]
-    rows = [main]
+    ks = [2, 23, 0]
     for bits, rowwise in ((8, False), (4, True), (8, True)):
         tabs = [pack_table(params["emb"][k], bits=bits, rowwise=rowwise) for k in ks]
         name = f"int{bits}_{'rowwise' if rowwise else 'symmetric'}"
-        rows.append(run_k2(name, tabs, sub, [None] * len(ks), flush))
+        rows.append(run_k2(name, tabs, batch.indices[ks], None, flush))
     pooled = random_batch(cfg, B_MAIN, np.random.RandomState(2), num_indices_per_lookup=4,
                           variable_pooling=True)
-    rows.append(run_k2("int4_symmetric_p4_mask_all_tables", sm.emb, list(pooled.indices),
-                       list(pooled.mask), flush))
+    for grouped in (False, True):
+        rows.append(run_k2("int4_symmetric_p4_mask_all_tables", sm.emb, pooled.indices, pooled.mask,
+                           flush, grouped=grouped))
     return main, max(r["max_abs_err"] for r in rows)
 
 
 def phase_kernel_k3(cfg, sm, flush):
     """K3 on the seven serving layers at B = 16384, fed the activations the
-    plain serving path computes on a random batch."""
+    plain serving path computes on a random batch, each layer with and
+    without the fused ReLU."""
     from deep_quantized_recommendation_model_dqrm_tpu_torch.data.synthetic import random_batch
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
         packed_pooled_lookup,
@@ -313,22 +337,30 @@ def phase_kernel_k3(cfg, sm, flush):
         x = batch.dense
         for l in sm.bot:
             work.append((x, l))
-            x = torch.relu(int8_linear_xla(x, l))
+            x = int8_linear_xla(x, l, relu=True)
         ly = torch.stack([packed_pooled_lookup(pt, i) for pt, i in zip(sm.emb, batch.indices)])
         x = dot_interaction(x, ly)
         for l in sm.top:
             work.append((x.contiguous(), l))
-            x = torch.relu(int8_linear_xla(x, l))
+            x = int8_linear_xla(x, l, relu=True)
     err, layers = 0.0, []
     for x, l in work:
-        got, want = int8_linear(x, l), int8_linear_xla(x, l)
-        torch.cuda.synchronize()
-        e = (got - want).abs().max().item()
-        tol = K3_RTOL * max(1.0, want.abs().max().item())
-        check(bool(torch.isfinite(got).all()) and e <= tol, f"K3 {tuple(l.w_int.shape)}: {e} <= {tol}")
-        err = max(err, e)
-        layers.append({"in": int(x.shape[1]), "out": int(l.w_int.shape[0]), "max_abs_err": e,
-                       "tol": tol, "kernel_ms": time_ms(lambda: int8_linear(x, l), flush)})
+        e_layer = {}
+        for relu in (False, True):
+            got, want = int8_linear(x, l, relu=relu), int8_linear_xla(x, l, relu=relu)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            tol = K3_RTOL * max(1.0, want.abs().max().item())
+            check(bool(torch.isfinite(got).all()) and e <= tol,
+                  f"K3 {tuple(l.w_int.shape)} relu={relu}: {e} <= {tol}")
+            e_layer["relu" if relu else "linear"] = e
+            err = max(err, e)
+        flop = 2 * x.shape[0] * x.shape[1] * l.w_int.shape[0]
+        dev_ms = device_ms(lambda: int8_linear(x, l))
+        layers.append({"in": int(x.shape[1]), "out": int(l.w_int.shape[0]), "max_abs_err": e_layer,
+                       "tol": tol, "kernel_ms": time_ms(lambda: int8_linear(x, l), flush),
+                       "kernel_device_ms": dev_ms,
+                       "tflop_per_s": flop / dev_ms / 1e9 if isinstance(dev_ms, float) else "not measured"})
     deq = [(x, l.bias, (l.w_int.float() * l.scale[:, None]).T) for x, l in work]
     flop = sum(2 * x.shape[0] * x.shape[1] * l.w_int.shape[0] for x, l in work)
     nbytes = sum(x.numel() * 4 + l.w_int.numel() + l.w_int.shape[0] * (8 + 4 * x.shape[0])
@@ -344,9 +376,15 @@ def phase_kernel_k3(cfg, sm, flush):
         "library_device_ms": device_ms(lambda: [torch.addmm(b, x, w) for x, b, w in deq]),
         "flop": flop, "bytes": nbytes,
     }
-    row["bound_ms"] = max(flop / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-    row["bound_by"] = "operations" if flop / FP32_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes"
+    # the kernel keeps float32 accuracy by three bf16 tensor-core passes (x
+    # split into hi, mid and lo against the exact bf16 weights), so the
+    # operations it cannot avoid are 3 x flop at the bf16 rate
+    t_ops, t_bytes = 3 * flop / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    row["bound_ms"] = max(t_ops, t_bytes) * 1e3
+    row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
     row["tflop_per_s"] = flop / row["kernel_ms"] / 1e9
+    if isinstance(row["kernel_device_ms"], float):
+        row["tflop_per_s_device"] = flop / row["kernel_device_ms"] / 1e9
     emit(row)
     return row
 
@@ -1082,13 +1120,16 @@ def phase_profile(eng, batch, n: int = 10) -> None:
           "wall_ms_per_batch": wall_ms / n,
           "device_busy_ms_per_batch": busy if ops else "not measured",
           "device_idle_share": 1.0 - busy * n / wall_ms if ops else "not measured",
+          "device_launches_per_batch": sum(o["launches_per_call"] for o in ops)
+          if ops else "not measured",
           "top_device_ops": ops[:12]})
 
 
 def phase_serve(cfg, sm, nbytes, flush):
     from deep_quantized_recommendation_model_dqrm_tpu_torch.data.synthetic import random_batch
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
-        packed_pooled_lookup_kernel as k2,
+        packed_pooled_lookup_grouped as k2,
+        packed_pooled_lookup_kernel as k2_one,
     )
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import (
         int8_linear as k3,
@@ -1105,7 +1146,7 @@ def phase_serve(cfg, sm, nbytes, flush):
         eng.predict(dense, idx)  # warm-up of every bucket shape
     torch.cuda.synchronize()
 
-    k2.launches = k3.launches = eng.batches = 0
+    k2.launches = k2_one.launches = k3.launches = eng.batches = 0
     latency, outs = {}, []
     for n, (dense, idx) in zip(SIZES, reqs):
         times = []
@@ -1138,8 +1179,8 @@ def phase_serve(cfg, sm, nbytes, flush):
     mb.close()
     launches = {"packed_pooled_lookup": k2.launches, "int8_linear": k3.launches}
     batches = eng.batches
-    check(launches["packed_pooled_lookup"] == cfg.num_tables * batches,
-          f"K2 launches {launches} == {cfg.num_tables} x {batches} device batches")
+    check(launches["packed_pooled_lookup"] == batches and k2_one.launches == 0,
+          f"K2 launches {launches}, per-table {k2_one.launches}: one grouped launch x {batches} device batches")
     check(launches["int8_linear"] == 7 * batches, f"K3 launches {launches} == 7 x {batches}")
 
     err = 0.0
@@ -1168,13 +1209,14 @@ def phase_serve(cfg, sm, nbytes, flush):
 def phase_serve_onehot(cfg, sm, reqs, outs, flush):
     """A second engine with `onehot_lookup_max_rows=20000` answers the same
     requests: the 18 small tables are unpacked per call and looked up by K4,
-    the other 8 by K2. The fp32 tables are the INT4 tables unpacked, so both
-    engines compute the same function."""
+    the other 8 by one grouped K2 launch. The fp32 tables are the INT4
+    tables unpacked, so both engines compute the same function."""
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
         onehot_pooled_lookup_fwd as k4,
     )
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
-        packed_pooled_lookup_kernel as k2,
+        packed_pooled_lookup_grouped as k2,
+        packed_pooled_lookup_kernel as k2_one,
     )
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import (
         int8_linear as k3,
@@ -1186,7 +1228,7 @@ def phase_serve_onehot(cfg, sm, reqs, outs, flush):
     for dense, idx in requests(cfg, BUCKETS, seed=5):
         eng.predict(dense, idx)  # warm-up of every bucket shape
     torch.cuda.synchronize()
-    k2.launches = k3.launches = k4.launches = eng.batches = 0
+    k2.launches = k2_one.launches = k3.launches = k4.launches = eng.batches = 0
     err, latency = 0.0, {}
     for n, (dense, idx), want in zip(SIZES, reqs, outs):
         h0 = time.perf_counter()
@@ -1199,8 +1241,9 @@ def phase_serve_onehot(cfg, sm, reqs, outs, flush):
                 "int8_linear": k3.launches}
     n_small = len(small_tables(cfg))
     check(launches["onehot_pooled_lookup"] == n_small * batches, f"K4 {launches} == {n_small} x {batches}")
-    check(launches["packed_pooled_lookup"] == (cfg.num_tables - n_small) * batches,
-          f"K2 {launches} == {cfg.num_tables - n_small} x {batches}")
+    check(launches["packed_pooled_lookup"] == batches and k2_one.launches == 0,
+          f"K2 {launches}, per-table {k2_one.launches}: one grouped launch for the "
+          f"{cfg.num_tables - n_small} big tables x {batches}")
     check(launches["int8_linear"] == 7 * batches, f"K3 {launches} == 7 x {batches}")
     check(err <= SERVE_ATOL, f"serve_onehot vs the K2 engine {err} <= {SERVE_ATOL}")
     batch = random_batch(cfg, B_MAIN, np.random.RandomState(8))

@@ -9,9 +9,11 @@
 //       ascending (duplicates and padding ids >= R allowed), svals [U, D]
 //       float32. Each row's duplicates are summed in order in float32 and
 //       added to the row once, with one rounding to the table's type.
-//   K6: table.at[uids].add(uvals) for uids [U] int32 whose ids in [0, R) are
-//       unique (sorted, padding ids >= R at the tail in the callers),
-//       uvals [U, D] float32; float32 add, one rounding to the table's type.
+//   K6: table.at[uids].add(uvals.astype(table.dtype)) for uids [U] int32
+//       whose ids in [0, R) are unique (sorted, padding ids >= R at the tail
+//       in the callers), uvals [U, D] float32: the values are first rounded
+//       to the table's type, as the JAX kernel does (stream_update.py:404),
+//       then added in float32 with one rounding to the table's type.
 //   Ids outside [0, R) add nothing.
 //
 // Why the TPU designs are not carried over: TPU Pallas has no scatter and no
@@ -49,6 +51,11 @@ __device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+// v rounded to the table's type and back to float32.
+__device__ __forceinline__ float round_to(const float*, float v) { return v; }
+__device__ __forceinline__ float round_to(const __nv_bfloat16*, float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 template <typename T>
 __global__ void stream_scatter_kernel(
@@ -84,7 +91,7 @@ __global__ void row_update_kernel(
   const int32_t row = __ldg(uids + i);
   if (row < 0 || (int64_t)row >= R) return;
   T* p = table + (int64_t)row * D + c;
-  store_from_f32(p, __fadd_rn(load_f32(p), __ldg(uvals + t)));
+  store_from_f32(p, __fadd_rn(load_f32(p), round_to(p, __ldg(uvals + t))));
 }
 
 constexpr int kThreads = 256;

@@ -15,8 +15,14 @@ on the card the hand-written kernel (csrc/packed_embedding.cu) is the lookup.
 
 - `packed_pooled_lookup` — the plain PyTorch version (gather, unpack,
   dequantize, mask, sum), the CPU path and the reference for the kernel;
-- `packed_pooled_lookup_kernel` — the wrapper: a CPU tensor takes the plain
-  version, a CUDA tensor launches the kernel (or raises).
+- `packed_pooled_lookup_kernel` — the wrapper for one table: a CPU tensor
+  takes the plain version, a CUDA tensor launches the kernel (or raises);
+- `PackedGroup` / `make_packed_group` — tables looked up together, with the
+  kernel's descriptor array built once;
+- `packed_pooled_lookup_grouped_plain` / `packed_pooled_lookup_grouped` —
+  every table of a group over [T, B, P] ids into one [T, B, D] output: a
+  loop of `packed_pooled_lookup`, and the wrapper that launches the same
+  kernel once for the whole group.
 
 Out-of-range ids are clamped to [0, rows - 1] by both, as the JAX package's
 fused serving path does; the JAX per-table path returns filler rows for them.
@@ -25,7 +31,7 @@ fused serving path does; the JAX per-table path returns filler rows for them.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -136,8 +142,43 @@ def packed_pooled_lookup(
 
 _SIGNATURES = {
     "dqrm_packed_pooled_lookup": [ctypes.c_void_p] * 6
-    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "dqrm_packed_pooled_lookup_grouped": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
+
+
+def _check_table(pt: PackedTable, dev: torch.device) -> None:
+    """Raise on a packed table that the kernel does not take."""
+    floats = [t for t in (pt.scale, pt.bias) if t is not None]
+    if any(t.device != dev for t in [pt.data] + floats):
+        raise ValueError("packed tables, indices and mask must be on one device")
+    if pt.data.dtype != torch.uint8 or any(t.dtype != torch.float32 for t in floats):
+        raise TypeError("packed data must be uint8, scale and bias float32")
+    if pt.bits not in (4, 8):
+        raise ValueError(f"unsupported pack bits {pt.bits}")
+    dp = pt.dim // 2 if pt.bits == 4 else pt.dim
+    per_row = pt.rows if pt.bias is not None else 1
+    if pt.rows == 0 or pt.data.shape[1] != dp or pt.scale.numel() != per_row or (
+        pt.bias is not None and pt.bias.numel() != per_row
+    ):
+        raise ValueError("packed table shape does not match its bits/dim/format")
+    if not all(t.is_contiguous() for t in [pt.data] + floats):
+        raise ValueError("packed tables must be contiguous")
+    if dp % 8 == 0 and pt.data.data_ptr() % 8:
+        raise ValueError("packed rows of a multiple of 8 bytes must start 8-byte aligned")
+
+
+def _check_ids(indices: torch.Tensor, mask: Optional[torch.Tensor], dev: torch.device) -> None:
+    if indices.device != dev or (mask is not None and mask.device != dev):
+        raise ValueError("packed tables, indices and mask must be on one device")
+    if indices.dtype != torch.int32 or (mask is not None and mask.dtype != torch.float32):
+        raise TypeError("indices must be int32 and the mask float32")
+    if mask is not None and mask.shape != indices.shape:
+        raise ValueError(f"mask shape {tuple(mask.shape)} != indices {tuple(indices.shape)}")
+    if not indices.is_contiguous() or (mask is not None and not mask.is_contiguous()):
+        raise ValueError("indices and mask must be contiguous")
 
 
 def packed_pooled_lookup_kernel(
@@ -145,8 +186,9 @@ def packed_pooled_lookup_kernel(
     indices: torch.Tensor,  # [B, P] int32
     mask: Optional[torch.Tensor] = None,  # [B, P] float32
 ) -> torch.Tensor:  # [B, D] float32
-    """Fused gather-dequant-pool: the plain version for a CPU tensor, the
-    CUDA kernel (csrc/packed_embedding.cu) for a CUDA tensor.
+    """Fused gather-dequant-pool of one table: the plain version for a CPU
+    tensor, the CUDA kernel (csrc/packed_embedding.cu, one table) for a CUDA
+    tensor.
 
     Counts its kernel launches in `packed_pooled_lookup_kernel.launches`."""
     if indices.device.type == "cpu":
@@ -154,27 +196,9 @@ def packed_pooled_lookup_kernel(
     dev = indices.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    _check_table(pt, dev)
+    _check_ids(indices, mask, dev)
     B, P = indices.shape
-    floats = [t for t in (pt.scale, pt.bias, mask) if t is not None]
-    tensors = [pt.data, indices] + floats
-    if any(t.device != dev for t in tensors):
-        raise ValueError("packed table, indices and mask must be on one device")
-    if pt.data.dtype != torch.uint8 or indices.dtype != torch.int32:
-        raise TypeError("packed data must be uint8 and indices int32")
-    if any(t.dtype != torch.float32 for t in floats):
-        raise TypeError("scale, bias and mask must be float32")
-    if pt.bits not in (4, 8):
-        raise ValueError(f"unsupported pack bits {pt.bits}")
-    dp = pt.dim // 2 if pt.bits == 4 else pt.dim
-    per_row = pt.rows if pt.bias is not None else 1
-    if pt.data.shape[1] != dp or pt.scale.numel() != per_row or (
-        pt.bias is not None and pt.bias.numel() != per_row
-    ):
-        raise ValueError("packed table shape does not match its bits/dim/format")
-    if mask is not None and mask.shape != (B, P):
-        raise ValueError(f"mask shape {tuple(mask.shape)} != {(B, P)}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("packed table, indices and mask must be contiguous")
     out = torch.empty((B, pt.dim), dtype=torch.float32, device=dev)
     if B == 0:
         return out
@@ -195,3 +219,102 @@ def packed_pooled_lookup_kernel(
 
 
 packed_pooled_lookup_kernel.launches = 0
+
+
+class PackedGroup(NamedTuple):
+    """Packed tables looked up together: table `tables[i]` reads ids and mask
+    `slots[i]` of a [T, B, P] batch and writes slot `slots[i]` of the
+    [T, B, D] output. `descs` is the kernel's descriptor array (one row of 8
+    int64 per table: data, scale and bias addresses, rows, bits, D, slot, 0),
+    on the tables' device; it holds raw addresses, so the group keeps the
+    tables, which must outlive it."""
+
+    tables: tuple
+    slots: tuple
+    dim: int
+    descs: torch.Tensor
+    max_items_per_bag: int  # 8-byte row chunks (or bytes) per bag, the largest
+
+
+def make_packed_group(tables: Sequence[PackedTable], slots: Optional[Sequence[int]] = None) -> PackedGroup:
+    """Group `tables` (slot i for table i unless `slots` is given) and build
+    the kernel's descriptor array once. The tables share D and a device."""
+    tables = tuple(tables)
+    slots = tuple(range(len(tables)) if slots is None else slots)
+    if not tables or len(slots) != len(tables) or len(set(slots)) != len(slots) or min(slots) < 0:
+        raise ValueError("a group needs tables, each with its own slot >= 0")
+    dims = {pt.dim for pt in tables}
+    if len(dims) != 1:
+        raise ValueError(f"grouped tables must share D, got {sorted(dims)}")
+    dev = tables[0].data.device
+    for pt in tables:
+        _check_table(pt, dev)
+    rows, items = [], []
+    for pt, slot in zip(tables, slots):
+        dp = pt.data.shape[1]
+        items.append(dp // 8 if dp % 8 == 0 else dp)
+        rows.append([pt.data.data_ptr(), pt.scale.data_ptr(),
+                     pt.bias.data_ptr() if pt.bias is not None else 0,
+                     pt.rows, pt.bits, pt.dim, slot, 0])
+    descs = torch.tensor(rows, dtype=torch.int64).to(dev)
+    return PackedGroup(tables=tables, slots=slots, dim=dims.pop(), descs=descs,
+                       max_items_per_bag=max(items))
+
+
+def _grouped_out(group: PackedGroup, indices: torch.Tensor) -> torch.Tensor:
+    T, B, _ = indices.shape
+    if max(group.slots) >= T:
+        raise ValueError(f"group slots {group.slots} do not fit {T} id rows")
+    # slots outside the group read 0
+    alloc = torch.empty if len(group.slots) == T else torch.zeros
+    return alloc((T, B, group.dim), dtype=torch.float32, device=indices.device)
+
+
+def packed_pooled_lookup_grouped_plain(
+    group: PackedGroup,
+    indices: torch.Tensor,  # [T, B, P] int32
+    mask: Optional[torch.Tensor] = None,  # [T, B, P]
+) -> torch.Tensor:  # [T, B, D] float32
+    """Plain version of the grouped lookup: `packed_pooled_lookup` of each
+    table of the group into its slot; slots outside the group are 0."""
+    out = _grouped_out(group, indices)
+    for pt, k in zip(group.tables, group.slots):
+        out[k] = packed_pooled_lookup(pt, indices[k], None if mask is None else mask[k])
+    return out
+
+
+def packed_pooled_lookup_grouped(
+    group: PackedGroup,
+    indices: torch.Tensor,  # [T, B, P] int32
+    mask: Optional[torch.Tensor] = None,  # [T, B, P] float32
+) -> torch.Tensor:  # [T, B, D] float32
+    """Every table of `group` in one launch: the plain version for a CPU
+    tensor, the CUDA kernel (csrc/packed_embedding.cu) for a CUDA tensor.
+
+    Counts its kernel launches in `packed_pooled_lookup_grouped.launches`."""
+    if indices.device.type == "cpu":
+        return packed_pooled_lookup_grouped_plain(group, indices, mask)
+    dev = indices.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if indices.dim() != 3:
+        raise ValueError(f"indices must be [T, B, P], got {tuple(indices.shape)}")
+    if group.descs.device != dev:
+        raise ValueError("packed tables, indices and mask must be on one device")
+    _check_ids(indices, mask, dev)
+    out = _grouped_out(group, indices)
+    _, B, P = indices.shape
+    if B == 0 or P == 0:
+        return out.zero_()
+    lib = _build.load("packed_embedding", _SIGNATURES)
+    err = lib.dqrm_packed_pooled_lookup_grouped(
+        group.descs.data_ptr(), len(group.tables), indices.data_ptr(),
+        mask.data_ptr() if mask is not None else None, out.data_ptr(),
+        B, P, group.max_items_per_bag, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "packed_pooled_lookup_grouped")
+    packed_pooled_lookup_grouped.launches += 1
+    return out
+
+
+packed_pooled_lookup_grouped.launches = 0

@@ -9,6 +9,11 @@ with per-output-channel symmetric scales (the prepack step of
   package's plain path), the CPU path and the reference for the kernel;
 - `int8_linear` — the wrapper: a CPU tensor takes the plain version, a CUDA
   tensor launches the kernel of csrc/quant_matmul.cu (or raises).
+
+Both take `relu=True` to apply ReLU to the result, as the serving MLP does
+after every layer but the last; the kernel fuses it into its epilogue. The
+kernel runs on the tensor cores with x split into three bf16 terms, so it
+agrees with the plain version to float32 rounding, not bit for bit.
 """
 
 from __future__ import annotations
@@ -38,25 +43,30 @@ def quantize_linear_weights(
     return QuantLinearWeights(w_int=q.quantize(w, scale, bits), scale=scale, bias=b, bits=bits)
 
 
-def int8_linear_xla(x: torch.Tensor, qw: QuantLinearWeights) -> torch.Tensor:
-    """Plain version: x @ (w_int * s).T + b in float32."""
+def int8_linear_xla(x: torch.Tensor, qw: QuantLinearWeights, relu: bool = False) -> torch.Tensor:
+    """Plain version: x @ (w_int * s).T + b in float32, then ReLU if asked."""
     w = qw.w_int.to(torch.float32) * qw.scale[:, None]
-    return x @ w.T + qw.bias
+    out = x @ w.T + qw.bias
+    return torch.relu(out) if relu else out
 
+
+# the kernel holds a block's whole weight tile, K padded to 16, in shared memory
+MAX_IN_FEATURES = 640
 
 _SIGNATURES = {
     "dqrm_int8_linear": [ctypes.c_void_p] * 5
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 }
 
 
-def int8_linear(x: torch.Tensor, qw: QuantLinearWeights) -> torch.Tensor:
-    """Dequant-matmul: the plain version for a CPU tensor, the CUDA kernel
-    (csrc/quant_matmul.cu) for a CUDA tensor.
+def int8_linear(x: torch.Tensor, qw: QuantLinearWeights, relu: bool = False) -> torch.Tensor:
+    """Dequant-matmul (then ReLU if `relu`): the plain version for a CPU
+    tensor, the CUDA kernel (csrc/quant_matmul.cu) for a CUDA tensor, which
+    takes at most `MAX_IN_FEATURES` input features.
 
     Counts its kernel launches in `int8_linear.launches`."""
     if x.device.type == "cpu":
-        return int8_linear_xla(x, qw)
+        return int8_linear_xla(x, qw, relu)
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -75,13 +85,15 @@ def int8_linear(x: torch.Tensor, qw: QuantLinearWeights) -> torch.Tensor:
         )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("activations and weights must be contiguous")
+    if K > MAX_IN_FEATURES:
+        raise ValueError(f"the kernel takes at most {MAX_IN_FEATURES} input features, got {K}")
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     if M == 0:
         return out
     lib = _build.load("quant_matmul", _SIGNATURES)
     err = lib.dqrm_int8_linear(
         x.data_ptr(), qw.w_int.data_ptr(), qw.scale.data_ptr(), qw.bias.data_ptr(),
-        out.data_ptr(), M, K, N, torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), M, K, N, int(relu), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "int8_linear")
     int8_linear.launches += 1

@@ -14,7 +14,7 @@ because TPU Pallas has no scatter; on Hopper both touch only the updated rows
 - `stream_scatter_add` — K5's wrapper: a CPU tensor takes the plain version,
   a CUDA tensor launches the kernel (or raises);
 - `dma_row_update_plain` / `dma_row_update` — the same for K6, whose ids in
-  range are unique;
+  range are unique and whose values are rounded to the table's type first;
 - `stream_update_auto` — what the sparse train step calls: sorts unless told
   the ids are sorted, then K5, or with `plain=True` the plain version on any
   device.
@@ -137,13 +137,15 @@ def _check_dma_layout(R: int, D: int) -> None:
 
 def dma_row_update_plain(table: torch.Tensor, uids: torch.Tensor, uvals: torch.Tensor) -> torch.Tensor:
     """Plain version of K6: `table[uids] += uvals` for ids unique in [0, R),
-    others dropped; float32 add, one rounding."""
+    others dropped. As the JAX kernel does (stream_update.py:404 of the JAX
+    package), the values are first rounded to the table's type, then added
+    in float32 with one rounding."""
     _check_shapes(table, uids, uvals)
-    return _add_rows_plain(table, uids, uvals)
+    return _add_rows_plain(table, uids, uvals.to(table.dtype).float())
 
 
 def dma_row_update(table: torch.Tensor, uids: torch.Tensor, uvals: torch.Tensor) -> torch.Tensor:
-    """K6: `table.at[uids].add(uvals)` in place, for `uids` [U] int32 sorted
+    """K6: `table.at[uids].add(uvals.astype(table.dtype))` in place, for `uids` [U] int32 sorted
     and unique with out-of-range padding at the tail (`coalesce_sparse_grad`
     output) and `uvals` [U, D] float32. Raises the JAX kernel's `ValueError`s
     for D and R. The plain version for a CPU tensor, the CUDA kernel for a

@@ -6,15 +6,16 @@ Port of the JAX package's serving.py for plain embedding tables:
   bit-packed to INT4/INT8 (symmetric per-table, or rowwise ATen-style),
   MLP weights INT8 per output channel (or kept float32);
 - `make_serving_fn` builds the inference function over the packed model:
-  per-table gather-dequant-pool lookups (kernel K2), or for tables with at
-  most `onehot_lookup_max_rows` rows an unpack per call and the weighted
-  lookup of kernel K4, int8 dequant matmuls (kernel K3), dot or cat
-  interaction, sigmoid, `loss_threshold` clip;
+  one grouped gather-dequant-pool launch for the packed tables (kernel K2),
+  or for tables with at most `onehot_lookup_max_rows` rows an unpack per
+  call and the weighted lookup of kernel K4, int8 dequant matmuls with the
+  ReLU fused (kernel K3), dot or cat interaction, sigmoid,
+  `loss_threshold` clip;
 - `ServingEngine` pads requests on the host to the nearest bucket size and
   chunks large ones; `MicroBatcher` aggregates concurrent requests from many
   threads into one device batch per dispatch.
 
-The QR/MD/weighted-pooling entries, `fused_gather`, `mlp_impl="int8"`,
+The QR/MD/weighted-pooling entries, `mlp_impl="int8"`,
 `ptq_export_streaming` and `export_stablehlo` wait for later slices of the
 port.
 """
@@ -36,9 +37,10 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update i
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
     PackedTable,
+    make_packed_group,
     pack_table,
-    packed_pooled_lookup,
-    packed_pooled_lookup_kernel,
+    packed_pooled_lookup_grouped,
+    packed_pooled_lookup_grouped_plain,
     unpack_table,
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import (
@@ -104,12 +106,13 @@ def serving_model_bytes(sm: ServingModel) -> int:
 def _apply_mlp_serving(layers, x, mlp_bits: int, last_linear: bool, linear8) -> torch.Tensor:
     nl = len(layers)
     for i, l in enumerate(layers):
+        relu = not (last_linear and i == nl - 1)
         if mlp_bits == 8:
-            x = linear8(x, l)
+            x = linear8(x, l, relu=relu)  # ReLU fused into the kernel's epilogue
         else:
             x = x @ l["w"].T + l["b"]
-        if not (last_linear and i == nl - 1):
-            x = torch.relu(x)
+            if relu:
+                x = torch.relu(x)
     return x
 
 
@@ -123,11 +126,16 @@ def make_serving_fn(
     """Inference function: Batch -> click probabilities [B] (float32, on the
     batch's device).
 
-    The lookups go through `packed_pooled_lookup_kernel` and the int8 layers
-    through `int8_linear`: kernels on the card, their plain versions on the
-    CPU. A packed table with at most `onehot_lookup_max_rows` rows is
-    unpacked on every call (the 18 such Kaggle tables hold 47,398 rows) and
-    looked up by `pooled_lookup_onehot_auto` (kernel K4). `plain=True` calls
+    The lookups of all packed tables go through one
+    `packed_pooled_lookup_grouped` call, whose descriptor array is built
+    here, once, and the int8 layers through `int8_linear`: kernels on the
+    card, their plain versions on the CPU. A packed table with at most
+    `onehot_lookup_max_rows` rows is instead unpacked on every call (the 18
+    such Kaggle tables hold 47,398 rows) and looked up by
+    `pooled_lookup_onehot_auto` (kernel K4) into its slot of the same
+    output. `fused_gather=True` is accepted for the JAX package's signature:
+    that package's one gather for all tables gives the per-table results,
+    and here every lookup is one grouped launch already. `plain=True` calls
     the plain versions on any device — the reference the kernels are checked
     against on the card."""
     if mlp_impl == "int8":
@@ -136,25 +144,24 @@ def make_serving_fn(
         )
     if mlp_impl is not None:
         raise ValueError(f"unknown mlp_impl {mlp_impl!r}")
-    if fused_gather:
-        raise NotImplementedError("fused_gather: a later slice of the port")
+    del fused_gather  # the grouped lookup below is the fused path
     cfg = sm.config
-    lookup = packed_pooled_lookup if plain else packed_pooled_lookup_kernel
+    grouped = packed_pooled_lookup_grouped_plain if plain else packed_pooled_lookup_grouped
     linear8 = int8_linear_xla if plain else int8_linear
-
-    def lookup_one(pt: PackedTable, ids, msk):
-        if 0 < pt.rows <= onehot_lookup_max_rows:
-            return pooled_lookup_onehot_auto(unpack_table(pt), ids, msk, plain=plain)
-        return lookup(pt, ids, msk)
+    small = [k for k, pt in enumerate(sm.emb) if 0 < pt.rows <= onehot_lookup_max_rows]
+    big = [k for k in range(len(sm.emb)) if k not in small]
+    group = make_packed_group([sm.emb[k] for k in big], big) if big else None
 
     @torch.inference_mode()
     def fn(batch: dlrm.Batch) -> torch.Tensor:
-        ly = torch.stack(
-            [
-                lookup_one(e, batch.indices[k], batch.mask[k] if batch.mask is not None else None)
-                for k, e in enumerate(sm.emb)
-            ]
-        )
+        if group is not None:
+            ly = grouped(group, batch.indices, batch.mask)  # [T, B, D], K4's slots 0
+        else:
+            T, B, _ = batch.indices.shape
+            ly = torch.empty((T, B, cfg.embedding_dim), device=batch.indices.device)
+        for k in small:
+            msk = batch.mask[k] if batch.mask is not None else None
+            ly[k] = pooled_lookup_onehot_auto(unpack_table(sm.emb[k]), batch.indices[k], msk, plain=plain)
         x = _apply_mlp_serving(sm.bot, batch.dense, sm.mlp_bits, False, linear8)
         z = (
             dot_interaction(x, ly, cfg.interact_itself)

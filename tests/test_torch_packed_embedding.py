@@ -107,3 +107,70 @@ def test_pack_table_rejects_what_it_does_not_take():
         tpe.pack_table(torch.zeros((4, 5)), bits=4)
     with pytest.raises(NotImplementedError):
         tpe.pack_table(t.to(torch.bfloat16))
+
+
+# a mixed group: (rows, bits, rowwise), D = 16 throughout
+GROUP = [(500, 4, False), (37, 8, False), (300, 4, True), (120, 8, True), (64, 4, False)]
+
+
+def group_pair(seed):
+    j, t = zip(*(packed_pair(make_table(rows, 16, seed=seed + i), bits, rowwise)
+                 for i, (rows, bits, rowwise) in enumerate(GROUP)))
+    return list(j), list(t)
+
+
+@pytest.mark.parametrize("use_mask", [False, True])
+@pytest.mark.parametrize("P", [1, 4])
+def test_grouped_plain_matches_jax_per_table(P, use_mask):
+    """Symmetric and rowwise, 4- and 8-bit tables in one group, with
+    out-of-range ids (clamped: the JAX side is given the clamped ids, as in
+    test_out_of_range_ids_clamp) and a mask, against the JAX package's
+    per-table `packed_pooled_lookup`; the CPU wrapper is the plain version."""
+    j, t = group_pair(seed=20)
+    B = 33
+    rng = np.random.RandomState(21 + P)
+    idx = np.stack([rng.randint(-3, rows + 3, size=(B, P)) for rows, _, _ in GROUP]).astype(np.int32)
+    mask = (rng.rand(len(GROUP), B, P) > 0.3).astype(np.float32) if use_mask else None
+    group = tpe.make_packed_group(t)
+    got = tpe.packed_pooled_lookup_grouped_plain(
+        group, torch.from_numpy(idx), None if mask is None else torch.from_numpy(mask)).numpy()
+    assert got.shape == (len(GROUP), B, 16) and got.dtype == np.float32
+    for k, (jt, (rows, _, _)) in enumerate(zip(j, GROUP)):
+        ids = jnp.asarray(np.clip(idx[k], 0, rows - 1))
+        want = jpe.packed_pooled_lookup(jt, ids, None if mask is None else jnp.asarray(mask[k]))
+        np.testing.assert_allclose(got[k], np.asarray(want), rtol=1e-6, atol=1e-7)
+    before = tpe.packed_pooled_lookup_grouped.launches
+    wrapped = tpe.packed_pooled_lookup_grouped(
+        group, torch.from_numpy(idx), None if mask is None else torch.from_numpy(mask))
+    np.testing.assert_array_equal(wrapped.numpy(), got)
+    assert tpe.packed_pooled_lookup_grouped.launches == before
+
+
+def test_grouped_slots_leave_the_others_zero():
+    """A group of some tables writes their slots of the [T, B, D] output, in
+    the order of `slots`, and leaves the others 0 (K4 fills them in serving)."""
+    j, t = group_pair(seed=30)
+    slots = (4, 0, 2)
+    group = tpe.make_packed_group([t[4], t[0], t[2]], slots)
+    rng = np.random.RandomState(31)
+    idx = torch.from_numpy(np.stack([rng.randint(0, rows, size=(9, 2)) for rows, _, _ in GROUP]).astype(np.int32))
+    got = tpe.packed_pooled_lookup_grouped_plain(group, idx)
+    for k in range(len(GROUP)):
+        want = tpe.packed_pooled_lookup(t[k], idx[k]) if k in slots else torch.zeros((9, 16))
+        np.testing.assert_array_equal(got[k].numpy(), want.numpy())
+
+
+def test_make_packed_group_rejects_what_it_does_not_take():
+    _, t = group_pair(seed=40)
+    other_d = tpe.pack_table(torch.from_numpy(make_table(20, 8, seed=41)), bits=4)
+    with pytest.raises(ValueError):
+        tpe.make_packed_group([t[0], other_d])
+    with pytest.raises(ValueError):
+        tpe.make_packed_group(t[:2], slots=(1, 1))
+    with pytest.raises(ValueError):
+        tpe.make_packed_group([])
+    group = tpe.make_packed_group(t[:2], slots=(0, 5))
+    assert group.descs.shape == (2, 8) and group.descs.dtype == torch.int64
+    assert group.descs[:, 3:7].tolist() == [[500, 4, 16, 0], [37, 8, 16, 5]]
+    with pytest.raises(ValueError):  # slot 5 needs 6 id rows
+        tpe.packed_pooled_lookup_grouped(group, torch.zeros((3, 4, 1), dtype=torch.int32))

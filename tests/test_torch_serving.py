@@ -169,10 +169,24 @@ def test_onehot_lookup_serving_matches_jax(name, P, monkeypatch):
     np.testing.assert_allclose(got, tserving.make_serving_fn(tsm)(tb).numpy(), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("emb_bits,rowwise,P", [(4, False, 1), (8, False, 1), (4, False, 3), (4, True, 2)])
+def test_fused_gather_matches_jax(emb_bits, rowwise, P):
+    """`fused_gather=True` is the grouped lookup, as every path is: against
+    the JAX package's one gather for all tables (which leaves rowwise tables
+    to its per-table path)."""
+    jc, tc, jsm, tsm = exported("small", emb_bits, 8, rowwise)
+    kw = dict(num_indices_per_lookup=P, variable_pooling=P > 1)
+    jb = jsyn.random_batch(jc, 64, np.random.RandomState(11 + P), **kw)
+    tb = tsyn.random_batch(tc, 64, np.random.RandomState(11 + P), device="cpu", **kw)
+    want = np.asarray(jserving.make_serving_fn(jsm, fused_gather=True)(jb))
+    got = tserving.make_serving_fn(tsm, fused_gather=True)(tb).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got, tserving.make_serving_fn(tsm)(tb).numpy())
+
+
 def test_later_slices_raise():
     _, tc, _, tsm = exported("small", 4, 8, False)
-    for kw in (dict(mlp_impl="int8"), dict(fused_gather=True)):
-        with pytest.raises(NotImplementedError):
-            tserving.make_serving_fn(tsm, **kw)
+    with pytest.raises(NotImplementedError):
+        tserving.make_serving_fn(tsm, mlp_impl="int8")
     with pytest.raises(ValueError):
         tserving.ptq_export(tc, {"emb": [], "bot": [], "top": []}, emb_bits=2)

@@ -211,18 +211,26 @@ def test_dma_row_update_of_coalesce_output():
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
-def test_dma_row_update_bf16_table_rounds_once():
-    """The port adds float32 values to a bf16 row in float32 and rounds once
-    (the JAX kernel first rounds the values to bf16: ROADMAP queue 3)."""
+def test_dma_row_update_bf16_table_matches_jax():
+    """On a bf16 table the values are rounded to bf16 before the add, as the
+    JAX kernel does (stream_update.py:404): the plain version and the CPU
+    wrapper equal the Pallas kernel in interpret mode bit for bit."""
     rng = np.random.default_rng(12)
     R, D = 64, 16
     table = torch.from_numpy(rng.normal(size=(R, D)).astype(np.float32)).to(torch.bfloat16)
     uids = t(np.concatenate([np.arange(0, 64, 3), R + np.arange(3)]).astype(np.int32))
-    uvals = t(rng.normal(size=(uids.shape[0], D)).astype(np.float32) * 1e-2)
-    want = table.float().clone()
-    want[uids[:-3].long()] += uvals[:-3]
-    got = tsu.dma_row_update(table.clone(), uids, uvals)
-    np.testing.assert_array_equal(got.float().numpy(), want.to(torch.bfloat16).float().numpy())
+    uvals = t(rng.normal(size=(uids.shape[0], D)).astype(np.float32) * 0.3)
+    want = jsu.dma_row_update(jnp.asarray(table.float().numpy()).astype(jnp.bfloat16),
+                              jnp.asarray(uids.numpy()), jnp.asarray(uvals.numpy()), interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    for fn in (tsu.dma_row_update_plain, tsu.dma_row_update):
+        got = fn(table.clone(), uids, uvals)
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.float().numpy(), want)
+    # one rounding of the float32 sum would differ: the test sees the order
+    once = table.float().clone()
+    once[uids[:-3].long()] += uvals[:-3]
+    assert not np.array_equal(once.to(torch.bfloat16).float().numpy(), want)
 
 
 @pytest.mark.parametrize("R,D", [(512, 24), (512, 192), (1001, 16)])
