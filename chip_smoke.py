@@ -15,9 +15,10 @@ launch counters of its kernels set to 0 just before and read just after:
 
 1. train: the INT4 QAT sparse step (`make_multi_train_step`, k = 16, B = 128,
    SGD) for 216 steps, so the scale refresh fires at steps 0 and 200, after
-   32 steps of the kernel path against the plain path (`plain=True`);
-2. train_stream: the sparse step at B = 8192 with K1 on the 18 tables of at
-   most 20000 rows and K5 on the 3 tables of 93145-286181 rows
+   32 steps of the kernel path against the plain path (`plain=True`); one
+   grouped K1 launch per step for the 18 tables of at most 20000 rows;
+2. train_stream: the sparse step at B = 8192 with K1 (one grouped launch) on
+   the 18 tables of at most 20000 rows and K5 on the 3 tables of 93145-286181 rows
    (`stream_update_max_rows=300000`), under SGD, Adagrad and RWSAdagrad,
    each from the untrained params: one step of the kernel path against one
    of the plain path, 32 steps against 32, one step against one again from
@@ -31,8 +32,8 @@ launch counters of its kernels set to 0 just before and read just after:
 5. serve: `ServingEngine` and `MicroBatcher` (kernel K2, one grouped launch
    for the 26 tables, and kernel K3, 7 launches, per device batch);
 6. serve_onehot: a second engine with `onehot_lookup_max_rows=20000`
-   (kernel K4 on the 18 small tables, one grouped K2 launch for the other 8)
-   answering the same requests.
+   (one grouped K4 launch for the 18 small tables, unpacked once, and one
+   grouped K2 launch for the other 8) answering the same requests.
 
 Kernel K6 (`dma_row_update`) is on no path; its kernel phase holds it
 against its plain version on the 2,202,608-row table.
@@ -40,7 +41,7 @@ against its plain version on the 2,202,608-row table.
 Every check raises, so any failure exits non-zero. Phases in order: device,
 build, model, kernel (K2, K3, K1, K4, K5, K6), train, profile (train),
 train_stream with profile (SGD), eval, export, serve, profile (serve),
-serve_onehot, kernels.
+serve_onehot with profile, kernels.
 
 Output: one JSON line per phase; then the {"kernels": [...]} summary; then
 the card's name and power limit as nvidia-smi gives them; and last
@@ -412,132 +413,200 @@ def atomic_order_bound(ids, vals, n):
     return 2 * (count - 1).clamp_min(0) * U32 * dense_grad_plain(ids, vals.abs(), n)
 
 
-def k1_check(ids, vals, n, label):
-    """K1 against its plain version on one (ids, vals); both sum duplicate
-    ids with atomics in a run-dependent order. Returns the largest
+def k1_updates(group, g, indices, mask):
+    """The grouped K1's updates as one sparse gradient of the flat buffer:
+    each table's `rows_grad_from_pooled`, its ids moved by the table's row
+    offset (ids out of range become -1)."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import rows_grad_from_pooled
+
+    ids, vals = [], []
+    for n, k, off in zip(group.rows, group.slots, group.offsets):
+        i, v = rows_grad_from_pooled(g[k], indices[k], None if mask is None else mask[k])
+        ids.append(torch.where((i >= 0) & (i < n), i + off, torch.full_like(i, -1)))
+        vals.append(v)
+    return torch.cat(ids), torch.cat(vals)
+
+
+def k1_check(group, g, indices, mask, label):
+    """The grouped K1 against its plain version on one batch; both sum
+    duplicate ids with atomics in a run-dependent order. Returns the largest
     difference."""
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
-        dense_grad_plain,
-        onehot_dense_grad,
+        dense_grad_grouped_plain,
+        onehot_dense_grad_grouped,
     )
 
-    got = onehot_dense_grad(ids, vals, n)
-    want = dense_grad_plain(ids, vals, n)
-    tol = atomic_order_bound(ids, vals, n)
+    got, views = onehot_dense_grad_grouped(group, g, indices, mask)
+    want, _ = dense_grad_grouped_plain(group, g, indices, mask)
+    tol = atomic_order_bound(*k1_updates(group, g, indices, mask), group.total_rows)
     err = (got - want).abs()
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), f"K1 {label}: finite")
+    check(all(v.data_ptr() == got[o:].data_ptr() for v, o in zip(views, group.offsets)),
+          f"K1 {label}: the views lie in the flat gradient")
     check(bool((err <= tol).all()), f"K1 {label}: |kernel - plain| within 2 (c-1) u sum|v|")
     return err.max().item()
 
 
-def k1_work(cfg, B, seed):
-    """(ids, vals, rows) of the 18 small tables' sparse gradients at batch B:
-    the ids of a random batch, vals from a seeded normal."""
-    batch = random_batch(cfg, B, np.random.RandomState(seed))
+def k1_inputs(cfg, B, seed, P=1):
+    """The grouped K1's inputs as the sparse step passes them at batch B: the
+    group of the 18 small tables, g [26, B, D] from a seeded normal, and the
+    ids and mask (None at P = 1) of a random batch."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        make_dense_grad_group,
+    )
+
+    batch = random_batch(cfg, B, np.random.RandomState(seed), num_indices_per_lookup=P,
+                         variable_pooling=P > 1)
     rng = np.random.RandomState(seed + 1)
-    work = []
-    for k in small_tables(cfg):
-        ids = batch.indices[k].reshape(-1)
-        vals = torch.from_numpy(rng.normal(size=(ids.numel(), cfg.embedding_dim)).astype(np.float32))
-        work.append((ids, vals.to(DEVICE), cfg.table_sizes[k]))
-    return work
+    g = torch.from_numpy(rng.normal(size=(cfg.num_tables, B, cfg.embedding_dim)).astype(np.float32))
+    ks = small_tables(cfg)
+    group = make_dense_grad_group([cfg.table_sizes[k] for k in ks], ks)
+    return group, g.to(DEVICE), batch.indices, batch.mask
 
 
 def phase_kernel_k1(cfg, flush):
-    """K1 (dense gradient by scatter-add) on the 18 small Kaggle tables at the
-    main path's B = 128 and at B = 8192, and 8192 updates into 3 rows."""
+    """K1 (dense gradients by scatter-add) on the 18 small Kaggle tables in
+    one grouped launch, at the main path's B = 128 and at B = 8192 (P = 1),
+    against its plain version, the per-table entry (18 launches) and one
+    `index_add_` into the flat gradient; B = 128 at P = 4 with the
+    variable-pooling mask; 8192 updates into 3 rows through the grouped
+    entry."""
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
-        dense_grad_plain,
+        dense_grad_grouped_plain,
+        make_dense_grad_group,
         onehot_dense_grad,
+        onehot_dense_grad_grouped,
     )
 
     t0 = time.perf_counter()
+    d = cfg.embedding_dim
     rows = []
     for B in (B_TRAIN, 8192):
-        work = k1_work(cfg, B, seed=10 + B)
-        err = max(k1_check(*a, f"B={B} rows={a[2]}") for a in work)
-        d = cfg.embedding_dim
+        group, g, indices, mask = k1_inputs(cfg, B, seed=10 + B)
+        err = k1_check(group, g, indices, mask, f"B={B}")
+        per_table = [(indices[k].reshape(-1), g[k], n) for n, k in zip(group.rows, group.slots)]
+        lib_ids, lib_vals = k1_updates(group, g, indices, mask)
+        keep = lib_ids >= 0
+        lib_ids, lib_vals = lib_ids[keep].long(), lib_vals[keep]
+
+        def kernel():
+            return onehot_dense_grad_grouped(group, g, indices)
+
+        def per_table_entry():
+            return [onehot_dense_grad(*a) for a in per_table]
+
+        def plain():
+            return dense_grad_grouped_plain(group, g, indices)
 
         def library():
-            return [torch.zeros((n, d), device=DEVICE).index_add_(0, i, v) for i, v, n in work]
+            return torch.zeros((group.total_rows, d), device=DEVICE).index_add_(0, lib_ids, lib_vals)
 
+        n_small = len(group.rows)
         row = {
             "phase": "kernel", "kernel": "onehot_dense_grad", "case": f"18_small_tables_b{B}",
-            "calls": len(work), "batch": B, "rows": sum(n for _, _, n in work),
-            "max_abs_err": err, "tol": "2 (c-1) u sum|v| per element",
-            "kernel_ms": time_ms(lambda: [onehot_dense_grad(*a) for a in work], flush),
-            "plain_ms": time_ms(lambda: [dense_grad_plain(*a) for a in work], flush),
-            "library_ms": time_ms(library, flush),
-            "kernel_device_ms": device_ms(lambda: [onehot_dense_grad(*a) for a in work]),
-            "plain_device_ms": device_ms(lambda: [dense_grad_plain(*a) for a in work]),
-            "library_device_ms": device_ms(library),
-            # the gradient written once, vals and ids read once
-            "bytes": sum(n * d * 4 + i.numel() * (d * 4 + 4) for i, _, n in work),
+            "entry": "grouped", "tables": n_small, "launches_per_call": 1, "batch": B,
+            "rows": group.total_rows, "max_abs_err": err, "tol": "2 (c-1) u sum|v| per element",
+            "kernel_ms": time_ms(kernel, flush), "per_table_ms": time_ms(per_table_entry, flush),
+            "plain_ms": time_ms(plain, flush), "library_ms": time_ms(library, flush),
+            "kernel_device_ms": device_ms(kernel), "per_table_device_ms": device_ms(per_table_entry),
+            "plain_device_ms": device_ms(plain), "library_device_ms": device_ms(library),
+            "library": "one index_add_ into the flat [47398, D] gradient",
+            # the gradient written once, g's 18 slots and the ids read once
+            "bytes": group.total_rows * d * 4 + n_small * B * (d * 4 + 4),
         }
         row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
         row["bound_by"] = "bytes"
         emit(row)
         rows.append(row)
+    group, g, indices, mask = k1_inputs(cfg, B_TRAIN, seed=14, P=4)
+    masked = k1_check(group, g, indices, mask, "B=128 P=4 with the mask")
+    emit({"phase": "kernel", "kernel": "onehot_dense_grad", "case": "18_small_tables_b128_p4_mask",
+          "entry": "grouped", "max_abs_err": masked, "tol": "2 (c-1) u sum|v| per element",
+          "kernel_device_ms": device_ms(lambda: onehot_dense_grad_grouped(group, g, indices, mask))})
     rng = np.random.RandomState(12)
-    ids = torch.from_numpy(rng.randint(0, 3, size=8192).astype(np.int32)).to(DEVICE)
-    vals = torch.from_numpy(rng.normal(size=(8192, cfg.embedding_dim)).astype(np.float32)).to(DEVICE)
-    heavy = k1_check(ids, vals, 3, "8192 updates into 3 rows")
+    ids = torch.from_numpy(rng.randint(0, 3, size=(1, 8192, 1)).astype(np.int32)).to(DEVICE)
+    vals = torch.from_numpy(rng.normal(size=(1, 8192, d)).astype(np.float32)).to(DEVICE)
+    group3 = make_dense_grad_group((3,), (0,))
+    heavy = k1_check(group3, vals, ids, None, "8192 updates into 3 rows")
     emit({"phase": "kernel", "kernel": "onehot_dense_grad", "case": "heavy_duplicates_8192_into_3",
-          "max_abs_err": heavy, "tol": "2 (c-1) u sum|v| per element",
+          "entry": "grouped", "max_abs_err": heavy, "tol": "2 (c-1) u sum|v| per element",
+          "kernel_device_ms": device_ms(lambda: onehot_dense_grad_grouped(group3, vals, ids)),
+          "library_device_ms": device_ms(
+              lambda: torch.zeros((3, d), device=DEVICE).index_add_(0, ids.reshape(-1).long(), vals[0])),
           "phase_s": time.perf_counter() - t0})
-    return rows[0], max([heavy] + [r["max_abs_err"] for r in rows])
+    return rows[0], max([heavy, masked] + [r["max_abs_err"] for r in rows])
 
 
 def phase_kernel_k4(cfg, params, flush):
-    """K4 (small-table weighted pooled lookup) on the 18 small Kaggle tables:
-    the forward at B = 16384 and 128, P = 1 and P = 4 with the
-    variable-pooling mask; the backward (d_table through K1, d_w) at B = 128
-    against autograd through the plain version."""
+    """K4 (small-table weighted pooled lookup) on the 18 small Kaggle tables
+    in one grouped launch: the forward at B = 16384 and 128, P = 1 and P = 4
+    with the variable-pooling mask, against its plain version, the per-table
+    entry (18 launches) and one `embedding_bag` over the tables laid end to
+    end; the backward (d_tables through one grouped K1 launch, d_mask) at
+    B = 128 against autograd through the plain version."""
     import torch.nn.functional as F
 
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
-        onehot_pooled_lookup,
+        make_onehot_lookup_group,
         onehot_pooled_lookup_fwd,
-        pooled_lookup_weighted_plain,
+        onehot_pooled_lookup_grouped,
+        onehot_pooled_lookup_grouped_fwd,
+        onehot_pooled_lookup_grouped_plain,
     )
 
     t0 = time.perf_counter()
     ks = small_tables(cfg)
     d = cfg.embedding_dim
+    tables = [params["emb"][k] for k in ks]
+    group = make_onehot_lookup_group(tables, ks)
+    flat_table = torch.cat(tables)
+    offsets = torch.tensor(group.grad.offsets, device=DEVICE)[:, None, None]
     rows = {}
     for B, P in ((B_MAIN, 1), (B_MAIN, 4), (B_TRAIN, 1), (B_TRAIN, 4)):
         batch = random_batch(cfg, B, np.random.RandomState(20 + B + P),
                              num_indices_per_lookup=P, variable_pooling=P > 1)
+        idx, mask = batch.indices, batch.mask
         ones = torch.ones((B, P), device=DEVICE)
-        work = [(params["emb"][k], batch.indices[k], ones if batch.mask is None else batch.mask[k])
-                for k in ks]
-        err = lib_err = 0.0
-        for t, i, w in work:
-            got, want = onehot_pooled_lookup_fwd(t, i, w), pooled_lookup_weighted_plain(t, i, w)
-            lib = F.embedding_bag(i, t, mode="sum", per_sample_weights=w)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()), f"K4 B={B} P={P}: finite")
-            err = max(err, (got - want).abs().max().item())
-            lib_err = max(lib_err, (lib - want).abs().max().item())
-        check(err <= K4_TOL, f"K4 B={B} P={P}: max_abs_err {err} <= {K4_TOL}")
+        per_table = [(t, idx[k], ones if mask is None else mask[k]) for t, k in zip(tables, ks)]
+        lib_ids = (idx[ks].long() + offsets).reshape(-1, P)
+        lib_w = None if mask is None else mask[ks].reshape(-1, P)
+        # into [26, B, D] tensors allocated once, as serving passes its own
+        out_k, out_p = (torch.empty((cfg.num_tables, B, d), device=DEVICE) for _ in range(2))
+
+        def kernel():
+            return onehot_pooled_lookup_grouped_fwd(group, idx, mask, out=out_k)
+
+        def per_table_entry():
+            return [onehot_pooled_lookup_fwd(*a) for a in per_table]
+
+        def plain():
+            return onehot_pooled_lookup_grouped_plain(group, idx, mask, out=out_p)
 
         def library():
-            return [F.embedding_bag(i, t, mode="sum", per_sample_weights=w) for t, i, w in work]
+            return F.embedding_bag(lib_ids, flat_table, mode="sum", per_sample_weights=lib_w)
 
+        got, want = kernel()[ks], plain()[ks]
+        one = torch.stack(per_table_entry())
+        lib = library().reshape(len(ks), B, d)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"K4 B={B} P={P}: finite")
+        err = max((got - want).abs().max().item(), (one - want).abs().max().item())
+        check(err <= K4_TOL, f"K4 B={B} P={P}: max_abs_err {err} <= {K4_TOL}")
+        if P == 1:  # one term per bag: the plain version's float32 operations
+            check(err == 0.0, f"K4 B={B}: max_abs_err {err} == 0 at P = 1")
         row = {
             "phase": "kernel", "kernel": "onehot_pooled_lookup", "case": f"18_small_tables_b{B}_p{P}",
-            "calls": len(work), "batch": B, "pooling": P, "max_abs_err": err, "tol": K4_TOL,
-            "library_max_abs_err": lib_err,
-            "kernel_ms": time_ms(lambda: [onehot_pooled_lookup_fwd(*a) for a in work], flush),
-            "plain_ms": time_ms(lambda: [pooled_lookup_weighted_plain(*a) for a in work], flush),
-            "library_ms": time_ms(library, flush),
-            "kernel_device_ms": device_ms(lambda: [onehot_pooled_lookup_fwd(*a) for a in work]),
-            "plain_device_ms": device_ms(lambda: [pooled_lookup_weighted_plain(*a) for a in work]),
-            "library_device_ms": device_ms(library),
-            # ids and weights read once, the distinct rows read once, the output written once
-            "bytes": sum(i.numel() * 8 + B * d * 4 + torch.unique(i).numel() * d * 4
-                         for _, i, _ in work),
+            "entry": "grouped", "tables": len(ks), "launches_per_call": 1, "batch": B, "pooling": P,
+            "max_abs_err": err, "tol": K4_TOL, "library_max_abs_err": (lib - want).abs().max().item(),
+            "kernel_ms": time_ms(kernel, flush), "per_table_ms": time_ms(per_table_entry, flush),
+            "plain_ms": time_ms(plain, flush), "library_ms": time_ms(library, flush),
+            "kernel_device_ms": device_ms(kernel), "per_table_device_ms": device_ms(per_table_entry),
+            "plain_device_ms": device_ms(plain), "library_device_ms": device_ms(library),
+            "library": "one embedding_bag over the 18 tables laid end to end",
+            # ids (and the mask) read once, the distinct rows read once, the output written once
+            "bytes": sum(idx[k].numel() * (4 if mask is None else 8) + B * d * 4
+                         + torch.unique(idx[k]).numel() * d * 4 for k in ks),
         }
         row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
         row["bound_by"] = "bytes"
@@ -545,26 +614,38 @@ def phase_kernel_k4(cfg, params, flush):
         rows[(B, P)] = row
         if B != B_TRAIN:
             continue
-        # backward: the kernel path's autograd function against autograd through the plain version
-        g_rng = np.random.RandomState(30 + P)
-        err_t = err_w = 0.0
-        for t, i, w in work:
-            g = torch.from_numpy(g_rng.normal(size=(B, d)).astype(np.float32)).to(DEVICE)
-            grads = []
-            for fn in (onehot_pooled_lookup, pooled_lookup_weighted_plain):
-                tt, ww = t.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
-                grads.append(torch.autograd.grad(fn(tt, i, ww), (tt, ww), g))
-            (kt, kw), (pt, pw) = grads
-            tol = atomic_order_bound(i.reshape(-1), (g[:, None, :] * w[..., None]).reshape(-1, d),
+        # backward: the grouped autograd function against autograd through the plain version
+        g = torch.from_numpy(np.random.RandomState(30 + P).normal(
+            size=(cfg.num_tables, B, d)).astype(np.float32)).to(DEVICE)
+        w = ones.expand(cfg.num_tables, B, P).contiguous() if mask is None else mask
+
+        def backward(fn, with_w):
+            """The backward of one forward through `fn`, to run again and
+            again: d_tables, and d_w `with_w`."""
+            tt = [t.detach().clone().requires_grad_() for t in tables]
+            ww = w.detach().clone().requires_grad_(with_w)
+            out = fn(make_onehot_lookup_group(tt, ks), idx, ww)
+            inputs = tt + ([ww] if with_w else [])
+            return lambda: torch.autograd.grad(out, inputs, g, retain_graph=True)
+
+        *kt, kw = backward(onehot_pooled_lookup_grouped, True)()
+        *pt, pw = backward(onehot_pooled_lookup_grouped_plain, True)()
+        err_t = 0.0
+        for a, b, t, k in zip(kt, pt, tables, ks):
+            tol = atomic_order_bound(idx[k].reshape(-1), (g[k][:, None, :] * w[k][..., None]).reshape(-1, d),
                                      t.shape[0])
-            torch.cuda.synchronize()
-            check(bool(((kt - pt).abs() <= tol).all()), f"K4 backward P={P}: d_table")
-            err_t = max(err_t, (kt - pt).abs().max().item())
-            err_w = max(err_w, (kw - pw).abs().max().item())
+            check(bool(((a - b).abs() <= tol).all()), f"K4 backward P={P}: d_table {t.shape[0]} rows")
+            err_t = max(err_t, (a - b).abs().max().item())
+        err_w = (kw - pw).abs().max().item()
+        torch.cuda.synchronize()
         check(err_w <= K4_TOL, f"K4 backward P={P}: d_w {err_w} <= {K4_TOL}")
+        kernel_bwd = backward(onehot_pooled_lookup_grouped, False)
+        plain_bwd = backward(onehot_pooled_lookup_grouped_plain, False)
         emit({"phase": "kernel", "kernel": "onehot_pooled_lookup", "case": f"backward_b{B}_p{P}",
-              "d_table_max_abs_err": err_t, "d_w_max_abs_err": err_w,
-              "tol": "d_table 2 (c-1) u sum|v|, d_w 1e-5"})
+              "entry": "grouped", "d_table_max_abs_err": err_t, "d_w_max_abs_err": err_w,
+              "tol": "d_table 2 (c-1) u sum|v|, d_w 1e-5", "timed": "d_tables only",
+              "kernel_ms": time_ms(kernel_bwd, flush), "plain_ms": time_ms(plain_bwd, flush),
+              "kernel_device_ms": device_ms(kernel_bwd), "plain_device_ms": device_ms(plain_bwd)})
         rows[(B, P)]["max_abs_err"] = max(err, err_t, err_w)
     emit({"phase": "kernel", "kernel": "onehot_pooled_lookup", "phase_s": time.perf_counter() - t0})
     return rows[(B_MAIN, 1)], max(r["max_abs_err"] for r in rows.values())
@@ -759,8 +840,10 @@ def phase_train(cfg, params):
         init_quant_state,
     )
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
-        onehot_dense_grad as k1,
-        onehot_pooled_lookup_fwd as k4,
+        onehot_dense_grad as k1_one,
+        onehot_dense_grad_grouped as k1,
+        onehot_pooled_lookup_fwd as k4_one,
+        onehot_pooled_lookup_grouped_fwd as k4,
     )
     from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import (
         TrainState,
@@ -802,7 +885,7 @@ def phase_train(cfg, params):
     scales0 = compute_emb_scales(cfg, params)
     tail = make_multi_train_step(cfg, tc, 8, sparse_emb_grad=True)
     torch.cuda.synchronize()
-    k1.launches = k4.launches = 0
+    k1.launches = k1_one.launches = k4.launches = k4_one.launches = 0
     t1 = time.perf_counter()
     losses = []
     state, _ = multi(state, batches)
@@ -821,13 +904,14 @@ def phase_train(cfg, params):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t1
     launches = {"onehot_dense_grad": k1.launches, "onehot_pooled_lookup": k4.launches}
+    per_table = {"onehot_dense_grad": k1_one.launches, "onehot_pooled_lookup": k4_one.launches}
     check(state.qstate.step == TRAIN_STEPS, f"qstate.step {state.qstate.step} == {TRAIN_STEPS}")
     check(bool(torch.equal(state.qstate.emb_scales, scales200)), "scales refreshed at step 200")
     check(not torch.equal(scales200, scales0), "the refresh at step 200 saw the trained tables")
     check(losses.numel() == TRAIN_STEPS and bool(torch.isfinite(losses).all()), "every loss finite")
-    n_small = len(small_tables(cfg))
-    check(launches["onehot_dense_grad"] == n_small * TRAIN_STEPS,
-          f"K1 launches {launches} == {n_small} per step x {TRAIN_STEPS}")
+    check(launches["onehot_dense_grad"] == TRAIN_STEPS,
+          f"K1 launches {launches} == 1 grouped launch per step x {TRAIN_STEPS}")
+    check(not any(per_table.values()), f"per-table K1/K4 launches {per_table} == 0")
     check(launches["onehot_pooled_lookup"] == 0, f"K4 launches {launches} == 0 in training")
 
     # time: CUDA events around chains of 4 megasteps (64 steps), three chains
@@ -931,7 +1015,8 @@ def phase_train_stream(cfg, params0):
     from deep_quantized_recommendation_model_dqrm_tpu_torch.config import TrainConfig
     from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import Batch, init_quant_state
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
-        onehot_dense_grad as k1,
+        onehot_dense_grad as k1_one,
+        onehot_dense_grad_grouped as k1,
     )
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.stream_update import (
         stream_scatter_add as k5,
@@ -952,7 +1037,7 @@ def phase_train_stream(cfg, params0):
     rng = np.random.RandomState(60)
     host = stack_batches([random_batch(cfg, B_STREAM, rng, device="cpu") for _ in range(K_MEGA)])
     batches = Batch(*(None if t is None else t.to(DEVICE) for t in host))
-    n_small, n_stream = len(small_tables(cfg)), len(stream_tables(cfg))
+    n_stream = len(stream_tables(cfg))
     total = {"onehot_dense_grad": 0, "stream_scatter_add": 0}
     for opt, lr in STREAM_LR.items():
         t1 = time.perf_counter()
@@ -973,12 +1058,13 @@ def phase_train_stream(cfg, params0):
             run = make_multi_train_step(cfg, tc, K_MEGA, sparse_emb_grad=True, plain=path == "plain")
             losses = []
             torch.cuda.synchronize()
-            k1.launches = k5.launches = 0
+            k1.launches = k1_one.launches = k5.launches = 0
             for _ in range(STREAM_STEPS // K_MEGA):
                 st, _ = run(st, batches)
                 losses.append(run.losses)
             torch.cuda.synchronize()
             paths[path] = (st, torch.cat(losses), {"onehot_dense_grad": k1.launches,
+                                                    "onehot_dense_grad_per_table": k1_one.launches,
                                                     "stream_scatter_add": k5.launches})
         del state
         (sk, lk, launches), (sk2, lk2, launches2), (sp, lp, plain_launches) = paths.values()
@@ -997,7 +1083,7 @@ def phase_train_stream(cfg, params0):
         multi = make_multi_train_step(cfg, tc, K_MEGA, sparse_emb_grad=True)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        k1.launches = k5.launches = 0
+        k1.launches = k1_one.launches = k5.launches = 0
         h0 = time.perf_counter()
         start.record()
         for _ in range(STREAM_CHAIN_MEGASTEPS):
@@ -1009,6 +1095,7 @@ def phase_train_stream(cfg, params0):
         host_ms = (time.perf_counter() - h0) * 1e3 / chain_steps
         chain_losses = multi.losses
         launches = {"onehot_dense_grad": launches["onehot_dense_grad"] + k1.launches,
+                    "onehot_dense_grad_per_table": launches["onehot_dense_grad_per_table"] + k1_one.launches,
                     "stream_scatter_add": launches["stream_scatter_add"] + k5.launches}
         steps = STREAM_STEPS + chain_steps
         for name in total:
@@ -1047,9 +1134,9 @@ def phase_train_stream(cfg, params0):
               and bool(torch.isfinite(chain_losses).all()), f"{opt}: every loss finite")
         check(launches["stream_scatter_add"] == n_stream * steps,
               f"{opt}: K5 launches {launches} == {n_stream} per step x {steps}")
-        check(launches["onehot_dense_grad"] == n_small * steps,
-              f"{opt}: K1 launches {launches} == {n_small} per step x {steps}")
-        check(launches2 == {"onehot_dense_grad": n_small * STREAM_STEPS,
+        check(launches["onehot_dense_grad"] == steps and launches["onehot_dense_grad_per_table"] == 0,
+              f"{opt}: K1 launches {launches} == 1 grouped launch per step x {steps}")
+        check(launches2 == {"onehot_dense_grad": STREAM_STEPS, "onehot_dense_grad_per_table": 0,
                             "stream_scatter_add": n_stream * STREAM_STEPS},
               f"{opt}: the second kernel-path run launched {launches2}")
         check(not any(plain_launches.values()), f"{opt}: the plain path launched {plain_launches}")
@@ -1110,13 +1197,13 @@ def dense_reference(sm, dense, idx):
     return torch.sigmoid(mlp(sm.top, dot_interaction(x, ly), True).reshape(-1)).cpu().numpy()
 
 
-def phase_profile(eng, batch, n: int = 10) -> None:
+def phase_profile(eng, batch, of: str, n: int = 10) -> None:
     """Where one device batch's time goes: device time by kernel name over
     `n` batches of the serving function, and the device's idle share of the
     host wall time."""
     ops, wall_ms = device_ops(lambda: eng.fn(batch), n)
     busy = sum(o["ms_per_call"] for o in ops)
-    emit({"phase": "profile", "batches": n, "batch": int(batch.dense.shape[0]),
+    emit({"phase": "profile", "of": of, "batches": n, "batch": int(batch.dense.shape[0]),
           "wall_ms_per_batch": wall_ms / n,
           "device_busy_ms_per_batch": busy if ops else "not measured",
           "device_idle_share": 1.0 - busy * n / wall_ms if ops else "not measured",
@@ -1194,7 +1281,7 @@ def phase_serve(cfg, sm, nbytes, flush):
     batch = random_batch(cfg, B_MAIN, np.random.RandomState(8))
     batch_ms = time_ms(lambda: eng.fn(batch), flush)
     plain_ms = time_ms(lambda: plain.fn(batch), flush)
-    phase_profile(eng, batch)
+    phase_profile(eng, batch, "serve")
     emit({"phase": "serve", "serving_model_bytes": nbytes, "buckets": list(BUCKETS),
           "request_latency_ms": latency, "device_batches": batches,
           "micro_batcher_requests": len(reqs_mb), "micro_batcher_batches": batches - direct_batches,
@@ -1208,11 +1295,13 @@ def phase_serve(cfg, sm, nbytes, flush):
 
 def phase_serve_onehot(cfg, sm, reqs, outs, flush):
     """A second engine with `onehot_lookup_max_rows=20000` answers the same
-    requests: the 18 small tables are unpacked per call and looked up by K4,
-    the other 8 by one grouped K2 launch. The fp32 tables are the INT4
-    tables unpacked, so both engines compute the same function."""
+    requests: the 18 small tables, unpacked once when the engine is built,
+    are looked up by one grouped K4 launch, the other 8 by one grouped K2
+    launch. The fp32 tables are the INT4 tables unpacked, so both engines
+    compute the same function."""
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
-        onehot_pooled_lookup_fwd as k4,
+        onehot_pooled_lookup_fwd as k4_one,
+        onehot_pooled_lookup_grouped_fwd as k4,
     )
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
         packed_pooled_lookup_grouped as k2,
@@ -1228,7 +1317,7 @@ def phase_serve_onehot(cfg, sm, reqs, outs, flush):
     for dense, idx in requests(cfg, BUCKETS, seed=5):
         eng.predict(dense, idx)  # warm-up of every bucket shape
     torch.cuda.synchronize()
-    k2.launches = k2_one.launches = k3.launches = k4.launches = eng.batches = 0
+    k2.launches = k2_one.launches = k3.launches = k4.launches = k4_one.launches = eng.batches = 0
     err, latency = 0.0, {}
     for n, (dense, idx), want in zip(SIZES, reqs, outs):
         h0 = time.perf_counter()
@@ -1239,18 +1328,20 @@ def phase_serve_onehot(cfg, sm, reqs, outs, flush):
     batches = eng.batches
     launches = {"onehot_pooled_lookup": k4.launches, "packed_pooled_lookup": k2.launches,
                 "int8_linear": k3.launches}
-    n_small = len(small_tables(cfg))
-    check(launches["onehot_pooled_lookup"] == n_small * batches, f"K4 {launches} == {n_small} x {batches}")
+    check(launches["onehot_pooled_lookup"] == batches and k4_one.launches == 0,
+          f"K4 {launches}, per-table {k4_one.launches}: one grouped launch for the "
+          f"{len(small_tables(cfg))} small tables x {batches}")
     check(launches["packed_pooled_lookup"] == batches and k2_one.launches == 0,
           f"K2 {launches}, per-table {k2_one.launches}: one grouped launch for the "
-          f"{cfg.num_tables - n_small} big tables x {batches}")
+          f"{cfg.num_tables - len(small_tables(cfg))} big tables x {batches}")
     check(launches["int8_linear"] == 7 * batches, f"K3 {launches} == 7 x {batches}")
     check(err <= SERVE_ATOL, f"serve_onehot vs the K2 engine {err} <= {SERVE_ATOL}")
     batch = random_batch(cfg, B_MAIN, np.random.RandomState(8))
+    batch_ms = time_ms(lambda: eng.fn(batch), flush)
+    phase_profile(eng, batch, "serve_onehot")
     emit({"phase": "serve_onehot", "onehot_lookup_max_rows": SMALL_ROWS, "device_batches": batches,
           "launches": launches, "launches_per_batch": {k: v / batches for k, v in launches.items()},
-          "max_abs_err_vs_serve": err, "request_latency_ms": latency,
-          "batch_ms_device": time_ms(lambda: eng.fn(batch), flush),
+          "max_abs_err_vs_serve": err, "request_latency_ms": latency, "batch_ms_device": batch_ms,
           "phase_s": time.perf_counter() - t0})
     return launches
 
@@ -1322,12 +1413,12 @@ def main() -> int:
                  "stream_scatter_add"):
         check(launches[name] > 0, f"{name} launched on the main path")
 
-    def entry(name, src, replaces, row, err):
+    def entry(name, src, replaces, row, err, design):
         return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{src}",
                 "replaces": f"{JAX_PKG}/ops/pallas/{replaces}", "launches": launches[name],
                 "max_abs_err": err, "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"]}
+                "library_ms": row["library_ms"], "design": design}
 
     emit({"phase": "kernels", "checked_by": {"onehot_dense_grad": ["kernel", "train", "train_stream"],
                                              "packed_pooled_lookup": ["kernel", "serve", "serve_onehot"],
@@ -1335,13 +1426,19 @@ def main() -> int:
                                              "onehot_pooled_lookup": ["kernel", "serve_onehot"],
                                              "stream_scatter_add": ["kernel", "train_stream"],
                                              "dma_row_update": ["kernel"]}})
+    grouped = "one launch for a group of tables"
     emit({"kernels": [
-        entry("onehot_dense_grad", "onehot_update.cu", "onehot_update.py:116", k1_row, k1_err),
-        entry("packed_pooled_lookup", "packed_embedding.cu", "packed_embedding.py:261", k2_row, k2_err),
-        entry("int8_linear", "quant_matmul.cu", "quant_matmul.py:68", k3_row, k3_row["max_abs_err"]),
-        entry("onehot_pooled_lookup", "onehot_update.cu", "onehot_update.py:203", k4_row, k4_err),
-        entry("stream_scatter_add", "stream_update.cu", "stream_update.py:118", k5_row, k5_err),
-        entry("dma_row_update", "stream_update.cu", "stream_update.py:350", k6_row, k6_err),
+        entry("onehot_dense_grad", "onehot_update.cu", "onehot_update.py:116", k1_row, k1_err,
+              f"{grouped}; shared-memory sums for tables that fit"),
+        entry("packed_pooled_lookup", "packed_embedding.cu", "packed_embedding.py:261", k2_row, k2_err,
+              grouped),
+        entry("int8_linear", "quant_matmul.cu", "quant_matmul.py:68", k3_row, k3_row["max_abs_err"],
+              "tensor cores: three bf16 wgmma passes, ReLU fused"),
+        entry("onehot_pooled_lookup", "onehot_update.cu", "onehot_update.py:203", k4_row, k4_err, grouped),
+        entry("stream_scatter_add", "stream_update.cu", "stream_update.py:118", k5_row, k5_err,
+              "one owner thread per sorted id run"),
+        entry("dma_row_update", "stream_update.cu", "stream_update.py:350", k6_row, k6_err,
+              "one thread per (id, column)"),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,7 +28,10 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.config import DLRMConfig
 from deep_quantized_recommendation_model_dqrm_tpu_torch.device import resolve_device
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops import quant as q
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
-    pooled_lookup_onehot_auto,
+    group_slots,
+    make_onehot_lookup_group,
+    onehot_pooled_lookup_grouped,
+    onehot_pooled_lookup_grouped_plain,
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import pooled_lookup
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.interaction import (
@@ -204,19 +207,22 @@ def lookup_all(
     plain: bool = False,
 ) -> torch.Tensor:  # [T, B, D]
     """Raw pooled lookups of every table, differentiable through the tables.
-    A table with at most `onehot_lookup_max_rows` rows goes through kernel
-    K4 (its plain version with `plain=True`). The JAX package's
-    `full_precision` argument selects PACT's table fake-quant, a later
-    slice."""
-    outs = []
-    for k, table in enumerate(params["emb"]):
-        m = mask[k] if mask is not None else None
-        if 0 < table.shape[0] <= config.onehot_lookup_max_rows:
-            pooled = pooled_lookup_onehot_auto(table, indices[k], m, plain=plain)
-        else:
-            pooled = pooled_lookup(table, indices[k], m)
-        outs.append(pooled.float())
-    return torch.stack(outs)
+    The tables with at most `onehot_lookup_max_rows` rows go through one
+    launch of kernel K4 (its plain version with `plain=True`) per group of
+    up to 32 (`group_slots`); the others through `pooled_lookup`. The JAX
+    package's `full_precision` argument selects PACT's table fake-quant, a
+    later slice."""
+    emb = params["emb"]
+    lookup = onehot_pooled_lookup_grouped_plain if plain else onehot_pooled_lookup_grouped
+    small = [k for k, t in enumerate(emb) if 0 < t.shape[0] <= config.onehot_lookup_max_rows]
+    outs = {}
+    for ks in group_slots(small):
+        pooled = lookup(make_onehot_lookup_group([emb[k] for k in ks], ks), indices, mask)
+        outs.update((k, pooled[k]) for k in ks)
+    for k, table in enumerate(emb):
+        if k not in outs:
+            outs[k] = pooled_lookup(table, indices[k], None if mask is None else mask[k]).float()
+    return torch.stack([outs[k] for k in range(len(emb))])
 
 
 def emb_postprocess(

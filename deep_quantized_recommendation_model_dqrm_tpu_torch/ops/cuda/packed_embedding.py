@@ -20,9 +20,9 @@ on the card the hand-written kernel (csrc/packed_embedding.cu) is the lookup.
 - `PackedGroup` / `make_packed_group` — tables looked up together, with the
   kernel's descriptor array built once;
 - `packed_pooled_lookup_grouped_plain` / `packed_pooled_lookup_grouped` —
-  every table of a group over [T, B, P] ids into one [T, B, D] output: a
-  loop of `packed_pooled_lookup`, and the wrapper that launches the same
-  kernel once for the whole group.
+  every table of a group over [T, B, P] ids into its slot of one [T, B, D]
+  output (the caller's, or a new one): a loop of `packed_pooled_lookup`,
+  and the wrapper that launches the same kernel once for the whole group.
 
 Out-of-range ids are clamped to [0, rows - 1] by both, as the JAX package's
 fused serving path does; the JAX per-table path returns filler rows for them.
@@ -37,6 +37,7 @@ import torch
 
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops import quant as q
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda import _build
+from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import grouped_lookup_out
 
 
 class PackedTable(NamedTuple):
@@ -261,23 +262,16 @@ def make_packed_group(tables: Sequence[PackedTable], slots: Optional[Sequence[in
                        max_items_per_bag=max(items))
 
 
-def _grouped_out(group: PackedGroup, indices: torch.Tensor) -> torch.Tensor:
-    T, B, _ = indices.shape
-    if max(group.slots) >= T:
-        raise ValueError(f"group slots {group.slots} do not fit {T} id rows")
-    # slots outside the group read 0
-    alloc = torch.empty if len(group.slots) == T else torch.zeros
-    return alloc((T, B, group.dim), dtype=torch.float32, device=indices.device)
-
-
 def packed_pooled_lookup_grouped_plain(
     group: PackedGroup,
     indices: torch.Tensor,  # [T, B, P] int32
     mask: Optional[torch.Tensor] = None,  # [T, B, P]
+    out: Optional[torch.Tensor] = None,  # [T, B, D] float32
 ) -> torch.Tensor:  # [T, B, D] float32
     """Plain version of the grouped lookup: `packed_pooled_lookup` of each
-    table of the group into its slot; slots outside the group are 0."""
-    out = _grouped_out(group, indices)
+    table of the group into its slot of `out` (a new tensor unless given;
+    its slots outside the group are then 0)."""
+    out = grouped_lookup_out(group.slots, group.dim, indices, out)
     for pt, k in zip(group.tables, group.slots):
         out[k] = packed_pooled_lookup(pt, indices[k], None if mask is None else mask[k])
     return out
@@ -287,25 +281,27 @@ def packed_pooled_lookup_grouped(
     group: PackedGroup,
     indices: torch.Tensor,  # [T, B, P] int32
     mask: Optional[torch.Tensor] = None,  # [T, B, P] float32
+    out: Optional[torch.Tensor] = None,  # [T, B, D] float32
 ) -> torch.Tensor:  # [T, B, D] float32
-    """Every table of `group` in one launch: the plain version for a CPU
-    tensor, the CUDA kernel (csrc/packed_embedding.cu) for a CUDA tensor.
+    """Every table of `group` in one launch, into its slot of `out` (a new
+    tensor unless given; its slots outside the group are then 0): the plain
+    version for a CPU tensor, the CUDA kernel (csrc/packed_embedding.cu) for
+    a CUDA tensor.
 
     Counts its kernel launches in `packed_pooled_lookup_grouped.launches`."""
     if indices.device.type == "cpu":
-        return packed_pooled_lookup_grouped_plain(group, indices, mask)
+        return packed_pooled_lookup_grouped_plain(group, indices, mask, out)
     dev = indices.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if indices.dim() != 3:
-        raise ValueError(f"indices must be [T, B, P], got {tuple(indices.shape)}")
+    out = grouped_lookup_out(group.slots, group.dim, indices, out)
     if group.descs.device != dev:
         raise ValueError("packed tables, indices and mask must be on one device")
     _check_ids(indices, mask, dev)
-    out = _grouped_out(group, indices)
     _, B, P = indices.shape
     if B == 0 or P == 0:
-        return out.zero_()
+        out[list(group.slots)] = 0.0
+        return out
     lib = _build.load("packed_embedding", _SIGNATURES)
     err = lib.dqrm_packed_pooled_lookup_grouped(
         group.descs.data_ptr(), len(group.tables), indices.data_ptr(),

@@ -57,6 +57,32 @@ def rows_grad_from_pooled(
     return indices.reshape(B * P), vals.reshape(B * P, -1)
 
 
+def check_slots_fit(slots: Tuple[int, ...], indices: torch.Tensor) -> None:
+    """Raise unless `indices` is [T, B, P] with a row for every slot."""
+    if indices.dim() != 3:
+        raise ValueError(f"indices must be [T, B, P], got {tuple(indices.shape)}")
+    if max(slots) >= indices.shape[0]:
+        raise ValueError(f"group slots {slots} do not fit {indices.shape[0]} id rows")
+
+
+def grouped_lookup_out(
+    slots: Tuple[int, ...],
+    dim: int,
+    indices: torch.Tensor,  # [T, B, P]
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:  # [T, B, dim] float32
+    """The [T, B, dim] float32 output of a grouped lookup whose tables write
+    `slots`: `out` once checked, else a new tensor whose other slots read 0."""
+    check_slots_fit(slots, indices)
+    T, B, _ = indices.shape
+    if out is None:
+        alloc = torch.empty if len(slots) == T else torch.zeros
+        return alloc((T, B, dim), dtype=torch.float32, device=indices.device)
+    if out.shape != (T, B, dim) or out.dtype != torch.float32 or out.device != indices.device:
+        raise ValueError(f"out must be float32 [{T}, {B}, {dim}] on {indices.device}")
+    return out
+
+
 def clamp_ids(ids: torch.Tensor, num_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ids clamped into [0, num_rows) as int64, bool mask of the ids that
     were in range): how the port drops out-of-range ids without a host

@@ -7,8 +7,8 @@ Port of the JAX package's serving.py for plain embedding tables:
   MLP weights INT8 per output channel (or kept float32);
 - `make_serving_fn` builds the inference function over the packed model:
   one grouped gather-dequant-pool launch for the packed tables (kernel K2),
-  or for tables with at most `onehot_lookup_max_rows` rows an unpack per
-  call and the weighted lookup of kernel K4, int8 dequant matmuls with the
+  or for tables with at most `onehot_lookup_max_rows` rows, unpacked once,
+  one grouped launch of kernel K4, int8 dequant matmuls with the
   ReLU fused (kernel K3), dot or cat interaction, sigmoid,
   `loss_threshold` clip;
 - `ServingEngine` pads requests on the host to the nearest bucket size and
@@ -33,7 +33,10 @@ import torch
 from deep_quantized_recommendation_model_dqrm_tpu_torch.config import DLRMConfig
 from deep_quantized_recommendation_model_dqrm_tpu_torch.models import dlrm
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
-    pooled_lookup_onehot_auto,
+    group_slots,
+    make_onehot_lookup_group,
+    onehot_pooled_lookup_grouped_fwd,
+    onehot_pooled_lookup_grouped_plain,
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
     PackedTable,
@@ -129,11 +132,13 @@ def make_serving_fn(
     The lookups of all packed tables go through one
     `packed_pooled_lookup_grouped` call, whose descriptor array is built
     here, once, and the int8 layers through `int8_linear`: kernels on the
-    card, their plain versions on the CPU. A packed table with at most
-    `onehot_lookup_max_rows` rows is instead unpacked on every call (the 18
-    such Kaggle tables hold 47,398 rows) and looked up by
-    `pooled_lookup_onehot_auto` (kernel K4) into its slot of the same
-    output. `fused_gather=True` is accepted for the JAX package's signature:
+    card, their plain versions on the CPU. The packed tables with at most
+    `onehot_lookup_max_rows` rows are instead unpacked here, once, and kept
+    beside the packed model (the 18 such Kaggle tables hold 47,398 rows:
+    3,033,472 bytes of float32 at D = 16; `serving_model_bytes` stays the
+    export's size), and one `onehot_pooled_lookup_grouped_fwd` launch
+    (kernel K4) looks them up into their slots of the same output.
+    `fused_gather=True` is accepted for the JAX package's signature:
     that package's one gather for all tables gives the per-table results,
     and here every lookup is one grouped launch already. `plain=True` calls
     the plain versions on any device — the reference the kernels are checked
@@ -147,21 +152,23 @@ def make_serving_fn(
     del fused_gather  # the grouped lookup below is the fused path
     cfg = sm.config
     grouped = packed_pooled_lookup_grouped_plain if plain else packed_pooled_lookup_grouped
+    onehot = onehot_pooled_lookup_grouped_plain if plain else onehot_pooled_lookup_grouped_fwd
     linear8 = int8_linear_xla if plain else int8_linear
     small = [k for k, pt in enumerate(sm.emb) if 0 < pt.rows <= onehot_lookup_max_rows]
     big = [k for k in range(len(sm.emb)) if k not in small]
     group = make_packed_group([sm.emb[k] for k in big], big) if big else None
+    onehot_groups = [make_onehot_lookup_group([unpack_table(sm.emb[k]) for k in ks], ks)
+                     for ks in group_slots(small)]
 
     @torch.inference_mode()
     def fn(batch: dlrm.Batch) -> torch.Tensor:
+        # [T, B, D]: the K2 group and the K4 groups write its slots between them
+        T, B, _ = batch.indices.shape
+        ly = torch.empty((T, B, cfg.embedding_dim), device=batch.indices.device)
         if group is not None:
-            ly = grouped(group, batch.indices, batch.mask)  # [T, B, D], K4's slots 0
-        else:
-            T, B, _ = batch.indices.shape
-            ly = torch.empty((T, B, cfg.embedding_dim), device=batch.indices.device)
-        for k in small:
-            msk = batch.mask[k] if batch.mask is not None else None
-            ly[k] = pooled_lookup_onehot_auto(unpack_table(sm.emb[k]), batch.indices[k], msk, plain=plain)
+            grouped(group, batch.indices, batch.mask, out=ly)
+        for og in onehot_groups:
+            onehot(og, batch.indices, batch.mask, out=ly)
         x = _apply_mlp_serving(sm.bot, batch.dense, sm.mlp_bits, False, linear8)
         z = (
             dot_interaction(x, ly, cfg.interact_itself)

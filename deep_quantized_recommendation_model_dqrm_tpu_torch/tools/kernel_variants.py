@@ -1,14 +1,16 @@
-"""Where kernel K3's time goes: variants of csrc/quant_matmul.cu on the card.
+"""Where a kernel's time goes: variants of its source on the card.
 
 Each variant is the package's source with one named edit, built with the
 package's nvcc flags into a library of its own and timed by torch.profiler
-device time on the seven Kaggle serving layers at B = 16384 (random
-activations and weights from a seed), in turns: A, B, ..., B, A. Run from
-the repository root on a machine with a card and the CUDA toolkit:
+device time, in turns: A, B, ..., B, A (`as_is` always runs, first and
+last). Run from the repository root on a machine with a card and the CUDA
+toolkit:
 
     python3 -m deep_quantized_recommendation_model_dqrm_tpu_torch.tools.kernel_variants [name ...]
+    python3 -m deep_quantized_recommendation_model_dqrm_tpu_torch.tools.kernel_variants --k1 [name ...]
 
-Variants (`as_is` always runs, first and last):
+K3 (csrc/quant_matmul.cu), on the seven Kaggle serving layers at
+B = 16384 (random activations and weights from a seed); its variants:
 
 - `no_wgmma`: the three tensor-core passes dropped (wrong results): the time
   of everything else;
@@ -20,6 +22,23 @@ Variants (`as_is` always runs, first and last):
 
 Prints one JSON line per variant and turn, then `torch.addmm`'s time on
 the dequantized weights. Variants that drop work print large errors.
+
+K1 (`--k1`, csrc/onehot_update.cu), the grouped dense gradient of the 18
+Kaggle tables of at most 20000 rows at B = 128 and B = 8192 (P = 1), at
+B = 128 with P = 4 and the variable-pooling mask, and 8192 updates into
+one table of 3 rows (ids of random batches, gradients from a seed); each
+line holds the memset and the kernel; its variants:
+
+- `passes2`, `passes8`: blocks of tables summed in global memory always
+  take 2 or 8 passes of their threads over the updates (as is: one pass
+  per 1024 updates of the table, 2 to 8);
+- `smem_chunk64`, `smem_chunk256`: blocks of tables summed in shared
+  memory take 64 or 256 updates instead of 128;
+- `smem_per_row64`: a table is summed in shared memory from 64 updates per
+  row instead of 256;
+- `no_smem`: every table summed in global memory.
+
+Then one `index_add_` into the flat gradient as the yardstick.
 """
 
 from __future__ import annotations
@@ -33,9 +52,10 @@ import numpy as np
 import torch
 
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda import _build
+from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda import onehot_update as oh
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda import quant_matmul as qm
+from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import rows_grad_from_pooled
 
-SOURCE = _build.CSRC_DIR / "quant_matmul.cu"
 OUT_DIR = _build.BUILD_DIR / "variants"
 LAYERS = [(13, 512), (512, 256), (256, 64), (64, 16), (367, 512), (512, 256), (256, 1)]
 BATCH = 16384
@@ -68,34 +88,58 @@ EDITS = {
 }
 
 
-def build(names):
-    """{name: loaded library}, `as_is` being the package's own."""
+_K1_MIN_PASSES = "constexpr int kMinPasses = 2;"
+_K1_MAX_PASSES = "constexpr int kMaxPasses = 8;"
+_K1_CHUNK = "constexpr int kSmemChunk = 128;"
+_K1_PER_ROW = "constexpr int kSmemMinPerRow = 256;"
+_K1_SMEM = "    t.smem = R >= kSmemMinPerRow * t.rows && 4 * t.rows <= smem_updates &&"
+
+
+def _k1(old: str, new: str):
+    return lambda s: s.replace(old, new)
+
+
+K1_EDITS = {
+    "passes2": _k1(_K1_MAX_PASSES, "constexpr int kMaxPasses = 2;"),
+    "passes8": _k1(_K1_MIN_PASSES, "constexpr int kMinPasses = 8;"),
+    "smem_chunk64": _k1(_K1_CHUNK, "constexpr int kSmemChunk = 64;"),
+    "smem_chunk256": _k1(_K1_CHUNK, "constexpr int kSmemChunk = 256;"),
+    "smem_per_row64": _k1(_K1_PER_ROW, "constexpr int kSmemMinPerRow = 64;"),
+    "no_smem": _k1(_K1_SMEM, "    t.smem = false &&"),
+}
+
+
+def build(source: str, edits, names, signatures):
+    """{name: loaded library} of csrc/<source>.cu with each named edit,
+    `as_is` being the package's own."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    src = SOURCE.read_text()
+    path = _build.CSRC_DIR / f"{source}.cu"
+    src = path.read_text()
     procs = {}
     for name in names:
-        edited = EDITS[name](src)
+        edited = edits[name](src)
         if edited == src:
-            raise RuntimeError(f"variant {name}: its edit no longer matches {SOURCE.name}")
-        cu = OUT_DIR / f"quant_matmul_{name}.cu"
+            raise RuntimeError(f"variant {name}: its edit no longer matches {path.name}")
+        cu = OUT_DIR / f"{source}_{name}.cu"
         cu.write_text(edited)
-        so = OUT_DIR / f"libquant_matmul_{name}.so"
+        so = OUT_DIR / f"lib{source}_{name}.so"
         procs[name] = (so, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
                                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {"as_is": _build.load("quant_matmul", qm._SIGNATURES)}
+    libs = {"as_is": _build.load(source, signatures)}
     for name, (so, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
         lib = ctypes.CDLL(str(so))
-        lib.dqrm_int8_linear.argtypes = qm._SIGNATURES["dqrm_int8_linear"]
-        lib.dqrm_int8_linear.restype = ctypes.c_int
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
 
 
-def device_ms(fn, n: int = 10) -> float:
-    """Device time of one fn() call in ms: its kernels' durations summed."""
+def device_ops_ms(fn, n: int = 10) -> dict:
+    """Device time in ms of one fn() call by device operation."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -105,21 +149,83 @@ def device_ms(fn, n: int = 10) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / n
+    return {e.key[:40]: getattr(e, "self_device_time_total", 0.0) / 1e3 / n
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def device_ms(fn, n: int = 10) -> float:
+    """Device time of one fn() call in ms: its kernels' durations summed."""
+    return sum(device_ops_ms(fn, n).values())
+
+
+def k1_cases():
+    """{case: (group, g [T, B, 16], ids [T, B, P], mask or None)} on the card."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import kaggle_config
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.data.synthetic import random_batch
+
+    cfg = kaggle_config()
+    ks = [k for k, n in enumerate(cfg.table_sizes) if n <= 20000]
+    group = oh.make_dense_grad_group([cfg.table_sizes[k] for k in ks], ks)
+    rng = np.random.RandomState(0)
+    cases = {}
+    for name, B, P in (("b128", 128, 1), ("b8192", 8192, 1), ("b128_p4_mask", 128, 4)):
+        batch = random_batch(cfg, B, rng, num_indices_per_lookup=P, variable_pooling=P > 1)
+        g = torch.from_numpy(rng.normal(size=(cfg.num_tables, B, 16)).astype(np.float32)).cuda()
+        cases[name] = (group, g, batch.indices, batch.mask)
+    ids = torch.from_numpy(rng.randint(0, 3, size=(1, 8192, 1)).astype(np.int32)).cuda()
+    g = torch.from_numpy(rng.normal(size=(1, 8192, 16)).astype(np.float32)).cuda()
+    cases["heavy_8192_into_3"] = (oh.make_dense_grad_group((3,), (0,)), g, ids, None)
+    return cases
+
+
+def k1_main(names) -> int:
+    libs = build("onehot_update", K1_EDITS, names, oh._SIGNATURES)
+    cases = k1_cases()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(lib, group, g, ids, mask, out):
+        _, B, P = ids.shape
+        err = lib.dqrm_dense_grad_grouped(
+            group.descs.data_ptr(), len(group.rows), g.data_ptr(), ids.data_ptr(),
+            mask.data_ptr() if mask is not None else None, out.data_ptr(), group.total_rows,
+            B, P, g.shape[2], stream)
+        _build.check(err, "dense_grad_grouped variant")
+
+    for name in ["as_is"] + names + names[::-1] + ["as_is"]:
+        for case, (group, g, ids, mask) in cases.items():
+            out = torch.empty((group.total_rows, g.shape[2]), device="cuda")
+            launch(libs[name], group, g, ids, mask, out)
+            want, _ = oh.dense_grad_grouped_plain(group, g, ids, mask)
+            ops = device_ops_ms(lambda: launch(libs[name], group, g, ids, mask, out))
+            print(json.dumps({"variant": name, "case": case, "device_ms": sum(ops.values()), "ops_ms": ops,
+                              "max_abs_err": (out - want).abs().max().item()}), flush=True)
+    for case, (group, g, ids, mask) in cases.items():
+        rows = [rows_grad_from_pooled(g[k], ids[k], None if mask is None else mask[k])
+                for k in group.slots]
+        flat_ids = torch.cat([i.long() + off for (i, _), off in zip(rows, group.offsets)])
+        flat_vals = torch.cat([v for _, v in rows])
+        ops = device_ops_ms(lambda: torch.zeros((group.total_rows, g.shape[2]), device="cuda").index_add_(
+            0, flat_ids, flat_vals))
+        print(json.dumps({"variant": "index_add_", "case": case, "device_ms": sum(ops.values()),
+                          "ops_ms": ops}), flush=True)
+    print(json.dumps({"card": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
 
 
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: no usable CUDA card", file=sys.stderr)
         return 1
-    names = list(argv)
-    unknown = [n for n in names if n not in EDITS]
+    k1 = bool(argv) and argv[0] == "--k1"
+    names = list(argv[1:] if k1 else argv)
+    edits = K1_EDITS if k1 else EDITS
+    unknown = [n for n in names if n not in edits]
     if unknown:
-        print(f"unknown variants {unknown}; known: {sorted(EDITS)}", file=sys.stderr)
+        print(f"unknown variants {unknown}; known: {sorted(edits)}", file=sys.stderr)
         return 2
-    libs = build(names)
+    if k1:
+        return k1_main(names)
+    libs = build("quant_matmul", EDITS, names, qm._SIGNATURES)
     rng = np.random.RandomState(0)
     work = []
     for K, N in LAYERS:

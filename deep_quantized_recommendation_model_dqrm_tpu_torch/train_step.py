@@ -8,8 +8,10 @@ policy -> optimizer, with the QAT scale refresh folded in as explicit state.
   backward (through K1) runs when `onehot_lookup_max_rows` is set.
 - `_build_sparse_step_fn`: autograd is cut at the pooled lookups; each
   table takes its gradient as (ids, rows) pairs:
-  - tables with at most `onehot_update_max_rows` rows get a dense gradient
-    from kernel K1 and a dense optimizer update;
+  - tables with at most `onehot_update_max_rows` rows get their dense
+    gradients from one launch of kernel K1 for all of them, straight from
+    the pooled gradient, ids and mask, and a dense optimizer update (under
+    SGD one batched multiply and one batched add);
   - tables above that and with at most `stream_update_max_rows` rows have
     their gradients sorted in one batched sort and applied by kernel K5:
     straight into the table under SGD, into a zeroed dense gradient under
@@ -41,7 +43,10 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.config import DLRMConfig
 from deep_quantized_recommendation_model_dqrm_tpu_torch.device import resolve_device
 from deep_quantized_recommendation_model_dqrm_tpu_torch.models import dlrm
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
-    dense_grad_auto,
+    dense_grad_grouped_plain,
+    group_slots,
+    make_dense_grad_group,
+    onehot_dense_grad_grouped,
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.stream_update import (
     sort_sparse_grads_batched,
@@ -251,6 +256,11 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
     dev = resolve_device(device)
     qc = config.quant
     opt = tc.optimizer
+    dense_grads = dense_grad_grouped_plain if plain else onehot_dense_grad_grouped
+    # the small tables' K1 groups, one launch each per step
+    small = {k for k, n in enumerate(config.table_sizes) if 0 < n <= tc.onehot_update_max_rows}
+    groups = [make_dense_grad_group([config.table_sizes[k] for k in ks], ks)
+              for ks in group_slots(sorted(small))]
 
     def step_fn(state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
         _params_device(state.params, dev)
@@ -289,6 +299,19 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
                 opt_state = dict(opt_state, **new_acc)
             emb_acc = opt_state["emb"] if opt != "sgd" else [None] * len(params["emb"])
 
+            # small tables: dense gradients from one K1 launch per group, then
+            # the dense update; under SGD one multiply of the flat gradient
+            # rounds the products -lr * grad before one batched add, as
+            # `table.add_(-lr * dense)` rounds them
+            for group in groups:
+                flat, views = dense_grads(group, g_pooled.contiguous(), batch.indices, batch.mask)
+                tables = [params["emb"][k] for k in group.slots]
+                if opt == "sgd":
+                    torch._foreach_add_(tables, (flat * -lr).split(group.rows))
+                    continue
+                for k, table, dense in zip(group.slots, tables, views):
+                    _dense_table_update(opt, table, emb_acc[k], dense, lr)
+
             # mid-size tables: every one's gradient sorted in one batched sort
             stream_ks = [k for k, t in enumerate(params["emb"])
                          if tc.onehot_update_max_rows < t.shape[0] <= tc.stream_update_max_rows]
@@ -299,6 +322,8 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
 
             for k, table in enumerate(params["emb"]):
                 n_rows = table.shape[0]
+                if k in small:
+                    continue
                 if k in stream:
                     sids_k, svals_k = stream[k]
                     if opt == "sgd":  # K5 straight into the table
@@ -307,16 +332,10 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
                     # Adagrad needs each row's summed gradient before the
                     # square: K5 into zeros, then the dense update
                     zeros = torch.zeros((n_rows, svals_k.shape[-1]), dtype=torch.float32, device=dev)
-                    dense = stream_update_auto(zeros, sids_k, svals_k, presorted=True, plain=plain)
-                    _dense_table_update(opt, table, emb_acc[k], dense, lr)
+                    summed = stream_update_auto(zeros, sids_k, svals_k, presorted=True, plain=plain)
+                    _dense_table_update(opt, table, emb_acc[k], summed, lr)
                     continue
-                ids, vals = grad(k)
-                if 0 < n_rows <= tc.onehot_update_max_rows:
-                    # small table: K1's dense gradient, then a dense update
-                    _dense_table_update(opt, table, emb_acc[k],
-                                        dense_grad_auto(ids, vals, n_rows, plain=plain), lr)
-                else:
-                    _sparse_table_update(opt, table, emb_acc[k], ids, vals, lr)
+                _sparse_table_update(opt, table, emb_acc[k], *grad(k), lr)
         new_qs = new_qs._replace(step=qstate.step + 1)
         return TrainState(new_params, opt_state, new_qs), loss.detach()
 

@@ -160,6 +160,25 @@ def test_grouped_slots_leave_the_others_zero():
         np.testing.assert_array_equal(got[k].numpy(), want.numpy())
 
 
+def test_grouped_lookup_into_a_given_out():
+    """With `out` given, the group writes its slots of that tensor and keeps
+    the others (serving's K4 groups write those), in the plain version and
+    the CPU wrapper alike; an `out` of another shape is refused."""
+    _, t = group_pair(seed=32)
+    slots = (3, 1)
+    group = tpe.make_packed_group([t[3], t[1]], slots)
+    rng = np.random.RandomState(33)
+    idx = torch.from_numpy(np.stack([rng.randint(0, rows, size=(7, 1)) for rows, _, _ in GROUP]).astype(np.int32))
+    for fn in (tpe.packed_pooled_lookup_grouped_plain, tpe.packed_pooled_lookup_grouped):
+        out = torch.full((len(GROUP), 7, 16), -3.0)
+        assert fn(group, idx, out=out) is out
+        for k in range(len(GROUP)):
+            want = tpe.packed_pooled_lookup(t[k], idx[k]) if k in slots else torch.full((7, 16), -3.0)
+            np.testing.assert_array_equal(out[k].numpy(), want.numpy())
+        with pytest.raises(ValueError, match="out must be"):
+            fn(group, idx, out=torch.zeros((len(GROUP), 7, 8)))
+
+
 def test_make_packed_group_rejects_what_it_does_not_take():
     _, t = group_pair(seed=40)
     other_d = tpe.pack_table(torch.from_numpy(make_table(20, 8, seed=41)), bits=4)

@@ -152,7 +152,7 @@ def test_micro_batcher_threads_match_direct():
 @pytest.mark.parametrize("name,P", [("small", 1), ("small", 3), ("kaggle_capped", 1)])
 def test_onehot_lookup_serving_matches_jax(name, P, monkeypatch):
     """Tables with at most `onehot_lookup_max_rows` rows are unpacked and
-    looked up through K4's path; the JAX side runs its one-hot Pallas kernel
+    looked up through the grouped K4's path; the JAX side runs its one-hot Pallas kernel
     in interpret mode. The two lookups sum in another order: 1e-6."""
     monkeypatch.setenv("DQRM_ONEHOT_INTERPRET", "1")
     jc, tc, jsm, tsm = exported(name, 4, 8, False)
@@ -167,6 +167,28 @@ def test_onehot_lookup_serving_matches_jax(name, P, monkeypatch):
     plain = tserving.make_serving_fn(tsm, onehot_lookup_max_rows=max_rows, plain=True)(tb).numpy()
     np.testing.assert_array_equal(plain, got)
     np.testing.assert_allclose(got, tserving.make_serving_fn(tsm)(tb).numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("name,P", [("small", 2), ("kaggle_capped", 1)])
+def test_onehot_lookup_serving_fn_built_once(name, P, monkeypatch):
+    """With `onehot_lookup_max_rows` set, the serving function unpacks its
+    small tables once, when it is built: one function answers two batches
+    and then the first again, with the JAX package's probabilities each
+    time and the same ones for the repeated batch."""
+    monkeypatch.setenv("DQRM_ONEHOT_INTERPRET", "1")
+    jc, tc, jsm, tsm = exported(name, 4, 8, False)
+    max_rows = 200
+    kw = dict(num_indices_per_lookup=P, variable_pooling=P > 1)
+    jfn = jserving.make_serving_fn(jsm, onehot_lookup_max_rows=max_rows)
+    fn = tserving.make_serving_fn(tsm, onehot_lookup_max_rows=max_rows)
+    outs = []
+    for seed in (21, 22, 21):
+        jb = jsyn.random_batch(jc, 48, np.random.RandomState(seed), **kw)
+        tb = tsyn.random_batch(tc, 48, np.random.RandomState(seed), device="cpu", **kw)
+        outs.append(fn(tb).numpy())
+        np.testing.assert_allclose(outs[-1], np.asarray(jfn(jb)), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(outs[0], outs[2])
+    assert not np.array_equal(outs[0], outs[1])
 
 
 @pytest.mark.parametrize("emb_bits,rowwise,P", [(4, False, 1), (8, False, 1), (4, False, 3), (4, True, 2)])

@@ -2,9 +2,10 @@
 rate bit for bit, a 30-step sparse-step trajectory on the Kaggle table count
 (both the K1 branch and the scatter branch), the coalesce branch, the
 streaming (K5) branch and the Adagrad/RWSAdagrad branches of the sparse step,
-megasteps, the dense step through K4's backward and under Adagrad and
-RWSAdagrad, `clone_state`, `config_for_epoch`, `make_grad_probe`, and
-evaluation with ROC AUC."""
+the grouped K1 branch bit for bit against a per-table reference, megasteps,
+the dense step through K4's backward and under Adagrad and RWSAdagrad,
+`clone_state`, `config_for_epoch`, `make_grad_probe`, and evaluation with
+ROC AUC."""
 
 import dataclasses
 
@@ -23,6 +24,9 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch import config as tcfg
 from deep_quantized_recommendation_model_dqrm_tpu_torch import train_step as tts
 from deep_quantized_recommendation_model_dqrm_tpu_torch.data import synthetic as tsyn
 from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import Batch
+from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+    dense_grad_plain,
+)
 from deep_quantized_recommendation_model_dqrm_tpu_torch.optim.lr_policy import lr_policy
 from deep_quantized_recommendation_model_dqrm_tpu_torch.tools.jax_weights import (
     opt_state_to_numpy,
@@ -139,6 +143,49 @@ def test_sparse_step_coalesce_branch():
     ts, tl = tts.make_train_step(tc, ttc, sparse_emb_grad=True, device="cpu")(ts, to_torch(b))
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
     assert_params_close(js.params, ts.params, atol=1e-6)
+
+
+@pytest.mark.parametrize("optimizer,P,sizes", [
+    ("sgd", 1, (5000, 300, 20, 7)), ("sgd", 3, (5000, 300, 20, 7)),
+    ("adagrad", 1, (5000, 300, 20, 7)), ("adagrad", 3, (5000, 300, 20, 7)),
+    ("rwsadagrad", 1, (5000, 300, 20, 7)), ("rwsadagrad", 3, (5000, 300, 20, 7)),
+    ("sgd", 1, tuple(range(3, 43)) + (900,)),  # 40 small tables: groups of 32 and 8
+])
+def test_grouped_sparse_step_matches_per_table_reference(optimizer, P, sizes):
+    """Three sparse steps whose small tables take the grouped K1 branch (one
+    launch per group, the update batched under SGD) against a per-table
+    reference: each small table's `rows_grad_from_pooled` gradient (from
+    `make_grad_probe`, taken before the step as the step takes it), its
+    `dense_grad_plain` and its own `_dense_table_update`. Tables and
+    accumulators agree bit for bit; P = 3 carries the variable-pooling
+    mask."""
+    _, tc = configs(sizes, dict(INT4, scale_update_period=2), pooling_size=P)
+    lr = 0.1 if optimizer == "sgd" else ADAGRAD_LR
+    _, ttc = train_configs(batch_size=64, learning_rate=lr, optimizer=optimizer,
+                           onehot_update_max_rows=500)
+    small = [k for k, n in enumerate(sizes) if n <= 500]
+    state = tts.init_train_state(tc, ttc, seed=2, device="cpu")
+    step = tts.make_train_step(tc, ttc, sparse_emb_grad=True, device="cpu")
+    probe = tts.make_grad_probe(tc, ttc, device="cpu")
+    rng = np.random.RandomState(12)
+    for i in range(3):
+        b = tsyn.random_batch(tc, 64, rng, device="cpu", variable_pooling=P > 1)
+        assert (b.mask is not None) == (P > 1)
+        grads, _ = probe(state.params, state.qstate, b)
+        step_lr = tts._lr(ttc, state.qstate.step + 1)
+        want = {}
+        for k in small:
+            table = state.params["emb"][k].clone()
+            acc = None if state.opt_state is None else state.opt_state["emb"][k].clone()
+            dense = dense_grad_plain(grads[f"table_{k}_ids"], grads[f"table_{k}_rows"], sizes[k])
+            tts._dense_table_update(optimizer, table, acc, dense, step_lr)
+            want[k] = (table, acc)
+        state, _ = step(state, b)
+        for k in small:
+            table, acc = want[k]
+            assert torch.equal(state.params["emb"][k], table), (i, k)
+            if acc is not None:
+                assert torch.equal(state.opt_state["emb"][k], acc), (i, k)
 
 
 def test_multi_step_equals_single_steps():
