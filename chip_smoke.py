@@ -18,7 +18,8 @@ launch counters of its kernels set to 0 just before and read just after:
    32 steps of the kernel path against the plain path (`plain=True`); one
    grouped K1 launch per step for the 18 tables of at most 20000 rows;
 2. train_stream: the sparse step at B = 8192 with K1 (one grouped launch) on
-   the 18 tables of at most 20000 rows and K5 on the 3 tables of 93145-286181 rows
+   the 18 tables of at most 20000 rows and K5 (one grouped launch) on the 3
+   tables of 93145-286181 rows
    (`stream_update_max_rows=300000`), under SGD, Adagrad and RWSAdagrad,
    each from the untrained params: one step of the kernel path against one
    of the plain path, 32 steps against 32, one step against one again from
@@ -33,15 +34,19 @@ launch counters of its kernels set to 0 just before and read just after:
    for the 26 tables, and kernel K3, 7 launches, per device batch);
 6. serve_onehot: a second engine with `onehot_lookup_max_rows=20000`
    (one grouped K4 launch for the 18 small tables, unpacked once, and one
-   grouped K2 launch for the other 8) answering the same requests.
+   grouped K2 launch for the other 8) answering the same requests;
+7. serve_cat: `make_serving_fn` at the Terabyte arch's widths with the cat
+   interaction (a 1728-input top layer through K3), its tables cut to
+   100000 rows, against its plain path.
 
 Kernel K6 (`dma_row_update`) is on no path; its kernel phase holds it
 against its plain version on the 2,202,608-row table.
 
 Every check raises, so any failure exits non-zero. Phases in order: device,
-build, model, kernel (K2, K3, K1, K4, K5, K6), train, profile (train),
-train_stream with profile (SGD), eval, export, serve, profile (serve),
-serve_onehot with profile, kernels.
+build, model, kernel (K2, K3, K3 at K = 1728, K1 with D = 512, K4 with
+D = 512, K5 with Zipf ids, K6), train, profile (train), train_stream with
+profile (SGD), eval, export, serve, profile (serve), serve_onehot with
+profile, serve_cat, kernels.
 
 Output: one JSON line per phase; then the {"kernels": [...]} summary; then
 the card's name and power limit as nvidia-smi gives them; and last
@@ -390,6 +395,49 @@ def phase_kernel_k3(cfg, sm, flush):
     return row
 
 
+def phase_kernel_k3_wide(flush):
+    """K3 past one 640-column weight tile: the Terabyte arch's cat-interaction
+    top layer, K = 27 x 64 = 1728 inputs to N = 512, at M = 16384, with and
+    without the fused ReLU (weights from a seeded normal, activations
+    uniform in [0, 2) as after a ReLU). Returns the largest error."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import (
+        int8_linear,
+        int8_linear_xla,
+        quantize_linear_weights,
+    )
+
+    K, N = 1728, 512
+    rng = np.random.RandomState(70)
+    w = torch.from_numpy(rng.normal(0, np.sqrt(2 / (K + N)), size=(N, K)).astype(np.float32)).to(DEVICE)
+    b = torch.from_numpy(rng.normal(0, 0.1, size=(N,)).astype(np.float32)).to(DEVICE)
+    x = torch.from_numpy(rng.uniform(0, 2, size=(B_MAIN, K)).astype(np.float32)).to(DEVICE)
+    qw = quantize_linear_weights(w, b, 8)
+    errs = {}
+    for relu in (False, True):
+        got, want = int8_linear(x, qw, relu=relu), int8_linear_xla(x, qw, relu=relu)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        tol = K3_RTOL * max(1.0, want.abs().max().item())
+        check(bool(torch.isfinite(got).all()) and e <= tol, f"K3 K={K} relu={relu}: {e} <= {tol}")
+        errs["relu" if relu else "linear"] = e
+    deq = (qw.w_int.float() * qw.scale[:, None]).T
+    flop = 2 * B_MAIN * K * N
+    nbytes = x.numel() * 4 + qw.w_int.numel() + N * (8 + 4 * B_MAIN)
+    row = {"phase": "kernel", "kernel": "int8_linear", "case": f"k{K}_n{N}_m{B_MAIN}", "chunks_of_640": 3,
+           "max_abs_err": errs, "tol": tol, "tol_rel": K3_RTOL,
+           "kernel_ms": time_ms(lambda: int8_linear(x, qw, relu=True), flush),
+           "plain_ms": time_ms(lambda: int8_linear_xla(x, qw, relu=True), flush),
+           "library_ms": time_ms(lambda: torch.addmm(b, x, deq), flush),
+           "kernel_device_ms": device_ms(lambda: int8_linear(x, qw, relu=True)),
+           "plain_device_ms": device_ms(lambda: int8_linear_xla(x, qw, relu=True)),
+           "library_device_ms": device_ms(lambda: torch.addmm(b, x, deq)), "flop": flop, "bytes": nbytes}
+    t_ops, t_bytes = 3 * flop / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    row["bound_ms"] = max(t_ops, t_bytes) * 1e3
+    row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    emit(row)
+    return max(errs.values())
+
+
 def random_batch(*args, **kwargs):
     from deep_quantized_recommendation_model_dqrm_tpu_torch.data.synthetic import random_batch as rb
 
@@ -535,7 +583,47 @@ def phase_kernel_k1(cfg, flush):
           "library_device_ms": device_ms(
               lambda: torch.zeros((3, d), device=DEVICE).index_add_(0, ids.reshape(-1).long(), vals[0])),
           "phase_s": time.perf_counter() - t0})
-    return rows[0], max([heavy, masked] + [r["max_abs_err"] for r in rows])
+    wide = k1_wide()
+    return rows[0], max([heavy, masked, wide] + [r["max_abs_err"] for r in rows])
+
+
+WIDE_D = 512  # wider than a K1 block's 256 threads
+WIDE_ROWS = (3, 24, 583, 1460)  # four of the small Kaggle tables' sizes
+
+
+def wide_inputs(B, P, seed):
+    """ids [5, B, P] (slot 1 unused, ids of up to 1460 with -1 padding) and
+    the mask, for the D = 512 cases of K1 and K4."""
+    rng = np.random.RandomState(seed)
+    ids = torch.from_numpy(rng.randint(-1, 1460, size=(5, B, P)).astype(np.int32)).to(DEVICE)
+    mask = torch.from_numpy(rng.uniform(0.5, 2.0, size=(5, B, P)).astype(np.float32)).to(DEVICE)
+    return ids, mask
+
+
+def k1_wide():
+    """The grouped K1 at D = 512 on 4 small tables, B = 1024, P = 2 with a
+    mask, and 8192 updates into the 3-row table (shared-memory sums),
+    against the plain version within the atomic-order bound."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        make_dense_grad_group,
+        onehot_dense_grad_grouped,
+    )
+
+    ids, mask = wide_inputs(1024, 2, 16)
+    g = torch.from_numpy(np.random.RandomState(17).normal(size=(5, 1024, WIDE_D)).astype(np.float32)).to(DEVICE)
+    group = make_dense_grad_group(WIDE_ROWS, (0, 2, 3, 4))
+    err = k1_check(group, g, ids, mask, f"D={WIDE_D}")
+    rng = np.random.RandomState(18)
+    ids3 = torch.from_numpy(rng.randint(0, 3, size=(1, 8192, 1)).astype(np.int32)).to(DEVICE)
+    vals3 = torch.from_numpy(rng.normal(size=(1, 8192, WIDE_D)).astype(np.float32)).to(DEVICE)
+    group3 = make_dense_grad_group((3,), (0,))
+    heavy = k1_check(group3, vals3, ids3, None, f"D={WIDE_D}, 8192 into 3 rows")
+    emit({"phase": "kernel", "kernel": "onehot_dense_grad", "case": f"4_small_tables_d{WIDE_D}_b1024_p2_mask",
+          "entry": "grouped", "rows": list(WIDE_ROWS), "max_abs_err": err, "heavy_8192_into_3_max_abs_err": heavy,
+          "tol": "2 (c-1) u sum|v| per element",
+          "kernel_device_ms": device_ms(lambda: onehot_dense_grad_grouped(group, g, ids, mask)),
+          "heavy_kernel_device_ms": device_ms(lambda: onehot_dense_grad_grouped(group3, vals3, ids3))})
+    return max(err, heavy)
 
 
 def phase_kernel_k4(cfg, params, flush):
@@ -647,8 +735,25 @@ def phase_kernel_k4(cfg, params, flush):
               "kernel_ms": time_ms(kernel_bwd, flush), "plain_ms": time_ms(plain_bwd, flush),
               "kernel_device_ms": device_ms(kernel_bwd), "plain_device_ms": device_ms(plain_bwd)})
         rows[(B, P)]["max_abs_err"] = max(err, err_t, err_w)
+    # D = 512: lanes of 16 bytes, 128 to a bag
+    wide = [torch.from_numpy(np.random.RandomState(31 + n).normal(size=(n, WIDE_D)).astype(np.float32)).to(DEVICE)
+            for n in WIDE_ROWS]
+    wgroup = make_onehot_lookup_group(wide, (0, 2, 3, 4))
+    werr = 0.0
+    for P in (1, 4):
+        ids, mask = wide_inputs(B_MAIN, P, 32 + P)
+        mask = None if P == 1 else mask
+        got = onehot_pooled_lookup_grouped_fwd(wgroup, ids, mask)[[0, 2, 3, 4]]
+        want = onehot_pooled_lookup_grouped_plain(wgroup, ids, mask)[[0, 2, 3, 4]]
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        check(e <= K4_TOL and (P > 1 or e == 0.0), f"K4 D={WIDE_D} P={P}: max_abs_err {e}")
+        werr = max(werr, e)
+    emit({"phase": "kernel", "kernel": "onehot_pooled_lookup", "case": f"4_small_tables_d{WIDE_D}_b{B_MAIN}",
+          "max_abs_err": werr, "tol": K4_TOL,
+          "kernel_device_ms": device_ms(lambda: onehot_pooled_lookup_grouped_fwd(wgroup, ids, mask))})
     emit({"phase": "kernel", "kernel": "onehot_pooled_lookup", "phase_s": time.perf_counter() - t0})
-    return rows[(B_MAIN, 1)], max(r["max_abs_err"] for r in rows.values())
+    return rows[(B_MAIN, 1)], max([werr] + [r["max_abs_err"] for r in rows.values()])
 
 
 def row_update_bound(table, ids, vals):
@@ -712,47 +817,114 @@ def stream_tables(cfg):
     return [k for k, n in enumerate(cfg.table_sizes) if SMALL_ROWS < n <= STREAM_ROWS]
 
 
-def phase_kernel_k5(cfg, params, flush):
-    """K5 (sorted scatter-add, one owner thread per row run) on the 3 mid
-    Kaggle tables at the streaming path's 8192 sorted updates each, values
-    N(0, 1e-4) as scripts/bench_stream_update.py:80-84 draws them; 8192
-    updates into the 3-row table; a bf16 copy of the 286181-row table."""
+def k5_updates(n, seed, scale, d, zipf=None):
+    """B_STREAM sorted updates of one table of n rows on the card: uniform
+    ids, or with `zipf` Zipf(a) ids `(zipf(a) - 1) % n` drawn as
+    scripts/bench_bigtable_scatter.py:69-71 draws them (real Criteo ids are
+    skewed); values N(0, scale^2)."""
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.stream_update import (
         sort_sparse_grad,
+    )
+
+    rng = np.random.RandomState(seed)
+    if zipf:
+        ids = (np.random.default_rng(1).zipf(zipf, size=B_STREAM) - 1) % n
+    else:
+        ids = rng.randint(0, n, size=B_STREAM)
+    vals = (rng.normal(size=(B_STREAM, d)) * scale).astype(np.float32)
+    return sort_sparse_grad(torch.from_numpy(ids.astype(np.int32)).to(DEVICE),
+                            torch.from_numpy(vals).to(DEVICE))
+
+
+def k5_case(case, tables, flush, seed, scale, zipf=None):
+    """The grouped K5 (one launch for `tables`) against its plain version:
+    within the per-element bound, and equal bits from two runs on equal
+    inputs; times of the kernel, the plain version and one `index_add_` per
+    table, and the bound from this run's ids (each distinct row read and
+    written once)."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.stream_update import (
+        stream_scatter_add_grouped,
+        stream_scatter_grouped_plain,
+    )
+
+    d = tables[0].shape[1]
+    ups = [k5_updates(t.shape[0], seed + i, scale, d, zipf) for i, t in enumerate(tables)]
+    sids = torch.stack([i for i, _ in ups]).contiguous()
+    svals = torch.stack([v for _, v in ups]).contiguous()
+    got = stream_scatter_add_grouped([t.clone() for t in tables], sids, svals)
+    again = stream_scatter_add_grouped([t.clone() for t in tables], sids, svals)
+    want = stream_scatter_grouped_plain([t.clone() for t in tables], sids, svals)
+    err = 0.0
+    for t, g, a, w, i, v in zip(tables, got, again, want, sids, svals):
+        e = (g.float() - w.float()).abs()
+        tol = row_update_bound(t, i, v)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(g).all()), f"K5 {case}: finite")
+        check(bool((e <= tol).all()), f"K5 {case} rows={t.shape[0]}: |kernel - plain| within the per-element bound")
+        check(bool(torch.equal(g, a)), f"K5 {case} rows={t.shape[0]}: two launches give equal bits")
+        err = max(err, e.max().item())
+    work = [t.clone() for t in tables]
+    lib = [(i.long(), v.to(t.dtype)) for t, i, v in zip(work, sids, svals)]
+
+    def kernel():
+        return stream_scatter_add_grouped(work, sids, svals)
+
+    def plain():
+        return stream_scatter_grouped_plain(work, sids, svals)
+
+    def library():
+        return [t.index_add_(0, i, v) for t, (i, v) in zip(work, lib)]
+
+    distinct = [int(torch.unique(i).numel()) for i in sids]
+    nbytes = sids.numel() * 4 + svals.numel() * 4 + sum(
+        2 * n * d * t.element_size() for n, t in zip(distinct, tables))
+    row = {"phase": "kernel", "kernel": "stream_scatter_add", "case": case, "entry": "grouped",
+           "tables": len(tables), "launches_per_call": 1, "updates_per_table": B_STREAM,
+           "rows": [int(t.shape[0]) for t in tables], "dtype": str(tables[0].dtype).replace("torch.", ""),
+           "ids": f"zipf a={zipf}" if zipf else "uniform", "distinct_rows": distinct,
+           "longest_run": [int(torch.unique_consecutive(i, return_counts=True)[1].max()) for i in sids],
+           "max_abs_err": err, "tol": "2 (c-1) u sum|v| + 2 (u + u_t)(|t| + sum|v|) per element",
+           "kernel_ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
+           "library_ms": time_ms(library, flush), "kernel_device_ms": device_ms(kernel),
+           "plain_device_ms": device_ms(plain), "library_device_ms": device_ms(library),
+           "library": "one index_add_ per table", "bytes": nbytes}
+    row["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    row["bound_by"] = "bytes"
+    emit(row)
+    return row
+
+
+def phase_kernel_k5(cfg, params, flush):
+    """K5 (sorted scatter-add, runs summed in parallel) as the streaming step
+    launches it: one grouped launch for the 3 mid Kaggle tables at 8192
+    sorted updates each, values N(0, 1e-4) as
+    scripts/bench_stream_update.py:80-84 draws them, with uniform ids and
+    with Zipf ids (a = 1.05 and 1.2); 8192 updates into the 3-row table
+    (heavy duplicates); a bf16 copy of the 3 tables; and the per-table entry
+    (the grouped kernel with one table) on the 3-row table."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.stream_update import (
         stream_scatter_add,
         stream_scatter_plain,
     )
 
     t0 = time.perf_counter()
-    d = cfg.embedding_dim
-    rng = np.random.RandomState(40)
-
-    def updates(n, scale):
-        ids = torch.from_numpy(rng.randint(0, n, size=B_STREAM).astype(np.int32)).to(DEVICE)
-        vals = torch.from_numpy((rng.normal(size=(B_STREAM, d)) * scale).astype(np.float32)).to(DEVICE)
-        return sort_sparse_grad(ids, vals)
-
-    work = [(params["emb"][k].clone(), *updates(cfg.table_sizes[k], 1e-4)) for k in stream_tables(cfg)]
-    err = max(row_update_check(stream_scatter_add, stream_scatter_plain, *a, f"K5 rows={a[0].shape[0]}")
-              for a in work)
-    row = row_update_row("stream_scatter_add", "3_mid_tables_b8192", stream_scatter_add,
-                         stream_scatter_plain, work, flush, [(i.long(), v) for _, i, v in work])
-    row.update(max_abs_err=err, tol="2 (c-1) u sum|v| + 2 (u + u_t)(|t| + sum|v|) per element")
-    emit(row)
+    mid = [params["emb"][k] for k in stream_tables(cfg)]
+    main = k5_case("3_mid_tables_b8192", mid, flush, seed=40, scale=1e-4)
+    rows = [main]
+    for a in (1.05, 1.2):
+        rows.append(k5_case(f"3_mid_tables_b8192_zipf{a}", mid, flush, seed=41, scale=1e-4, zipf=a))
     k3 = cfg.table_sizes.index(3)
-    heavy = [(params["emb"][k3].clone(), *updates(3, 1.0))]
-    heavy_err = row_update_check(stream_scatter_add, stream_scatter_plain, *heavy[0], "K5 8192 into 3 rows")
-    emit({"phase": "kernel", "kernel": "stream_scatter_add", "case": "heavy_duplicates_8192_into_3",
-          "max_abs_err": heavy_err, "kernel_ms": time_ms(lambda: stream_scatter_add(*heavy[0]), flush),
-          "kernel_device_ms": device_ms(lambda: stream_scatter_add(*heavy[0])),
-          "library_ms": time_ms(lambda: heavy[0][0].index_add_(0, heavy[0][1].long(), heavy[0][2]), flush)})
-    t_bf16, ids, vals = work[-1]
-    bf16 = (t_bf16.to(torch.bfloat16), ids, vals)
-    bf16_err = row_update_check(stream_scatter_add, stream_scatter_plain, *bf16, "K5 bf16 table")
-    emit({"phase": "kernel", "kernel": "stream_scatter_add", "case": f"bf16_table_{t_bf16.shape[0]}",
-          "max_abs_err": bf16_err, "kernel_ms": time_ms(lambda: stream_scatter_add(*bf16), flush),
+    rows.append(k5_case("heavy_duplicates_8192_into_3", [params["emb"][k3]], flush, seed=42, scale=1.0))
+    rows.append(k5_case("3_mid_tables_b8192_bf16", [t.to(torch.bfloat16) for t in mid], flush, seed=43,
+                        scale=1e-4))
+    ids, vals = k5_updates(3, 44, 1.0, cfg.embedding_dim)
+    one = row_update_check(stream_scatter_add, stream_scatter_plain, params["emb"][k3], ids, vals,
+                           "K5 per-table entry, 8192 into 3 rows")
+    t3 = params["emb"][k3].clone()
+    emit({"phase": "kernel", "kernel": "stream_scatter_add", "case": "per_table_entry_8192_into_3",
+          "max_abs_err": one, "kernel_device_ms": device_ms(lambda: stream_scatter_add(t3, ids, vals)),
           "phase_s": time.perf_counter() - t0})
-    return row, max(err, heavy_err, bf16_err)
+    return main, max([one] + [r["max_abs_err"] for r in rows])
 
 
 def phase_kernel_k6(cfg, params, flush):
@@ -1019,7 +1191,8 @@ def phase_train_stream(cfg, params0):
         onehot_dense_grad_grouped as k1,
     )
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.stream_update import (
-        stream_scatter_add as k5,
+        stream_scatter_add as k5_one,
+        stream_scatter_add_grouped as k5,
     )
     from deep_quantized_recommendation_model_dqrm_tpu_torch.optim.sgd import (
         adagrad_init,
@@ -1058,14 +1231,15 @@ def phase_train_stream(cfg, params0):
             run = make_multi_train_step(cfg, tc, K_MEGA, sparse_emb_grad=True, plain=path == "plain")
             losses = []
             torch.cuda.synchronize()
-            k1.launches = k1_one.launches = k5.launches = 0
+            k1.launches = k1_one.launches = k5.launches = k5_one.launches = 0
             for _ in range(STREAM_STEPS // K_MEGA):
                 st, _ = run(st, batches)
                 losses.append(run.losses)
             torch.cuda.synchronize()
             paths[path] = (st, torch.cat(losses), {"onehot_dense_grad": k1.launches,
                                                     "onehot_dense_grad_per_table": k1_one.launches,
-                                                    "stream_scatter_add": k5.launches})
+                                                    "stream_scatter_add": k5.launches,
+                                                    "stream_scatter_add_per_table": k5_one.launches})
         del state
         (sk, lk, launches), (sk2, lk2, launches2), (sp, lp, plain_launches) = paths.values()
         loss_err = ((lk - lp).abs() / lp.abs()).max().item()
@@ -1083,7 +1257,7 @@ def phase_train_stream(cfg, params0):
         multi = make_multi_train_step(cfg, tc, K_MEGA, sparse_emb_grad=True)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        k1.launches = k1_one.launches = k5.launches = 0
+        k1.launches = k1_one.launches = k5.launches = k5_one.launches = 0
         h0 = time.perf_counter()
         start.record()
         for _ in range(STREAM_CHAIN_MEGASTEPS):
@@ -1096,7 +1270,8 @@ def phase_train_stream(cfg, params0):
         chain_losses = multi.losses
         launches = {"onehot_dense_grad": launches["onehot_dense_grad"] + k1.launches,
                     "onehot_dense_grad_per_table": launches["onehot_dense_grad_per_table"] + k1_one.launches,
-                    "stream_scatter_add": launches["stream_scatter_add"] + k5.launches}
+                    "stream_scatter_add": launches["stream_scatter_add"] + k5.launches,
+                    "stream_scatter_add_per_table": launches["stream_scatter_add_per_table"] + k5_one.launches}
         steps = STREAM_STEPS + chain_steps
         for name in total:
             total[name] += launches[name]
@@ -1132,12 +1307,12 @@ def phase_train_stream(cfg, params0):
         emit(row)
         check(bool(torch.isfinite(lk).all()) and bool(torch.isfinite(lp).all())
               and bool(torch.isfinite(chain_losses).all()), f"{opt}: every loss finite")
-        check(launches["stream_scatter_add"] == n_stream * steps,
-              f"{opt}: K5 launches {launches} == {n_stream} per step x {steps}")
+        check(launches["stream_scatter_add"] == steps and launches["stream_scatter_add_per_table"] == 0,
+              f"{opt}: K5 launches {launches} == 1 grouped launch for the {n_stream} tables per step x {steps}")
         check(launches["onehot_dense_grad"] == steps and launches["onehot_dense_grad_per_table"] == 0,
               f"{opt}: K1 launches {launches} == 1 grouped launch per step x {steps}")
         check(launches2 == {"onehot_dense_grad": STREAM_STEPS, "onehot_dense_grad_per_table": 0,
-                            "stream_scatter_add": n_stream * STREAM_STEPS},
+                            "stream_scatter_add": STREAM_STEPS, "stream_scatter_add_per_table": 0},
               f"{opt}: the second kernel-path run launched {launches2}")
         check(not any(plain_launches.values()), f"{opt}: the plain path launched {plain_launches}")
         check(loss_err <= loss_tol, f"{opt}: 32 steps, loss kernel vs plain {loss_err} <= {loss_tol}")
@@ -1346,6 +1521,68 @@ def phase_serve_onehot(cfg, sm, reqs, outs, flush):
     return launches
 
 
+CAT_CAP = 100_000  # rows per table in the cat-interaction serving phase
+
+
+def phase_serve_cat(flush):
+    """Serving at the Terabyte arch's widths (config.terabyte_config: d = 64,
+    bot 13-512-256-64, top 1728-512-512-256-1) with the cat interaction, whose
+    top MLP's first layer takes 27 x 64 = 1728 inputs, past one of K3's
+    640-column weight tiles. The 8 tables above CAT_CAP rows are cut to
+    CAT_CAP (random weights from seed 0, INT4 tables, INT8 MLP): one batch of
+    16384 through `make_serving_fn` against its plain path, one grouped K2
+    launch and 7 K3 launches."""
+    import dataclasses
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import terabyte_config
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_params
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
+        packed_pooled_lookup_grouped as k2,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import (
+        int8_linear as k3,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import (
+        make_serving_fn,
+        ptq_export,
+        serving_model_bytes,
+    )
+
+    t0 = time.perf_counter()
+    tb = terabyte_config()
+    cfg = dataclasses.replace(tb, table_sizes=tuple(min(n, CAT_CAP) for n in tb.table_sizes),
+                              interaction="cat", mlp_top=(27 * tb.embedding_dim,) + tuple(tb.mlp_top[1:]))
+    params = init_params(cfg, seed=0)
+    sm = ptq_export(cfg, params, emb_bits=4, mlp_bits=8)
+    del params
+    fn, plain = make_serving_fn(sm), make_serving_fn(sm, plain=True)
+    batch = random_batch(cfg, B_MAIN, np.random.RandomState(80))
+    fn(batch)
+    torch.cuda.synchronize()
+    k2.launches = k3.launches = 0
+    got = fn(batch)
+    torch.cuda.synchronize()
+    launches = {"packed_pooled_lookup": k2.launches, "int8_linear": k3.launches}
+    want = plain(batch)
+    err = (got - want).abs().max().item()
+    check(got.shape == (B_MAIN,) and bool(torch.isfinite(got).all()), "serve_cat: finite, shape")
+    check(bool(((got >= 0) & (got <= 1)).all()), "serve_cat: in [0, 1]")
+    check(err <= SERVE_ATOL, f"serve_cat vs plain path {err} <= {SERVE_ATOL}")
+    check(launches == {"packed_pooled_lookup": 1, "int8_linear": len(cfg.mlp_bot) + len(cfg.mlp_top) - 2},
+          f"serve_cat launches {launches}: 1 grouped K2 and one K3 per layer")
+    emit({"phase": "serve_cat", "config": "terabyte_cat", "embedding_dim": cfg.embedding_dim,
+          "mlp_bot": list(cfg.mlp_bot), "mlp_top": list(cfg.mlp_top), "batch": B_MAIN,
+          "reduced": {"table_rows_capped_at": CAT_CAP,
+                      "tables_cut": [k for k, n in enumerate(tb.table_sizes) if n > CAT_CAP],
+                      "rows": sum(cfg.table_sizes), "rows_of_the_arch": sum(tb.table_sizes)},
+          "serving_model_bytes": serving_model_bytes(sm), "launches": launches,
+          "max_abs_err_vs_plain": err, "tol": SERVE_ATOL,
+          "batch_ms_device": time_ms(lambda: fn(batch), flush),
+          "batch_ms_device_plain": time_ms(lambda: plain(batch), flush),
+          "phase_s": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no usable CUDA card (torch.cuda.is_available() is false)",
@@ -1384,6 +1621,7 @@ def main() -> int:
     # the K2 phase packs side formats from the untrained tables: before training
     k2_row, k2_err = phase_kernel_k2(cfg, params, sm, flush)
     k3_row = phase_kernel_k3(cfg, sm, flush)
+    k3_wide_err = phase_kernel_k3_wide(flush)
     del sm
     k1_row, k1_err = phase_kernel_k1(cfg, flush)
     k4_row, k4_err = phase_kernel_k4(cfg, params, flush)
@@ -1407,6 +1645,8 @@ def main() -> int:
     launches.update(train_launches)
     onehot_launches = phase_serve_onehot(cfg, sm, reqs, outs, flush)
     launches["onehot_pooled_lookup"] = onehot_launches["onehot_pooled_lookup"]
+    del sm
+    phase_serve_cat(flush)
     launches["stream_scatter_add"] = stream_launches["stream_scatter_add"]
     launches["dma_row_update"] = 0  # on no path: the JAX package calls it from a bench script only
     for name in ("packed_pooled_lookup", "int8_linear", "onehot_dense_grad", "onehot_pooled_lookup",
@@ -1429,16 +1669,18 @@ def main() -> int:
     grouped = "one launch for a group of tables"
     emit({"kernels": [
         entry("onehot_dense_grad", "onehot_update.cu", "onehot_update.py:116", k1_row, k1_err,
-              f"{grouped}; shared-memory sums for tables that fit"),
+              f"{grouped}; shared-memory sums for tables that fit; any D"),
         entry("packed_pooled_lookup", "packed_embedding.cu", "packed_embedding.py:261", k2_row, k2_err,
               grouped),
-        entry("int8_linear", "quant_matmul.cu", "quant_matmul.py:68", k3_row, k3_row["max_abs_err"],
-              "tensor cores: three bf16 wgmma passes, ReLU fused"),
+        entry("int8_linear", "quant_matmul.cu", "quant_matmul.py:68", k3_row,
+              max(k3_row["max_abs_err"], k3_wide_err),
+              "tensor cores: three bf16 wgmma passes, ReLU fused; K > 640 in chunks of 640"),
         entry("onehot_pooled_lookup", "onehot_update.cu", "onehot_update.py:203", k4_row, k4_err, grouped),
         entry("stream_scatter_add", "stream_update.cu", "stream_update.py:118", k5_row, k5_err,
-              "one owner thread per sorted id run"),
+              f"{grouped}; 128-position tiles, runs summed by warp-shuffle segmented scans, "
+              "crossing runs by the table's last block"),
         entry("dma_row_update", "stream_update.cu", "stream_update.py:350", k6_row, k6_err,
-              "one thread per (id, column)"),
+              "16-byte row lanes, D/4 threads a row"),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

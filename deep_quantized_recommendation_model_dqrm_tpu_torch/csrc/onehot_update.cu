@@ -120,20 +120,26 @@ __device__ __forceinline__ void load_vec(const float* p, float (&v)[VEC]) {
 
 // Adds each in-range update u in [u0, u1) of one table into dst (shared or
 // global memory, [rows, D]): D threads per update, one value each, so that
-// a warp's atomics touch at most 32 / D rows.
+// a warp's atomics touch at most 32 / D rows; where D > kThreads, the
+// block's threads take one update, a thread every kThreads-th column.
 __device__ __forceinline__ void scatter_updates(
     float* dst, const float* __restrict__ g, const int32_t* __restrict__ ids,
     const float* __restrict__ mask, int64_t rows, int64_t u0, int64_t u1, int P, int D) {
-  const int per_pass = kThreads / D;
-  const int sub = (int)threadIdx.x / D;
-  const int j = (int)threadIdx.x - sub * D;
+  const int lanes = D < kThreads ? D : kThreads;  // threads per update
+  const int per_pass = kThreads / lanes;
+  const int sub = (int)threadIdx.x / lanes;
+  const int j0 = (int)threadIdx.x - sub * lanes;
   if (sub >= per_pass) return;
   for (int64_t u = u0 + sub; u < u1; u += per_pass) {
     const int64_t id = __ldg(ids + u);
     if (id < 0 || id >= rows) continue;
-    float v = __ldg(g + (P == 1 ? u : u / P) * D + j);
-    if (mask) v = __fmul_rn(v, __ldg(mask + u));
-    atomicAdd(dst + id * D + j, v);
+    const float* gu = g + (P == 1 ? u : u / P) * D;
+    const float m = mask ? __ldg(mask + u) : 1.0f;
+    for (int j = j0; j < D; j += lanes) {
+      float v = __ldg(gu + j);
+      if (mask) v = __fmul_rn(v, m);
+      atomicAdd(dst + id * D + j, v);
+    }
   }
 }
 
@@ -219,7 +225,7 @@ extern "C" int dqrm_dense_grad_grouped(
     const long long* tables, int count, const void* g, const void* idx, const void* mask,
     void* out, long long total_rows, int B, int P, int D, void* stream_) {
   if (tables == nullptr || count <= 0 || count > kMaxTables || total_rows <= 0 || B < 0 ||
-      P < 0 || D <= 0 || D > kThreads) {
+      P < 0 || D <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
@@ -227,7 +233,7 @@ extern "C" int dqrm_dense_grad_grouped(
   if (zero != cudaSuccess) return (int)zero;
   const long long R = (long long)B * P;
   if (R == 0) return (int)cudaGetLastError();
-  const int per_pass = kThreads / D;
+  const int per_pass = D < kThreads ? kThreads / D : 1;  // updates a block takes at once
   const long long passes = R / kUpdatesPerPass;
   const int global_chunk =
       per_pass * (int)(passes < kMinPasses ? kMinPasses : passes > kMaxPasses ? kMaxPasses : passes);

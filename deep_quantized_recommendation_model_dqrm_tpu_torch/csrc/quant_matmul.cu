@@ -23,12 +23,21 @@
 // products. The JAX package uses the same three-pass split on the MXU
 // (ops/pallas/onehot_update.py:82-102). The kernel:
 // - Weights: a block owns a BN-wide column tile of the output. It converts
-//   its int8 weight tile over the whole (16-padded) K to bf16 once, into
-//   shared memory, in the no-swizzle K-major layout that `wgmma` reads as B:
-//   core matrix (g = n / 8, c = k / 8) of 8 rows x 16 bytes at byte offset
-//   (g * Kp / 8 + c) * 128. K <= 640 keeps a 128-wide tile and the x rings
-//   within the 227 KB a block may use. The dequantized weights never reach
-//   device memory.
+//   its int8 weight tile to bf16 into shared memory, in the no-swizzle
+//   K-major layout that `wgmma` reads as B: core matrix (g = n / 8,
+//   c = k / 8) of 8 rows x 16 bytes at byte offset (g * Kc / 8 + c) * 128,
+//   Kc being the tile's depth. A tile of at most 640 (16-padded) columns
+//   keeps a 128-wide tile and the x rings within the 227 KB a block may
+//   use. Where K fits (Kp <= 640, every Kaggle layer) the tile holds the
+//   whole of K and is converted once per block. A wider K is taken in
+//   chunks of 640 columns, the last one shorter: for each of its 64-row
+//   tiles the block converts chunk after chunk into the one tile buffer,
+//   with a barrier before each refill (every warpgroup has finished reading
+//   the last chunk) and a `fence.proxy.async` and a barrier after it, and
+//   the warpgroups keep one float32 accumulator across the chunks. The
+//   epilogue runs once, after the last chunk. The warpgroups of a block
+//   then walk their tiles in step, a warpgroup past M taking part in the
+//   barriers on zeros. The dequantized weights never reach device memory.
 // - Activations: each of the block's 1-4 warpgroups walks its own 64-row
 //   tiles of x. Every thread copies its own A fragment of a k16 step (rows g
 //   and g + 8 of its warp's 16, columns 2t, 2t + 1, 2t + 8, 2t + 9) with
@@ -42,8 +51,9 @@
 // - Compute: three `wgmma.mma_async.m64nBNk16.f32.bf16.bf16` per k16 step
 //   (A from registers, B from shared memory), all into one float32
 //   accumulator.
-// - Epilogue: out = acc * scale[n] + bias[n] (one fma), ReLU if asked,
-//   masked at M and N (N = 1 and N = 16 occur: BN is 8, 16, 64 or 128).
+// - Epilogue, after the last k16 step: out = acc * scale[n] + bias[n]
+//   (one fma), ReLU if asked, masked at M and N (N = 1 and N = 16 occur:
+//   BN is 8, 16, 64 or 128).
 // - Grid: (N tiles, M groups), sized so that every layer puts about one
 //   block on each SM; with 64-row tiles per warpgroup, the 256 tiles of
 //   B = 16384 spread over 128-132 SMs in every Kaggle layer.
@@ -59,6 +69,7 @@ constexpr int kMaxWarpgroups = 4;
 constexpr int kTileM = 64;
 constexpr int kMaxKp = 640;
 constexpr int kStages = 4;  // x fragments in flight per thread: kStages - 1 steps ahead
+constexpr int kChunkSteps = kMaxKp / 16;  // k16 steps of one weight tile
 // each warpgroup's ring of x fragments: kStages x 2 float4 per thread
 constexpr int kRingBytes = kStages * 2 * kWarpgroup * 16;
 
@@ -191,29 +202,21 @@ __device__ __forceinline__ void wgmma_bf16<128>(float* d, const uint32_t* a, uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// The rings follow the weight tile in shared memory, 16-byte aligned.
-__host__ __device__ constexpr int ring_offset(int bn, int kp) { return (bn * kp * 2 + 15) & ~15; }
-
-template <int BN, bool EVEN_K>
-__global__ void __launch_bounds__(kWarpgroup * kMaxWarpgroups, 1) int8_linear_tc_kernel(
-    const float* __restrict__ x, const int8_t* __restrict__ w,
-    const float* __restrict__ scale, const float* __restrict__ bias,
-    float* __restrict__ out, int M, int K, int N, int relu, int w_vec) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem);  // [BN / 8][Kp / 8][8][8]
-  const int Kp = (K + 15) & ~15;
-  const int kc = Kp / 8;
-  const int n0 = blockIdx.x * BN;
-
-  // The weight tile, int8 -> bf16 (exact), once per block. Thread idx writes
-  // row r = idx % 8 of core matrix (g, c): neighbouring threads write
-  // neighbouring 16 bytes, and a warp reads 32 bytes of each of 8 rows.
-  for (int idx = threadIdx.x; idx < BN * kc; idx += blockDim.x) {
+// Converts columns [k0, k0 + 8 * kc_fill) of the block's int8 weight rows
+// n0 .. n0 + BN - 1 to bf16 (exact) in the tile's core-matrix layout of
+// depth 8 * kc (zeros past N and K). Thread idx writes row r = idx % 8 of
+// core matrix (g, c): neighbouring threads write neighbouring 16 bytes, and
+// a warp reads 32 bytes of each of 8 rows.
+template <int BN>
+__device__ __forceinline__ void fill_weights(__nv_bfloat16* wsm, const int8_t* __restrict__ w,
+                                             int n0, int N, int K, int k0, int kc_fill, int kc,
+                                             int w_vec) {
+  for (int idx = threadIdx.x; idx < BN * kc_fill; idx += blockDim.x) {
     const int r = idx & 7;
-    const int c = (idx >> 3) % kc;
-    const int g = (idx >> 3) / kc;
+    const int c = (idx >> 3) % kc_fill;
+    const int g = (idx >> 3) / kc_fill;
     const int n = n0 + g * 8 + r;
-    const int k = c * 8;
+    const int k = k0 + c * 8;
     float v[8];
     if (n < N && w_vec && k < K) {
       const uint2 raw = __ldg(reinterpret_cast<const uint2*>(w + (int64_t)n * K + k));
@@ -234,9 +237,30 @@ __global__ void __launch_bounds__(kWarpgroup * kMaxWarpgroups, 1) int8_linear_tc
     packed.w = bf16x2_bits(__floats2bfloat162_rn(v[6], v[7]));
     *reinterpret_cast<uint4*>(wsm + ((g * kc + c) * 64 + r * 8)) = packed;
   }
-  // make the generic-proxy stores visible to wgmma's async-proxy reads
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  __syncthreads();
+}
+
+// The rings follow the weight tile in shared memory, 16-byte aligned.
+__host__ __device__ constexpr int ring_offset(int bn, int kp) { return (bn * kp * 2 + 15) & ~15; }
+
+template <int BN, bool EVEN_K>
+__global__ void __launch_bounds__(kWarpgroup * kMaxWarpgroups, 1) int8_linear_tc_kernel(
+    const float* __restrict__ x, const int8_t* __restrict__ w,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    float* __restrict__ out, int M, int K, int N, int relu, int w_vec) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem);  // [BN / 8][kc][8][8]
+  const int Kp = (K + 15) & ~15;
+  const int n0 = blockIdx.x * BN;
+
+  // the tile's depth in core matrices: all of K where it fits, else a chunk
+  const bool chunked = Kp > kMaxKp;
+  const int kc = (chunked ? kMaxKp : Kp) / 8;
+  if (!chunked) {  // the whole weight tile, once per block
+    fill_weights<BN>(wsm, w, n0, N, K, 0, kc, kc, w_vec);
+    // make the generic-proxy stores visible to wgmma's async-proxy reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+  }
 
   const int wg = threadIdx.x / kWarpgroup;
   const int nwg = blockDim.x / kWarpgroup;
@@ -250,9 +274,13 @@ __global__ void __launch_bounds__(kWarpgroup * kMaxWarpgroups, 1) int8_linear_tc
 
   // this thread's slots of its warpgroup's ring: stage st holds, as two
   // float4, x[r0, c..c+1], x[r1, c..c+1] and x[r0, c+8..c+9], x[r1, c+8..c+9]
-  float4* ring = reinterpret_cast<float4*>(smem + ring_offset(BN, Kp)) +
+  float4* ring = reinterpret_cast<float4*>(smem + ring_offset(BN, kc * 8)) +
                  wg * kStages * 2 * kWarpgroup + threadIdx.x % kWarpgroup;
-  for (int tile = blockIdx.y * nwg + wg; tile < m_tiles; tile += gridDim.y * nwg) {
+  for (int base = blockIdx.y * nwg; base < m_tiles; base += gridDim.y * nwg) {
+    const int tile = base + wg;
+    // a warpgroup whose tiles have run out leaves, unless the weight tile is
+    // refilled per chunk: then it takes part in the refills' barriers, past M
+    if (!chunked && tile >= m_tiles) break;
     const int64_t r0 = (int64_t)tile * kTileM + warp * 16 + g;
     const int64_t r1 = r0 + 8;
     // each thread copies, and later reads, only its own fragment: no barrier
@@ -274,6 +302,15 @@ __global__ void __launch_bounds__(kWarpgroup * kMaxWarpgroups, 1) int8_linear_tc
       cp_async_commit();
     }
     for (int s = 0; s < steps; ++s) {
+      if (chunked && s % kChunkSteps == 0) {
+        // every warpgroup has waited for its wgmma of the last chunk
+        __syncthreads();
+        const int left = steps - s;
+        fill_weights<BN>(wsm, w, n0, N, K, s * 16, (left < kChunkSteps ? left : kChunkSteps) * 2, kc,
+                         w_vec);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();
+      }
       if (s + kStages - 1 < steps) issue(s + kStages - 1);  // into the stage read last step
       cp_async_commit();
       cp_async_wait<kStages - 1>();  // step s has landed
@@ -285,7 +322,7 @@ __global__ void __launch_bounds__(kWarpgroup * kMaxWarpgroups, 1) int8_linear_tc
       split3(make_float2(f1.x, f1.y), a_hi[2], a_mid[2], a_lo[2]);
       split3(make_float2(f1.z, f1.w), a_hi[3], a_mid[3], a_lo[3]);
       // a k16 step is two core matrices along K: 256 bytes further on
-      const uint64_t desc = desc0 + (uint64_t)(s * 16);
+      const uint64_t desc = desc0 + (uint64_t)((s % kChunkSteps) * 16);
       wgmma_fence();
       wgmma_bf16<BN>(acc, a_hi, desc);
       wgmma_bf16<BN>(acc, a_mid, desc);
@@ -340,7 +377,6 @@ int launch(const float* x, const int8_t* w, const float* scale, const float* bia
            int M, int K, int N, int relu, cudaStream_t stream) {
   // 8-byte weight loads when every row starts 8-byte aligned
   const int w_vec = K % 8 == 0 && (reinterpret_cast<uintptr_t>(w) & 7) == 0;
-  const int Kp = (K + 15) & ~15;
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(int8_linear_tc_kernel<BN, EVEN_K>,
@@ -359,7 +395,8 @@ int launch(const float* x, const int8_t* w, const float* scale, const float* bia
   int groups = (m_tiles + wgs - 1) / wgs;
   groups = groups < groups_target ? groups : groups_target;
   const dim3 grid(n_tiles, groups);
-  const size_t smem = ring_offset(BN, Kp) + (size_t)wgs * kRingBytes;
+  const int Kp = (K + 15) & ~15;
+  const size_t smem = ring_offset(BN, Kp < kMaxKp ? Kp : kMaxKp) + (size_t)wgs * kRingBytes;
   int8_linear_tc_kernel<BN, EVEN_K><<<grid, kWarpgroup * wgs, smem, stream>>>(
       x, w, scale, bias, out, M, K, N, relu, w_vec);
   return (int)cudaGetLastError();
@@ -377,11 +414,11 @@ int launch_bn(const float* x, const int8_t* w, const float* scale, const float* 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// arguments the kernel does not take: M, K or N below 1, K above 640).
+// arguments the kernel does not take: M, K or N below 1, K above 2^31 - 16).
 extern "C" int dqrm_int8_linear(const void* x, const void* w, const void* scale,
                                 const void* bias, void* out, int M, int K, int N, int relu,
                                 void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || ((K + 15) & ~15) > kMaxKp) {
+  if (M <= 0 || K <= 0 || N <= 0 || K > 0x7FFFFFF0) {
     return (int)cudaErrorInvalidValue;
   }
   const float* xf = static_cast<const float*>(x);

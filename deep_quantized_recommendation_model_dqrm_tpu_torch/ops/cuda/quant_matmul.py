@@ -50,9 +50,6 @@ def int8_linear_xla(x: torch.Tensor, qw: QuantLinearWeights, relu: bool = False)
     return torch.relu(out) if relu else out
 
 
-# the kernel holds a block's whole weight tile, K padded to 16, in shared memory
-MAX_IN_FEATURES = 640
-
 _SIGNATURES = {
     "dqrm_int8_linear": [ctypes.c_void_p] * 5
     + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -62,7 +59,7 @@ _SIGNATURES = {
 def int8_linear(x: torch.Tensor, qw: QuantLinearWeights, relu: bool = False) -> torch.Tensor:
     """Dequant-matmul (then ReLU if `relu`): the plain version for a CPU
     tensor, the CUDA kernel (csrc/quant_matmul.cu) for a CUDA tensor, which
-    takes at most `MAX_IN_FEATURES` input features.
+    takes any number of input features (K >= 1; above 640 in chunks of 640).
 
     Counts its kernel launches in `int8_linear.launches`."""
     if x.device.type == "cpu":
@@ -85,8 +82,6 @@ def int8_linear(x: torch.Tensor, qw: QuantLinearWeights, relu: bool = False) -> 
         )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("activations and weights must be contiguous")
-    if K > MAX_IN_FEATURES:
-        raise ValueError(f"the kernel takes at most {MAX_IN_FEATURES} input features, got {K}")
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     if M == 0:
         return out

@@ -8,6 +8,7 @@ toolkit:
 
     python3 -m deep_quantized_recommendation_model_dqrm_tpu_torch.tools.kernel_variants [name ...]
     python3 -m deep_quantized_recommendation_model_dqrm_tpu_torch.tools.kernel_variants --k1 [name ...]
+    python3 -m deep_quantized_recommendation_model_dqrm_tpu_torch.tools.kernel_variants --k5 [name ...]
 
 K3 (csrc/quant_matmul.cu), on the seven Kaggle serving layers at
 B = 16384 (random activations and weights from a seed); its variants:
@@ -18,7 +19,10 @@ B = 16384 (random activations and weights from a seed); its variants:
 - `fill_only`: every block returns after converting its weight tile;
 - `fill_and_epilogue`: the main loop dropped (wrong results);
 - `ring3`, `ring6`: a ring of 3 or 6 x fragments per thread instead of 4
-  (6 leaves room for K <= 512 only).
+  (6 leaves room for a 512-column weight tile only: wider K takes more
+  chunks).
+
+Every edit raises where its text is no longer in the source.
 
 Prints one JSON line per variant and turn, then `torch.addmm`'s time on
 the dequantized weights. Variants that drop work print large errors.
@@ -39,6 +43,22 @@ line holds the memset and the kernel; its variants:
 - `no_smem`: every table summed in global memory.
 
 Then one `index_add_` into the flat gradient as the yardstick.
+
+K5 (`--k5`, csrc/stream_update.cu), one grouped launch for the 3 mid Kaggle
+tables at 8192 sorted updates each (uniform ids, Zipf a = 1.05 and 1.2),
+and 8192 updates into one table of 3 rows; its variants:
+
+- `tile32`, `tile64`, `tile256`: 32, 64 or 256 sorted positions a block
+  instead of 128;
+- `no_finish`: no fence, ticket or finish; every block returns after its
+  own tile, so the runs that cross tiles are not added (wrong results):
+  the time of the blocks' own tiles alone.
+
+Each K5 line is the median of the card's device time over 5 profiled
+rounds, after a second of matrix products that brings the card to its
+working clock.
+
+Then one `index_add_` per table as the yardstick.
 """
 
 from __future__ import annotations
@@ -64,27 +84,41 @@ _PASSES = """      wgmma_bf16<BN>(acc, a_hi, desc);
       wgmma_bf16<BN>(acc, a_mid, desc);
       wgmma_bf16<BN>(acc, a_lo, desc);
 """
-_FENCE = """  asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
-  __syncthreads();
+_FENCE = """    asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
+    __syncthreads();
+  }
 """
 _STAGES = "constexpr int kMaxKp = 640;\nconstexpr int kStages = 4;"
 _MAIN_START = "#pragma unroll\n    for (int st = 0; st < kStages - 1; ++st) {"
 _MAIN_END = "    // acc[4i + 2h + e] holds row"
 
 
+def _sub(*pairs):
+    """An edit that replaces each (old, new) in turn; it raises where an old
+    text is not in the source (the kernel has changed under it)."""
+    def edit(src: str) -> str:
+        for old, new in pairs:
+            if old not in src:
+                raise RuntimeError(f"edit no longer matches the source: {old[:60]!r}")
+            src = src.replace(old, new)
+        return src
+    return edit
+
+
 def _drop_main_loop(src: str) -> str:
     return src[: src.index(_MAIN_START)] + src[src.index(_MAIN_END):]
 
 
+# Every Kaggle layer has K <= 640: one weight tile, converted before the
+# main loop (the `_FENCE` that `fill_only` returns after).
 EDITS = {
-    "no_wgmma": lambda s: s.replace(_PASSES, ""),
-    "no_x_loads": lambda s: s.replace(
-        "      if (s + kStages - 1 < steps) issue(s + kStages - 1);", ""
-    ).replace("      if (st < steps) issue(st);", ""),
-    "fill_only": lambda s: s.replace(_FENCE, _FENCE + "  if (relu != 7) return;\n"),
+    "no_wgmma": _sub((_PASSES, "")),
+    "no_x_loads": _sub(("      if (s + kStages - 1 < steps) issue(s + kStages - 1);", ""),
+                       ("      if (st < steps) issue(st);", "")),
+    "fill_only": _sub((_FENCE, _FENCE + "  if (relu != 7) return;\n")),
     "fill_and_epilogue": _drop_main_loop,
-    "ring3": lambda s: s.replace(_STAGES, "constexpr int kMaxKp = 640;\nconstexpr int kStages = 3;"),
-    "ring6": lambda s: s.replace(_STAGES, "constexpr int kMaxKp = 512;\nconstexpr int kStages = 6;"),
+    "ring3": _sub((_STAGES, "constexpr int kMaxKp = 640;\nconstexpr int kStages = 3;")),
+    "ring6": _sub((_STAGES, "constexpr int kMaxKp = 512;\nconstexpr int kStages = 6;")),
 }
 
 
@@ -95,17 +129,26 @@ _K1_PER_ROW = "constexpr int kSmemMinPerRow = 256;"
 _K1_SMEM = "    t.smem = R >= kSmemMinPerRow * t.rows && 4 * t.rows <= smem_updates &&"
 
 
-def _k1(old: str, new: str):
-    return lambda s: s.replace(old, new)
-
-
 K1_EDITS = {
-    "passes2": _k1(_K1_MAX_PASSES, "constexpr int kMaxPasses = 2;"),
-    "passes8": _k1(_K1_MIN_PASSES, "constexpr int kMinPasses = 8;"),
-    "smem_chunk64": _k1(_K1_CHUNK, "constexpr int kSmemChunk = 64;"),
-    "smem_chunk256": _k1(_K1_CHUNK, "constexpr int kSmemChunk = 256;"),
-    "smem_per_row64": _k1(_K1_PER_ROW, "constexpr int kSmemMinPerRow = 64;"),
-    "no_smem": _k1(_K1_SMEM, "    t.smem = false &&"),
+    "passes2": _sub((_K1_MAX_PASSES, "constexpr int kMaxPasses = 2;")),
+    "passes8": _sub((_K1_MIN_PASSES, "constexpr int kMinPasses = 8;")),
+    "smem_chunk64": _sub((_K1_CHUNK, "constexpr int kSmemChunk = 64;")),
+    "smem_chunk256": _sub((_K1_CHUNK, "constexpr int kSmemChunk = 256;")),
+    "smem_per_row64": _sub((_K1_PER_ROW, "constexpr int kSmemMinPerRow = 64;")),
+    "no_smem": _sub((_K1_SMEM, "    t.smem = false &&")),
+}
+
+_K5_TILE = "constexpr int kTile = 128; "
+_K5_TICKET = "  if (tiles > 1) {\n    if (cross_in || cross_out) __threadfence();"
+_K5_LAST = "  if (!last) return;"
+
+K5_EDITS = {
+    "tile32": _sub((_K5_TILE, "constexpr int kTile = 32; ")),
+    "tile64": _sub((_K5_TILE, "constexpr int kTile = 64; ")),
+    "tile256": _sub((_K5_TILE, "constexpr int kTile = 256; ")),
+    # no fence, no ticket, no finish: the runs that cross tiles are not
+    # added (wrong results), the time of each block's own tile alone
+    "no_finish": _sub((_K5_TICKET, _K5_TICKET.replace("tiles > 1", "tiles < 0")), (_K5_LAST, "  return;")),
 }
 
 
@@ -118,8 +161,6 @@ def build(source: str, edits, names, signatures):
     procs = {}
     for name in names:
         edited = edits[name](src)
-        if edited == src:
-            raise RuntimeError(f"variant {name}: its edit no longer matches {path.name}")
         cu = OUT_DIR / f"{source}_{name}.cu"
         cu.write_text(edited)
         so = OUT_DIR / f"lib{source}_{name}.so"
@@ -151,6 +192,18 @@ def device_ops_ms(fn, n: int = 10) -> dict:
         torch.cuda.synchronize()
     return {e.key[:40]: getattr(e, "self_device_time_total", 0.0) / 1e3 / n
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def warm_up(seconds: float = 1.0) -> None:
+    """Matrix products for `seconds`, so that the card reaches its working
+    clock before the first variant is timed."""
+    import time
+
+    a = torch.randn(4096, 4096, device="cuda")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        a = (a @ a).clamp_(-1, 1)
+        torch.cuda.synchronize()
 
 
 def device_ms(fn, n: int = 10) -> float:
@@ -212,19 +265,81 @@ def k1_main(names) -> int:
     return 0
 
 
+def k5_cases():
+    """{case: (tables, sids [K, 8192], svals [K, 8192, 16])} on the card: the
+    3 mid Kaggle tables with uniform and Zipf(1.05, 1.2) ids, and the 3-row
+    table (as chip_smoke.py draws them)."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import kaggle_config
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.stream_update import sort_sparse_grad
+
+    sizes = kaggle_config().table_sizes
+    mid = [n for n in sizes if 20000 < n <= 300000]
+    rng = np.random.RandomState(0)
+
+    def case(rows, zipf=None):
+        tables, ups = [], []
+        for n in rows:
+            tables.append(torch.from_numpy(rng.normal(size=(n, 16)).astype(np.float32)).cuda())
+            ids = (np.random.default_rng(1).zipf(zipf, size=8192) - 1) % n if zipf else rng.randint(0, n, 8192)
+            vals = torch.from_numpy(rng.normal(size=(8192, 16)).astype(np.float32)).cuda()
+            ups.append(sort_sparse_grad(torch.from_numpy(ids.astype(np.int32)).cuda(), vals))
+        return tables, torch.stack([i for i, _ in ups]), torch.stack([v for _, v in ups])
+
+    return {"3_mid_uniform": case(mid), "3_mid_zipf1.05": case(mid, 1.05),
+            "3_mid_zipf1.2": case(mid, 1.2), "heavy_8192_into_3": case([3])}
+
+
+def k5_main(names) -> int:
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda import stream_update as su
+
+    libs = build("stream_update", K5_EDITS, names, su._SIGNATURES)
+    cases = k5_cases()
+    stream = torch.cuda.current_stream().cuda_stream
+    tickets = torch.zeros(su.MAX_GROUP_TABLES, dtype=torch.int32, device="cuda")
+
+    def launch(lib, tables, sids, svals, descs, part):
+        err = lib.dqrm_stream_scatter_grouped(descs.data_ptr(), len(tables), 0, sids.data_ptr(),
+                                              svals.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+                                              sids.shape[1], svals.shape[2], stream)
+        _build.check(err, "stream_scatter_grouped variant")
+
+    warm_up()
+    for name in ["as_is"] + names + names[::-1] + ["as_is"]:
+        lib = libs[name]
+        for case, (tables, sids, svals) in cases.items():
+            work = [t.clone() for t in tables]
+            descs = torch.tensor([[t.data_ptr(), t.shape[0]] for t in work], dtype=torch.int64)
+            part = torch.empty((len(tables), 2 * -(-sids.shape[1] // lib.dqrm_stream_tile()), svals.shape[2]),
+                               device="cuda")
+            want = su.stream_scatter_grouped_plain([t.clone() for t in tables], sids, svals)
+            launch(lib, work, sids, svals, descs, part)
+            err = max((a - b).abs().max().item() for a, b in zip(work, want))
+            rounds = sorted(device_ms(lambda: launch(lib, work, sids, svals, descs, part)) for _ in range(5))
+            print(json.dumps({"variant": name, "case": case, "device_ms": rounds[2], "rounds_ms": rounds,
+                              "max_abs_err": err}), flush=True)
+    for case, (tables, sids, svals) in cases.items():
+        lib_args = [(i.long(), v) for i, v in zip(sids, svals)]
+        ops = device_ops_ms(lambda: [t.index_add_(0, i, v) for t, (i, v) in zip(tables, lib_args)])
+        print(json.dumps({"variant": "index_add_", "case": case, "device_ms": sum(ops.values())}), flush=True)
+    print(json.dumps({"card": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: no usable CUDA card", file=sys.stderr)
         return 1
-    k1 = bool(argv) and argv[0] == "--k1"
-    names = list(argv[1:] if k1 else argv)
-    edits = K1_EDITS if k1 else EDITS
+    kernel = argv[0] if argv and argv[0] in ("--k1", "--k5") else "--k3"
+    names = list(argv[1:] if kernel != "--k3" else argv)
+    edits = {"--k1": K1_EDITS, "--k5": K5_EDITS, "--k3": EDITS}[kernel]
     unknown = [n for n in names if n not in edits]
     if unknown:
         print(f"unknown variants {unknown}; known: {sorted(edits)}", file=sys.stderr)
         return 2
-    if k1:
+    if kernel == "--k1":
         return k1_main(names)
+    if kernel == "--k5":
+        return k5_main(names)
     libs = build("quant_matmul", EDITS, names, qm._SIGNATURES)
     rng = np.random.RandomState(0)
     work = []

@@ -13,8 +13,9 @@ policy -> optimizer, with the QAT scale refresh folded in as explicit state.
     the pooled gradient, ids and mask, and a dense optimizer update (under
     SGD one batched multiply and one batched add);
   - tables above that and with at most `stream_update_max_rows` rows have
-    their gradients sorted in one batched sort and applied by kernel K5:
-    straight into the table under SGD, into a zeroed dense gradient under
+    their gradients sorted in one batched sort and applied by one launch of
+    kernel K5 for all of them: straight into the tables under SGD (after
+    one multiply by -lr), into zeroed dense gradients (one buffer) under
     Adagrad and RWSAdagrad, which then take the dense update;
   - the others take a scatter-add: under SGD the duplicate scatter,
     pre-coalesced when the table has at most 1M rows and the step at least
@@ -49,8 +50,10 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update i
     onehot_dense_grad_grouped,
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.stream_update import (
+    MAX_GROUP_TABLES as STREAM_GROUP_TABLES,
     sort_sparse_grads_batched,
-    stream_update_auto,
+    stream_scatter_add_grouped,
+    stream_scatter_grouped_plain,
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import (
     clamp_ids,
@@ -257,6 +260,7 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
     qc = config.quant
     opt = tc.optimizer
     dense_grads = dense_grad_grouped_plain if plain else onehot_dense_grad_grouped
+    stream_scatter = stream_scatter_grouped_plain if plain else stream_scatter_add_grouped
     # the small tables' K1 groups, one launch each per step
     small = {k for k, n in enumerate(config.table_sizes) if 0 < n <= tc.onehot_update_max_rows}
     groups = [make_dense_grad_group([config.table_sizes[k] for k in ks], ks)
@@ -312,28 +316,30 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
                 for k, table, dense in zip(group.slots, tables, views):
                     _dense_table_update(opt, table, emb_acc[k], dense, lr)
 
-            # mid-size tables: every one's gradient sorted in one batched sort
+            # mid-size tables: every one's gradient sorted in one batched
+            # sort, then one K5 launch per group of at most 32 tables
             stream_ks = [k for k, t in enumerate(params["emb"])
                          if tc.onehot_update_max_rows < t.shape[0] <= tc.stream_update_max_rows]
-            stream: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
             if stream_ks:
                 sids, svals = sort_sparse_grads_batched(*zip(*(grad(k) for k in stream_ks)))
-                stream = {k: (sids[i], svals[i]) for i, k in enumerate(stream_ks)}
-
-            for k, table in enumerate(params["emb"]):
-                n_rows = table.shape[0]
-                if k in small:
-                    continue
-                if k in stream:
-                    sids_k, svals_k = stream[k]
-                    if opt == "sgd":  # K5 straight into the table
-                        stream_update_auto(table, sids_k, -lr * svals_k, presorted=True, plain=plain)
-                        continue
+                if opt == "sgd":  # one multiply, K5 straight into the tables
+                    targets = [params["emb"][k] for k in stream_ks]
+                    svals = -lr * svals
+                else:
                     # Adagrad needs each row's summed gradient before the
                     # square: K5 into zeros, then the dense update
-                    zeros = torch.zeros((n_rows, svals_k.shape[-1]), dtype=torch.float32, device=dev)
-                    summed = stream_update_auto(zeros, sids_k, svals_k, presorted=True, plain=plain)
-                    _dense_table_update(opt, table, emb_acc[k], summed, lr)
+                    rows = [params["emb"][k].shape[0] for k in stream_ks]
+                    targets = torch.zeros((sum(rows), svals.shape[-1]), dtype=torch.float32,
+                                          device=dev).split(rows)
+                for lo in range(0, len(stream_ks), STREAM_GROUP_TABLES):
+                    hi = lo + STREAM_GROUP_TABLES
+                    stream_scatter(targets[lo:hi], sids[lo:hi], svals[lo:hi])
+                if opt != "sgd":
+                    for k, summed in zip(stream_ks, targets):
+                        _dense_table_update(opt, params["emb"][k], emb_acc[k], summed, lr)
+
+            for k, table in enumerate(params["emb"]):
+                if k in small or k in stream_ks:
                     continue
                 _sparse_table_update(opt, table, emb_acc[k], *grad(k), lr)
         new_qs = new_qs._replace(step=qstate.step + 1)

@@ -166,12 +166,14 @@ def group_inputs(B, P, d, seed, masked):
     return ids, g, mask.astype(np.float32) if masked else None
 
 
-@pytest.mark.parametrize("P,masked,d", [(1, False, 16), (4, True, 16), (4, False, 8), (1, True, 8)])
+@pytest.mark.parametrize("P,masked,d", [(1, False, 16), (4, True, 16), (4, False, 8), (1, True, 8),
+                                         (1, False, 512), (4, True, 512)])
 def test_dense_grad_grouped_plain_matches_jax(P, masked, d):
     """Each table's view of the grouped K1 plain version against the JAX
     kernel (interpret) on that table's rows_grad_from_pooled (g[k][b] times
     mask[k][b, p] at ids[k][b, p]); the JAX kernel sums duplicates in another
-    order: 1e-6 of the largest row sum."""
+    order: 1e-6 of the largest row sum. D = 512 is wider than a K1 block's
+    256 threads (each then takes two columns on the card)."""
     ids, g, mask = group_inputs(32, P, d, 7 * P + d, masked)
     group = toh.make_dense_grad_group(GROUP_ROWS, GROUP_SLOTS)
     tmask = None if mask is None else torch.from_numpy(mask)

@@ -121,3 +121,32 @@ def test_three_bf16_passes_hold_k3_tolerance():
     assert (got - want).abs().max().item() <= tol
     one_pass = (hi @ wq.T) * tw.scale + tw.bias
     assert (one_pass - want).abs().max().item() > tol
+
+
+# wider than one 640-column weight tile of the kernel: the Terabyte arch's
+# cat-interaction top layer (27 x 64 = 1728 inputs) and one column past a tile
+WIDE_SHAPES = [(1728, 512, 20), (641, 100, 9)]
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("n_in,n_out,B", WIDE_SHAPES)
+def test_plain_linear_wide_input_matches_jax(n_in, n_out, B, relu):
+    """The plain K3 at K > 640, which the kernel takes in chunks of 640
+    columns, against the Pallas kernel in interpret mode: float32 sums of up
+    to 1728 products in another order, within 1e-5 relative to max|out|;
+    the CPU wrapper is the plain version and launches nothing."""
+    import jax
+
+    w, b = layer(n_in, n_out, seed=n_in + 3)
+    x = np.random.RandomState(n_out + 2).normal(0.0, 1.0, size=(B, n_in)).astype(np.float32)
+    jw = jqm.quantize_linear_weights(jnp.asarray(w), jnp.asarray(b), 8)
+    tw = tqm.quantize_linear_weights(torch.from_numpy(w), torch.from_numpy(b), 8)
+    want = jqm.int8_linear(jnp.asarray(x), jw, tb=16, interpret=True)
+    if relu:
+        want = jax.nn.relu(want)
+    want = np.asarray(want)
+    got = tqm.int8_linear_xla(torch.from_numpy(x), tw, relu=relu).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * max(1.0, np.abs(want).max()))
+    before = tqm.int8_linear.launches
+    np.testing.assert_array_equal(tqm.int8_linear(torch.from_numpy(x), tw, relu=relu).numpy(), got)
+    assert tqm.int8_linear.launches == before

@@ -35,6 +35,14 @@ def configs(name):
             k = m.kaggle_config()
             pair.append(dataclasses.replace(k, table_sizes=tuple(min(n, 1000) for n in k.table_sizes)))
         return tuple(pair)
+    if name == "terabyte_cat_capped":  # top MLP input 27 x 64 = 1728, past K3's 640-column tile
+        pair = []
+        for m in (jcfg, tcfg):
+            tb = m.terabyte_config()
+            pair.append(dataclasses.replace(
+                tb, table_sizes=tuple(min(n, 300) for n in tb.table_sizes), interaction="cat",
+                mlp_top=(27 * tb.embedding_dim,) + tuple(tb.mlp_top[1:])))
+        return tuple(pair)
     kw = dict(SMALL)
     if name == "small_cat":
         kw.update(interaction="cat", mlp_top=(32, 8, 1))
@@ -63,6 +71,7 @@ CASES = [
     ("small_clip", 4, 8, False, 1),
     ("small", 8, 8, True, 2),
     ("kaggle_capped", 4, 8, False, 1),
+    ("terabyte_cat_capped", 4, 8, False, 1),
 ]
 
 

@@ -252,3 +252,91 @@ def test_wrappers_check_shapes():
             fn(table, torch.zeros((3,), dtype=torch.int32), torch.zeros((3, 5)))
         with pytest.raises(ValueError):
             fn(table, torch.zeros((3, 1), dtype=torch.int32), torch.zeros((3, 4)))
+
+
+def group_inputs(rows, U, seed, D=16, zipf=None, pad=0):
+    """Tables of `rows` rows each and U sorted updates per table: uniform
+    ids (zipf=None) or Zipf(a) ids `(zipf(a) - 1) % R` as
+    scripts/bench_bigtable_scatter.py draws them, the last `pad` ids of each
+    table out of range (coalesce-style padding)."""
+    rng = np.random.default_rng(seed)
+    tables, sids, svals = [], [], []
+    for R in rows:
+        tables.append(rng.normal(size=(R, D)).astype(np.float32))
+        ids = ((rng.zipf(zipf, size=U) - 1) % R if zipf else rng.integers(0, R, size=U)).astype(np.int32)
+        if pad:
+            ids[-pad:] = R + np.arange(pad)
+        vals = rng.normal(size=(U, D)).astype(np.float32)
+        order = np.argsort(ids, kind="stable")
+        sids.append(ids[order])
+        svals.append(vals[order])
+    return tables, np.stack(sids), np.stack(svals)
+
+
+GROUP_CASES = {
+    # a 3-row table of heavy duplicates beside two larger ones, with padding
+    "heavy_and_padding": dict(rows=(3, 700, 1300), U=600, seed=20, pad=17),
+    "zipf_1.05": dict(rows=(900, 3, 2000), U=512, seed=21, zipf=1.05),
+    "zipf_1.2": dict(rows=(400, 1500, 3), U=512, seed=22, zipf=1.2, pad=9),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_stream_scatter_grouped_matches_jax_table_by_table(case):
+    """The grouped plain version and the grouped CPU wrapper against the
+    Pallas kernel in interpret mode, one call per table, within TOL; the CPU
+    wrapper launches nothing."""
+    tables, sids, svals = group_inputs(**GROUP_CASES[case])
+    want = [np.asarray(jsu.stream_scatter_add(jnp.asarray(tb), jnp.asarray(i), jnp.asarray(v),
+                                              interpret=True))
+            for tb, i, v in zip(tables, sids, svals)]
+    launches = (tsu.stream_scatter_add_grouped.launches, tsu.stream_scatter_add.launches)
+    for fn in (tsu.stream_scatter_grouped_plain, tsu.stream_scatter_add_grouped):
+        tt = [t(tb) for tb in tables]
+        out = fn(tt, t(sids), t(svals))
+        assert len(out) == len(tables) and all(o is x for o, x in zip(out, tt))  # in place
+        for o, w in zip(out, want):
+            np.testing.assert_allclose(o.numpy(), w, rtol=TOL, atol=TOL)
+    assert (tsu.stream_scatter_add_grouped.launches, tsu.stream_scatter_add.launches) == launches
+
+
+def test_stream_scatter_grouped_bf16_group_matches_jax():
+    """A bf16 group: each row's updates summed in float32 and rounded once,
+    as the Pallas kernel does, so the port equals it up to one bf16 ulp (a
+    summation-order difference can cross a rounding boundary)."""
+    tables, sids, svals = group_inputs((3, 500, 64), U=300, seed=23, pad=5)
+    tables = [tb.astype(jnp.bfloat16) for tb in tables]
+    tt = [torch.from_numpy(np.asarray(tb, np.float32)).to(torch.bfloat16) for tb in tables]
+    got = tsu.stream_scatter_add_grouped(tt, t(sids), t(svals))
+    for g, tb, i, v in zip(got, tables, sids, svals):
+        assert g.dtype == torch.bfloat16
+        want = np.asarray(jsu.stream_scatter_add(jnp.asarray(tb), jnp.asarray(i), jnp.asarray(v),
+                                                 interpret=True), np.float32)
+        g = g.float().numpy()
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+        assert np.all(np.abs(g - want) <= ulp)
+
+
+def test_stream_scatter_add_is_the_one_table_group():
+    """The per-table entry equals the grouped version with one table bit for
+    bit (on the CPU, both the plain version)."""
+    tables, sids, svals = group_inputs((257,), U=400, seed=24, pad=3)
+    one = tsu.stream_scatter_add(t(tables[0]), t(sids[0]), t(svals[0]))
+    (grouped,) = tsu.stream_scatter_add_grouped([t(tables[0])], t(sids), t(svals))
+    assert torch.equal(one, grouped)
+
+
+def test_stream_scatter_grouped_checks_the_group():
+    table = torch.zeros((10, 4))
+    ids = torch.zeros((2, 3), dtype=torch.int32)
+    vals = torch.zeros((2, 3, 4))
+    for fn in (tsu.stream_scatter_add_grouped, tsu.stream_scatter_grouped_plain):
+        with pytest.raises(ValueError):  # one id row per table
+            fn([table], ids, vals)
+        with pytest.raises(ValueError):  # D of the values
+            fn([table, table], ids, torch.zeros((2, 3, 5)))
+        with pytest.raises(ValueError):
+            fn([], ids[:0], vals[:0])
+        with pytest.raises(ValueError):
+            fn([table] * (tsu.MAX_GROUP_TABLES + 1), torch.zeros((33, 3), dtype=torch.int32),
+               torch.zeros((33, 3, 4)))

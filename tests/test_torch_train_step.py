@@ -188,6 +188,59 @@ def test_grouped_sparse_step_matches_per_table_reference(optimizer, P, sizes):
                 assert torch.equal(state.opt_state["emb"][k], acc), (i, k)
 
 
+@pytest.mark.parametrize("optimizer,sizes", [
+    ("sgd", (5000, 600, 300, 20, 7)), ("adagrad", (5000, 600, 300, 20, 7)),
+    ("rwsadagrad", (5000, 600, 300, 20, 7)),
+    ("sgd", tuple(range(101, 135)) + (20,)),  # 34 mid tables: K5 groups of 32 and 2
+    ("adagrad", tuple(range(101, 135)) + (20,)),
+])
+def test_grouped_stream_step_matches_per_table_reference(optimizer, sizes):
+    """Three sparse steps whose mid tables (100 < rows <= 1000) take the
+    grouped K5 branch (one sort, then one launch per group of at most 32
+    tables: under SGD into the tables after one multiply by -lr, under
+    Adagrad and RWSAdagrad into one zeroed buffer, then the dense update)
+    against a per-table reference: each mid table's gradient (from
+    `make_grad_probe`, taken before the step) sorted by `sort_sparse_grad`,
+    `stream_scatter_plain` into the table (SGD, -lr times the values) or
+    into its own zeros, then its own `_dense_table_update`. Tables and
+    accumulators agree bit for bit."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.stream_update import (
+        sort_sparse_grad,
+        stream_scatter_plain,
+    )
+
+    _, tc = configs(sizes, dict(INT4, scale_update_period=2))
+    lr = 0.1 if optimizer == "sgd" else ADAGRAD_LR
+    _, ttc = train_configs(batch_size=64, learning_rate=lr, optimizer=optimizer,
+                           onehot_update_max_rows=100, stream_update_max_rows=1000)
+    mid = [k for k, n in enumerate(sizes) if 100 < n <= 1000]
+    state = tts.init_train_state(tc, ttc, seed=3, device="cpu")
+    step = tts.make_train_step(tc, ttc, sparse_emb_grad=True, device="cpu")
+    probe = tts.make_grad_probe(tc, ttc, device="cpu")
+    rng = np.random.RandomState(13)
+    for i in range(3):
+        b = tsyn.random_batch(tc, 64, rng, device="cpu")
+        grads, _ = probe(state.params, state.qstate, b)
+        step_lr = tts._lr(ttc, state.qstate.step + 1)
+        want = {}
+        for k in mid:
+            table = state.params["emb"][k].clone()
+            acc = None if state.opt_state is None else state.opt_state["emb"][k].clone()
+            sids, svals = sort_sparse_grad(grads[f"table_{k}_ids"], grads[f"table_{k}_rows"])
+            if optimizer == "sgd":
+                stream_scatter_plain(table, sids, -step_lr * svals)
+            else:
+                summed = stream_scatter_plain(torch.zeros_like(table), sids, svals)
+                tts._dense_table_update(optimizer, table, acc, summed, step_lr)
+            want[k] = (table, acc)
+        state, _ = step(state, b)
+        for k in mid:
+            table, acc = want[k]
+            assert torch.equal(state.params["emb"][k], table), (i, k)
+            if acc is not None:
+                assert torch.equal(state.opt_state["emb"][k], acc), (i, k)
+
+
 def test_multi_step_equals_single_steps():
     jc, tc = configs((300, 40, 7), INT4)
     _, ttc = train_configs(batch_size=32, learning_rate=0.2, onehot_update_max_rows=100,
