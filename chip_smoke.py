@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port's main paths on one NVIDIA card:
 INT4 QAT training (SGD; and with streaming mid-table updates under SGD,
 Adagrad and RWSAdagrad), evaluation, export and packed serving of the full
-Kaggle DQRM.
+Kaggle DQRM, and training, checkpoints and PTQ serving through the CLI.
 
     python3 chip_smoke.py
 
@@ -37,7 +37,13 @@ launch counters of its kernels set to 0 just before and read just after:
    grouped K2 launch for the other 8) answering the same requests;
 7. serve_cat: `make_serving_fn` at the Terabyte arch's widths with the cat
    interaction (a 1728-input top layer through K3), its tables cut to
-   100000 rows, against its plain path.
+   100000 rows, against its plain path;
+8. cli: the user's command line, `train.run`, at the full Kaggle width: 256
+   steps of INT4 QAT training (B = 128, megasteps of 16; one grouped K1
+   launch per step), a validation eval and the final eval each saving a
+   checkpoint slot, then `--inference-only` PTQ serving of the saved state
+   (one grouped K2 and 7 K3 launches per batch), its AUC against this
+   script's own on the plain path.
 
 Kernel K6 (`dma_row_update`) is on no path; its kernel phase holds it
 against its plain version on the 2,202,608-row table.
@@ -46,7 +52,7 @@ Every check raises, so any failure exits non-zero. Phases in order: device,
 build, model, kernel (K2, K3, K3 at K = 1728, K1 with D = 512, K4 with
 D = 512, K5 with Zipf ids, K6), train, profile (train), train_stream with
 profile (SGD), eval, export, serve, profile (serve), serve_onehot with
-profile, serve_cat, kernels.
+profile, serve_cat, cli, kernels.
 
 Output: one JSON line per phase; then the {"kernels": [...]} summary; then
 the card's name and power limit as nvidia-smi gives them; and last
@@ -1128,7 +1134,7 @@ def phase_train(cfg, params):
            "paper_a5000_ms_per_step": A5000_MS_PER_STEP, **bound,
            "compare_s": compare_s, "main_run_s": run_s, "phase_s": time.perf_counter() - t0}
     emit(row)
-    return state, launches
+    return state, launches, ms
 
 
 def tree_max_diff(a, b) -> float:
@@ -1583,6 +1589,172 @@ def phase_serve_cat(flush):
     return launches
 
 
+CLI_BATCHES = 256  # training batches of the CLI run: 16 megasteps of 16
+CLI_K = 16
+CLI_PRINT = 64
+CLI_AUC_ATOL = 1e-4  # the CLI's PTQ AUC against this script's own on the same state
+
+
+def phase_cli(cfg, train_step_ms):
+    """The user's entry point, `train.run` (python -m ..._torch.train), at
+    the Kaggle arch's full width: A trains 256 steps (INT4 QAT, SGD at 0.1,
+    B = 128, megasteps of 16; one grouped K1 launch per step) with a
+    validation eval at step 256 that saves the first slot and the final
+    eval that saves the second; B serves the saved state through
+    `--inference-only` PTQ (INT4 tables, INT8 MLP: one grouped K2 and 7 K3
+    launches per batch of 16384). B's AUC is held against the AUC of this
+    script's own `ptq_export` + `make_serving_fn(plain=True)` on the same
+    loaded state. The CLI's ms/it is reported beside the `train` phase's
+    step time (`train_step_ms`, the same step without the CLI's loader and
+    loop). The checkpoints (2.16 GB each) live in a temporary directory,
+    removed at the end."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch import train
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_dense_grad as k1_one,
+        onehot_dense_grad_grouped as k1,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
+        packed_pooled_lookup_grouped as k2,
+        packed_pooled_lookup_kernel as k2_one,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import (
+        int8_linear as k3,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import make_serving_fn, ptq_export
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import _on, init_train_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        load_checkpoint,
+        load_metadata,
+        save_checkpoint,
+    )
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dqrm_cli_")
+    try:
+        ck, log = os.path.join(tmp, "ck"), os.path.join(tmp, "log")
+        arch = ["--data-generation=random", f"--num-batches={CLI_BATCHES}",
+                "--arch-embedding-size=" + "-".join(str(n) for n in cfg.table_sizes),
+                "--arch-sparse-feature-size=16", "--arch-mlp-bot=13-512-256-64-16",
+                "--arch-mlp-top=512-256-1"]
+        argv_a = arch + ["--quantization_flag", "--embedding_bit=4", "--weight_bit=4",
+                         "--scale-update-period=200", "--learning-rate=0.1",
+                         "--mini-batch-size=128", f"--steps-per-dispatch={CLI_K}",
+                         f"--val-freq={CLI_BATCHES}", f"--print-freq={CLI_PRINT}",
+                         f"--save-model={ck}", f"--log-dir={log}"]
+        argv_b = arch + [f"--load-model={ck}", "--inference-only", "--quantize-emb-with-bit=4",
+                         "--quantize-mlp-with-bit=8"]
+
+        # A: train, counters from 0
+        torch.cuda.synchronize()
+        k1.launches = k1_one.launches = k2.launches = k2_one.launches = k3.launches = 0
+        out = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result_a = train.run(argv_a)
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t1
+        launches_a = {"onehot_dense_grad": k1.launches, "packed_pooled_lookup": k2.launches,
+                      "int8_linear": k3.launches}
+        check(launches_a["onehot_dense_grad"] == CLI_BATCHES and k1_one.launches == 0,
+              f"cli A: K1 launches {launches_a}, per-table {k1_one.launches}: one grouped launch "
+              f"per step x {CLI_BATCHES}")
+        check(k2.launches == k3.launches == 0, f"cli A: no serving kernel in training {launches_a}")
+        ms_per_it = [float(m) for m in re.findall(r"([0-9.]+) ms/it", out.getvalue())]
+        with open(os.path.join(log, "run.scalars.jsonl")) as f:
+            losses = [json.loads(line)["value"] for line in f
+                      if json.loads(line)["tag"] == "Train/Loss"]
+        check(len(losses) == len(ms_per_it) == CLI_BATCHES // CLI_PRINT, f"cli A: prints {losses}")
+        check(all(np.isfinite(losses)), f"cli A: finite losses {losses}")
+        check(np.isfinite(result_a["roc_auc"]), f"cli A: final eval {result_a}")
+
+        mgr = CheckpointManager(ck)
+        slots = [mgr.slot_path(0), mgr.slot_path(1)]
+        check(all(os.path.exists(p) for p in slots), "cli A: both checkpoint slots written")
+        keys = (".params['bot'][0]['w']", f".params['emb'][{cfg.num_tables - 1}]",
+                ".params['top'][2]['b']", ".qstate.emb_scales", ".qstate.step", ".qstate.act_fixed")
+        for p in slots:
+            with np.load(p) as z:
+                check(all(k in z.files for k in keys), f"cli A: JAX key names in {p}")
+                check(not any(k.startswith(".opt_state") for k in z.files), "cli A: SGD, no opt_state")
+                check(z[".qstate.step"].dtype == np.int32 and int(z[".qstate.step"]) == CLI_BATCHES,
+                      f"cli A: .qstate.step of {p} == {CLI_BATCHES}")
+            meta = load_metadata(p)
+            check(meta.get("table_sizes") == list(cfg.table_sizes)
+                  and meta.get("mlp_top") == [367, 512, 256, 1]
+                  and meta.get("table_kinds") == ["dense"] * cfg.num_tables,
+                  f"cli A: arch_meta in {p}")
+        last = mgr.latest()
+        check(load_metadata(last).get("batch") == 0, "cli A: the final save is the latest slot")
+        ckpt_bytes = os.path.getsize(last)
+
+        # B: serve the saved state, counters from 0
+        torch.cuda.synchronize()
+        k1.launches = k2.launches = k2_one.launches = k3.launches = 0
+        t2 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result_b = train.run(argv_b)
+        torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t2
+        launches_b = {"onehot_dense_grad": k1.launches, "packed_pooled_lookup": k2.launches,
+                      "int8_linear": k3.launches}
+        n_test = max(1, CLI_BATCHES // 8)
+        check(launches_b == {"onehot_dense_grad": 0, "packed_pooled_lookup": n_test,
+                             "int8_linear": 7 * n_test} and k2_one.launches == 0,
+              f"cli B: launches {launches_b}: 1 grouped K2 and 7 K3 per batch x {n_test}")
+
+        # this script's own PTQ AUC on the same loaded state, through the plain path
+        args = train.build_parser().parse_args(argv_b)
+        args.onehot_update_max_rows, args.stream_update_max_rows = 20000, 0
+        ccfg, tc = train.make_configs(args)
+        ccfg, _, test_loader, _ = train.make_loaders(args, ccfg, tc)
+        like = init_train_state(ccfg, tc)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        state, _ = load_checkpoint(last, like)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t3
+        del like
+        t4 = time.perf_counter()
+        save_checkpoint(os.path.join(tmp, "timed.npz"), state, load_metadata(last))
+        save_s = time.perf_counter() - t4
+        os.remove(os.path.join(tmp, "timed.npz"))
+        check(state.qstate.step == CLI_BATCHES, f"loaded qstate.step {state.qstate.step}")
+        plain = make_serving_fn(ptq_export(ccfg, state.params, emb_bits=4, mlp_bits=8), plain=True)
+        dev = torch.device(DEVICE)
+        want = train.evaluate(ccfg, state, test_loader, lambda s, b: plain(_on(b, dev)))
+        del state, plain
+        auc_err = abs(result_b["roc_auc"] - want["roc_auc"])
+        check(auc_err <= CLI_AUC_ATOL, f"cli B: AUC {result_b['roc_auc']} vs plain path "
+                                       f"{want['roc_auc']}: {auc_err} <= {CLI_AUC_ATOL}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steady = ms_per_it[1:]
+    emit({"phase": "cli", "entry": f"python -m {PKG}.train", "config": "kaggle_int4_qat",
+          "batch": 128, "k": CLI_K, "steps": CLI_BATCHES,
+          "train": {"wall_s": wall_a, "ms_per_it_at_prints": ms_per_it,
+                    "ms_per_it": statistics.median(steady) if steady else ms_per_it[-1],
+                    "train_phase_step_ms": train_step_ms,
+                    "losses": losses, "launches": launches_a,
+                    "launches_per_step": launches_a["onehot_dense_grad"] / CLI_BATCHES,
+                    "final_eval": result_a},
+          "checkpoint": {"bytes": ckpt_bytes, "save_s": save_s, "load_s": load_s},
+          "inference": {"wall_s": wall_b, "batches": n_test, "batch": 16384,
+                        "launches": launches_b, "roc_auc": result_b["roc_auc"],
+                        "roc_auc_plain": want["roc_auc"], "auc_abs_err": auc_err,
+                        "tol": CLI_AUC_ATOL},
+          "phase_s": time.perf_counter() - t0})
+    return {"onehot_dense_grad": launches_a["onehot_dense_grad"],
+            "packed_pooled_lookup": launches_b["packed_pooled_lookup"],
+            "int8_linear": launches_b["int8_linear"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no usable CUDA card (torch.cuda.is_available() is false)",
@@ -1630,7 +1802,7 @@ def main() -> int:
 
     # the streaming path starts from the untrained params, which phase_train trains in place
     params0 = tree_map(torch.clone, params)
-    state, train_launches = phase_train(cfg, params)
+    state, train_launches, train_step_ms = phase_train(cfg, params)
     stream_launches = phase_train_stream(cfg, params0)
     del params0
     phase_eval(cfg, state)
@@ -1647,6 +1819,8 @@ def main() -> int:
     launches["onehot_pooled_lookup"] = onehot_launches["onehot_pooled_lookup"]
     del sm
     phase_serve_cat(flush)
+    for name, n in phase_cli(cfg, train_step_ms).items():
+        launches[name] += n
     launches["stream_scatter_add"] = stream_launches["stream_scatter_add"]
     launches["dma_row_update"] = 0  # on no path: the JAX package calls it from a bench script only
     for name in ("packed_pooled_lookup", "int8_linear", "onehot_dense_grad", "onehot_pooled_lookup",
@@ -1660,9 +1834,9 @@ def main() -> int:
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"], "design": design}
 
-    emit({"phase": "kernels", "checked_by": {"onehot_dense_grad": ["kernel", "train", "train_stream"],
-                                             "packed_pooled_lookup": ["kernel", "serve", "serve_onehot"],
-                                             "int8_linear": ["kernel", "serve", "serve_onehot"],
+    emit({"phase": "kernels", "checked_by": {"onehot_dense_grad": ["kernel", "train", "train_stream", "cli"],
+                                             "packed_pooled_lookup": ["kernel", "serve", "serve_onehot", "cli"],
+                                             "int8_linear": ["kernel", "serve", "serve_onehot", "cli"],
                                              "onehot_pooled_lookup": ["kernel", "serve_onehot"],
                                              "stream_scatter_add": ["kernel", "train_stream"],
                                              "dma_row_update": ["kernel"]}})

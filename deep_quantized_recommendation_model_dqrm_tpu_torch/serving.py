@@ -125,6 +125,8 @@ def make_serving_fn(
     onehot_lookup_max_rows: int = 0,
     fused_gather: bool = False,
     plain: bool = False,
+    use_pallas_lookup: bool = False,
+    use_pallas_mlp: bool = False,
 ) -> Callable[[dlrm.Batch], torch.Tensor]:
     """Inference function: Batch -> click probabilities [B] (float32, on the
     batch's device).
@@ -142,7 +144,11 @@ def make_serving_fn(
     that package's one gather for all tables gives the per-table results,
     and here every lookup is one grouped launch already. `plain=True` calls
     the plain versions on any device — the reference the kernels are checked
-    against on the card."""
+    against on the card. `use_pallas_lookup` and `use_pallas_mlp` are
+    accepted for the JAX package's signature and change nothing: there they
+    choose the Pallas kernels over XLA's gather and matmul, and here the
+    kernels are the only path."""
+    del use_pallas_lookup, use_pallas_mlp  # the kernels are the only path
     if mlp_impl == "int8":
         raise NotImplementedError(
             "mlp_impl='int8' (dynamic activation quant + int8 GEMM): a later slice of the port"
@@ -199,7 +205,12 @@ class ServingEngine:
         mlp_impl: Optional[str] = None,
         onehot_lookup_max_rows: int = 0,
         plain: bool = False,
+        use_pallas_lookup: bool = False,
+        use_pallas_mlp: bool = False,
     ):
+        """`use_pallas_lookup` and `use_pallas_mlp` change nothing, as in
+        `make_serving_fn`."""
+        del use_pallas_lookup, use_pallas_mlp
         self.sm = sm
         self.buckets = sorted(buckets)
         self.device = sm.emb[0].data.device

@@ -1,0 +1,922 @@
+"""CLI training entry point of the PyTorch/CUDA port: the JAX package's
+train.py for one device (`--parallelism=none`).
+
+Run:  python -m deep_quantized_recommendation_model_dqrm_tpu_torch.train \
+        --data-generation=random --num-batches=100 ...
+
+The parser has every flag of the JAX package's CLI, with the same names,
+defaults and choices, so one command line runs either package; the loop
+mirrors the JAX package's, which mirrors the reference's canonical script
+(dlrm_s_pytorch.py:1501-1781): per-epoch batch loop, `--print-freq` loss
+prints with ms/it, `--test-freq`/`--val-freq` eval with best-checkpoint
+save, resume, the QAT epoch schedule, `--steps-per-dispatch` megasteps,
+gradient accumulation, and `--inference-only` evaluation or PTQ serving.
+
+It runs on the card unless `--platform=cpu` asks for the CPU; without a
+card it raises and never falls back. Checkpoints are the JAX package's npz
+format (utils/checkpoint.py), so either package resumes or serves what the
+other saved. The loss is read from the device only at print boundaries and
+evaluation scores once per pass.
+
+What this slice does not run exits with a message naming the later slice
+(ROADMAP.md queue 1): `--parallelism` other than none and the multi-process
+flags (item 6), `--data-generation=dataset` and trace replay from
+per-table distribution files (item 4), `--export-stablehlo` and
+`--plot-compute-graph` (item 5), `--investigating-inputs` (item 7), and
+the model options `models/dlrm.check_supported` refuses (item 5).
+`--pin-table-layout` fixes a TPU memory layout and is accepted as a no-op.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from deep_quantized_recommendation_model_dqrm_tpu_torch.config import (
+    DLRMConfig,
+    QuantConfig,
+    TrainConfig,
+    dash_separated_ints,
+)
+
+# --stream-update-max-rows auto rule: off, as in the JAX package (its
+# measured characterization rejects streaming as a default); the flag stays
+# for explicit use.
+_STREAM_AUTO_ROWS_PER_BATCH = 0
+# --onehot-update-max-rows auto rule under --parallelism=none: the JAX
+# package's 20000, which puts the 18 small Kaggle tables on kernel K1.
+_ONEHOT_AUTO_ROWS = 20000
+
+
+def _later(what: str, item: int) -> str:
+    return f"{what}: a later slice of the port (ROADMAP.md queue 1 item {item})"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="DQRM training on one NVIDIA card (PyTorch/CUDA)")
+    # architecture (dlrm_s_pytorch.py:909-930)
+    p.add_argument("--arch-sparse-feature-size", type=int, default=16)
+    p.add_argument("--arch-embedding-size", type=str, default="4-3-2")
+    p.add_argument("--arch-mlp-bot", type=str, default="13-512-256-64-16")
+    p.add_argument("--arch-mlp-top", type=str, default="512-256-1")
+    p.add_argument("--arch-interaction-op", type=str, default="dot")
+    p.add_argument("--arch-interaction-itself", action="store_true")
+    p.add_argument("--loss-threshold", type=float, default=0.0)
+    p.add_argument("--loss-function", type=str, default="bce",
+                   choices=("mse", "bce", "wbce"))
+    p.add_argument("--loss-weights", type=str, default="1.0-1.0",
+                   help="wbce per-class weights w_neg-w_pos")
+    # embedding compression tricks + weighted pooling
+    # (dlrm_s_pytorch.py:922-931 + md_solver :1202)
+    p.add_argument("--table-dtype", type=str, default="float32",
+                   choices=("float32", "bfloat16"),
+                   help="embedding master-table dtype (bfloat16 halves HBM)")
+    p.add_argument("--compute-dtype", type=str, default="float32",
+                   choices=("float32", "bfloat16"),
+                   help="MLP/interaction matmul dtype (bfloat16: a later "
+                        "slice of the port)")
+    p.add_argument("--weighted-pooling", type=str, default=None,
+                   choices=[None, "fixed", "learned"])
+    p.add_argument("--qr-flag", action="store_true")
+    p.add_argument("--qr-operation", type=str, default="mult",
+                   choices=["mult", "add", "concat"])
+    p.add_argument("--qr-collisions", type=int, default=4)
+    p.add_argument("--qr-threshold", type=int, default=200)
+    p.add_argument("--md-flag", action="store_true")
+    p.add_argument("--md-threshold", type=int, default=200)
+    p.add_argument("--md-temperature", type=float, default=0.3)
+    p.add_argument("--md-round-dims", action="store_true")
+    # data (dlrm_s_pytorch.py:940-975)
+    p.add_argument("--data-generation", type=str, default="random",
+                   choices=["random", "learnable", "dataset", "binary"],
+                   help="'learnable' = synthetic CTR stream WITH signal "
+                        "(hidden factorization model, data/synthetic."
+                        "LearnableSyntheticLoader) — the accuracy-gate "
+                        "stand-in when real Criteo is unavailable; train "
+                        "and test share the ground-truth model")
+    p.add_argument("--data-set", type=str, default="kaggle",
+                   choices=["kaggle", "terabyte"])
+    p.add_argument("--processed-data-dir", type=str, default="")
+    p.add_argument("--raw-data-file", type=str, default="")
+    p.add_argument("--raw-data-files", type=str, default="",
+                   help="comma-separated or glob list of per-day raw files "
+                        "(Terabyte day_0..day_23); preprocessed in parallel "
+                        "via preprocess_criteo_days_parallel")
+    p.add_argument("--preprocess-workers", type=int, default=4)
+    p.add_argument("--binary-data-file", type=str, default="")
+    p.add_argument("--binary-test-data-file", type=str, default="",
+                   help="separate mlperf bin file for eval (reference "
+                        "test_data.bin); default: split --binary-data-file 7/8-1/8")
+    p.add_argument("--max-ind-range", type=int, default=-1)
+    p.add_argument("--data-sub-sample-rate", type=float, default=0.0)
+    p.add_argument("--data-randomize", type=str, default="total",
+                   choices=["total", "day", "none"],
+                   help="train-sample shuffling (dlrm_s_pytorch.py:946): "
+                        "day = shuffle within each day; total = also "
+                        "shuffle day order (streaming stand-in for the "
+                        "reference's preprocessing-time global reorder)")
+    p.add_argument("--num-batches", type=int, default=0)
+    p.add_argument("--data-size", type=int, default=0,
+                   help="total synthetic samples; rounds up to whole batches "
+                        "(RandomDataset, dlrm_data_pytorch.py:786-794). "
+                        "--num-batches takes precedence when both are set")
+    p.add_argument("--num-indices-per-lookup", type=int, default=1)
+    # synthetic-data generation knobs (dlrm_s_pytorch.py:942-960 +
+    # generate_dist_input_batch, dlrm_data_pytorch.py:1098-1158)
+    p.add_argument("--num-indices-per-lookup-fixed",
+                   action=argparse.BooleanOptionalAction, default=True,
+                   help="--no-…-fixed draws a per-lookup bag size in "
+                        "[1, num-indices-per-lookup] (masked static-P "
+                        "layout; the reference's offset encoding)")
+    p.add_argument("--rand-data-dist", type=str, default="uniform",
+                   choices=["uniform", "gaussian"],
+                   help="gaussian draws INDICES from N(mu, sigma) clipped "
+                        "to [rand-data-min, rand-data-max] (hot-index skew)")
+    p.add_argument("--rand-data-min", type=float, default=0.0)
+    p.add_argument("--rand-data-max", type=float, default=1.0)
+    p.add_argument("--rand-data-mu", type=float, default=-1.0)
+    p.add_argument("--rand-data-sigma", type=float, default=1.0)
+    p.add_argument("--round-targets", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="--no-round-targets keeps targets continuous U(0,1) "
+                        "(the reference default — only meaningful with "
+                        "--loss-function=mse)")
+    p.add_argument("--data-trace-file", type=str, default="",
+                   help="non-empty: draw sparse indices from per-table LRU "
+                        "stack-distance profile files ('j' in the path is "
+                        "replaced by the table index; "
+                        "generate_synthetic_input_batch, dlrm_data_pytorch."
+                        "py:1161-1233). If the table-0 file does not exist, "
+                        "falls back to a GENERATED locality model "
+                        "(data/synthetic.TraceSyntheticLoader). Build dist "
+                        "files from a raw trace with data/trace."
+                        "profile_trace_to_dist")
+    p.add_argument("--data-trace-enable-padding", action="store_true",
+                   help="pad the sampled stack-distance distribution once "
+                        "all unique lines have been seen "
+                        "(dlrm_data_pytorch.py:1241-1244)")
+    p.add_argument("--mlperf-bin-shuffle", action="store_true",
+                   help="batch-level shuffle of the mlperf binary train "
+                        "split (RandomSampler, dlrm_data_pytorch.py:452)")
+    p.add_argument("--mlperf-grad-accum-iter", type=int, default=1,
+                   help="accumulate N batches into one optimizer step "
+                        "(dlrm_s_pytorch.py:1595-1604); see "
+                        "--grad-accum-semantics for the exact math")
+    p.add_argument("--grad-accum-semantics", type=str, default="reference",
+                   choices=["reference", "sum", "mean"],
+                   help="'reference' reproduces the reference EXACTLY: its "
+                        "zero_grad shares the step's (j+1)%%k==0 condition "
+                        "(dlrm_s_pytorch.py:1596-1600), discarding the "
+                        "first k-1 micro-grads — only the k-th batch's own "
+                        "gradient is ever applied (A/B-verified). 'sum' = "
+                        "sum of per-batch mean grads (concat + loss*k, the "
+                        "accumulation the reference code apparently "
+                        "intended); 'mean' = plain large-batch mean (concat)")
+    p.add_argument("--documenting-table-weight", action="store_true",
+                   help="dump embedding tables to <log-dir>/table_weights_"
+                        "{0,1}.npz before/after training "
+                        "(documenting_weights_tables, comm_grad.py:1699)")
+    p.add_argument("--documenting-table-grads", type=int, default=0,
+                   help="every N iterations dump the current batch's sparse "
+                        "per-table embedding gradients (ids + row grads, "
+                        "pre-update params) to <log-dir>/table_grads_it<N>."
+                        "npz (the gradient half of the documenting script, "
+                        "dlrm_s_pytorch_single_gpu_documentingp.py:969-987; "
+                        "analyze with tools/analysis.grad_distribution_"
+                        "report). parallelism none/dp, single-process")
+    # training (dlrm_s_pytorch.py:976-1003)
+    p.add_argument("--mini-batch-size", type=int, default=128)
+    p.add_argument("--test-mini-batch-size", type=int, default=16384)
+    p.add_argument("--nepochs", type=int, default=1)
+    p.add_argument("--learning-rate", type=float, default=0.01)
+    p.add_argument("--optimizer", type=str, default="sgd",
+                   choices=["sgd", "adagrad", "rwsadagrad"])
+    p.add_argument("--lr-num-warmup-steps", type=int, default=0)
+    p.add_argument("--lr-decay-start-step", type=int, default=0)
+    p.add_argument("--lr-num-decay-steps", type=int, default=0)
+    p.add_argument("--numpy-rand-seed", type=int, default=123)
+    # control (dlrm_s_pytorch.py:1004-1021)
+    p.add_argument("--print-freq", type=int, default=1024)
+    p.add_argument("--test-freq", type=int, default=-1)
+    p.add_argument("--val-freq", type=int, default=0,
+                   help="evaluate on the VALIDATION split every this many "
+                        "iterations; when > 0 best-checkpoint selection "
+                        "uses val accuracy and test stays untouched for "
+                        "final metrics (the reference builds val/test "
+                        "halves, dlrm_data_pytorch.py:144-145, but its "
+                        "training scripts never consume val — this is the consumer). "
+                        "dataset mode uses the second half of the last "
+                        "day; synthetic modes derive a held-out loader")
+    p.add_argument("--print-time", action="store_true")
+    p.add_argument("--print-wall-time", action="store_true",
+                   help="append HH:MM wall clock to the training print "
+                        "(dlrm_s_pytorch.py:1636-1638)")
+    p.add_argument("--save-model", type=str, default="")
+    p.add_argument("--load-model", type=str, default="")
+    p.add_argument("--inference-only", action="store_true")
+    p.add_argument("--log-dir", type=str, default="")
+    p.add_argument("--mlperf-logging", action="store_true")
+    p.add_argument("--mlperf-acc-threshold", type=float, default=0.0)
+    p.add_argument("--mlperf-auc-threshold", type=float, default=0.0)
+    # quantization (comm_grad.py:1120-1137)
+    p.add_argument("--quantization_flag", action="store_true")
+    p.add_argument("--embedding_bit", type=int, default=4)
+    p.add_argument("--weight_bit", type=int, default=4)
+    p.add_argument("--bias_bit", type=int, default=32,
+                   help="-1 = follow weight_bit (the reference hardcode)")
+    p.add_argument("--activation_bit", type=int, default=8)
+    p.add_argument("--interaction_bit", type=int, default=16)
+    p.add_argument("--act-range-momentum", type=float, default=0.95,
+                   help="-1 = running extremum (QuantAct act_range_momentum)")
+    p.add_argument("--act-percentile", type=float, default=0.0)
+    p.add_argument("--quantize_activation", action="store_true")
+    p.add_argument("--quantize_act_and_lin", action="store_true")
+    p.add_argument("--linear_channel", action="store_true")
+    p.add_argument("--modify_feature_interaction", action="store_true")
+    p.add_argument("--scale-update-period", type=int, default=200)
+    p.add_argument("--quant-scheme", type=str, default="hawq",
+                   choices=["hawq", "pact", "lsq"])
+    p.add_argument("--pretrain_and_quantize", action="store_true")
+    p.add_argument("--pretrain_and_quantize_lin", action="store_true")
+    p.add_argument("--linear_shift_down_bit_width", action="store_true")
+    p.add_argument("--shift-bit-width-to", type=int, default=4)
+    # gradient communication (the DQRM contribution)
+    p.add_argument("--parallelism", type=str, default="none",
+                   choices=["none", "dp", "dp-nosync", "hybrid", "rowshard",
+                            "pseudo"])
+    p.add_argument("--grad-quant-bits", type=int, default=8,
+                   help="gradient exchange bits (reference "
+                        "--embedding_bag_gradient_bit_num); 32 = uncompressed")
+    p.add_argument("--error-compensation", action="store_true")
+    p.add_argument("--weight-sync-period", type=int, default=200)
+    # ranking-range mixed-bit embedding-gradient policy (reference
+    # --quantize_embedding_bag_gradient + grad_precision_and_scale,
+    # sgd_quantized_gradients_parallel_comm.py:158-255)
+    p.add_argument("--ranking-range", action="store_true")
+    p.add_argument("--ranking-frac-hi", type=float, default=0.2)
+    p.add_argument("--ranking-frac-int8", type=float, default=0.3)
+    # INT-compressed all-to-all of pooled embeddings in the hybrid step
+    p.add_argument("--a2a-quant-bits", type=int, default=32)
+    # PTQ inference (dlrm_s_pytorch.py:1446-1471)
+    p.add_argument("--quantize-emb-with-bit", type=int, default=32)
+    p.add_argument("--quantize-mlp-with-bit", type=int, default=32)
+    p.add_argument("--export-stablehlo", type=str, default="",
+                   help="serialize the packed inference fn (a later slice of the port)")
+    # simulation / audit / profiling (SURVEY §3.4, §4.4, §5)
+    p.add_argument("--num-pseudo-workers", type=int, default=4)
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="run N train steps per call, their N batches "
+                        "uploaded to the card at once; numerically "
+                        "identical")
+    p.add_argument("--onehot-lookup-max-rows", type=int, default=0,
+                   help="tables with <= this many rows run the pooled "
+                        "lookup through one grouped launch of kernel K4 "
+                        "(one-hot pooled lookup) instead of the row "
+                        "gather (0 disables)")
+    p.add_argument("--onehot-update-max-rows", type=int, default=-1,
+                   help=("tables with <= this many rows take their sparse "
+                        "update as a dense gradient from one grouped launch "
+                        "of kernel K1 instead of a scatter (0 disables). "
+                        "Default -1 = auto: 20000, the JAX package's "
+                        "default, so the 18 small Kaggle tables take K1"))
+    p.add_argument("--stream-update-max-rows", type=int, default=-1,
+                   help=("tables with onehot-update-max-rows < rows <= this "
+                        "take their sparse update through one grouped launch "
+                        "of kernel K5 (sorted-run scatter-add) instead of a "
+                        "scatter (0 disables). Default -1 = auto = off, as "
+                        "in the JAX package"))
+    p.add_argument("--pin-table-layout", action="store_true",
+                   help=("accepted and ignored: it pins TPU table layouts "
+                        "in the JAX package, and the card has no such "
+                        "layout to pin"))
+    # multi-process launch (the reference's -n/-g/-nr + MASTER_ADDR/PORT env,
+    # dlrm_s_pytorch_comm_grad.py:1159-1167): parsed, and rejected by `run`
+    # until the parallel slice of the port
+    p.add_argument("--coordinator-address", type=str, default="",
+                   help="host:port of process 0 (multi-process: a later slice of the port)")
+    p.add_argument("--num-processes", type=int, default=0)
+    p.add_argument("--process-id", type=int, default=-1)
+    p.add_argument("--investigating-inputs", action="store_true")
+    p.add_argument("--debug-mode", action="store_true")
+    p.add_argument("--print-precision", type=int, default=5,
+                   help="np.set_printoptions precision "
+                        "(dlrm_s_pytorch.py:1061-1062)")
+    p.add_argument("--plot-compute-graph", action="store_true",
+                   help=("dump the train step's graph (a later slice of the "
+                        "port; the JAX package dumps its StableHLO)"))
+    p.add_argument("--enable-profiling", action="store_true")
+    p.add_argument("--profile-dir", type=str, default="/tmp/dqrm_trace")
+    p.add_argument("--platform", type=str, default="",
+                   help="cpu runs on the CPU; empty (the default), gpu or "
+                        "cuda on the card")
+    return p
+
+
+def _table_dist_path(trace_file: str, table_idx: int) -> str:
+    """Per-table dist file naming of the JAX package's data/trace.py: the
+    literal 'j' in --data-trace-file is replaced by the table index
+    (dlrm_data_pytorch.py:1193-1195)."""
+    return trace_file.replace("j", str(table_idx))
+
+
+def _trace_replay(args) -> bool:
+    return bool(args.data_trace_file) and os.path.exists(
+        _table_dist_path(args.data_trace_file, 0)
+    )
+
+
+def unported(args) -> Optional[str]:
+    """The message for the first flag this slice does not run, else None."""
+    if args.parallelism != "none":
+        return _later(f"--parallelism={args.parallelism}", 6)
+    if args.coordinator_address or args.num_processes or args.process_id >= 0:
+        return _later("--coordinator-address/--num-processes/--process-id", 6)
+    if args.data_generation == "dataset":
+        return _later("--data-generation=dataset (Criteo preprocessing)", 4)
+    if args.data_generation == "random" and _trace_replay(args):
+        return _later("--data-trace-file replay of per-table distribution files", 4)
+    if args.export_stablehlo:
+        return _later("--export-stablehlo", 5)
+    if args.plot_compute_graph:
+        return _later("--plot-compute-graph", 5)
+    if args.investigating_inputs:
+        return _later("--investigating-inputs", 7)
+    return None
+
+
+def _device(platform: str) -> Optional[str]:
+    """--platform as the entry points' `device`: "cpu", or None (the card)."""
+    if platform == "cpu":
+        return "cpu"
+    if platform in ("", "gpu", "cuda"):
+        return None
+    raise SystemExit(f"--platform={platform!r}: the port runs on cpu or gpu/cuda")
+
+
+def make_configs(args) -> tuple:
+    quant = QuantConfig(
+        enabled=args.quantization_flag,
+        embedding_bit=args.embedding_bit,
+        weight_bit=args.weight_bit,
+        # reference QAT scripts hardcode bias_bit = weight_bit
+        # (comm_grad.py:316-323); -1 follows that, otherwise explicit
+        bias_bit=args.weight_bit if args.bias_bit < 0 else args.bias_bit,
+        activation_bit=args.activation_bit,
+        quantize_activation=args.quantize_activation or args.quantize_act_and_lin,
+        quantize_mlp=args.quantize_act_and_lin or args.weight_bit < 32,
+        mlp_channelwise=args.linear_channel,
+        modify_feature_interaction=args.modify_feature_interaction,
+        interaction_bit=args.interaction_bit,
+        scale_update_period=args.scale_update_period,
+        act_range_momentum=args.act_range_momentum,
+        act_percentile=args.act_percentile,
+        quant_scheme=args.quant_scheme,
+    )
+    table_sizes = dash_separated_ints(args.arch_embedding_size)
+    mlp_bot = dash_separated_ints(args.arch_mlp_bot)
+    mlp_top = dash_separated_ints(args.arch_mlp_top)
+    cfg = DLRMConfig(
+        table_sizes=table_sizes,
+        embedding_dim=args.arch_sparse_feature_size,
+        mlp_bot=mlp_bot,
+        mlp_top=mlp_top,
+        interaction=args.arch_interaction_op,
+        interact_itself=args.arch_interaction_itself,
+        loss_threshold=args.loss_threshold,
+        loss_function=args.loss_function,
+        loss_weights=tuple(float(x) for x in args.loss_weights.split("-")),
+        pooling_size=args.num_indices_per_lookup,
+        max_ind_range=args.max_ind_range,
+        weighted_pooling=args.weighted_pooling,
+        qr_flag=args.qr_flag,
+        qr_operation=args.qr_operation,
+        qr_collisions=args.qr_collisions,
+        qr_threshold=args.qr_threshold,
+        md_flag=args.md_flag,
+        md_threshold=args.md_threshold,
+        md_temperature=args.md_temperature,
+        md_round_dims=args.md_round_dims,
+        table_dtype=args.table_dtype,
+        compute_dtype=args.compute_dtype,
+        onehot_lookup_max_rows=args.onehot_lookup_max_rows,
+        quant=quant,
+    )
+    # derive ln_top input like the reference (dlrm_s_pytorch.py:1141-1164)
+    if mlp_top[0] != cfg.top_input_dim:
+        cfg = dataclasses.replace(cfg, mlp_top=(cfg.top_input_dim,) + mlp_top)
+    tc = TrainConfig(
+        batch_size=args.mini_batch_size,
+        test_batch_size=args.test_mini_batch_size,
+        nepochs=args.nepochs,
+        learning_rate=args.learning_rate,
+        optimizer=args.optimizer,
+        lr_num_warmup_steps=args.lr_num_warmup_steps,
+        lr_decay_start_step=args.lr_decay_start_step,
+        lr_num_decay_steps=args.lr_num_decay_steps,
+        print_freq=args.print_freq,
+        print_wall_time=args.print_wall_time,
+        test_freq=args.test_freq,
+        seed=args.numpy_rand_seed,
+        grad_quant_bits=args.grad_quant_bits,
+        error_compensation=args.error_compensation,
+        weight_sync_period=args.weight_sync_period,
+        ranking_range=args.ranking_range,
+        ranking_frac_hi=args.ranking_frac_hi,
+        ranking_frac_int8=args.ranking_frac_int8,
+        a2a_quant_bits=args.a2a_quant_bits,
+        pretrain_epochs=1 if args.pretrain_and_quantize else 0,
+        # reference epoch switches: MLP quantizes at k==2, bit shift at k==3
+        # (comm_grad.py:1854-1856, :1870-1872)
+        quantize_mlp_from_epoch=2 if args.pretrain_and_quantize_lin else -1,
+        shift_bit_width_at_epoch=3 if args.linear_shift_down_bit_width else -1,
+        shift_bit_width_to=args.shift_bit_width_to,
+        onehot_update_max_rows=args.onehot_update_max_rows,
+        stream_update_max_rows=args.stream_update_max_rows,
+    )
+    return cfg, tc
+
+
+def make_loaders(args, cfg, tc):
+    """Dataset dispatch for the random, learnable and binary modes
+    (make_random_data_and_loader, dlrm_data_pytorch.py:897): (cfg, train,
+    test, val or None). Every loader yields host batches."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.data import synthetic
+
+    nb = args.num_batches or (
+        -(-args.data_size // tc.batch_size) if args.data_size > 0 else 128
+    )
+    if args.data_generation == "random":
+        if args.data_trace_file:
+            # the trace generator has its own index model; the random-data
+            # knobs below do not apply to it — reject rather than ignore
+            if (
+                args.rand_data_dist != "uniform"
+                or not args.round_targets
+                or not args.num_indices_per_lookup_fixed
+            ):
+                raise SystemExit(
+                    "--data-trace-file is incompatible with --rand-data-dist/"
+                    "--no-round-targets/--no-num-indices-per-lookup-fixed "
+                    "(the trace generator defines its own index distribution)"
+                )
+            # no per-table dist files (their replay is rejected by
+            # `unported`): the generated LRU locality model
+            train = synthetic.TraceSyntheticLoader(cfg, tc.batch_size, nb, seed=tc.seed)
+            test = synthetic.TraceSyntheticLoader(
+                cfg, tc.test_batch_size, max(1, nb // 8), seed=tc.seed + 1
+            )
+            return cfg, train, test, None
+        gen = dict(
+            variable_pooling=not args.num_indices_per_lookup_fixed,
+            rand_data_dist=args.rand_data_dist,
+            rand_data_min=args.rand_data_min,
+            rand_data_max=args.rand_data_max,
+            rand_data_mu=args.rand_data_mu,
+            rand_data_sigma=args.rand_data_sigma,
+            round_targets=args.round_targets,
+        )
+        train = synthetic.RandomBatchLoader(cfg, tc.batch_size, nb, seed=tc.seed, **gen)
+        test = synthetic.RandomBatchLoader(
+            cfg, tc.test_batch_size, max(1, nb // 8), seed=tc.seed + 1, **gen
+        )
+        val = (
+            synthetic.RandomBatchLoader(
+                cfg, tc.test_batch_size, max(1, nb // 8), seed=tc.seed + 104729, **gen
+            )
+            if args.val_freq > 0
+            else None
+        )
+        return cfg, train, test, val
+    if args.data_generation == "learnable":
+        train = synthetic.LearnableSyntheticLoader(cfg, tc.batch_size, nb, seed=tc.seed)
+        test = synthetic.LearnableSyntheticLoader(
+            cfg, tc.test_batch_size, max(1, nb // 8), seed=tc.seed + 7919
+        )
+        # held-out val stream for --val-freq best-checkpoint selection
+        # (disjoint seed; same teacher as train/test)
+        val = (
+            synthetic.LearnableSyntheticLoader(
+                cfg, tc.test_batch_size, max(1, nb // 8), seed=tc.seed + 104729
+            )
+            if args.val_freq > 0
+            else None
+        )
+        return cfg, train, test, val
+    # binary (mlperf format). The reference ships train/test as separate bin
+    # files (dlrm_data_pytorch.py:441-461); with a single file we carve a
+    # disjoint 7/8-1/8 record split so eval never sees training data.
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.data.binary import (
+        CriteoBinDataset,
+    )
+
+    if args.binary_test_data_file:
+        train = CriteoBinDataset(
+            args.binary_data_file, tc.batch_size, args.max_ind_range,
+            shuffle=args.mlperf_bin_shuffle,
+        )
+        test = CriteoBinDataset(
+            args.binary_test_data_file, tc.test_batch_size, args.max_ind_range
+        )
+    else:
+        probe = CriteoBinDataset(args.binary_data_file, 1)
+        n_train = (probe.num_samples * 7) // 8
+        train = CriteoBinDataset(
+            args.binary_data_file, tc.batch_size, args.max_ind_range,
+            num_records=n_train, shuffle=args.mlperf_bin_shuffle,
+        )
+        test = CriteoBinDataset(
+            args.binary_data_file, tc.test_batch_size, args.max_ind_range,
+            start_record=n_train,
+        )
+    return cfg, train, test, None
+
+
+def evaluate(cfg, state, test_loader, eval_fn, max_batches: Optional[int] = None):
+    """Full-test-set metrics (inference(), dlrm_s_pytorch.py:762-902). The
+    scores stay on the device until one copy to the host at the end."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.metrics import (
+        binary_metrics,
+    )
+
+    scores, targets = [], []
+    for i, b in enumerate(test_loader):
+        if max_batches is not None and i >= max_batches:
+            break
+        scores.append(eval_fn(state, b))
+        targets.append(b.labels.numpy())
+    if not scores:
+        return {}
+    return binary_metrics(torch.cat(scores).cpu().numpy(), np.concatenate(targets))
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def run(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    np.set_printoptions(precision=args.print_precision)
+    device = _device(args.platform)
+    why = unported(args)
+    if why:
+        raise SystemExit(why)
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.device import resolve_device
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import check_supported
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import (
+        _on,
+        concat_batches,
+        config_for_epoch,
+        init_train_state,
+        make_eval_step,
+        make_grad_probe,
+        make_multi_train_step,
+        make_train_step,
+        stack_batches,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.logging import (
+        MLPerfLogger,
+        ScalarLogger,
+        rank0_print,
+    )
+
+    dev = resolve_device(device)  # no card and no --platform=cpu: raises
+    np.random.seed(args.numpy_rand_seed)  # dlrm_s_pytorch.py:1060-1063
+    if args.onehot_update_max_rows < 0:
+        args.onehot_update_max_rows = _ONEHOT_AUTO_ROWS
+    if args.stream_update_max_rows < 0:
+        args.stream_update_max_rows = _STREAM_AUTO_ROWS_PER_BATCH
+    cfg, tc = make_configs(args)
+    cfg, train_loader, test_loader, val_loader = make_loaders(args, cfg, tc)
+    if args.val_freq > 0 and val_loader is None:
+        raise SystemExit(
+            "--val-freq needs a validation split; this data mode builds "
+            "none (use --data-generation=random/learnable)"
+        )
+    cfg.validate_top()
+    try:
+        check_supported(cfg)
+    except NotImplementedError as e:
+        raise SystemExit(f"{e} (ROADMAP.md queue 1 item 5)") from e
+    rank = 0  # one process
+    logger = ScalarLogger(args.log_dir or None)
+    mll = MLPerfLogger(
+        (args.log_dir + "/mlperf.jsonl") if (args.log_dir and args.mlperf_logging) else None,
+        rank,
+    )
+    mll.start("init")
+
+    state = init_train_state(cfg, tc, device=device)
+    if args.debug_mode:
+        # arch + initial parameter printout (dlrm_s_pytorch.py:1210-1263)
+        rank0_print(rank, f"model config: {cfg}")
+        for part in ("bot", "top"):
+            for li, l in enumerate(state.params[part]):
+                w = _host(l["w"])
+                rank0_print(
+                    rank,
+                    f"{part}[{li}] w{w.shape} mean {w.mean():+.5f} std {w.std():.5f}",
+                )
+        for k, t in enumerate(state.params["emb"]):
+            rank0_print(rank, f"emb[{k}] first rows:\n{_host(t[: min(4, t.shape[0])])}")
+    ckpt = CheckpointManager(args.save_model) if args.save_model else None
+    start_epoch = start_batch = 0
+    best_acc = 0.0
+    # the true architecture rides every checkpoint (the JAX package's
+    # arch_meta, train.py:883-897)
+    arch_meta = {
+        "table_sizes": [int(n) for n in cfg.table_sizes],
+        "embedding_dim": int(cfg.embedding_dim),
+        "mlp_bot": [int(x) for x in cfg.mlp_bot],
+        "mlp_top": [int(x) for x in cfg.mlp_top],
+        "table_kinds": [cfg.table_kind(k) for k in range(cfg.num_tables)],
+    }
+    if args.load_model:
+        state, meta = CheckpointManager(args.load_model).restore(state)
+        start_epoch = int(meta.get("epoch", 0))
+        start_batch = int(meta.get("batch", 0))
+        best_acc = float(meta.get("test_acc", 0.0))
+        rank0_print(rank, f"resumed from {args.load_model} @ epoch {start_epoch} batch {start_batch}")
+
+    eval_fn = make_eval_step(cfg, device=device)
+    if args.inference_only:
+        if args.quantize_emb_with_bit in (4, 8):
+            # PTQ serving path (quantize_embedding + quantize_dynamic,
+            # dlrm_s_pytorch.py:1446-1471): kernel K2 for the packed tables,
+            # K3 for the int8 layers
+            from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import (
+                make_serving_fn,
+                ptq_export,
+                serving_model_bytes,
+            )
+
+            sm = ptq_export(
+                cfg,
+                state.params,
+                emb_bits=args.quantize_emb_with_bit,
+                mlp_bits=8 if args.quantize_mlp_with_bit == 8 else 32,
+            )
+            rank0_print(rank, f"PTQ model: {serving_model_bytes(sm)/1e6:.2f} MB")
+            sfn = make_serving_fn(sm)
+            m = evaluate(cfg, state, test_loader, lambda s, b: sfn(_on(b, dev)))
+        else:
+            m = evaluate(cfg, state, test_loader, eval_fn)
+        rank0_print(rank, f"inference: {m}")
+        return m
+
+    # --steps-per-dispatch: k steps per call over k batches uploaded at once
+    multi_k = max(1, args.steps_per_dispatch)
+    accum_n = max(1, args.mlperf_grad_accum_iter)
+    if accum_n > 1:
+        multi_k = 1  # accumulation buffers batches; megastep disabled
+        if args.grad_accum_semantics == "sum":
+            # Sum-of-means: one step over the k-batch concat with the loss
+            # scaled by k (see TrainConfig.loss_scale).
+            tc = tc.replace(loss_scale=float(accum_n))
+
+    # QAT epoch schedule: the step is rebuilt (and cached) whenever the
+    # effective config changes at an epoch boundary (comm_grad.py:
+    # 1849-1872 — FP pretrain -> quantize -> MLP quantize -> bit shift).
+    # Every optimizer of the port takes the explicit sparse step.
+    _step_cache = {}
+
+    def get_step(epoch: int, k: Optional[int] = None):
+        """The step for `epoch`; k>1 gives the k-batch megastep."""
+        k = multi_k if k is None else k
+        eff = config_for_epoch(cfg, tc, epoch)
+        key = (eff, k)
+        if key not in _step_cache:
+            if k > 1:
+                _step_cache[key] = make_multi_train_step(
+                    eff, tc, k, sparse_emb_grad=True, device=device
+                )
+            else:
+                _step_cache[key] = make_train_step(eff, tc, sparse_emb_grad=True, device=device)
+            if eff is not cfg:
+                rank0_print(rank, f"epoch {epoch}: QAT schedule config {eff.quant}")
+        return _step_cache[key]
+
+    mll.end("init")
+    mll.start("run")
+    prof_ctx = None
+    if args.enable_profiling:
+        # torch.profiler trace (the autograd-profiler/chrome-trace analogue,
+        # dlrm_s_pytorch.py:1501-1503, :1783-1795)
+        from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.profiling import trace
+
+        prof_ctx = trace(args.profile_dir)
+        prof_ctx.__enter__()
+        rank0_print(rank, f"profiling to {args.profile_dir}")
+    it = 0
+    it_last_print = 0
+    next_print = tc.print_freq
+    next_test = tc.test_freq if tc.test_freq > 0 else 1 << 62
+    # --val-freq: validation evals drive best-checkpoint selection (test
+    # stays untouched for final metrics / mlperf thresholds)
+    use_val_select = args.val_freq > 0 and val_loader is not None
+    next_val = args.val_freq if use_val_select else 1 << 62
+    _buf = []  # pending batches for the K-step megastep
+    t_print = time.perf_counter()
+    result = {}
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.data.prefetch import prefetch
+
+    def document_tables(tag: str) -> None:
+        """Dump every embedding table to <log-dir>/table_weights_<tag>.npz
+        (the reference's documenting_weights_tables before/after training,
+        dlrm_s_pytorch_comm_grad.py:1699, 2112)."""
+        if not args.documenting_table_weight:
+            return
+        arrs = {f"table_{k}": _host(t) for k, t in enumerate(state.params["emb"])}
+        out = os.path.join(args.log_dir or ".", f"table_weights_{tag}.npz")
+        np.savez(out, **arrs)
+        rank0_print(rank, f"documented table weights -> {out}")
+
+    document_tables("0")
+
+    # --documenting-table-grads: per-batch sparse embedding-grad dumps at a
+    # cadence (dlrm_s_pytorch_single_gpu_documentingp.py:969-987), taken
+    # against the params before the update by a probe off the training path
+    dtg = args.documenting_table_grads
+    _probe_cache: dict = {}
+
+    def document_grads(epoch: int, it_: int, batch) -> None:
+        eff = config_for_epoch(cfg, tc, epoch)
+        if eff not in _probe_cache:
+            _probe_cache[eff] = make_grad_probe(eff, tc, device=device)
+        out, ploss = _probe_cache[eff](state.params, state.qstate, batch)
+        arrs = {k2: _host(v) for k2, v in out.items()}
+        path = os.path.join(args.log_dir or ".", f"table_grads_it{it_}.npz")
+        np.savez(path, **arrs)
+        rank0_print(
+            rank,
+            f"documented table grads at it {it_} "
+            f"(probe loss {float(ploss):.6f}) -> {path}",
+        )
+
+    _abuf = []  # pending batches for --mlperf-grad-accum-iter
+    _dtg_last = -1  # last iteration a grad dump fired at
+    for epoch in range(start_epoch, tc.nepochs):
+        mll.start("epoch", {"num": epoch})
+        step_fn = get_step(epoch)
+        # background prefetch overlaps host batch prep with device compute
+        for bi, batch in enumerate(prefetch(train_loader, depth=3)):
+            if epoch == start_epoch and bi < start_batch:
+                continue  # fast-forward resume (dlrm_s_pytorch.py:1523-1534)
+            if dtg > 0 and it % dtg == 0 and _dtg_last != it:
+                # (megastep buffering keeps `it` constant for k batches;
+                # dump only the first batch at each cadence point)
+                document_grads(epoch, it, batch)
+                _dtg_last = it
+            if accum_n > 1:
+                # gradient accumulation: one optimizer step per accum_n
+                # batches (--grad-accum-semantics)
+                _abuf.append(batch)
+                if len(_abuf) < accum_n:
+                    continue
+                if args.grad_accum_semantics == "reference":
+                    # the reference's zero_grad placement discards the
+                    # first k-1 micro-grads (dlrm_s_pytorch.py:1596-1600):
+                    # the applied update is the k-th batch's gradient alone
+                    batch, _abuf = _abuf[-1], []
+                else:
+                    batch, _abuf = concat_batches(_abuf), []
+            if multi_k > 1:
+                # K-batch megastep: buffer, then one upload per field and
+                # one call
+                _buf.append(batch)
+                if len(_buf) < multi_k:
+                    continue
+                pack, _buf = _buf, []
+                state, loss = step_fn(state, _on(stack_batches(pack), dev))
+                it += multi_k
+            else:
+                state, loss = step_fn(state, batch)
+                it += 1
+            # read the loss only at print boundaries: a read waits for the
+            # device
+            if it >= next_print:
+                loss_v = float(loss)
+                n_since = it - it_last_print
+                dt = (time.perf_counter() - t_print) / max(n_since, 1) * 1e3
+                t_print = time.perf_counter()
+                it_last_print = it
+                while next_print <= it:
+                    next_print += tc.print_freq
+                wall = (
+                    " ({})".format(time.strftime("%H:%M"))
+                    if tc.print_wall_time
+                    else ""
+                )
+                # dt is WALL time between prints divided by steps — it
+                # includes evals and host batch generation; it is not a
+                # device step time
+                rank0_print(
+                    rank,
+                    f"Finished training it {it}/{len(train_loader)} of epoch {epoch}, "
+                    f"{dt:.2f} ms/it (wall incl. compile/eval), "
+                    f"loss {loss_v:.6f}" + wall,
+                )
+                logger.add_scalar("Train/Loss", loss_v, it)
+
+            def save_best(m, acc_key, metric_label):
+                nonlocal best_acc
+                if not (ckpt and m.get("accuracy", 0.0) > best_acc):
+                    return
+                best_acc = m["accuracy"]
+                ckpt.save(
+                    state,
+                    {"epoch": epoch, "batch": bi + 1, "iter": it,
+                     # "test_acc" key kept for resume-compat; records the
+                     # SELECTION metric (val acc when --val-freq is on)
+                     "test_acc": best_acc,
+                     "test_auc": m.get("roc_auc", 0.0),
+                     "selected_on": acc_key, **arch_meta},
+                )
+                rank0_print(
+                    rank,
+                    f"Saved best checkpoint ({metric_label} {best_acc:.4f})",
+                )
+
+            if use_val_select and it >= next_val:
+                while next_val <= it:
+                    next_val += args.val_freq
+                vm = evaluate(cfg, state, val_loader, eval_fn)
+                rank0_print(rank, f"Validation at - {it}/{epoch}: {vm}")
+                logger.add_scalar("Val/Acc", vm.get("accuracy", 0.0), it)
+                logger.add_scalar("Val/AUC", vm.get("roc_auc", 0.0), it)
+                save_best(vm, "val", "val acc")
+            if tc.test_freq > 0 and it >= next_test:
+                while next_test <= it:
+                    next_test += tc.test_freq
+                m = evaluate(cfg, state, test_loader, eval_fn)
+                rank0_print(rank, f"Testing at - {it}/{epoch}: {m}")
+                logger.add_scalar("Test/Acc", m.get("accuracy", 0.0), it)
+                logger.add_scalar("Test/AUC", m.get("roc_auc", 0.0), it)
+                result = m
+                if not use_val_select:
+                    save_best(m, "test", "acc")
+                if (
+                    args.mlperf_acc_threshold > 0
+                    and m.get("accuracy", 0.0) >= args.mlperf_acc_threshold
+                ) or (
+                    args.mlperf_auc_threshold > 0
+                    and m.get("roc_auc", 0.0) >= args.mlperf_auc_threshold
+                ):
+                    rank0_print(rank, "MLPerf threshold reached; stopping")
+                    mll.event("threshold_reached", m)
+                    mll.end("run")
+                    if prof_ctx is not None:
+                        prof_ctx.__exit__(None, None, None)
+                    return m
+        if _buf:
+            # flush a partial megastep buffer with the single step
+            single = get_step(epoch, k=1)
+            for b in _buf:
+                state, loss = single(state, b)
+                it += 1
+            _buf = []
+        if _abuf:
+            if args.grad_accum_semantics == "reference":
+                # the reference never fires a step for a partial window
+                # (only the k-th batch's grad ever applies)
+                _abuf = []
+            else:
+                # flush a partial accumulation buffer (fewer than accum_n
+                # batches left in the epoch) as one smaller concat step;
+                # 'sum' scales by the ACTUAL buffered count
+                eff_f = config_for_epoch(cfg, tc, epoch)
+                scale = float(len(_abuf)) if args.grad_accum_semantics == "sum" else 1.0
+                flush_step = make_train_step(
+                    eff_f, tc.replace(loss_scale=scale), sparse_emb_grad=True, device=device
+                )
+                state, loss = flush_step(state, concat_batches(_abuf))
+                it += 1
+                _abuf = []
+        mll.end("epoch", {"num": epoch})
+    mll.end("run")
+    if prof_ctx is not None:
+        prof_ctx.__exit__(None, None, None)
+    if not result:
+        result = evaluate(cfg, state, test_loader, eval_fn, max_batches=8)
+        rank0_print(rank, f"final eval: {result}")
+        if ckpt:
+            ckpt.save(
+                state,
+                {"epoch": tc.nepochs, "batch": 0, "iter": it,
+                 "test_acc": result.get("accuracy", 0.0), **arch_meta},
+            )
+    document_tables("1")
+    logger.close()
+    return result
+
+
+if __name__ == "__main__":
+    run()

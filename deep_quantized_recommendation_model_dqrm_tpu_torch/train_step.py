@@ -397,6 +397,24 @@ def stack_batches(batches: Sequence[dlrm.Batch]) -> dlrm.Batch:
     )
 
 
+def concat_batches(batches: Sequence[dlrm.Batch]) -> dlrm.Batch:
+    """k Batches concatenated along the batch axis into one [k*B] batch, on
+    the batches' device.
+
+    Gradient accumulation (`--mlperf-grad-accum-iter`,
+    dlrm_s_pytorch.py:1595-1601): the gradient of the mean loss over the
+    concatenation equals the mean of the per-batch gradients; the reference
+    sums the per-batch mean grads instead (backward without zero_grad), so
+    callers set TrainConfig.loss_scale=k to recover the reference's
+    sum-of-means trajectory."""
+    return dlrm.Batch(
+        dense=torch.cat([b.dense for b in batches], dim=0),
+        indices=torch.cat([b.indices for b in batches], dim=1),
+        labels=torch.cat([b.labels for b in batches], dim=0),
+        mask=None if batches[0].mask is None else torch.cat([b.mask for b in batches], dim=1),
+    )
+
+
 def make_eval_step(config: DLRMConfig, plain: bool = False, device: Device = None):
     """Inference step returning click probabilities (the reference's
     `inference()` per-batch body, dlrm_s_pytorch.py:762-860)."""

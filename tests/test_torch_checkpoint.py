@@ -1,0 +1,177 @@
+"""The port's npz checkpoints against the JAX package's: each package saves
+a trained state and the other loads it, bit for bit, under SGD, Adagrad and
+RWSAdagrad; two-slot rotation, `latest()`, `load_metadata` and the legacy
+sidecar; and the same error messages."""
+
+import json
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from deep_quantized_recommendation_model_dqrm_tpu import config as jcfg
+from deep_quantized_recommendation_model_dqrm_tpu import train_step as jts
+from deep_quantized_recommendation_model_dqrm_tpu.data import synthetic as jsyn
+from deep_quantized_recommendation_model_dqrm_tpu.utils import checkpoint as jck
+from deep_quantized_recommendation_model_dqrm_tpu_torch import config as tcfg
+from deep_quantized_recommendation_model_dqrm_tpu_torch import train_step as tts
+from deep_quantized_recommendation_model_dqrm_tpu_torch.tools.jax_weights import (
+    train_state_from_numpy,
+)
+from deep_quantized_recommendation_model_dqrm_tpu_torch.utils import checkpoint as tck
+from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_leaves
+
+torch.set_num_threads(1)
+
+SIZES = (300, 20, 7)
+META = {"epoch": 1, "batch": 3, "test_acc": 0.5, "table_sizes": list(SIZES)}
+
+
+def configs(optimizer):
+    quant = dict(enabled=True, embedding_bit=4, weight_bit=4, scale_update_period=2)
+    out = []
+    for m in (jcfg, tcfg):
+        c = m.DLRMConfig(table_sizes=SIZES, embedding_dim=4, mlp_bot=(13, 8, 4),
+                         mlp_top=(10, 4, 1), quant=m.QuantConfig(**quant))
+        out.append((c, m.TrainConfig(batch_size=16, learning_rate=0.01, optimizer=optimizer,
+                                     onehot_update_max_rows=100)))
+    return out
+
+
+def trained_jax_state(optimizer):
+    """A JAX state after three sparse steps: nonzero accumulators, a
+    nonzero qstate step."""
+    (jc, jtc), _ = configs(optimizer)
+    state = jts.init_train_state(jc, jtc, seed=0)
+    step = jax.jit(jts._build_sparse_step_fn(jc, jtc))
+    rng = np.random.RandomState(1)
+    for _ in range(3):
+        state, _ = step(state, jsyn.random_batch(jc, 16, rng))
+    return state
+
+
+def to_port(jstate):
+    np_tree = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
+    return train_state_from_numpy(np_tree(jstate.params), jstate.qstate, "cpu",
+                                  np_tree(jstate.opt_state))
+
+
+def port_like(optimizer):
+    _, (tc, ttc) = configs(optimizer)
+    return tts.init_train_state(tc, ttc, seed=5, device="cpu")
+
+
+def assert_same_state(jstate, tstate):
+    jl = [np.asarray(x) for x in jax.tree_util.tree_leaves(jstate.params)]
+    jl += [np.asarray(x) for x in jax.tree_util.tree_leaves(jstate.opt_state)]
+    tl = [t.numpy() for t in tree_leaves(tstate.params)]
+    tl += [t.numpy() for t in tree_leaves(tstate.opt_state)] if tstate.opt_state else []
+    # jax flattens dicts by sorted key, the port in insertion order: compare as sets of
+    # (shape, bytes)
+    assert sorted((a.shape, a.tobytes()) for a in jl) == sorted((a.shape, a.tobytes()) for a in tl)
+    for name in ("emb_scales", "act_min", "act_max"):
+        np.testing.assert_array_equal(getattr(tstate.qstate, name).numpy(),
+                                      np.asarray(getattr(jstate.qstate, name)))
+    assert tstate.qstate.step == int(jstate.qstate.step) == 3
+    assert tstate.qstate.act_fixed == int(jstate.qstate.act_fixed)
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "rwsadagrad"])
+def test_jax_saves_port_loads(tmp_path, optimizer):
+    jstate = trained_jax_state(optimizer)
+    path = str(tmp_path / "j.npz")
+    jck.save_checkpoint(path, jstate, META)
+    got, meta = tck.load_checkpoint(path, port_like(optimizer))
+    assert meta == META
+    assert_same_state(jstate, got)
+    assert isinstance(got.qstate.step, int) and isinstance(got.qstate.act_fixed, int)
+    assert got.params["emb"][0].dtype == torch.float32
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "rwsadagrad"])
+def test_port_saves_jax_loads(tmp_path, optimizer):
+    jstate = trained_jax_state(optimizer)
+    path = str(tmp_path / "t.npz")
+    tck.save_checkpoint(path, to_port(jstate), META)
+    jpath = str(tmp_path / "j.npz")
+    jck.save_checkpoint(jpath, jstate, META)
+    with np.load(path) as a, np.load(jpath) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        assert a[".qstate.step"].shape == () and a[".qstate.step"].dtype == np.int32
+    (jc, jtc), _ = configs(optimizer)
+    got, meta = jck.load_checkpoint(path, jts.init_train_state(jc, jtc, seed=5))
+    assert meta == META
+    for x, y in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(jstate)):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+def test_key_names_are_jax_keystr(tmp_path):
+    path = str(tmp_path / "t.npz")
+    tck.save_checkpoint(path, port_like("adagrad"))
+    with np.load(path) as z:
+        keys = set(z.files)
+    for k in (".params['bot'][0]['w']", ".params['emb'][1]", ".opt_state['top'][0]['b']",
+              ".qstate.emb_scales", ".qstate.act_min", ".qstate.act_max", ".qstate.step",
+              ".qstate.act_fixed", "__metadata__"):
+        assert k in keys, k
+    tck.save_checkpoint(path, port_like("sgd"))
+    with np.load(path) as z:
+        assert not any(k.startswith(".opt_state") for k in z.files)
+
+
+def test_two_slot_rotation_latest_and_metadata(tmp_path):
+    state = port_like("sgd")
+    mgr = tck.CheckpointManager(str(tmp_path / "ck"))
+    assert mgr.latest() is None
+    with pytest.raises(FileNotFoundError):
+        mgr.restore(state)
+    p0 = mgr.save(state, {"iter": 1})
+    p1 = mgr.save(state, {"iter": 2})
+    assert (p0, p1) == (mgr.slot_path(0), mgr.slot_path(1))
+    os.utime(p0, (1, 1))
+    assert mgr.latest() == p1 and tck.load_metadata(p1) == {"iter": 2}
+    p2 = mgr.save(state, {"iter": 3})
+    assert p2 == p0
+    os.utime(p1, (1, 1))
+    assert mgr.latest() == p0
+    _, meta = mgr.restore(state)
+    assert meta == {"iter": 3} == jck.load_metadata(p0)
+    assert not [f for f in os.listdir(tmp_path / "ck") if "tmp" in f]
+
+
+def test_legacy_sidecar_metadata(tmp_path):
+    path = str(tmp_path / "old.npz")
+    state = port_like("sgd")
+    tck.save_checkpoint(path, state)
+    with np.load(path) as z:
+        np.savez(path, **{k: z[k] for k in z.files if k != "__metadata__"})
+    with open(path + ".meta.json", "w") as f:
+        json.dump({"epoch": 4}, f)
+    assert tck.load_metadata(path) == jck.load_metadata(path) == {"epoch": 4}
+    assert tck.load_checkpoint(path, state)[1] == {"epoch": 4}
+
+
+def test_error_messages_match_jax(tmp_path):
+    jstate = trained_jax_state("sgd")
+    path = str(tmp_path / "j.npz")
+    jck.save_checkpoint(path, jstate)
+    with np.load(path) as z:
+        leaves = {k: z[k] for k in z.files}
+    missing = str(tmp_path / "missing.npz")  # the first of two missing leaves is named
+    gone = (".params['top'][0]['w']", ".params['emb'][1]")
+    np.savez(missing, **{k: v for k, v in leaves.items() if k not in gone})
+    wrong = str(tmp_path / "wrong.npz")
+    np.savez(wrong, **dict(leaves, **{".params['emb'][1]": np.zeros((21, 4), np.float32)}))
+    (jc, jtc), _ = configs("sgd")
+    jlike, tlike = jts.init_train_state(jc, jtc), port_like("sgd")
+    for bad, exc in ((missing, KeyError), (wrong, ValueError)):
+        with pytest.raises(exc) as want:
+            jck.load_checkpoint(bad, jlike)
+        with pytest.raises(exc) as got:
+            tck.load_checkpoint(bad, tlike)
+        assert str(got.value) == str(want.value)

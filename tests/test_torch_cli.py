@@ -1,0 +1,246 @@
+"""The port's CLI (`…_torch.train`) against the JAX package's: the parser's
+flags, the same argv through both CLIs under SGD and Adagrad (QAT, save,
+test-freq, megasteps), a resume from the saved slot with grad-accum `sum`,
+PTQ inference on the other package's checkpoint, and the loud rejection of
+what this slice does not run.
+
+Tables 30000-500-20-7: the 30000-row table takes the scatter branch of the
+sparse step, the others K1's branch (its plain version here). Losses are
+held to rtol 1e-5, metrics to 1e-4 and checkpoint leaves to 1e-6 (SGD) or
+ADAGRAD_PARAM_ATOL, the bounds of tests/test_torch_train_step.py."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from deep_quantized_recommendation_model_dqrm_tpu import train as jtrain
+from deep_quantized_recommendation_model_dqrm_tpu.serving import make_serving_fn as j_serving_fn
+from deep_quantized_recommendation_model_dqrm_tpu.serving import ptq_export as j_ptq_export
+from deep_quantized_recommendation_model_dqrm_tpu.train_step import init_train_state as j_init
+from deep_quantized_recommendation_model_dqrm_tpu.utils.checkpoint import (
+    CheckpointManager as JManager,
+)
+from deep_quantized_recommendation_model_dqrm_tpu_torch import train as ttrain
+from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import make_serving_fn, ptq_export
+from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import _on, init_train_state
+from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.checkpoint import CheckpointManager
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# Adagrad at tests/test_torch_train_step.py's lr and parameter bound: its
+# update lr * g / sqrt(acc) inherits the relative error of a g that comes
+# out of cancellation, up to lr in one element
+ADAGRAD_LR = 0.01
+ADAGRAD_PARAM_ATOL = 1e-5
+LOSS_RTOL = 1e-5
+METRIC_ATOL = 1e-4
+PTQ_METRIC_ATOL = 1e-5
+
+COMMON = [
+    "--data-generation=random", "--num-batches=16",
+    "--arch-embedding-size=30000-500-20-7", "--arch-sparse-feature-size=8",
+    "--arch-mlp-bot=13-32-8", "--arch-mlp-top=16-1",
+    "--mini-batch-size=32", "--test-mini-batch-size=64", "--print-freq=2",
+    "--learning-rate=0.1", "--quantization_flag", "--scale-update-period=4",
+]
+TRAIN = COMMON + ["--test-freq=8"]
+PTQ = ["--inference-only", "--quantize-emb-with-bit=4", "--quantize-mlp-with-bit=8"]
+
+
+def both(tmp, name, argv):
+    """Run `argv` through the port's CLI and the JAX CLI, each with its own
+    log and save dirs; returns {package: (result, dir)}."""
+    out = {}
+    for pkg, mod in (("torch", ttrain), ("jax", jtrain)):
+        d = os.path.join(tmp, f"{name}_{pkg}")
+        extra = [f"--log-dir={d}/log", f"--save-model={d}/ck"]
+        out[pkg] = (mod.run(argv + extra + ["--platform=cpu"]), d)
+    return out
+
+
+def losses(d):
+    with open(os.path.join(d, "log", "run.scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [(r["step"], r["value"]) for r in rows if r["tag"] == "Train/Loss"]
+
+
+def assert_runs_agree(res):
+    (mt, dt), (mj, dj) = res["torch"], res["jax"]
+    lt, lj = losses(dt), losses(dj)
+    assert lt and [s for s, _ in lt] == [s for s, _ in lj]
+    np.testing.assert_allclose([v for _, v in lt], [v for _, v in lj], rtol=LOSS_RTOL)
+    assert set(mt) == set(mj)
+    for k in ("accuracy", "roc_auc"):
+        assert abs(mt[k] - mj[k]) <= METRIC_ATOL, (k, mt[k], mj[k])
+
+
+def assert_checkpoints_agree(dt, dj, atol):
+    for slot in (0, 1):
+        pt, pj = (os.path.join(d, "ck", f"dqrm_{slot}.npz") for d in (dt, dj))
+        assert os.path.exists(pt) == os.path.exists(pj)
+        if not os.path.exists(pt):
+            continue
+        with np.load(pt) as a, np.load(pj) as b:
+            assert sorted(a.files) == sorted(b.files)
+            for k in a.files:
+                assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+                if k == "__metadata__":
+                    ma, mb = (json.loads(bytes(z[k]).decode()) for z in (a, b))
+                    assert set(ma) == set(mb)
+                    for mk in ma:
+                        if isinstance(ma[mk], float):
+                            assert abs(ma[mk] - mb[mk]) <= METRIC_ATOL, mk
+                        else:
+                            assert ma[mk] == mb[mk], mk
+                elif a[k].dtype.kind == "i":
+                    np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+                else:
+                    np.testing.assert_allclose(a[k], b[k], rtol=0, atol=atol, err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def sgd_runs(tmp_path_factory):
+    tmp = str(tmp_path_factory.mktemp("cli_sgd"))
+    return both(tmp, "sgd", TRAIN + ["--steps-per-dispatch=3"])
+
+
+def test_parser_matches_jax():
+    """Every flag of the JAX parser, with the same dest, default, choices,
+    type and action."""
+    def flags(parser):
+        return {
+            a.dest: (tuple(a.option_strings), a.default, a.choices, a.type, a.nargs, a.const,
+                     type(a).__name__)
+            for a in parser._actions if a.dest != "help"
+        }
+
+    want, got = flags(jtrain.build_parser()), flags(ttrain.build_parser())
+    assert len(want) == 114
+    assert got == want
+
+
+def test_sgd_megastep_run_and_checkpoints_match_jax(sgd_runs):
+    """SGD, QAT with a scale refresh every 4 steps, megasteps of 3 with the
+    partial-buffer flush, test-freq 8 with best-checkpoint saves."""
+    assert_runs_agree(sgd_runs)
+    (_, dt), (_, dj) = sgd_runs["torch"], sgd_runs["jax"]
+    assert os.path.exists(os.path.join(dt, "ck", "dqrm_0.npz"))
+    assert_checkpoints_agree(dt, dj, atol=1e-6)
+
+
+def test_adagrad_run_and_checkpoints_match_jax(tmp_path):
+    """Adagrad, with the debug printout, the documented table weights and
+    gradients, and the MLPerf log, each against the JAX CLI's."""
+    res = both(str(tmp_path), "adagrad",
+               TRAIN + ["--optimizer=adagrad", f"--learning-rate={ADAGRAD_LR}", "--debug-mode",
+                        "--documenting-table-weight", "--documenting-table-grads=8",
+                        "--mlperf-logging"])
+    assert_runs_agree(res)
+    dt, dj = res["torch"][1], res["jax"][1]
+    assert_checkpoints_agree(dt, dj, atol=ADAGRAD_PARAM_ATOL)
+    with np.load(os.path.join(dt, "ck", "dqrm_0.npz")) as z:
+        assert ".opt_state['top'][0]['b']" in z.files
+    for name in ("table_weights_0", "table_weights_1", "table_grads_it0", "table_grads_it8"):
+        with np.load(os.path.join(dt, "log", name + ".npz")) as a, \
+                np.load(os.path.join(dj, "log", name + ".npz")) as b:
+            assert sorted(a.files) == sorted(b.files)
+            for k in a.files:
+                assert a[k].dtype == b[k].dtype, (name, k)
+                np.testing.assert_allclose(a[k], b[k], rtol=0, atol=ADAGRAD_PARAM_ATOL,
+                                           err_msg=f"{name} {k}")
+    events = []
+    for d in (dt, dj):
+        with open(os.path.join(d, "log", "mlperf.jsonl")) as f:
+            events.append([(e["kind"], e["key"]) for e in map(json.loads, f)])
+    assert events[0] == events[1] and ("end", "run") in events[0]
+
+
+def test_resume_with_grad_accum_sum_matches_jax(sgd_runs, tmp_path):
+    """Each CLI resumes from its own saved slot (batch fast-forward), then
+    accumulates pairs of batches under `sum`, against JAX; the port's run
+    is traced with --enable-profiling."""
+    res = {}
+    for pkg, mod in (("torch", ttrain), ("jax", jtrain)):
+        src = sgd_runs[pkg][1]
+        d = str(tmp_path / pkg)
+        argv = TRAIN + [f"--load-model={src}/ck", f"--log-dir={d}/log",
+                        "--mlperf-grad-accum-iter=2", "--grad-accum-semantics=sum",
+                        "--platform=cpu"]
+        if pkg == "torch":  # the port's torch.profiler trace of the run
+            argv += ["--enable-profiling", f"--profile-dir={d}/prof"]
+        res[pkg] = (mod.run(argv), d)
+    assert os.path.exists(os.path.join(res["torch"][1], "prof", "trace.json"))
+    assert_runs_agree(res)
+
+
+def test_ptq_inference_on_the_other_packages_checkpoint(sgd_runs):
+    """The port's CLI serves the JAX package's checkpoint (K2 and K3, plain
+    versions here) and the JAX CLI serves the port's; each against the
+    other package's own PTQ evaluation of that checkpoint."""
+    argv = COMMON + PTQ + ["--platform=cpu"]
+    jck, tck = (os.path.join(sgd_runs[p][1], "ck") for p in ("jax", "torch"))
+
+    got = ttrain.run(argv + [f"--load-model={jck}"])
+    args = jtrain.build_parser().parse_args(argv)
+    args.onehot_update_max_rows, args.stream_update_max_rows = 20000, 0
+    jcfg, jtc = jtrain.make_configs(args)
+    jcfg, _, jtest, _ = jtrain.make_loaders(args, jcfg, jtc)
+    jstate, _ = JManager(jck).restore(j_init(jcfg, jtc))
+    jfn = j_serving_fn(j_ptq_export(jcfg, jstate.params, emb_bits=4, mlp_bits=8))
+    want = jtrain.evaluate(jcfg, jstate, jtest, lambda s, b: jfn(b))
+    for k in ("accuracy", "roc_auc", "ap"):
+        assert abs(got[k] - want[k]) <= PTQ_METRIC_ATOL, (k, got[k], want[k])
+
+    got = jtrain.run(argv + [f"--load-model={tck}"])
+    args = ttrain.build_parser().parse_args(argv)
+    args.onehot_update_max_rows, args.stream_update_max_rows = 20000, 0
+    tcfg, ttc = ttrain.make_configs(args)
+    tcfg, _, ttest, _ = ttrain.make_loaders(args, tcfg, ttc)
+    tstate, _ = CheckpointManager(tck).restore(init_train_state(tcfg, ttc, device="cpu"))
+    tfn = make_serving_fn(ptq_export(tcfg, tstate.params, emb_bits=4, mlp_bits=8))
+    want = ttrain.evaluate(tcfg, tstate, ttest, lambda s, b: tfn(_on(b, torch.device("cpu"))))
+    for k in ("accuracy", "roc_auc", "ap"):
+        assert abs(got[k] - want[k]) <= PTQ_METRIC_ATOL, (k, got[k], want[k])
+
+
+@pytest.mark.parametrize("flag,item", [
+    ("--parallelism=dp", 6), ("--parallelism=hybrid", 6), ("--parallelism=rowshard", 6),
+    ("--parallelism=pseudo", 6), ("--parallelism=dp-nosync", 6),
+    ("--coordinator-address=localhost:1234", 6), ("--num-processes=2", 6), ("--process-id=0", 6),
+    ("--data-generation=dataset", 4), ("--export-stablehlo=/nonexistent/x", 5),
+    ("--plot-compute-graph", 5), ("--investigating-inputs", 7),
+    ("--qr-flag", 5), ("--md-flag", 5), ("--weighted-pooling=fixed", 5),
+    ("--table-dtype=bfloat16", 5), ("--compute-dtype=bfloat16", 5),
+    ("--quant-scheme=pact", 5), ("--quantize_activation", 5),
+    ("--modify_feature_interaction", 5),
+])
+def test_unported_flags_exit_naming_their_slice(flag, item):
+    with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1 item {item}"):
+        ttrain.run(COMMON + [flag, "--platform=cpu"])
+
+
+def test_trace_replay_exits_naming_its_slice(tmp_path):
+    (tmp_path / "dist_0.log").write_text("1\n")
+    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 4"):
+        ttrain.run(COMMON + [f"--data-trace-file={tmp_path}/dist_j.log", "--platform=cpu"])
+
+
+def test_bad_platform_exits():
+    with pytest.raises(SystemExit, match="tpu"):
+        ttrain.run(COMMON + ["--platform=tpu"])
+
+
+def test_module_entry_exits_nonzero():
+    res = subprocess.run(
+        [sys.executable, "-m", "deep_quantized_recommendation_model_dqrm_tpu_torch.train",
+         "--parallelism=dp", "--platform=cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode != 0
+    assert "ROADMAP.md queue 1 item 6" in res.stderr

@@ -1,5 +1,6 @@
 """The port imports with jax blocked, loads nothing of the JAX package, and
-its entry points refuse to fall back to the CPU without being asked."""
+its entry points, the CLI's `train.run` among them, refuse to fall back to
+the CPU without being asked."""
 
 import os
 import subprocess
@@ -58,6 +59,17 @@ SCRIPT = textwrap.dedent(
     state, loss = step(state, random_batch(cfg, 4, np.random.RandomState(0), device="cpu"))
     acc = state.opt_state["top"][-1]["b"]  # the logit's bias always has a gradient
     assert acc.device.type == "cpu" and bool(acc.any())
+    from deep_quantized_recommendation_model_dqrm_tpu_torch import train
+    argv = ["--num-batches=1", "--arch-mlp-bot=4-3-2", "--arch-sparse-feature-size=2",
+            "--mini-batch-size=4", "--test-mini-batch-size=4", "--print-freq=1"]
+    try:
+        train.run(argv)
+    except RuntimeError as e:
+        assert "CUDA is not available" in str(e)
+    else:
+        raise AssertionError("the CLI fell back to the CPU")
+    m = train.run(argv + ["--platform=cpu"])
+    assert set(m) >= {"accuracy", "roc_auc"}
     print("OK", len(names))
     """
 )
@@ -71,4 +83,6 @@ def test_port_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     n_modules = int(res.stdout.split()[-1])
-    assert n_modules >= 18  # config, device, models, data, ops, kernels, optim, train, serving, ...
+    # config, device, models, data (synthetic, binary, prefetch), ops, kernels, optim,
+    # train_step, train, serving, utils (checkpoint, logging, profiling, tfevents), ...
+    assert n_modules >= 35

@@ -215,6 +215,25 @@ def test_fused_gather_matches_jax(emb_bits, rowwise, P):
     np.testing.assert_array_equal(got, tserving.make_serving_fn(tsm)(tb).numpy())
 
 
+@pytest.mark.parametrize("lookup,mlp", [(True, False), (False, True), (True, True)])
+def test_pallas_keywords_match_jax_and_change_nothing(lookup, mlp):
+    """`use_pallas_lookup` and `use_pallas_mlp`, the JAX package's keywords,
+    are accepted by `make_serving_fn` and `ServingEngine` and change
+    nothing: the kernels are the port's only path. Against the JAX package
+    with the same lookup keyword (its Pallas MLP has no interpret mode on
+    the CPU)."""
+    jc, tc, jsm, tsm = exported("small", 4, 8, False)
+    jb = jsyn.random_batch(jc, 64, np.random.RandomState(21))
+    tb = tsyn.random_batch(tc, 64, np.random.RandomState(21), device="cpu")
+    kw = dict(use_pallas_lookup=lookup, use_pallas_mlp=mlp)
+    want = np.asarray(jserving.make_serving_fn(jsm, use_pallas_lookup=lookup)(jb))
+    got = tserving.make_serving_fn(tsm, **kw)(tb).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got, tserving.make_serving_fn(tsm)(tb).numpy())
+    eng = tserving.ServingEngine(tsm, buckets=(64,), **kw)
+    np.testing.assert_array_equal(eng.predict(tb.dense.numpy(), tb.indices.numpy()), got)
+
+
 def test_later_slices_raise():
     _, tc, _, tsm = exported("small", 4, 8, False)
     with pytest.raises(NotImplementedError):
