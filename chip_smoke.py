@@ -2,7 +2,9 @@
 """Smoke run of the PyTorch/CUDA port's main paths on one NVIDIA card:
 INT4 QAT training (SGD; and with streaming mid-table updates under SGD,
 Adagrad and RWSAdagrad), evaluation, export and packed serving of the full
-Kaggle DQRM, and training, checkpoints and PTQ serving through the CLI.
+Kaggle DQRM, training, checkpoints and PTQ serving through the CLI, and the
+data-parallel engines (dp on one NCCL rank and on two gloo ranks sharing
+the card, pseudo) directly and through the CLI.
 
     python3 chip_smoke.py
 
@@ -43,7 +45,29 @@ launch counters of its kernels set to 0 just before and read just after:
    launch per step), a validation eval and the final eval each saving a
    checkpoint slot, then `--inference-only` PTQ serving of the saved state
    (one grouped K2 and 7 K3 launches per batch), its AUC against this
-   script's own on the plain path.
+   script's own on the plain path;
+9. dp: the data-parallel engine (`parallel.comm_grad`) on a one-rank NCCL
+   group, B = 128, k = 16, INT8 exchange with error compensation, 216
+   steps (the scale refresh at steps 0 and 200, `make_weight_sync` at step
+   200), after 32 steps of the kernel path against the plain path, 32 at
+   grad bits 32 against the train phase's sparse step and 32 at grad bits
+   4; one grouped K1 launch per step; the step time beside the train
+   phase's, a profiled megastep (NCCL's device time among it) and the wire
+   bytes per step;
+10. dp_stream: the dp engine at B = 8192 with K5 on the 3 mid tables
+   (one grouped K1 and one grouped K5 launch per step), kernel path
+   against plain path over 8 steps, and K5 on the path's own inputs
+   within its per-element bound;
+11. pseudo: 4 simulated workers (`parallel.pseudo`), B = 128, INT8 buffers
+   with error compensation, kernel path against plain path over 32 steps;
+   one grouped K1 launch per step;
+12. cli_dp: `train.run --parallelism=dp` (world 1), `--parallelism=pseudo`
+   and `--parallelism=dp-nosync`, 64 steps each at the Kaggle width with a
+   validation eval and a save;
+13. dp2: the dp engine at world 2 on the one card, two processes on a
+   gloo group, B = 128 global, 32 steps of the kernel path against the
+   plain path; both ranks' losses equal, the replicas compared before and
+   after `make_weight_sync`.
 
 Kernel K6 (`dma_row_update`) is on no path; its kernel phase holds it
 against its plain version on the 2,202,608-row table.
@@ -51,8 +75,9 @@ against its plain version on the 2,202,608-row table.
 Every check raises, so any failure exits non-zero. Phases in order: device,
 build, model, kernel (K2, K3, K3 at K = 1728, K1 with D = 512, K4 with
 D = 512, K5 with Zipf ids, K6), train, profile (train), train_stream with
-profile (SGD), eval, export, serve, profile (serve), serve_onehot with
-profile, serve_cat, cli, kernels.
+profile (SGD), dp with profile, dp_stream, pseudo, eval, export, serve,
+profile (serve), serve_onehot with profile, serve_cat, cli, cli_dp, dp2,
+kernels.
 
 Output: one JSON line per phase; then the {"kernels": [...]} summary; then
 the card's name and power limit as nvidia-smi gives them; and last
@@ -1218,6 +1243,7 @@ def phase_train_stream(cfg, params0):
     batches = Batch(*(None if t is None else t.to(DEVICE) for t in host))
     n_stream = len(stream_tables(cfg))
     total = {"onehot_dense_grad": 0, "stream_scatter_add": 0}
+    step_ms = {}
     for opt, lr in STREAM_LR.items():
         t1 = time.perf_counter()
         tc = TrainConfig(batch_size=B_STREAM, learning_rate=lr, optimizer=opt,
@@ -1271,7 +1297,7 @@ def phase_train_stream(cfg, params0):
         end.record()
         end.synchronize()
         chain_steps = STREAM_CHAIN_MEGASTEPS * K_MEGA
-        ms = start.elapsed_time(end) / chain_steps
+        ms = step_ms[opt] = start.elapsed_time(end) / chain_steps
         host_ms = (time.perf_counter() - h0) * 1e3 / chain_steps
         chain_losses = multi.losses
         launches = {"onehot_dense_grad": launches["onehot_dense_grad"] + k1.launches,
@@ -1326,7 +1352,7 @@ def phase_train_stream(cfg, params0):
             check(param_err <= param_tol, f"{opt}: 32 steps, params kernel vs plain {param_err} <= {param_tol}")
         del sk
     emit({"phase": "train_stream", "launches": total, "phase_s": time.perf_counter() - t0})
-    return total
+    return total, step_ms
 
 
 def phase_eval(cfg, state):
@@ -1752,7 +1778,556 @@ def phase_cli(cfg, train_step_ms):
           "phase_s": time.perf_counter() - t0})
     return {"onehot_dense_grad": launches_a["onehot_dense_grad"],
             "packed_pooled_lookup": launches_b["packed_pooled_lookup"],
-            "int8_linear": launches_b["int8_linear"]}
+            "int8_linear": launches_b["int8_linear"]}, (statistics.median(steady) if steady else ms_per_it[-1])
+
+
+# the data-parallel engines: dp and dp_stream on a one-rank
+# NCCL group, dp2 on two gloo ranks sharing the card, pseudo, cli_dp
+DP_STEPS = 216  # the scale refresh at steps 0 and 200, the weight sync at step 200
+DP_SYNC = 200  # weight_sync_period
+DP_COMPARE_STEPS = 32
+B_DP_STREAM = 8192
+DP_STREAM_STEPS = 8
+PSEUDO_WORKERS = 4
+PSEUDO_STEPS = 32
+DP2_RANKS = 2
+DP2_STEPS = 32
+DP2_TIMEOUT_S = 600
+CLI_DP_BATCHES = 64
+
+
+def dp_tc(batch=B_TRAIN, **kw):
+    """The dp phases' TrainConfig: SGD at 0.1, K1 on the 18 small tables,
+    INT8 gradient exchange with error compensation, sync every 200 steps."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import TrainConfig
+
+    return TrainConfig(batch_size=batch, learning_rate=0.1, onehot_update_max_rows=SMALL_ROWS,
+                       grad_quant_bits=8, error_compensation=True,
+                       weight_sync_period=DP_SYNC).replace(**kw)
+
+
+def device_batches(cfg, B, k, seed):
+    """k random batches of B rows, stacked on the host and uploaded once."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import Batch
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import stack_batches
+
+    rng = np.random.RandomState(seed)
+    host = stack_batches([random_batch(cfg, B, rng, device="cpu") for _ in range(k)])
+    return Batch(*(None if t is None else t.to(DEVICE) for t in host))
+
+
+def fresh_state(cfg, params0, make):
+    """`make(params, qstate)` on a copy of `params0` and a fresh QuantState."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_quant_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
+
+    return make(tree_map(torch.clone, params0), init_quant_state(cfg))
+
+
+def run_chain(step, state, batches, calls):
+    """`calls` calls of a k-step `step` on the same stacked batches; the
+    state and all k * calls losses."""
+    losses = []
+    for _ in range(calls):
+        state, _ = step(state, batches)
+        losses.append(step.losses)
+    return state, torch.cat(losses)
+
+
+def path_diff(sa, la, sb, lb, label):
+    """Two runs' largest loss difference (relative) and parameter
+    difference, held to the train phase's 32-step bounds."""
+    out = {"loss_max_rel_err": ((la - lb).abs() / lb.abs()).max().item(),
+           "param_max_abs_err": tree_max_diff(sa.params, sb.params),
+           "loss_rtol": TRAIN_LOSS_RTOL, "param_atol": TRAIN_PARAM_ATOL}
+    check(bool(torch.isfinite(la).all()) and bool(torch.isfinite(lb).all()), f"{label}: finite losses")
+    check(out["loss_max_rel_err"] <= TRAIN_LOSS_RTOL, f"{label}: losses {out}")
+    check(out["param_max_abs_err"] <= TRAIN_PARAM_ATOL, f"{label}: params {out}")
+    return out
+
+
+def dp_wire_bytes(cfg, local_batch, bits):
+    """Bytes one rank sends per dp step, from the shapes: the MLP gradients
+    (int32 below 32 bits, float32 at 32) and their scales (one per weight
+    row, one per bias), each table's coalesced rows (int8, two to a byte at
+    4 bits or fewer, float32 at 32) and ids (int32, local B * P = B slots
+    a table) and scales, and the loss."""
+    layers = list(zip(cfg.mlp_bot[:-1], cfg.mlp_bot[1:])) + list(zip(cfg.mlp_top[:-1], cfg.mlp_top[1:]))
+    n_values = sum(i * o + o for i, o in layers)
+    n_scales = sum(o + 1 for _, o in layers)
+    T, d = cfg.num_tables, cfg.embedding_dim
+    q = bits < 32
+    out = {"mlp_values": n_values, "mlp_value_bytes": 4 * n_values,
+           "mlp_scale_bytes": 4 * n_scales if q else 0,
+           "row_bytes": T * local_batch * (d // 2 if bits <= 4 else d if q else 4 * d),
+           "id_bytes": 4 * T * local_batch, "row_scale_bytes": 4 * T if q else 0, "loss_bytes": 4}
+    out["total_bytes"] = sum(v for k, v in out.items() if k.endswith("_bytes"))
+    return out
+
+
+def profile_megastep(of, step, state, batches, k, **extra):
+    """torch.profiler over one k-step call: launches per step, device busy,
+    idle share, and the NCCL (or gloo) collectives' device time. Returns
+    the state."""
+    holder = [state]
+
+    def megastep():
+        holder[0], _ = step(holder[0], batches)
+
+    ops, wall_ms = device_ops(megastep, 1)
+    busy = sum(o["ms_per_call"] for o in ops)
+    nccl = [o for o in ops if "nccl" in o["name"].lower()]
+    emit({"phase": "profile", "of": of, "megasteps": 1, "steps": k, **extra,
+          "wall_ms_per_step": wall_ms / k,
+          "device_busy_ms_per_step": busy / k if ops else "not measured",
+          "device_idle_share": 1.0 - busy / wall_ms if ops else "not measured",
+          "device_launches_per_step": sum(o["launches_per_call"] for o in ops) / k if ops else "not measured",
+          "nccl_ms_per_step": sum(o["ms_per_call"] for o in nccl) / k if ops else "not measured",
+          "nccl_ops": [o["name"] for o in nccl],
+          "top_device_ops": [{"name": o["name"], "ms_per_step": o["ms_per_call"] / k,
+                              "launches_per_step": o["launches_per_call"] / k} for o in ops[:15]]})
+    return holder[0]
+
+
+def event_ms_per_step(step, state, batches, k, chains=3, calls=2):
+    """CUDA events around `chains` chains of `calls` k-step calls: the
+    median ms per step, and the state."""
+    times = []
+    for _ in range(chains):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            state, _ = step(state, batches)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / (calls * k))
+    return statistics.median(times), times, state
+
+
+def phase_dp(cfg, params0, train_step_ms):
+    """The dp engine (`comm_grad.make_dp_train_step`) on a one-rank NCCL
+    group at the Kaggle width: B = 128, megasteps of 16, INT8 exchange with
+    error compensation, the weight sync every 200 steps. From copies of the
+    untrained params `params0`: 32 steps of the kernel path against the
+    plain path; 32 steps at grad bits 32 against the train phase's sparse
+    step; 32 steps at grad bits 4; then the main path, 216 steps with the
+    launch counters from 0 (the scale refresh at steps 0 and 200, the sync
+    at step 200), the timed chains and a profiled megastep."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import Batch, compute_emb_scales
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_dense_grad as k1_one,
+        onehot_dense_grad_grouped as k1,
+        onehot_pooled_lookup_grouped_fwd as k4,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import comm_grad, multihost, probe
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import (
+        TrainState,
+        make_multi_train_step,
+    )
+
+    t0 = time.perf_counter()
+    _, world = multihost.world()
+    check(world == 1, "dp: a one-rank group")  # the step itself refuses a group that is not NCCL
+    collectives = probe.probe_collectives()
+    check(collectives["ok"], f"dp: the group's collectives {collectives}")
+    tc = dp_tc()
+    batches = device_batches(cfg, B_TRAIN, K_MEGA, 70)
+    dp_state = lambda: fresh_state(cfg, params0, comm_grad.dp_state_from)  # noqa: E731
+    calls = DP_COMPARE_STEPS // K_MEGA
+
+    runs = {plain: run_chain(comm_grad.make_dp_train_step(cfg, tc, steps_per_dispatch=K_MEGA, plain=plain),
+                             dp_state(), batches, calls) for plain in (False, True)}
+    vs_plain = path_diff(*runs[False], *runs[True], "dp: 32 steps kernel vs plain")
+    del runs
+    s32 = run_chain(comm_grad.make_dp_train_step(cfg, tc.replace(grad_quant_bits=32), steps_per_dispatch=K_MEGA),
+                    dp_state(), batches, calls)
+    sparse = run_chain(make_multi_train_step(cfg, tc, K_MEGA, sparse_emb_grad=True),
+                       fresh_state(cfg, params0, lambda p, q: TrainState(p, None, q)), batches, calls)
+    vs_sparse = path_diff(*s32, *sparse, "dp: 32 steps at grad bits 32 vs the sparse step")
+    del s32, sparse
+    torch.cuda.synchronize()
+    k1.launches = k1_one.launches = 0
+    s4, l4 = run_chain(comm_grad.make_dp_train_step(cfg, tc.replace(grad_quant_bits=4), steps_per_dispatch=K_MEGA),
+                       dp_state(), batches, calls)
+    torch.cuda.synchronize()
+    bits4 = {"steps": DP_COMPARE_STEPS, "first_loss": l4[0].item(), "last_loss": l4[-1].item(),
+             "onehot_dense_grad": k1.launches}
+    check(bool(torch.isfinite(l4).all()) and k1.launches == DP_COMPARE_STEPS and k1_one.launches == 0,
+          f"dp: grad bits 4 {bits4}")
+    del s4
+    compare_s = time.perf_counter() - t0
+
+    # the main path, counters from 0: 192 steps, 8, the sync, then 16 more
+    state = dp_state()
+    multi = comm_grad.make_dp_train_step(cfg, tc, steps_per_dispatch=K_MEGA)
+    tail = comm_grad.make_dp_train_step(cfg, tc, steps_per_dispatch=DP_SYNC % K_MEGA)
+    sync = comm_grad.make_weight_sync()
+    scales0 = compute_emb_scales(cfg, state.params)
+    torch.cuda.synchronize()
+    k1.launches = k1_one.launches = k4.launches = 0
+    t1 = time.perf_counter()
+    state, l0 = run_chain(multi, state, batches, 1)
+    check(bool(torch.equal(state.qstate.emb_scales, scales0)), "dp: scales refreshed at step 0")
+    state, l1 = run_chain(multi, state, batches, DP_SYNC // K_MEGA - 1)
+    check(bool(torch.equal(state.qstate.emb_scales, scales0)), "dp: no refresh between steps 1 and 199")
+    state, l2 = run_chain(tail, state, Batch(*(None if t is None else t[:DP_SYNC % K_MEGA] for t in batches)), 1)
+    before = [t.clone() for t in leaves(state.params)]
+    state = sync(state)  # step 200
+    synced_equal = all(bool(torch.equal(a, b)) for a, b in zip(before, leaves(state.params)))
+    del before
+    scales200 = compute_emb_scales(cfg, state.params)
+    state, l3 = run_chain(multi, state, batches, 1)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    losses = torch.cat([l0, l1, l2, l3])
+    launches = {"onehot_dense_grad": k1.launches, "onehot_dense_grad_per_table": k1_one.launches,
+                "onehot_pooled_lookup": k4.launches}
+    check(state.qstate.step == DP_STEPS, f"dp: qstate.step {state.qstate.step} == {DP_STEPS}")
+    check(bool(torch.equal(state.qstate.emb_scales, scales200)), "dp: scales refreshed at step 200")
+    check(not torch.equal(scales200, scales0), "dp: the refresh at step 200 saw the trained tables")
+    check(synced_equal, "dp: the weight sync of one rank leaves every parameter's bits")
+    check(losses.numel() == DP_STEPS and bool(torch.isfinite(losses).all()), "dp: every loss finite")
+    check(launches == {"onehot_dense_grad": DP_STEPS, "onehot_dense_grad_per_table": 0,
+                       "onehot_pooled_lookup": 0},
+          f"dp: launches {launches} == 1 grouped K1 launch per step x {DP_STEPS}")
+
+    ms, chains, state = event_ms_per_step(multi, state, batches, K_MEGA)
+    state = profile_megastep("dp", multi, state, batches, K_MEGA, batch=B_TRAIN, world=world)
+    emit({"phase": "dp", "config": "kaggle_int4_qat", "world": world,
+          "backend": torch.distributed.get_backend(), "collectives": collectives, "batch": B_TRAIN,
+          "k": K_MEGA, "steps": DP_STEPS, "grad_quant_bits": 8, "error_compensation": True,
+          "weight_sync_period": DP_SYNC, "first_loss": losses[0].item(), "last_loss": losses[-1].item(),
+          "launches": launches, "launches_per_step": {k: v / DP_STEPS for k, v in launches.items()},
+          "kernel_vs_plain_32_steps": vs_plain, "bits32_vs_sparse_step_32_steps": vs_sparse,
+          "bits4_32_steps": bits4, "dp_step_ms": ms, "dp_step_ms_chains": chains,
+          "train_phase_step_ms": train_step_ms, "wire_per_step": dp_wire_bytes(cfg, B_TRAIN, 8),
+          "wire_per_step_bits4": dp_wire_bytes(cfg, B_TRAIN, 4),
+          "compare_s": compare_s, "main_run_s": run_s, "phase_s": time.perf_counter() - t0})
+    del state
+    return launches["onehot_dense_grad"]
+
+
+def phase_dp_stream(cfg, params0, stream_step_ms):
+    """The dp engine at B = 8192 with K5 on the 3 mid tables
+    (`stream_update_max_rows=300000`) and K1 on the 18 small ones: 8 steps
+    of the kernel path (counters from 0; K5's inputs of the first step kept)
+    against 8 of the plain path; then K5 on those inputs against its plain
+    version within its per-element bound; the step time beside the
+    train_stream phase's SGD step."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch import train_step
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_dense_grad as k1_one,
+        onehot_dense_grad_grouped as k1,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.stream_update import (
+        stream_scatter_add as k5_one,
+        stream_scatter_add_grouped as k5,
+        stream_scatter_grouped_plain,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import comm_grad
+
+    t0 = time.perf_counter()
+    tc = dp_tc(B_DP_STREAM, stream_update_max_rows=STREAM_ROWS, weight_sync_period=0)
+    batches = device_batches(cfg, B_DP_STREAM, DP_STREAM_STEPS, 80)
+    dp_state = lambda: fresh_state(cfg, params0, comm_grad.dp_state_from)  # noqa: E731
+    kept = []
+
+    def keep_first(tables, sids, svals):  # K5 as the path calls it, its first inputs kept
+        if not kept:
+            kept.append(([t.clone() for t in tables], sids.clone(), svals.clone()))
+        return k5(tables, sids, svals)
+
+    step = comm_grad.make_dp_train_step(cfg, tc, steps_per_dispatch=DP_STREAM_STEPS)
+    train_step.stream_scatter_add_grouped = keep_first
+    try:
+        torch.cuda.synchronize()
+        k1.launches = k1_one.launches = k5.launches = k5_one.launches = 0
+        sk, lk = run_chain(step, dp_state(), batches, 1)
+        torch.cuda.synchronize()
+        launches = {"onehot_dense_grad": k1.launches, "onehot_dense_grad_per_table": k1_one.launches,
+                    "stream_scatter_add": k5.launches, "stream_scatter_add_per_table": k5_one.launches}
+    finally:
+        train_step.stream_scatter_add_grouped = k5
+    check(launches == {"onehot_dense_grad": DP_STREAM_STEPS, "onehot_dense_grad_per_table": 0,
+                       "stream_scatter_add": DP_STREAM_STEPS, "stream_scatter_add_per_table": 0},
+          f"dp_stream: launches {launches}: 1 grouped K1 and 1 grouped K5 per step x {DP_STREAM_STEPS}")
+    sp, lp = run_chain(comm_grad.make_dp_train_step(cfg, tc, steps_per_dispatch=DP_STREAM_STEPS, plain=True),
+                       dp_state(), batches, 1)
+    vs_plain = path_diff(sk, lk, sp, lp, "dp_stream: 8 steps kernel vs plain")
+    del sp
+    tables, sids, svals = kept[0]
+    got = k5([t.clone() for t in tables], sids, svals)
+    want = stream_scatter_grouped_plain([t.clone() for t in tables], sids, svals)
+    k5_err = 0.0
+    for t, g, w, i, v in zip(tables, got, want, sids, svals):
+        e = (g - w).abs()
+        torch.cuda.synchronize()
+        check(bool((e <= row_update_bound(t, i, v)).all()),
+              f"dp_stream: K5 rows={t.shape[0]} within the per-element bound")
+        k5_err = max(k5_err, e.max().item())
+    n_ids = int(sids.shape[1])
+    padding = [int((i >= t.shape[0]).sum()) for t, i in zip(tables, sids)]
+    del kept, got, want
+    ms, chains, sk = event_ms_per_step(step, sk, batches, DP_STREAM_STEPS, chains=1, calls=1)
+    emit({"phase": "dp_stream", "batch": B_DP_STREAM, "k": DP_STREAM_STEPS, "world": 1,
+          "onehot_update_max_rows": SMALL_ROWS, "stream_update_max_rows": STREAM_ROWS,
+          "launches": launches, "kernel_vs_plain_8_steps": vs_plain,
+          "k5_on_the_path": {"tables": [int(t.shape[0]) for t in tables], "ids_per_table": n_ids,
+                             "padding_ids": padding, "max_abs_err": k5_err,
+                             "tol": "2 (c-1) u sum|v| + 2 (u + u_t)(|t| + sum|v|) per element"},
+          "first_loss": lk[0].item(), "last_loss": lk[-1].item(), "dp_step_ms": ms,
+          "train_stream_sgd_step_ms": stream_step_ms, "wire_per_step": dp_wire_bytes(cfg, B_DP_STREAM, 8),
+          "phase_s": time.perf_counter() - t0})
+    return launches
+
+
+def phase_pseudo(cfg, params0):
+    """The pseudo engine (`pseudo.make_pseudo_train_step`): 4 simulated
+    workers on the card, B = 128 (micro-batches of 32), INT8 buffers with
+    error compensation, K1 on the 18 small tables in the apply: 32 steps of
+    the kernel path (counters from 0) against 32 of the plain path, and
+    the step time."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_dense_grad as k1_one,
+        onehot_dense_grad_grouped as k1,
+        onehot_pooled_lookup_grouped_fwd as k4,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import pseudo
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import repeat_step
+
+    t0 = time.perf_counter()
+    tc = dp_tc(weight_sync_period=0)
+    batches = device_batches(cfg, B_TRAIN, K_MEGA, 90)
+    calls = PSEUDO_STEPS // K_MEGA
+
+    def run(plain):
+        step = repeat_step(pseudo.make_pseudo_train_step(cfg, tc, PSEUDO_WORKERS, plain=plain), K_MEGA)
+        return step, run_chain(step, fresh_state(cfg, params0, pseudo.pseudo_state_from), batches, calls)
+
+    torch.cuda.synchronize()
+    k1.launches = k1_one.launches = k4.launches = 0
+    step, (sk, lk) = run(False)
+    torch.cuda.synchronize()
+    launches = {"onehot_dense_grad": k1.launches, "onehot_dense_grad_per_table": k1_one.launches,
+                "onehot_pooled_lookup": k4.launches}
+    check(launches == {"onehot_dense_grad": PSEUDO_STEPS, "onehot_dense_grad_per_table": 0,
+                       "onehot_pooled_lookup": 0},
+          f"pseudo: launches {launches}: 1 grouped K1 launch per step x {PSEUDO_STEPS}")
+    _, (sp, lp) = run(True)
+    vs_plain = path_diff(sk, lk, sp, lp, "pseudo: 32 steps kernel vs plain")
+    del sp
+    check(sk.qstate.step == PSEUDO_STEPS, "pseudo: qstate.step")
+    ms, chains, sk = event_ms_per_step(step, sk, batches, K_MEGA, chains=1, calls=1)
+    emit({"phase": "pseudo", "workers": PSEUDO_WORKERS, "batch": B_TRAIN, "k": K_MEGA,
+          "steps": PSEUDO_STEPS, "grad_quant_bits": 8, "error_compensation": True, "launches": launches,
+          "kernel_vs_plain_32_steps": vs_plain, "first_loss": lk[0].item(), "last_loss": lk[-1].item(),
+          "pseudo_step_ms": ms, "phase_s": time.perf_counter() - t0})
+    del sk
+    return launches["onehot_dense_grad"]
+
+
+def replica_diff(params) -> float:
+    """The largest |rank 0's - this rank's| parameter over the group, known
+    to every rank: rank 0's leaves broadcast one at a time."""
+    import torch.distributed as dist
+
+    worst = torch.zeros((), dtype=torch.float32, device=DEVICE)
+    for t in leaves(params):
+        theirs = t.clone()
+        dist.broadcast(theirs, src=0)
+        worst = torch.maximum(worst, (theirs - t).abs().max())
+        del theirs
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    return worst.item()
+
+
+def dp2_rank(rank: int, store: str, out) -> None:
+    """One rank of the dp2 phase, in its own process: a gloo group of two on
+    the one card; 32 steps of the kernel path and 32 of the plain path on
+    this rank's half of B = 128, then the replicas compared before and
+    after `make_weight_sync`. Puts (rank, results) on `out`."""
+    import traceback
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import QuantConfig, kaggle_config
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import Batch, init_params
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_dense_grad_grouped as k1,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import comm_grad, multihost
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        multihost.init_distributed(f"file://{store}", DP2_RANKS, rank, backend="gloo", timeout_s=300)
+        cfg = kaggle_config(QuantConfig(enabled=True, embedding_bit=4, weight_bit=4, scale_update_period=200))
+        params0 = init_params(cfg, seed=0)
+        tc = dp_tc(weight_sync_period=0)
+        full = device_batches(cfg, B_TRAIN, K_MEGA, 100)
+        start, per = multihost.local_batch_slice(B_TRAIN)
+        rows = slice(start, start + per)
+        local = Batch(full.dense[:, rows], full.indices[:, :, rows], full.labels[:, rows],
+                      None if full.mask is None else full.mask[:, :, rows])
+        res = {}
+        for plain in (True, False):
+            step = comm_grad.make_dp_train_step(cfg, tc, steps_per_dispatch=K_MEGA, plain=plain,
+                                                backend="gloo")
+            torch.cuda.synchronize()
+            k1.launches = 0
+            t0 = time.perf_counter()
+            st, losses = run_chain(step, fresh_state(cfg, params0, comm_grad.dp_state_from), local,
+                                   DP2_STEPS // K_MEGA)
+            torch.cuda.synchronize()
+            res["plain" if plain else "kernel"] = (st, losses)
+            res["launches_plain" if plain else "launches"] = k1.launches
+            res["ms_per_step" + ("_plain" if plain else "")] = (time.perf_counter() - t0) * 1e3 / DP2_STEPS
+        (sk, lk), (sp, lp) = res.pop("kernel"), res.pop("plain")
+        res["kernel_vs_plain"] = {"loss_max_rel_err": ((lk - lp).abs() / lp.abs()).max().item(),
+                                  "param_max_abs_err": tree_max_diff(sk.params, sp.params)}
+        del sp
+        res["losses"] = lk.tolist()
+        res["replica_diff_before_sync"] = replica_diff(sk.params)
+        sk = comm_grad.make_weight_sync(backend="gloo")(sk)
+        res["replica_diff_after_sync"] = replica_diff(sk.params)
+        res["world"] = multihost.world()
+        out.put((rank, res))
+    except Exception:  # reported to the parent, which fails the phase
+        out.put((rank, {"error": traceback.format_exc()}))
+    finally:
+        multihost.shutdown()
+
+
+def phase_dp2(cfg):
+    """The dp engine at world 2 on the one card: two processes, ranks 0 and
+    1 of a gloo group (NCCL takes one rank per device; gloo stages CUDA
+    tensors through the host), B = 128 global (64 a rank), 32 steps of the
+    kernel path against the plain path. Both ranks report the same losses;
+    the replicas agree within the train phase's 32-step parameter bound
+    before the sync and bit for bit after it."""
+    import queue
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    store = os.path.join(tempfile.mkdtemp(prefix="dqrm_dp2_"), "store")
+    procs = [ctx.Process(target=dp2_rank, args=(r, store, out)) for r in range(DP2_RANKS)]
+    for p in procs:
+        p.start()
+    try:
+        results = dict(out.get(timeout=DP2_TIMEOUT_S) for _ in procs)
+    except queue.Empty:
+        results = {}
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(sorted(results) == list(range(DP2_RANKS)), f"dp2: both ranks reported ({sorted(results)})")
+    for r, res in sorted(results.items()):
+        check("error" not in res, f"dp2: rank {r} failed:\n{res.get('error')}")
+    r0, r1 = results[0], results[1]
+    check(r0["world"] == (0, 2) and r1["world"] == (1, 2), "dp2: ranks 0 and 1 of 2")
+    check(r0["losses"] == r1["losses"], "dp2: both ranks report the same losses")
+    for res in (r0, r1):
+        d = res["kernel_vs_plain"]
+        check(d["loss_max_rel_err"] <= TRAIN_LOSS_RTOL and d["param_max_abs_err"] <= TRAIN_PARAM_ATOL,
+              f"dp2: 32 steps kernel vs plain {d}")
+        check(res["launches"] == DP2_STEPS and res["launches_plain"] == 0,
+              f"dp2: K1 launches {res['launches']} == 1 grouped launch per step x {DP2_STEPS}")
+    check(r0["replica_diff_before_sync"] <= TRAIN_PARAM_ATOL,
+          f"dp2: replicas before the sync {r0['replica_diff_before_sync']}")
+    check(r0["replica_diff_after_sync"] == 0.0, f"dp2: replicas after the sync {r0['replica_diff_after_sync']}")
+    check(all(np.isfinite(r0["losses"])), "dp2: finite losses")
+    emit({"phase": "dp2", "world": DP2_RANKS, "backend": "gloo", "devices": torch.cuda.device_count(),
+          "batch": B_TRAIN, "local_batch": B_TRAIN // DP2_RANKS, "k": K_MEGA, "steps": DP2_STEPS,
+          "first_loss": r0["losses"][0], "last_loss": r0["losses"][-1],
+          "kernel_vs_plain_32_steps": {r: results[r]["kernel_vs_plain"] for r in results},
+          "launches": {"onehot_dense_grad": r0["launches"] + r1["launches"]},
+          "replica_diff_before_sync": r0["replica_diff_before_sync"],
+          "replica_diff_after_sync": r0["replica_diff_after_sync"],
+          "host_ms_per_step": {r: results[r]["ms_per_step"] for r in results},
+          "wire_per_step_per_rank": dp_wire_bytes(cfg, B_TRAIN // DP2_RANKS, 8),
+          "phase_s": time.perf_counter() - t0})
+    return r0["launches"] + r1["launches"]
+
+
+def phase_cli_dp(cfg, cli_ms):
+    """The user's entry point under `--parallelism=dp` (world 1: the
+    one-rank NCCL group that exists already), `--parallelism=pseudo` (4
+    workers) and `--parallelism=dp-nosync` (dense gradients, no K1), each
+    64 steps of INT4 QAT at the Kaggle width (B = 128, grad bits 8 with
+    error compensation; dp in megasteps of 16 with the weight sync at step
+    64), a validation eval at step 64 and the final eval, each saving a
+    slot (the JAX key names, `.qstate.step` 64), in a temporary directory
+    removed at the end. One grouped K1 launch per step under dp and pseudo; ms/it
+    beside the cli phase's."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch import train
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_dense_grad as k1_one,
+        onehot_dense_grad_grouped as k1,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    arch = ["--data-generation=random", f"--num-batches={CLI_DP_BATCHES}",
+            "--arch-embedding-size=" + "-".join(str(n) for n in cfg.table_sizes),
+            "--arch-sparse-feature-size=16", "--arch-mlp-bot=13-512-256-64-16", "--arch-mlp-top=512-256-1",
+            "--quantization_flag", "--embedding_bit=4", "--weight_bit=4", "--scale-update-period=200",
+            "--learning-rate=0.1", "--mini-batch-size=128", f"--val-freq={CLI_DP_BATCHES}",
+            "--print-freq=16", "--grad-quant-bits=8", "--error-compensation"]
+    # mode: (its flags, its K1 launches); a sync period the megastep divides
+    # (the CLI cuts k to a divisor of it); dp-nosync takes dense gradients
+    modes = {"dp": (["--parallelism=dp", f"--steps-per-dispatch={K_MEGA}",
+                     f"--weight-sync-period={CLI_DP_BATCHES}"], CLI_DP_BATCHES),
+             "pseudo": (["--parallelism=pseudo", f"--num-pseudo-workers={PSEUDO_WORKERS}"], CLI_DP_BATCHES),
+             "dp-nosync": (["--parallelism=dp-nosync"], 0)}
+    rows, total = {}, 0
+    for mode, (extra, want_k1) in modes.items():
+        tmp = tempfile.mkdtemp(prefix=f"dqrm_cli_{mode}_")
+        try:
+            ck, log = os.path.join(tmp, "ck"), os.path.join(tmp, "log")
+            out = io.StringIO()
+            torch.cuda.synchronize()
+            k1.launches = k1_one.launches = 0
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                result = train.run(arch + extra + [f"--save-model={ck}", f"--log-dir={log}"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = k1.launches
+            check(launches == want_k1 and k1_one.launches == 0,
+                  f"cli_dp {mode}: K1 launches {launches} == {want_k1}")
+            ms_per_it = [float(m) for m in re.findall(r"([0-9.]+) ms/it", out.getvalue())]
+            with open(os.path.join(log, "run.scalars.jsonl")) as f:
+                losses = [json.loads(line)["value"] for line in f if json.loads(line)["tag"] == "Train/Loss"]
+            check(len(losses) == CLI_DP_BATCHES // 16 and all(np.isfinite(losses)), f"cli_dp {mode}: {losses}")
+            check(np.isfinite(result["roc_auc"]), f"cli_dp {mode}: final eval {result}")
+            mgr = CheckpointManager(ck)
+            for p in (mgr.slot_path(0), mgr.slot_path(1)):
+                check(os.path.exists(p), f"cli_dp {mode}: {p} written")
+                with np.load(p) as z:
+                    check(".params['emb'][0]" in z.files and ".qstate.emb_scales" in z.files
+                          and int(z[".qstate.step"]) == CLI_DP_BATCHES, f"cli_dp {mode}: JAX key names in {p}")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        steady = ms_per_it[1:]
+        rows[mode] = {"wall_s": wall, "ms_per_it_at_prints": ms_per_it,
+                      "ms_per_it": statistics.median(steady) if steady else ms_per_it[-1],
+                      "losses": losses, "launches": {"onehot_dense_grad": launches},
+                      "final_eval": result}
+        total += launches
+    emit({"phase": "cli_dp", "entry": f"python -m {PKG}.train", "config": "kaggle_int4_qat", "batch": 128,
+          "steps": CLI_DP_BATCHES, **rows, "cli_phase_ms_per_it": cli_ms,
+          "phase_s": time.perf_counter() - t0})
+    return total
 
 
 def main() -> int:
@@ -1763,6 +2338,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deep_quantized_recommendation_model_dqrm_tpu_torch.config import QuantConfig, kaggle_config
     from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_params
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import multihost
     from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import (
         ptq_export,
         serving_model_bytes,
@@ -1800,10 +2376,16 @@ def main() -> int:
     k5_row, k5_err = phase_kernel_k5(cfg, params, flush)
     k6_row, k6_err = phase_kernel_k6(cfg, params, flush)
 
-    # the streaming path starts from the untrained params, which phase_train trains in place
+    # the streaming path and the parallel engines start from the untrained
+    # params, which phase_train trains in place
     params0 = tree_map(torch.clone, params)
     state, train_launches, train_step_ms = phase_train(cfg, params)
-    stream_launches = phase_train_stream(cfg, params0)
+    stream_launches, stream_step_ms = phase_train_stream(cfg, params0)
+    multihost.init_distributed()  # one rank, NCCL: the dp phases and cli_dp
+    dp_launches = {"onehot_dense_grad": phase_dp(cfg, params0, train_step_ms)}
+    for name, n in phase_dp_stream(cfg, params0, stream_step_ms["sgd"]).items():
+        dp_launches[name] = dp_launches.get(name, 0) + n
+    dp_launches["onehot_dense_grad"] += phase_pseudo(cfg, params0)
     del params0
     phase_eval(cfg, state)
     t2 = time.perf_counter()
@@ -1819,9 +2401,13 @@ def main() -> int:
     launches["onehot_pooled_lookup"] = onehot_launches["onehot_pooled_lookup"]
     del sm
     phase_serve_cat(flush)
-    for name, n in phase_cli(cfg, train_step_ms).items():
+    cli_launches, cli_ms = phase_cli(cfg, train_step_ms)
+    for name, n in cli_launches.items():
         launches[name] += n
-    launches["stream_scatter_add"] = stream_launches["stream_scatter_add"]
+    launches["onehot_dense_grad"] += phase_cli_dp(cfg, cli_ms) + phase_dp2(cfg)
+    multihost.shutdown()
+    launches["onehot_dense_grad"] += dp_launches["onehot_dense_grad"]
+    launches["stream_scatter_add"] = stream_launches["stream_scatter_add"] + dp_launches["stream_scatter_add"]
     launches["dma_row_update"] = 0  # on no path: the JAX package calls it from a bench script only
     for name in ("packed_pooled_lookup", "int8_linear", "onehot_dense_grad", "onehot_pooled_lookup",
                  "stream_scatter_add"):
@@ -1834,11 +2420,13 @@ def main() -> int:
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"], "design": design}
 
-    emit({"phase": "kernels", "checked_by": {"onehot_dense_grad": ["kernel", "train", "train_stream", "cli"],
+    emit({"phase": "kernels", "checked_by": {"onehot_dense_grad": ["kernel", "train", "train_stream", "dp",
+                                                                   "dp_stream", "pseudo", "cli", "cli_dp",
+                                                                   "dp2"],
                                              "packed_pooled_lookup": ["kernel", "serve", "serve_onehot", "cli"],
                                              "int8_linear": ["kernel", "serve", "serve_onehot", "cli"],
                                              "onehot_pooled_lookup": ["kernel", "serve_onehot"],
-                                             "stream_scatter_add": ["kernel", "train_stream"],
+                                             "stream_scatter_add": ["kernel", "train_stream", "dp_stream"],
                                              "dma_row_update": ["kernel"]}})
     grouped = "one launch for a group of tables"
     emit({"kernels": [
@@ -1863,4 +2451,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:  # no process waits on the dp phases' group at exit
+        if torch.distributed.is_available() and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    sys.exit(code)

@@ -9,13 +9,13 @@ Out-of-range ids: the JAX scatters drop them (`mode="drop"`), and
 `coalesce_sparse_grad` pads its result with the distinct out-of-range ids
 `num_rows + slot` on purpose. `index_add_` asserts on such ids on the card,
 so `scatter_add_drop` clamps them and zeroes their values instead, with no
-host sync. `coalesce_sparse_grads_batched` belongs to a later slice (only
-learned pooling weights and the data-parallel engine use it).
+host sync. `coalesce_sparse_grads_batched` coalesces many tables' gradients
+in one batched pass for the data-parallel engine.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -55,6 +55,20 @@ def rows_grad_from_pooled(
     if mask is not None:
         vals = vals * mask[..., None].to(vals.dtype)
     return indices.reshape(B * P), vals.reshape(B * P, -1)
+
+
+def rows_grads_from_pooled(
+    g_pooled: torch.Tensor,  # [T, B, D]
+    indices: torch.Tensor,  # [T, B, P]
+    mask: Optional[torch.Tensor] = None,  # [T, B, P]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`rows_grad_from_pooled` of every table at once: (ids [T, B*P],
+    values [T, B*P, D])."""
+    T, B, P = indices.shape
+    vals = g_pooled[:, :, None, :].expand(T, B, P, g_pooled.shape[-1])
+    if mask is not None:
+        vals = vals * mask[..., None].to(vals.dtype)
+    return indices.reshape(T, B * P), vals.reshape(T, B * P, -1)
 
 
 def check_slots_fit(slots: Tuple[int, ...], indices: torch.Tensor) -> None:
@@ -139,4 +153,36 @@ def coalesce_sparse_grad(
     ).index_add_(0, slot, svals)
     pad = num_rows + torch.arange(max_unique, dtype=sids.dtype, device=sids.device)
     uniq_ids = pad.scatter(0, slot, sids)
+    return uniq_ids, uniq_vals
+
+
+def coalesce_sparse_grads_batched(
+    ids: torch.Tensor,  # [T, K] per-table occurrence ids
+    values: torch.Tensor,  # [T, K, D] per-table occurrence values
+    num_rows: Union[torch.Tensor, Sequence[int]],  # [T] rows per table
+    max_unique: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`coalesce_sparse_grad` of T tables in one pass: one batched stable
+    argsort, one segment cumsum, and one segment sum over a global slot
+    space. Table t's result is what `coalesce_sparse_grad` gives it with
+    `max_unique` slots: its ids ascend strictly (real ids, then the padding
+    ids num_rows[t] + slot), its padding rows hold 0. The segment sum adds
+    each slot's rows in sorted order, on the card too, where `index_add_`'s
+    atomics would not: equal inputs give equal bits, so the quantized
+    exchange downstream rounds the same way on every run. Returns
+    ([T, max_unique] ids, [T, max_unique, D] values)."""
+    T, K = ids.shape
+    order = torch.argsort(ids, dim=1, stable=True)
+    sids = torch.take_along_dim(ids, order, dim=1)
+    svals = torch.take_along_dim(values, order[..., None], dim=1)
+    is_new = torch.ones_like(sids)
+    is_new[:, 1:] = (sids[:, 1:] != sids[:, :-1]).to(sids.dtype)
+    slot = (torch.cumsum(is_new, dim=1) - 1).clamp_max(max_unique - 1).long()
+    gslot = (torch.arange(T, device=ids.device)[:, None] * max_unique + slot).reshape(-1)
+    lengths = torch.bincount(gslot, minlength=T * max_unique)  # gslot ascends: slots are runs
+    uniq_vals = torch.segment_reduce(svals.reshape(T * K, -1), "sum", lengths=lengths, axis=0,
+                                     unsafe=True).reshape(T, max_unique, -1)
+    rows = torch.as_tensor(num_rows, dtype=sids.dtype).to(sids.device)
+    pad = rows[:, None] + torch.arange(max_unique, dtype=sids.dtype, device=sids.device)[None, :]
+    uniq_ids = pad.reshape(-1).scatter(0, gslot, sids.reshape(-1)).reshape(T, max_unique)
     return uniq_ids, uniq_vals

@@ -1,9 +1,10 @@
 """Carry weights from the JAX package into the port, bit for bit.
 
-The JAX package keeps params as a pytree of arrays and a packed serving
-model as NamedTuples of arrays. These functions take them as numpy arrays
-(or anything `np.asarray` accepts, read by attribute name), so the port
-imports nothing of JAX. Values are copied in their own dtype (uint8 packed
+The JAX package keeps params as a pytree of arrays, the data-parallel and
+pseudo engines' states (params, `QuantState`, error-compensation residuals)
+and a packed serving model as NamedTuples of arrays. These functions take
+them as numpy arrays (or anything `np.asarray` accepts, read by attribute
+name), so the port imports nothing of JAX. Values are copied in their own dtype (uint8 packed
 data, int8 weights, float32 scales): no float conversion touches them.
 """
 
@@ -23,6 +24,8 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embeddin
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import (
     QuantLinearWeights,
 )
+from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel.comm_grad import DPState
+from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel.pseudo import PseudoState
 from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import ServingModel
 from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import TrainState
 from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
@@ -65,19 +68,54 @@ def train_state_from_numpy(np_params: Any, np_qstate: Any, device: Device = None
     optimizer state (None for SGD; the Adagrad or RWSAdagrad nest of dicts
     and lists) as the port's `TrainState` on `device`, bit for bit."""
     dev = resolve_device(device)
-    qs = QuantState(
-        emb_scales=_tensor(np_qstate.emb_scales, dev),
-        act_min=_tensor(np_qstate.act_min, dev),
-        act_max=_tensor(np_qstate.act_max, dev),
-        step=int(np.asarray(np_qstate.step)),
-        act_fixed=int(np.asarray(np_qstate.act_fixed)),
-    )
+    qs = _quant_state_from_numpy(np_qstate, dev)
     opt = None
     if np_opt_state is not None:
         if any(isinstance(t, dict) for t in np_opt_state.get("emb", [])) or "v_W" in np_opt_state:
             raise NotImplementedError("QR/MD tables and v_W: a later slice of the port")
         opt = tree_map(lambda a: _tensor(a, dev), np_opt_state)
     return TrainState(params=params_from_numpy(np_params, dev), opt_state=opt, qstate=qs)
+
+
+def _quant_state_from_numpy(np_qstate: Any, dev: torch.device) -> QuantState:
+    return QuantState(
+        emb_scales=_tensor(np_qstate.emb_scales, dev),
+        act_min=_tensor(np_qstate.act_min, dev),
+        act_max=_tensor(np_qstate.act_max, dev),
+        step=int(np.asarray(np_qstate.step)),
+        act_fixed=int(np.asarray(np_qstate.act_fixed)),
+    )
+
+
+def _replica_fields(jax_state: Any, device: Device) -> tuple:
+    dev = resolve_device(device)
+    return (params_from_numpy(jax_state.params, dev), _quant_state_from_numpy(jax_state.qstate, dev),
+            tree_map(lambda a: _tensor(a, dev), jax_state.ec))
+
+
+def dp_state_from_numpy(jax_state: Any, device: Device = None) -> DPState:
+    """A JAX `DPState` (read by attribute name: `params`, `qstate`, `ec`)
+    as the port's `DPState` on `device`, bit for bit."""
+    return DPState(*_replica_fields(jax_state, device))
+
+
+def pseudo_state_from_numpy(jax_state: Any, device: Device = None) -> PseudoState:
+    """A JAX `PseudoState` as the port's `PseudoState` on `device`, bit for
+    bit."""
+    return PseudoState(*_replica_fields(jax_state, device))
+
+
+def replica_state_to_numpy(state: Union[DPState, PseudoState]) -> dict:
+    """A `DPState` or `PseudoState` as {"params", "qstate", "ec"} of numpy
+    arrays (the QuantState as a dict of its fields, host ints as int32)."""
+    qs = state.qstate
+    return {
+        "params": params_to_numpy(state.params),
+        "qstate": {"emb_scales": qs.emb_scales.cpu().numpy(), "act_min": qs.act_min.cpu().numpy(),
+                   "act_max": qs.act_max.cpu().numpy(), "step": np.int32(qs.step),
+                   "act_fixed": np.int32(qs.act_fixed)},
+        "ec": tree_map(lambda t: t.detach().cpu().numpy(), state.ec),
+    }
 
 
 def opt_state_to_numpy(opt_state: Any) -> Any:

@@ -1,8 +1,11 @@
 """CLI training entry point of the PyTorch/CUDA port: the JAX package's
-train.py for one device (`--parallelism=none`).
+train.py for one device (`--parallelism=none`), the data-parallel engines
+(`dp`, `dp-nosync`) and the simulated workers (`pseudo`).
 
 Run:  python -m deep_quantized_recommendation_model_dqrm_tpu_torch.train \
         --data-generation=random --num-batches=100 ...
+      torchrun --nproc-per-node=4 -m deep_quantized_recommendation_model_dqrm_tpu_torch.train \
+        --parallelism=dp ...
 
 The parser has every flag of the JAX package's CLI, with the same names,
 defaults and choices, so one command line runs either package; the loop
@@ -13,15 +16,20 @@ save, resume, the QAT epoch schedule, `--steps-per-dispatch` megasteps,
 gradient accumulation, and `--inference-only` evaluation or PTQ serving.
 
 It runs on the card unless `--platform=cpu` asks for the CPU; without a
-card it raises and never falls back. Checkpoints are the JAX package's npz
-format (utils/checkpoint.py), so either package resumes or serves what the
-other saved. The loss is read from the device only at print boundaries and
-evaluation scores once per pass.
+card it raises and never falls back. Under `dp` and `dp-nosync` each
+process is one rank of a torch.distributed group (`parallel/multihost.py`:
+NCCL on the card, gloo on the CPU; torchrun's environment or
+`--coordinator-address`, `--num-processes`, `--process-id`; one rank when
+neither is given) that trains on its slice of every global batch; rank 0
+alone logs, documents and saves. Checkpoints are the JAX package's npz
+format (utils/checkpoint.py) for every engine, so either package resumes or
+serves what the other saved. The loss is read from the device only at
+print boundaries and evaluation scores once per pass.
 
 What this slice does not run exits with a message naming the later slice
-(ROADMAP.md queue 1): `--parallelism` other than none and the multi-process
-flags (item 6), `--data-generation=dataset` and trace replay from
-per-table distribution files (item 4), `--export-stablehlo` and
+(ROADMAP.md queue 1): `--parallelism=hybrid|rowshard` and `--ranking-range`
+(item 6), `--data-generation=dataset` and trace replay from per-table
+distribution files (item 4), `--export-stablehlo` and
 `--plot-compute-graph` (item 5), `--investigating-inputs` (item 7), and
 the model options `models/dlrm.check_supported` refuses (item 5).
 `--pin-table-layout` fixes a TPU memory layout and is accepted as a no-op.
@@ -49,9 +57,13 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.config import (
 # measured characterization rejects streaming as a default); the flag stays
 # for explicit use.
 _STREAM_AUTO_ROWS_PER_BATCH = 0
-# --onehot-update-max-rows auto rule under --parallelism=none: the JAX
-# package's 20000, which puts the 18 small Kaggle tables on kernel K1.
+# --onehot-update-max-rows auto rule under --parallelism none, dp and
+# pseudo: the JAX package's 20000, which puts the 18 small Kaggle tables on
+# kernel K1 (the JAX package's pseudo engine takes no K1 and resolves to 0;
+# the port's takes the sparse step's routes). dp-nosync takes dense
+# gradients: 0.
 _ONEHOT_AUTO_ROWS = 20000
+_DP_MODES = ("dp", "dp-nosync")
 
 
 def _later(what: str, item: int) -> str:
@@ -296,10 +308,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "in the JAX package, and the card has no such "
                         "layout to pin"))
     # multi-process launch (the reference's -n/-g/-nr + MASTER_ADDR/PORT env,
-    # dlrm_s_pytorch_comm_grad.py:1159-1167): parsed, and rejected by `run`
-    # until the parallel slice of the port
+    # dlrm_s_pytorch_comm_grad.py:1159-1167) of the dp engines
     p.add_argument("--coordinator-address", type=str, default="",
-                   help="host:port of process 0 (multi-process: a later slice of the port)")
+                   help="host:port (or file:// URL) of process 0 for --parallelism=dp/dp-nosync")
     p.add_argument("--num-processes", type=int, default=0)
     p.add_argument("--process-id", type=int, default=-1)
     p.add_argument("--investigating-inputs", action="store_true")
@@ -333,10 +344,10 @@ def _trace_replay(args) -> bool:
 
 def unported(args) -> Optional[str]:
     """The message for the first flag this slice does not run, else None."""
-    if args.parallelism != "none":
+    if args.parallelism in ("hybrid", "rowshard"):
         return _later(f"--parallelism={args.parallelism}", 6)
-    if args.coordinator_address or args.num_processes or args.process_id >= 0:
-        return _later("--coordinator-address/--num-processes/--process-id", 6)
+    if args.ranking_range:
+        return _later("--ranking-range", 6)
     if args.data_generation == "dataset":
         return _later("--data-generation=dataset (Criteo preprocessing)", 4)
     if args.data_generation == "random" and _trace_replay(args):
@@ -559,6 +570,35 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def pad_eval(fn, nproc: int):
+    """A rank-sharded eval step over whole host batches: the batch padded
+    to a multiple of the world size, this rank's slice scored and gathered,
+    the padding's scores dropped. (The reference skips an indivisible batch,
+    dlrm_s_pytorch.py:789-791; the JAX package pads, train.py:660-697.)"""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import Batch
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel.multihost import (
+        local_batch_slice,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import batch_rows
+
+    def wrapped(state, b):
+        B = int(b.labels.shape[0])
+        pad = -B % nproc
+        if pad:
+            b = Batch(
+                dense=torch.cat([b.dense, b.dense.new_zeros((pad, b.dense.shape[1]))]),
+                indices=torch.cat([b.indices, b.indices.new_zeros(
+                    (b.indices.shape[0], pad) + tuple(b.indices.shape[2:]))], dim=1),
+                labels=torch.cat([b.labels, b.labels.new_zeros(pad)]),
+                mask=None if b.mask is None else torch.cat([b.mask, b.mask.new_zeros(
+                    (b.mask.shape[0], pad) + tuple(b.mask.shape[2:]))], dim=1),
+            )
+        start, per = local_batch_slice(B + pad)
+        return fn(state, batch_rows(b, start, start + per))[:B]
+
+    return wrapped
+
+
 def run(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     np.set_printoptions(precision=args.print_precision)
@@ -566,10 +606,41 @@ def run(argv=None) -> dict:
     why = unported(args)
     if why:
         raise SystemExit(why)
+    multi_process = args.coordinator_address or args.num_processes or args.process_id >= 0
+    if args.parallelism not in _DP_MODES:
+        if multi_process:
+            raise SystemExit("--coordinator-address/--num-processes/--process-id apply to "
+                             "--parallelism=dp and dp-nosync")
+        return _run(args, device, 0, 1)
+    import torch.distributed as dist
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel.multihost import (
+        init_distributed,
+        shutdown,
+    )
+
+    created = not dist.is_initialized()
+    rank, nproc = init_distributed(
+        args.coordinator_address or None,
+        args.num_processes or None,
+        args.process_id if args.process_id >= 0 else None,
+        device=device,
+    )
+    try:
+        return _run(args, device, rank, nproc)
+    finally:
+        if created:  # a group the caller made stays the caller's
+            shutdown()
+
+
+def _run(args, device, rank: int, nproc: int) -> dict:
+    """`run` after the process group (if any) exists: this process is rank
+    `rank` of `nproc`."""
     from deep_quantized_recommendation_model_dqrm_tpu_torch.device import resolve_device
     from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import check_supported
     from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import (
         _on,
+        batch_rows,
         concat_batches,
         config_for_epoch,
         init_train_state,
@@ -590,10 +661,16 @@ def run(argv=None) -> dict:
 
     dev = resolve_device(device)  # no card and no --platform=cpu: raises
     np.random.seed(args.numpy_rand_seed)  # dlrm_s_pytorch.py:1060-1063
+    step_mode = args.parallelism
     if args.onehot_update_max_rows < 0:
-        args.onehot_update_max_rows = _ONEHOT_AUTO_ROWS
+        args.onehot_update_max_rows = 0 if step_mode == "dp-nosync" else _ONEHOT_AUTO_ROWS
     if args.stream_update_max_rows < 0:
         args.stream_update_max_rows = _STREAM_AUTO_ROWS_PER_BATCH
+    if step_mode == "dp-nosync" and (args.onehot_update_max_rows > 0 or args.stream_update_max_rows > 0):
+        raise SystemExit(
+            "--onehot-update-max-rows / --stream-update-max-rows: dp-nosync updates via dense "
+            "autograd; only --onehot-lookup-max-rows applies there"
+        )
     cfg, tc = make_configs(args)
     cfg, train_loader, test_loader, val_loader = make_loaders(args, cfg, tc)
     if args.val_freq > 0 and val_loader is None:
@@ -606,8 +683,9 @@ def run(argv=None) -> dict:
         check_supported(cfg)
     except NotImplementedError as e:
         raise SystemExit(f"{e} (ROADMAP.md queue 1 item 5)") from e
-    rank = 0  # one process
-    logger = ScalarLogger(args.log_dir or None)
+    if args.documenting_table_grads > 0 and nproc > 1:
+        raise SystemExit("--documenting-table-grads is a single-process tool")
+    logger = ScalarLogger((args.log_dir or None) if rank == 0 else None)
     mll = MLPerfLogger(
         (args.log_dir + "/mlperf.jsonl") if (args.log_dir and args.mlperf_logging) else None,
         rank,
@@ -627,7 +705,7 @@ def run(argv=None) -> dict:
                 )
         for k, t in enumerate(state.params["emb"]):
             rank0_print(rank, f"emb[{k}] first rows:\n{_host(t[: min(4, t.shape[0])])}")
-    ckpt = CheckpointManager(args.save_model) if args.save_model else None
+    ckpt = CheckpointManager(args.save_model) if args.save_model and rank == 0 else None
     start_epoch = start_batch = 0
     best_acc = 0.0
     # the true architecture rides every checkpoint (the JAX package's
@@ -672,15 +750,53 @@ def run(argv=None) -> dict:
         rank0_print(rank, f"inference: {m}")
         return m
 
+    # the engines' states, built from the (possibly restored) train state;
+    # the checkpoints hold the train state, rebound after every step
+    sync_fn = dp_eval_fn = dstate = None
+    if step_mode in _DP_MODES:
+        from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import comm_grad
+        from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel.multihost import (
+            local_batch_slice,
+        )
+
+        dstate = comm_grad.dp_state_from(state.params, state.qstate)
+        # dp: the periodic drift-bounding sync (weight_syncc, comm_grad.py:
+        # 1977); dp-nosync (the dp_only.py ablation) syncs only before evals
+        if tc.weight_sync_period > 0 or step_mode == "dp-nosync":
+            sync_fn = comm_grad.make_weight_sync(device=device)
+        dp_eval_fn = pad_eval(comm_grad.make_dp_eval_step(cfg, device=device), nproc)
+    elif step_mode == "pseudo":
+        from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import pseudo
+
+        pstate = pseudo.pseudo_state_from(state.params, state.qstate)
+
     # --steps-per-dispatch: k steps per call over k batches uploaded at once
-    multi_k = max(1, args.steps_per_dispatch)
+    multi_k = max(1, args.steps_per_dispatch) if step_mode in ("none", "dp") else 1
     accum_n = max(1, args.mlperf_grad_accum_iter)
     if accum_n > 1:
+        if step_mode != "none":
+            raise SystemExit(
+                "--mlperf-grad-accum-iter requires --parallelism=none "
+                "(the reference accumulates only in its single-process loop)"
+            )
         multi_k = 1  # accumulation buffers batches; megastep disabled
         if args.grad_accum_semantics == "sum":
             # Sum-of-means: one step over the k-batch concat with the loss
             # scaled by k (see TrainConfig.loss_scale).
             tc = tc.replace(loss_scale=float(accum_n))
+    if step_mode == "dp" and args.weight_sync_period > 0 and multi_k > 1:
+        # a megastep cannot sync mid-call: k becomes the largest divisor of
+        # the sync period, so every sync fires on its boundary
+        k = min(multi_k, args.weight_sync_period)
+        while args.weight_sync_period % k:
+            k -= 1
+        if k != multi_k:
+            rank0_print(
+                rank,
+                f"steps-per-dispatch {multi_k} -> {k} (aligning with "
+                f"--weight-sync-period {args.weight_sync_period})",
+            )
+            multi_k = k
 
     # QAT epoch schedule: the step is rebuilt (and cached) whenever the
     # effective config changes at an epoch boundary (comm_grad.py:
@@ -694,7 +810,15 @@ def run(argv=None) -> dict:
         eff = config_for_epoch(cfg, tc, epoch)
         key = (eff, k)
         if key not in _step_cache:
-            if k > 1:
+            if step_mode == "dp":
+                _step_cache[key] = comm_grad.make_dp_train_step(
+                    eff, tc, steps_per_dispatch=k, device=device)
+            elif step_mode == "dp-nosync":
+                _step_cache[key] = comm_grad.make_dp_nosync_train_step(eff, tc, device=device)
+            elif step_mode == "pseudo":
+                _step_cache[key] = pseudo.make_pseudo_train_step(
+                    eff, tc, args.num_pseudo_workers, device=device)
+            elif k > 1:
                 _step_cache[key] = make_multi_train_step(
                     eff, tc, k, sparse_emb_grad=True, device=device
                 )
@@ -732,7 +856,7 @@ def run(argv=None) -> dict:
         """Dump every embedding table to <log-dir>/table_weights_<tag>.npz
         (the reference's documenting_weights_tables before/after training,
         dlrm_s_pytorch_comm_grad.py:1699, 2112)."""
-        if not args.documenting_table_weight:
+        if not args.documenting_table_weight or rank != 0:
             return
         arrs = {f"table_{k}": _host(t) for k, t in enumerate(state.params["emb"])}
         out = os.path.join(args.log_dir or ".", f"table_weights_{tag}.npz")
@@ -745,6 +869,8 @@ def run(argv=None) -> dict:
     # cadence (dlrm_s_pytorch_single_gpu_documentingp.py:969-987), taken
     # against the params before the update by a probe off the training path
     dtg = args.documenting_table_grads
+    if dtg > 0 and step_mode == "pseudo":
+        raise SystemExit("--documenting-table-grads supports parallelism none/dp/dp-nosync")
     _probe_cache: dict = {}
 
     def document_grads(epoch: int, it_: int, batch) -> None:
@@ -761,6 +887,19 @@ def run(argv=None) -> dict:
             f"(probe loss {float(ploss):.6f}) -> {path}",
         )
 
+    def run_eval(loader):
+        """The test and validation evals: rank-sharded under dp and
+        dp-nosync (inference_distributed, comm_grad.py:1170-1305), the
+        nosync replicas averaged first (dp_only.py's accuracy
+        aggregation)."""
+        nonlocal dstate, state
+        if step_mode in _DP_MODES:
+            if step_mode == "dp-nosync":
+                dstate = sync_fn(dstate)
+                state = state._replace(params=dstate.params, qstate=dstate.qstate)
+            return evaluate(cfg, dstate, loader, dp_eval_fn)
+        return evaluate(cfg, state, loader, eval_fn)
+
     _abuf = []  # pending batches for --mlperf-grad-accum-iter
     _dtg_last = -1  # last iteration a grad dump fired at
     for epoch in range(start_epoch, tc.nepochs):
@@ -770,11 +909,23 @@ def run(argv=None) -> dict:
         for bi, batch in enumerate(prefetch(train_loader, depth=3)):
             if epoch == start_epoch and bi < start_batch:
                 continue  # fast-forward resume (dlrm_s_pytorch.py:1523-1534)
+            if step_mode in _DP_MODES and batch.labels.shape[0] % nproc != 0:
+                # the reference's skip-with-warning for batches not divisible
+                # by the world size (dlrm_s_pytorch.py:1553-1558)
+                rank0_print(
+                    rank,
+                    f"Warning: skipping batch {bi} (size "
+                    f"{batch.labels.shape[0]} % {nproc} != 0)",
+                )
+                continue
             if dtg > 0 and it % dtg == 0 and _dtg_last != it:
                 # (megastep buffering keeps `it` constant for k batches;
                 # dump only the first batch at each cadence point)
                 document_grads(epoch, it, batch)
                 _dtg_last = it
+            if step_mode in _DP_MODES:
+                start, per = local_batch_slice(batch.labels.shape[0])
+                batch = batch_rows(batch, start, start + per)
             if accum_n > 1:
                 # gradient accumulation: one optimizer step per accum_n
                 # batches (--grad-accum-semantics)
@@ -788,6 +939,7 @@ def run(argv=None) -> dict:
                     batch, _abuf = _abuf[-1], []
                 else:
                     batch, _abuf = concat_batches(_abuf), []
+            it_prev = it
             if multi_k > 1:
                 # K-batch megastep: buffer, then one upload per field and
                 # one call
@@ -795,11 +947,31 @@ def run(argv=None) -> dict:
                 if len(_buf) < multi_k:
                     continue
                 pack, _buf = _buf, []
-                state, loss = step_fn(state, _on(stack_batches(pack), dev))
+                if step_mode == "dp":
+                    dstate, loss = step_fn(dstate, _on(stack_batches(pack), dev))
+                else:
+                    state, loss = step_fn(state, _on(stack_batches(pack), dev))
                 it += multi_k
+            elif step_mode in _DP_MODES:
+                dstate, loss = step_fn(dstate, batch)
+                it += 1
+            elif step_mode == "pseudo":
+                pstate, loss = step_fn(pstate, batch)
+                state = state._replace(params=pstate.params, qstate=pstate.qstate)
+                it += 1
             else:
                 state, loss = step_fn(state, batch)
                 it += 1
+            if step_mode in _DP_MODES:
+                # dp syncs when the step count crosses a period boundary;
+                # dp-nosync never does here
+                if (
+                    step_mode == "dp"
+                    and sync_fn is not None
+                    and it // tc.weight_sync_period > it_prev // tc.weight_sync_period
+                ):
+                    dstate = sync_fn(dstate)
+                state = state._replace(params=dstate.params, qstate=dstate.qstate)
             # read the loss only at print boundaries: a read waits for the
             # device
             if it >= next_print:
@@ -848,7 +1020,7 @@ def run(argv=None) -> dict:
             if use_val_select and it >= next_val:
                 while next_val <= it:
                     next_val += args.val_freq
-                vm = evaluate(cfg, state, val_loader, eval_fn)
+                vm = run_eval(val_loader)
                 rank0_print(rank, f"Validation at - {it}/{epoch}: {vm}")
                 logger.add_scalar("Val/Acc", vm.get("accuracy", 0.0), it)
                 logger.add_scalar("Val/AUC", vm.get("roc_auc", 0.0), it)
@@ -856,7 +1028,7 @@ def run(argv=None) -> dict:
             if tc.test_freq > 0 and it >= next_test:
                 while next_test <= it:
                     next_test += tc.test_freq
-                m = evaluate(cfg, state, test_loader, eval_fn)
+                m = run_eval(test_loader)
                 rank0_print(rank, f"Testing at - {it}/{epoch}: {m}")
                 logger.add_scalar("Test/Acc", m.get("accuracy", 0.0), it)
                 logger.add_scalar("Test/AUC", m.get("roc_auc", 0.0), it)
@@ -880,7 +1052,11 @@ def run(argv=None) -> dict:
             # flush a partial megastep buffer with the single step
             single = get_step(epoch, k=1)
             for b in _buf:
-                state, loss = single(state, b)
+                if step_mode == "dp":
+                    dstate, loss = single(dstate, b)
+                    state = state._replace(params=dstate.params, qstate=dstate.qstate)
+                else:
+                    state, loss = single(state, b)
                 it += 1
             _buf = []
         if _abuf:
@@ -904,6 +1080,9 @@ def run(argv=None) -> dict:
     mll.end("run")
     if prof_ctx is not None:
         prof_ctx.__exit__(None, None, None)
+    if step_mode == "dp-nosync":
+        dstate = sync_fn(dstate)
+        state = state._replace(params=dstate.params, qstate=dstate.qstate)
     if not result:
         result = evaluate(cfg, state, test_loader, eval_fn, max_batches=8)
         rank0_print(rank, f"final eval: {result}")

@@ -7,7 +7,10 @@ policy -> optimizer, with the QAT scale refresh folded in as explicit state.
   table gradients). The cross-check, and the path on which kernel K4's
   backward (through K1) runs when `onehot_lookup_max_rows` is set.
 - `_build_sparse_step_fn`: autograd is cut at the pooled lookups; each
-  table takes its gradient as (ids, rows) pairs:
+  table takes its gradient as (ids, rows) pairs, applied by
+  `apply_table_updates` along the routes `make_table_routes` fixes (the
+  data-parallel and pseudo engines of `parallel/` apply their exchanged
+  rows the same way):
   - tables with at most `onehot_update_max_rows` rows get their dense
     gradients from one launch of kernel K1 for all of them, straight from
     the pooled gradient, ids and mask, and a dense optimizer update (under
@@ -44,6 +47,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.config import DLRMConfig
 from deep_quantized_recommendation_model_dqrm_tpu_torch.device import resolve_device
 from deep_quantized_recommendation_model_dqrm_tpu_torch.models import dlrm
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+    DenseGradGroup,
     dense_grad_grouped_plain,
     group_slots,
     make_dense_grad_group,
@@ -249,6 +253,116 @@ def _sparse_table_update(optimizer: str, table: torch.Tensor, acc: Optional[torc
     scatter_add_drop(table, uids, -lr * uvals / denom)
 
 
+class TableRoutes(NamedTuple):
+    """Which update each embedding table takes, fixed by its row count:
+    `groups` are the K1 groups of the tables with at most
+    `onehot_update_max_rows` rows (one launch each per step), `stream` the
+    tables above that with at most `stream_update_max_rows` rows (one sort
+    and one K5 launch per 32 of them), `scatter` the others."""
+
+    groups: Tuple[DenseGradGroup, ...]
+    stream: Tuple[int, ...]
+    scatter: Tuple[int, ...]
+
+
+def make_table_routes(table_sizes: Sequence[int], tc: TrainConfig) -> TableRoutes:
+    """The routes of tables with `table_sizes` rows under `tc`'s
+    `onehot_update_max_rows` and `stream_update_max_rows`; built once with
+    a step."""
+    small = [k for k, n in enumerate(table_sizes) if 0 < n <= tc.onehot_update_max_rows]
+    stream = tuple(k for k, n in enumerate(table_sizes)
+                   if tc.onehot_update_max_rows < n <= tc.stream_update_max_rows)
+    groups = tuple(make_dense_grad_group([table_sizes[k] for k in ks], ks) for ks in group_slots(small))
+    scatter = tuple(k for k in range(len(table_sizes)) if k not in small and k not in stream)
+    return TableRoutes(groups=groups, stream=stream, scatter=scatter)
+
+
+def apply_table_updates(
+    routes: TableRoutes,
+    optimizer: str,
+    tables: Sequence[torch.Tensor],
+    accs: Optional[Sequence[Optional[torch.Tensor]]],
+    g: torch.Tensor,  # [T, B, D] gradient w.r.t. the pooled lookups
+    indices: torch.Tensor,  # [T, B, P] int32
+    mask: Optional[torch.Tensor],  # [T, B, P] or None
+    lr: float,
+    plain: bool = False,
+) -> None:
+    """Every table's update, in place, from the gradient of its pooled
+    lookups: lookup (b, p) of table k adds g[k, b] * mask[k, b, p] to row
+    indices[k, b, p]. A sparse gradient given as (ids [T, R], values
+    [T, R, D]) is the case P = 1: g = values, indices = ids[..., None].
+    `accs` holds the tables' Adagrad or RWSAdagrad accumulators (None under
+    SGD). `plain=True` takes the plain versions of K1 and K5.
+
+    - `routes.groups`: dense gradients from one K1 launch per group, then
+      the dense update; under SGD one multiply of the flat gradient rounds
+      the products -lr * grad before one batched add, as
+      `table.add_(-lr * dense)` rounds them;
+    - `routes.stream`: every table's gradient sorted in one batched sort,
+      then one K5 launch per group of at most 32 tables: straight into the
+      tables under SGD (after one multiply by -lr), into zeroed dense
+      gradients (one buffer) under Adagrad and RWSAdagrad, which then take
+      the dense update;
+    - `routes.scatter`: `_sparse_table_update`."""
+    dense_grads = dense_grad_grouped_plain if plain else onehot_dense_grad_grouped
+    stream_scatter = stream_scatter_grouped_plain if plain else stream_scatter_add_grouped
+    accs = accs if accs is not None else [None] * len(tables)
+
+    def grad(k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        return rows_grad_from_pooled(g[k], indices[k], None if mask is None else mask[k])
+
+    if routes.groups:
+        gc = g.contiguous()
+    for group in routes.groups:
+        flat, views = dense_grads(group, gc, indices, mask)
+        group_tables = [tables[k] for k in group.slots]
+        if optimizer == "sgd":
+            torch._foreach_add_(group_tables, (flat * -lr).split(group.rows))
+            continue
+        for k, table, dense in zip(group.slots, group_tables, views):
+            _dense_table_update(optimizer, table, accs[k], dense, lr)
+
+    if routes.stream:
+        sids, svals = sort_sparse_grads_batched(*zip(*(grad(k) for k in routes.stream)))
+        if optimizer == "sgd":  # one multiply, K5 straight into the tables
+            targets = [tables[k] for k in routes.stream]
+            svals = -lr * svals
+        else:
+            # Adagrad needs each row's summed gradient before the square: K5
+            # into zeros, then the dense update
+            rows = [tables[k].shape[0] for k in routes.stream]
+            targets = torch.zeros((sum(rows), svals.shape[-1]), dtype=torch.float32,
+                                  device=svals.device).split(rows)
+        for lo in range(0, len(routes.stream), STREAM_GROUP_TABLES):
+            hi = lo + STREAM_GROUP_TABLES
+            stream_scatter(targets[lo:hi], sids[lo:hi], svals[lo:hi])
+        if optimizer != "sgd":
+            for k, summed in zip(routes.stream, targets):
+                _dense_table_update(optimizer, tables[k], accs[k], summed, lr)
+
+    for k in routes.scatter:
+        _sparse_table_update(optimizer, tables[k], accs[k], *grad(k), lr)
+
+
+def sparse_grads(config: DLRMConfig, params: dlrm.Params, qstate: dlrm.QuantState,
+                 batch: dlrm.Batch, plain: bool = False):
+    """Forward and backward with autograd cut at the raw pooled lookups (no
+    table gradient is formed): (loss, the forward's QuantState, the MLP
+    gradients as a {"bot", "top"} nest, the gradient [T, B, D] w.r.t. the
+    pooled lookups)."""
+    with torch.no_grad():
+        raw_pooled = dlrm.lookup_all(config, params, batch.indices, batch.mask, plain=plain)
+    mlp = {part: tree_map(lambda t: t.detach().requires_grad_(), params[part])
+           for part in ("bot", "top")}
+    pooled = raw_pooled.requires_grad_()
+    logits, new_qs = dlrm.forward(config, {**mlp, "emb": params["emb"]}, batch, qstate,
+                                  train=True, raw_pooled=pooled)
+    loss = dlrm.training_loss(config, logits, batch.labels)
+    *mlp_grads, g_pooled = torch.autograd.grad(loss, tree_leaves(mlp) + [pooled])
+    return loss, new_qs, _unflatten(mlp, mlp_grads), g_pooled
+
+
 def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = False,
                           device: Device = None) -> Step:
     """The train step with explicit sparse embedding updates (the reference's
@@ -259,12 +373,7 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
     dev = resolve_device(device)
     qc = config.quant
     opt = tc.optimizer
-    dense_grads = dense_grad_grouped_plain if plain else onehot_dense_grad_grouped
-    stream_scatter = stream_scatter_grouped_plain if plain else stream_scatter_add_grouped
-    # the small tables' K1 groups, one launch each per step
-    small = {k for k, n in enumerate(config.table_sizes) if 0 < n <= tc.onehot_update_max_rows}
-    groups = [make_dense_grad_group([config.table_sizes[k] for k in ks], ks)
-              for ks in group_slots(sorted(small))]
+    routes = make_table_routes(config.table_sizes, tc)
 
     def step_fn(state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
         _params_device(state.params, dev)
@@ -272,27 +381,14 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
         params, qstate = state.params, state.qstate
         if qc.enabled:
             qstate = dlrm.update_emb_scales(config, params, qstate)
-        with torch.no_grad():
-            raw_pooled = dlrm.lookup_all(config, params, batch.indices, batch.mask, plain=plain)
-        mlp = {part: tree_map(lambda t: t.detach().requires_grad_(), params[part])
-               for part in ("bot", "top")}
-        pooled = raw_pooled.requires_grad_()
-        logits, new_qs = dlrm.forward(config, {**mlp, "emb": params["emb"]}, batch, qstate,
-                                      train=True, raw_pooled=pooled)
-        loss = dlrm.training_loss(config, logits, batch.labels)
-        *mlp_grads, g_pooled = torch.autograd.grad(loss, tree_leaves(mlp) + [pooled])
+        loss, new_qs, mlp_grads, g_pooled = sparse_grads(config, params, qstate, batch, plain)
         if tc.loss_scale != 1.0:
-            mlp_grads = [g * tc.loss_scale for g in mlp_grads]
+            mlp_grads = tree_map(lambda g: g * tc.loss_scale, mlp_grads)
             g_pooled = g_pooled * tc.loss_scale
         lr = _lr(tc, qstate.step + 1)
 
-        def grad(k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-            m = batch.mask[k] if batch.mask is not None else None
-            return rows_grad_from_pooled(g_pooled[k], batch.indices[k], m)
-
         with torch.no_grad():
             mlp_params = {part: params[part] for part in ("bot", "top")}
-            mlp_grads = _unflatten(mlp_params, mlp_grads)
             opt_state = state.opt_state
             if opt == "sgd":
                 new_params = dict(params, **sgd_update(mlp_params, mlp_grads, lr))
@@ -301,47 +397,8 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
                     mlp_params, mlp_grads, {part: opt_state[part] for part in mlp_params}, lr)
                 new_params = dict(params, **new_mlp)
                 opt_state = dict(opt_state, **new_acc)
-            emb_acc = opt_state["emb"] if opt != "sgd" else [None] * len(params["emb"])
-
-            # small tables: dense gradients from one K1 launch per group, then
-            # the dense update; under SGD one multiply of the flat gradient
-            # rounds the products -lr * grad before one batched add, as
-            # `table.add_(-lr * dense)` rounds them
-            for group in groups:
-                flat, views = dense_grads(group, g_pooled.contiguous(), batch.indices, batch.mask)
-                tables = [params["emb"][k] for k in group.slots]
-                if opt == "sgd":
-                    torch._foreach_add_(tables, (flat * -lr).split(group.rows))
-                    continue
-                for k, table, dense in zip(group.slots, tables, views):
-                    _dense_table_update(opt, table, emb_acc[k], dense, lr)
-
-            # mid-size tables: every one's gradient sorted in one batched
-            # sort, then one K5 launch per group of at most 32 tables
-            stream_ks = [k for k, t in enumerate(params["emb"])
-                         if tc.onehot_update_max_rows < t.shape[0] <= tc.stream_update_max_rows]
-            if stream_ks:
-                sids, svals = sort_sparse_grads_batched(*zip(*(grad(k) for k in stream_ks)))
-                if opt == "sgd":  # one multiply, K5 straight into the tables
-                    targets = [params["emb"][k] for k in stream_ks]
-                    svals = -lr * svals
-                else:
-                    # Adagrad needs each row's summed gradient before the
-                    # square: K5 into zeros, then the dense update
-                    rows = [params["emb"][k].shape[0] for k in stream_ks]
-                    targets = torch.zeros((sum(rows), svals.shape[-1]), dtype=torch.float32,
-                                          device=dev).split(rows)
-                for lo in range(0, len(stream_ks), STREAM_GROUP_TABLES):
-                    hi = lo + STREAM_GROUP_TABLES
-                    stream_scatter(targets[lo:hi], sids[lo:hi], svals[lo:hi])
-                if opt != "sgd":
-                    for k, summed in zip(stream_ks, targets):
-                        _dense_table_update(opt, params["emb"][k], emb_acc[k], summed, lr)
-
-            for k, table in enumerate(params["emb"]):
-                if k in small or k in stream_ks:
-                    continue
-                _sparse_table_update(opt, table, emb_acc[k], *grad(k), lr)
+            apply_table_updates(routes, opt, params["emb"], opt_state["emb"] if opt != "sgd" else None,
+                                g_pooled, batch.indices, batch.mask, lr, plain=plain)
         new_qs = new_qs._replace(step=qstate.step + 1)
         return TrainState(new_params, opt_state, new_qs), loss.detach()
 
@@ -357,6 +414,14 @@ def make_train_step(config: DLRMConfig, tc: TrainConfig, sparse_emb_grad: bool =
     return build(config, tc, plain=plain, device=device)
 
 
+def batch_rows(batch: dlrm.Batch, start: int, stop: int) -> dlrm.Batch:
+    """Rows [start, stop) of a batch (a view)."""
+    rows = slice(start, stop)
+    return dlrm.Batch(dense=batch.dense[rows], indices=batch.indices[:, rows],
+                      labels=batch.labels[rows],
+                      mask=None if batch.mask is None else batch.mask[:, rows])
+
+
 def _unstack(batches: dlrm.Batch, k: int) -> List[dlrm.Batch]:
     return [dlrm.Batch(*(None if t is None else t[i] for t in batches)) for i in range(k)]
 
@@ -369,9 +434,16 @@ def make_multi_train_step(config: DLRMConfig, tc: TrainConfig, k: int,
     Takes (TrainState, a list of k Batches or one Batch with a leading [k]
     axis) and returns (state, last loss). The k losses of the last call stay
     in `multi.losses` ([k] tensor on the device)."""
-    body = make_train_step(config, tc, sparse_emb_grad, plain=plain, device=device)
+    return repeat_step(make_train_step(config, tc, sparse_emb_grad, plain=plain, device=device), k)
 
-    def multi(state: TrainState, batches) -> Tuple[TrainState, torch.Tensor]:
+
+def repeat_step(body: Callable, k: int) -> Callable:
+    """`body` run k times per call: takes (state, a list of k Batches or one
+    Batch with a leading [k] axis) and returns (state, last loss). The k
+    losses of the last call stay in `multi.losses` ([k] tensor on the
+    device)."""
+
+    def multi(state, batches):
         seq = _unstack(batches, k) if isinstance(batches, dlrm.Batch) else list(batches)
         if len(seq) != k:
             raise ValueError(f"expected {k} batches, got {len(seq)}")

@@ -10,7 +10,10 @@ string `jax.tree_util.keystr` gives its path in the JAX package's state
 ints; they are stored as 0-d int32 arrays, as the JAX package stores its
 int32 scalars, and read back with `int()`. Alternating two-slot naming
 ("..._{0|1}.npz") reproduces the reference's crash-safe rotation
-(comm_grad.py:2064-2072).
+(comm_grad.py:2064-2072). The CLI saves the train state under every engine
+(its dp, dp-nosync and pseudo runs rebind the engine's params and
+QuantState into it, as the JAX CLI does), so those checkpoints carry the
+same keys.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 flags, the same argv through both CLIs under SGD and Adagrad (QAT, save,
 test-freq, megasteps), a resume from the saved slot with grad-accum `sum`,
 PTQ inference on the other package's checkpoint, and the loud rejection of
-what this slice does not run.
+what this slice does not run (the parallel engines' runs:
+tests/test_torch_parallel_cli.py).
 
 Tables 30000-500-20-7: the 30000-row table takes the scatter branch of the
 sparse step, the others K1's branch (its plain version here). Losses are
@@ -210,9 +211,7 @@ def test_ptq_inference_on_the_other_packages_checkpoint(sgd_runs):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--parallelism=dp", 6), ("--parallelism=hybrid", 6), ("--parallelism=rowshard", 6),
-    ("--parallelism=pseudo", 6), ("--parallelism=dp-nosync", 6),
-    ("--coordinator-address=localhost:1234", 6), ("--num-processes=2", 6), ("--process-id=0", 6),
+    ("--parallelism=hybrid", 6), ("--parallelism=rowshard", 6), ("--ranking-range", 6),
     ("--data-generation=dataset", 4), ("--export-stablehlo=/nonexistent/x", 5),
     ("--plot-compute-graph", 5), ("--investigating-inputs", 7),
     ("--qr-flag", 5), ("--md-flag", 5), ("--weighted-pooling=fixed", 5),
@@ -223,6 +222,14 @@ def test_ptq_inference_on_the_other_packages_checkpoint(sgd_runs):
 def test_unported_flags_exit_naming_their_slice(flag, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1 item {item}"):
         ttrain.run(COMMON + [flag, "--platform=cpu"])
+
+
+@pytest.mark.parametrize("flag", ["--coordinator-address=localhost:1234", "--num-processes=2",
+                                  "--process-id=0"])
+@pytest.mark.parametrize("mode", ["none", "pseudo"])
+def test_multi_process_flags_need_a_dp_engine(flag, mode):
+    with pytest.raises(SystemExit, match="apply to --parallelism=dp and dp-nosync"):
+        ttrain.run(COMMON + [flag, f"--parallelism={mode}", "--platform=cpu"])
 
 
 def test_trace_replay_exits_naming_its_slice(tmp_path):
@@ -239,7 +246,7 @@ def test_bad_platform_exits():
 def test_module_entry_exits_nonzero():
     res = subprocess.run(
         [sys.executable, "-m", "deep_quantized_recommendation_model_dqrm_tpu_torch.train",
-         "--parallelism=dp", "--platform=cpu"],
+         "--parallelism=hybrid", "--platform=cpu"],
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert res.returncode != 0

@@ -1,6 +1,7 @@
 """The port imports with jax blocked, loads nothing of the JAX package, and
-its entry points, the CLI's `train.run` among them, refuse to fall back to
-the CPU without being asked."""
+its entry points, the CLI's `train.run` among them (also under
+`--parallelism=dp`, `dp-nosync` and `pseudo`, on a one-rank gloo group),
+refuse to fall back to the CPU without being asked."""
 
 import os
 import subprocess
@@ -70,6 +71,25 @@ SCRIPT = textwrap.dedent(
         raise AssertionError("the CLI fell back to the CPU")
     m = train.run(argv + ["--platform=cpu"])
     assert set(m) >= {"accuracy", "roc_auc"}
+    import torch.distributed as dist
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import comm_grad, multihost, pseudo
+    for call in (lambda: multihost.init_distributed(), lambda: comm_grad.init_dp_state(cfg, tc),
+                 lambda: pseudo.init_pseudo_state(cfg, tc),
+                 lambda: pseudo.make_pseudo_train_step(cfg, tc, 2),
+                 lambda: train.run(argv + ["--parallelism=dp"]),
+                 lambda: train.run(argv + ["--parallelism=pseudo"])):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA is not available" in str(e)
+        else:
+            raise AssertionError("a parallel entry point fell back to the CPU")
+    assert not dist.is_initialized()
+    for mode in ("dp", "dp-nosync", "pseudo"):
+        m = train.run(argv + ["--platform=cpu", f"--parallelism={mode}", "--num-pseudo-workers=2"])
+        assert set(m) >= {"accuracy", "roc_auc"} and not dist.is_initialized()
+    loaded = [m for m in sys.modules if m == jax_pkg or m.startswith(jax_pkg + ".")]
+    assert not loaded and "jax" not in sys.modules or sys.modules["jax"] is None
     print("OK", len(names))
     """
 )

@@ -1,0 +1,134 @@
+"""The port's CLI under `--parallelism=pseudo` and `--parallelism=dp` against
+the JAX package's CLI on the same argv: logged losses, test metrics and the
+saved checkpoints, which each package then serves with the other's CLI.
+
+- pseudo: both CLIs in this process (4 simulated workers, grad bits 8). The
+  port's pseudo engine takes K1 for the tables of at most 20000 rows (its
+  plain version here), the JAX package's a scatter: the same sums in
+  another order.
+- dp: the JAX CLI in its own process on a 2-device CPU mesh
+  (`XLA_FLAGS=--xla_force_host_platform_device_count=2`), the port's as two
+  processes, gloo ranks 0 and 1 (`--coordinator-address=file://…`,
+  `--num-processes=2`, `--process-id`, `--platform=cpu`), with megasteps of
+  3 cut to 2 by the weight-sync period of 4, QAT scales refreshed every 4
+  steps and a test eval every 8.
+
+Bounds: the engines' parity bounds, losses rtol 1e-4 and checkpoint leaves
+atol 1e-5 (pseudo: 2e-5); metrics 1e-4."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from deep_quantized_recommendation_model_dqrm_tpu import train as jtrain
+from deep_quantized_recommendation_model_dqrm_tpu_torch import train as ttrain
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LOSS_RTOL = 1e-4
+METRIC_ATOL = 1e-4
+COMMON = [
+    "--data-generation=random", "--num-batches=16",
+    "--arch-embedding-size=30000-500-20-7", "--arch-sparse-feature-size=8",
+    "--arch-mlp-bot=13-32-8", "--arch-mlp-top=16-1",
+    "--mini-batch-size=32", "--test-mini-batch-size=64", "--print-freq=2",
+    "--learning-rate=0.1", "--quantization_flag", "--scale-update-period=4", "--test-freq=8",
+]
+DP = COMMON + ["--parallelism=dp", "--steps-per-dispatch=3", "--weight-sync-period=4",
+               "--error-compensation"]
+INFER = COMMON[:-1] + ["--inference-only", "--platform=cpu"]
+
+
+def scalars(d, tag):
+    with open(os.path.join(d, "log", "run.scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [(r["step"], r["value"]) for r in rows if r["tag"] == tag]
+
+
+def assert_logs_agree(dt, dj):
+    lt, lj = scalars(dt, "Train/Loss"), scalars(dj, "Train/Loss")
+    assert lt and [s for s, _ in lt] == [s for s, _ in lj]
+    np.testing.assert_allclose([v for _, v in lt], [v for _, v in lj], rtol=LOSS_RTOL)
+    for tag in ("Test/Acc", "Test/AUC"):
+        mt, mj = scalars(dt, tag), scalars(dj, tag)
+        assert mt and [s for s, _ in mt] == [s for s, _ in mj]
+        np.testing.assert_allclose([v for _, v in mt], [v for _, v in mj], rtol=0, atol=METRIC_ATOL)
+
+
+def assert_checkpoints_agree(dt, dj, atol):
+    for slot in (0, 1):
+        pt, pj = (os.path.join(d, "ck", f"dqrm_{slot}.npz") for d in (dt, dj))
+        assert os.path.exists(pt) == os.path.exists(pj)
+        if not os.path.exists(pt):
+            continue
+        with np.load(pt) as a, np.load(pj) as b:
+            assert sorted(a.files) == sorted(b.files)
+            for k in a.files:
+                assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+                if k == "__metadata__":
+                    ma, mb = (json.loads(bytes(z[k]).decode()) for z in (a, b))
+                    assert set(ma) == set(mb)
+                    for mk in ma:
+                        if isinstance(ma[mk], float):
+                            assert abs(ma[mk] - mb[mk]) <= METRIC_ATOL, mk
+                        else:
+                            assert ma[mk] == mb[mk], mk
+                elif a[k].dtype.kind == "i":
+                    np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+                else:
+                    np.testing.assert_allclose(a[k], b[k], rtol=0, atol=atol, err_msg=k)
+
+
+def assert_each_serves_the_other(dt, dj):
+    """The port's CLI evaluates the JAX checkpoint and the JAX CLI the
+    port's; both agree."""
+    got = ttrain.run(INFER + [f"--load-model={dj}/ck"])
+    want = jtrain.run(INFER + [f"--load-model={dt}/ck"])
+    for k in ("accuracy", "roc_auc"):
+        assert abs(got[k] - want[k]) <= METRIC_ATOL, (k, got[k], want[k])
+
+
+def test_pseudo_cli_matches_jax(tmp_path):
+    out = {}
+    for pkg, mod in (("torch", ttrain), ("jax", jtrain)):
+        d = str(tmp_path / pkg)
+        mod.run(COMMON + ["--parallelism=pseudo", "--num-pseudo-workers=4", "--platform=cpu",
+                          f"--log-dir={d}/log", f"--save-model={d}/ck"])
+        out[pkg] = d
+    assert_logs_agree(out["torch"], out["jax"])
+    assert_checkpoints_agree(out["torch"], out["jax"], atol=2e-5)
+    assert_each_serves_the_other(out["torch"], out["jax"])
+
+
+def test_dp_cli_two_ranks_matches_jax(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=2")
+    dt, dj = str(tmp_path / "torch"), str(tmp_path / "jax")
+    out_args = lambda d: [f"--log-dir={d}/log", f"--save-model={d}/ck", "--platform=cpu"]  # noqa: E731
+    cmds = [[sys.executable, "-m", "deep_quantized_recommendation_model_dqrm_tpu.train"] + DP + out_args(dj)]
+    cmds += [[sys.executable, "-m", "deep_quantized_recommendation_model_dqrm_tpu_torch.train"] + DP
+             + out_args(dt) + [f"--coordinator-address=file://{tmp_path}/store", "--num-processes=2",
+                               f"--process-id={r}"] for r in range(2)]
+    procs = [subprocess.Popen(c, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (o, e) in zip(procs, outs):
+        assert p.returncode == 0, e[-3000:]
+    jax_out, rank0, rank1 = (o for o, _ in outs)
+    assert "steps-per-dispatch 3 -> 2" in rank0 and "steps-per-dispatch 3 -> 2" in jax_out
+    assert "Finished training it" in rank0 and not rank1.strip()  # rank 0 alone prints
+    assert_logs_agree(dt, dj)
+    assert_checkpoints_agree(dt, dj, atol=1e-5)
+    assert_each_serves_the_other(dt, dj)
