@@ -2,9 +2,11 @@
 """Smoke run of the PyTorch/CUDA port's main paths on one NVIDIA card:
 INT4 QAT training (SGD; and with streaming mid-table updates under SGD,
 Adagrad and RWSAdagrad), evaluation, export and packed serving of the full
-Kaggle DQRM, training, checkpoints and PTQ serving through the CLI, and the
+Kaggle DQRM, training, checkpoints and PTQ serving through the CLI, the
 data-parallel engines (dp on one NCCL rank and on two gloo ranks sharing
-the card, pseudo) directly and through the CLI.
+the card, pseudo) directly and through the CLI, and the paper's other QAT
+configurations (PACT, LSQ, the integer-activation chain with the INT16
+interaction) through the sparse step, the dp engine and the CLI.
 
     python3 chip_smoke.py
 
@@ -67,7 +69,23 @@ launch counters of its kernels set to 0 just before and read just after:
 13. dp2: the dp engine at world 2 on the one card, two processes on a
    gloo group, B = 128 global, 32 steps of the kernel path against the
    plain path; both ranks' losses equal, the replicas compared before and
-   after `make_weight_sync`.
+   after `make_weight_sync`;
+14. schemes: the `train` cell's sparse step under PACT (INT4 tables and
+   MLP), LSQ (INT4, learned steps) and HAWQ with the integer-activation
+   chain, the INT16 interaction and a 99.9 percentile (`act`), each from
+   the untrained params: 32 steps of the kernel path against the plain
+   path (the activation ranges too), a chain of 4 megasteps timed by CUDA
+   events with one K1 launch per step, a profiled megastep and an eval;
+   for PACT also the ms of its 26 table normalizers alone;
+15. dp_schemes: the dp engine on the one-rank NCCL group under PACT and
+   LSQ, INT8 exchange with error compensation, 32 steps of the kernel path
+   against the plain path, one K1 launch per step;
+16. cli_schemes: `train.run` with `--quant-scheme=lsq`, then with
+   `--quantize_act_and_lin --modify_feature_interaction`, 64 steps each and
+   a save, under PyTorch's float32 matmul defaults (the integer chain
+   refuses TF32), then `--inference-only` PTQ of the LSQ checkpoint (one
+   grouped K2 and 7 K3 launches per batch), its AUC against the plain
+   path.
 
 Kernel K6 (`dma_row_update`) is on no path; its kernel phase holds it
 against its plain version on the 2,202,608-row table.
@@ -75,9 +93,10 @@ against its plain version on the 2,202,608-row table.
 Every check raises, so any failure exits non-zero. Phases in order: device,
 build, model, kernel (K2, K3, K3 at K = 1728, K1 with D = 512, K4 with
 D = 512, K5 with Zipf ids, K6), train, profile (train), train_stream with
-profile (SGD), dp with profile, dp_stream, pseudo, eval, export, serve,
-profile (serve), serve_onehot with profile, serve_cat, cli, cli_dp, dp2,
-kernels.
+profile (SGD), schemes (pact, lsq, act, each with its profile), dp with
+profile, dp_stream, pseudo, dp_schemes, eval, export, serve, profile
+(serve), serve_onehot with profile, serve_cat, cli, cli_schemes, cli_dp,
+dp2, kernels.
 
 Output: one JSON line per phase; then the {"kernels": [...]} summary; then
 the card's name and power limit as nvidia-smi gives them; and last
@@ -1834,15 +1853,26 @@ def run_chain(step, state, batches, calls):
     return state, torch.cat(losses)
 
 
-def path_diff(sa, la, sb, lb, label):
+def path_diff(sa, la, sb, lb, label, scaled=False):
     """Two runs' largest loss difference (relative) and parameter
-    difference, held to the train phase's 32-step bounds."""
+    difference, held to the train phase's 32-step bounds. `scaled` holds
+    each parameter element to the bound times max(1, |value|): under PACT
+    the tables' values run to hundreds (its [-1, 1] weights make the first
+    logits about 100), where K1's and `index_add_`'s atomics leave ulps of
+    3e-5 that the loss, through tanh's saturation, does not see."""
     out = {"loss_max_rel_err": ((la - lb).abs() / lb.abs()).max().item(),
            "param_max_abs_err": tree_max_diff(sa.params, sb.params),
            "loss_rtol": TRAIN_LOSS_RTOL, "param_atol": TRAIN_PARAM_ATOL}
     check(bool(torch.isfinite(la).all()) and bool(torch.isfinite(lb).all()), f"{label}: finite losses")
     check(out["loss_max_rel_err"] <= TRAIN_LOSS_RTOL, f"{label}: losses {out}")
-    check(out["param_max_abs_err"] <= TRAIN_PARAM_ATOL, f"{label}: params {out}")
+    if scaled:
+        out["param_max_err_over_max_1_abs"] = max(
+            ((x - y).abs() / y.abs().clamp_min(1.0)).max().item()
+            for x, y in zip(leaves(sa.params), leaves(sb.params)))
+        out["param_max_abs"] = max(y.abs().max().item() for y in leaves(sb.params))
+        check(out["param_max_err_over_max_1_abs"] <= TRAIN_PARAM_ATOL, f"{label}: params {out}")
+    else:
+        check(out["param_max_abs_err"] <= TRAIN_PARAM_ATOL, f"{label}: params {out}")
     return out
 
 
@@ -2330,6 +2360,333 @@ def phase_cli_dp(cfg, cli_ms):
     return total
 
 
+# the paper's other QAT configurations at the Kaggle width (schemes,
+# cli_schemes, dp_schemes)
+SCHEME_QUANT = {
+    "pact": dict(quant_scheme="pact"),
+    "lsq": dict(quant_scheme="lsq"),
+    "act": dict(quantize_activation=True, modify_feature_interaction=True, activation_bit=8,
+                interaction_bit=16, act_percentile=99.9),
+}
+SCHEME_STEPS = 32  # kernel path against plain path
+SCHEME_CHAIN_MEGASTEPS = 4  # the timed chain, counters from 0
+CLI_SCHEME_BATCHES = 64
+
+
+def scheme_config(cfg, name):
+    """The Kaggle INT4 QAT config under scheme `name`: PACT or LSQ at INT4
+    tables and MLP, or HAWQ with the integer-activation chain, the INT16
+    interaction and a 99.9 percentile."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, quant=dataclasses.replace(cfg.quant, **SCHEME_QUANT[name]))
+
+
+def scheme_params(scfg, params0):
+    """A copy of the untrained params with LSQ's initial steps where the
+    scheme has them."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_lsq_steps
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
+
+    p = tree_map(torch.clone, params0)
+    return {**p, **init_lsq_steps(scfg, p)}
+
+
+def ranges_diff(sa, sb) -> float:
+    return max((sa.qstate.act_min - sb.qstate.act_min).abs().max().item(),
+               (sa.qstate.act_max - sb.qstate.act_max).abs().max().item())
+
+
+def pact_transform_row(scfg, params, flush):
+    """The ms of PACT's table transform alone: the 26 normalizers
+    max|tanh(w)| of a step (each table read once: 2.16 GB), beside the
+    bound of reading the tables once."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops import quant as q
+
+    emb = params["emb"]
+    ms = time_ms(lambda: [q.pact_normalizer(t) for t in emb], flush, reps=10)
+    nbytes = sum(t.numel() * t.element_size() for t in emb)
+    return {"normalizers_ms": ms, "tables_bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+
+
+def phase_schemes(cfg, params0, train_step_ms, flush):
+    """The sparse step (`make_multi_train_step`, k = 16, B = 128, SGD at 0.1,
+    K1 on the 18 tables of at most 20000 rows) under each of the paper's
+    other QAT configurations, from the untrained params: 32 steps of the
+    kernel path against 32 of the plain path at the train phase's bounds
+    (the activation ranges too), then a chain of 4 megasteps timed by CUDA
+    events with the launch counters from 0 (one K1 launch per step), one
+    profiled megastep, and an eval with ROC AUC on a held-out batch. Returns
+    K1's launches."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import TrainConfig
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_quant_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_dense_grad as k1_one,
+        onehot_dense_grad_grouped as k1,
+        onehot_pooled_lookup_grouped_fwd as k4,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import (
+        TrainState,
+        make_eval_step,
+        make_multi_train_step,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.metrics import roc_auc
+
+    total = 0
+    tc = TrainConfig(batch_size=B_TRAIN, learning_rate=0.1, onehot_update_max_rows=SMALL_ROWS)
+    for i, name in enumerate(SCHEME_QUANT):
+        t0 = time.perf_counter()
+        scfg = scheme_config(cfg, name)
+        batches = device_batches(scfg, B_TRAIN, K_MEGA, 110 + i)
+
+        def fresh():
+            return TrainState(scheme_params(scfg, params0), None, init_quant_state(scfg))
+
+        runs = {plain: run_chain(make_multi_train_step(scfg, tc, K_MEGA, sparse_emb_grad=True, plain=plain),
+                                 fresh(), batches, SCHEME_STEPS // K_MEGA) for plain in (False, True)}
+        vs_plain = path_diff(*runs[False], *runs[True], f"schemes {name}: 32 steps kernel vs plain",
+                             scaled=True)
+        vs_plain["act_range_max_abs_err"] = ranges_diff(runs[False][0], runs[True][0])
+        check(vs_plain["act_range_max_abs_err"] <= TRAIN_PARAM_ATOL,
+              f"schemes {name}: activation ranges kernel vs plain {vs_plain}")
+        state, losses = runs[False]
+        del runs
+        multi = make_multi_train_step(scfg, tc, K_MEGA, sparse_emb_grad=True)
+        torch.cuda.synchronize()
+        k1.launches = k1_one.launches = k4.launches = 0
+        ms, chains, state = event_ms_per_step(multi, state, batches, K_MEGA, chains=1,
+                                              calls=SCHEME_CHAIN_MEGASTEPS)
+        torch.cuda.synchronize()
+        steps = SCHEME_CHAIN_MEGASTEPS * K_MEGA
+        launches = {"onehot_dense_grad": k1.launches, "onehot_dense_grad_per_table": k1_one.launches,
+                    "onehot_pooled_lookup": k4.launches}
+        check(launches == {"onehot_dense_grad": steps, "onehot_dense_grad_per_table": 0,
+                           "onehot_pooled_lookup": 0},
+              f"schemes {name}: launches {launches}: 1 grouped K1 launch per step x {steps}")
+        total += steps
+        check(state.qstate.step == SCHEME_STEPS + steps, f"schemes {name}: qstate.step")
+        check(bool(torch.isfinite(multi.losses).all()), f"schemes {name}: finite losses")
+        if name == "act":
+            check(bool((state.qstate.act_max > state.qstate.act_min).all()), f"schemes act: ranges {state.qstate}")
+        if name == "lsq":
+            check(all(bool(torch.isfinite(t).all()) for t in leaves(state.params["lsq_mlp"])),
+                  "schemes lsq: finite steps")
+        state = profile_megastep(f"schemes_{name}", multi, state, batches, K_MEGA, batch=B_TRAIN)
+        batch = random_batch(scfg, B_MAIN, np.random.RandomState(120 + i))
+        p = make_eval_step(scfg)(state, batch).cpu().numpy()
+        check(p.shape == (B_MAIN,) and bool(np.all(np.isfinite(p))), f"schemes {name}: eval finite")
+        row = {"phase": "schemes", "scheme": name, "quant": SCHEME_QUANT[name], "batch": B_TRAIN,
+               "k": K_MEGA, "kernel_vs_plain_32_steps": vs_plain, "launches": launches,
+               "launches_per_step": {k: v / steps for k, v in launches.items()},
+               "first_loss": losses[0].item(), "last_loss": multi.losses[-1].item(),
+               "step_ms": ms, "train_phase_step_ms": train_step_ms,
+               "eval": {"batch": B_MAIN, "roc_auc": roc_auc(p, batch.labels.cpu().numpy())}}
+        if name == "pact":
+            row["table_transform"] = pact_transform_row(scfg, state.params, flush)
+        if name == "act":
+            row["act_min"], row["act_max"] = state.qstate.act_min.tolist(), state.qstate.act_max.tolist()
+        row["phase_s"] = time.perf_counter() - t0
+        emit(row)
+        del state
+    return total
+
+
+def phase_cli_schemes(cfg, tf32_default):
+    """`train.run` at the Kaggle width under `--quant-scheme=lsq`, then
+    `--quantize_act_and_lin --modify_feature_interaction`: 64 steps each
+    (B = 128, megasteps of 16, one grouped K1 launch per step) and a save;
+    then `--inference-only` PTQ of the LSQ checkpoint (one grouped K2 and 7
+    K3 launches per batch of 16384), its AUC against this script's own on
+    the plain path. The integer chain runs under PyTorch's float32 matmul
+    defaults (TF32 off) and refuses TF32. Returns the launches."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch import train
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models import dlrm
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_dense_grad as k1_one,
+        onehot_dense_grad_grouped as k1,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
+        packed_pooled_lookup_grouped as k2,
+        packed_pooled_lookup_kernel as k2_one,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import (
+        int8_linear as k3,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import make_serving_fn, ptq_export
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import _on, init_train_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        load_checkpoint,
+    )
+
+    t0 = time.perf_counter()
+    # the user's defaults: float32 matmuls stay float32 unless asked otherwise
+    check(not tf32_default and not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          f"cli_schemes: TF32 off by default ({tf32_default}) and now")
+    acfg = scheme_config(cfg, "act")
+    small = dlrm.init_params(capped_tables(acfg, 1000), seed=0)
+    b = random_batch(capped_tables(acfg, 1000), 64, np.random.RandomState(0))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        dlrm.forward(capped_tables(acfg, 1000), small, b)
+        refused = False
+    except RuntimeError as e:
+        refused = "float32 matmuls" in str(e)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(refused, "cli_schemes: the integer chain refuses TF32 matmuls")
+    del small
+
+    tmp = tempfile.mkdtemp(prefix="dqrm_cli_schemes_")
+    rows = {}
+    try:
+        arch = ["--data-generation=random", f"--num-batches={CLI_SCHEME_BATCHES}",
+                "--arch-embedding-size=" + "-".join(str(n) for n in cfg.table_sizes),
+                "--arch-sparse-feature-size=16", "--arch-mlp-bot=13-512-256-64-16",
+                "--arch-mlp-top=512-256-1"]
+        common = arch + ["--quantization_flag", "--embedding_bit=4", "--weight_bit=4",
+                         "--scale-update-period=200", "--learning-rate=0.1", "--mini-batch-size=128",
+                         f"--steps-per-dispatch={CLI_K}", f"--print-freq={CLI_SCHEME_BATCHES // 2}"]
+        runs = {"lsq": ["--quant-scheme=lsq"],
+                "act": ["--quantize_act_and_lin", "--modify_feature_interaction"]}
+        out = io.StringIO()
+        for name, flags in runs.items():
+            ck, log = os.path.join(tmp, name, "ck"), os.path.join(tmp, name, "log")
+            torch.cuda.synchronize()
+            k1.launches = k1_one.launches = k2.launches = k3.launches = 0
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                result = train.run(common + flags + [f"--save-model={ck}", f"--log-dir={log}"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = {"onehot_dense_grad": k1.launches, "packed_pooled_lookup": k2.launches,
+                        "int8_linear": k3.launches}
+            check(launches == {"onehot_dense_grad": CLI_SCHEME_BATCHES, "packed_pooled_lookup": 0,
+                               "int8_linear": 0} and k1_one.launches == 0,
+                  f"cli_schemes {name}: launches {launches}: 1 grouped K1 launch per step")
+            with open(os.path.join(log, "run.scalars.jsonl")) as f:
+                losses = [json.loads(line)["value"] for line in f if json.loads(line)["tag"] == "Train/Loss"]
+            check(len(losses) == 2 and all(np.isfinite(losses)), f"cli_schemes {name}: losses {losses}")
+            check(np.isfinite(result["roc_auc"]), f"cli_schemes {name}: final eval {result}")
+            last = CheckpointManager(ck).latest()
+            with np.load(last) as z:
+                if name == "lsq":
+                    check(".params['lsq_emb'][3]" in z.files and ".params['lsq_mlp']['top'][1]['w']" in z.files,
+                          "cli_schemes lsq: LSQ steps under the JAX keys")
+                else:
+                    check(float(z[".qstate.act_max"][1]) > float(z[".qstate.act_min"][1]),
+                          "cli_schemes act: both QuantAct ranges saved")
+                    ranges = {"act_min": z[".qstate.act_min"].tolist(), "act_max": z[".qstate.act_max"].tolist()}
+            ms_per_it = [float(m) for m in re.findall(r"([0-9.]+) ms/it", out.getvalue())][-2:]
+            rows[name] = {"wall_s": wall, "ms_per_it_at_prints": ms_per_it, "losses": losses,
+                          "launches": launches, "final_eval": result, "checkpoint_bytes": os.path.getsize(last)}
+            if name == "act":
+                rows[name].update(ranges)
+            out.seek(0)
+            out.truncate()
+
+        # PTQ serving of the LSQ checkpoint, counters from 0
+        ck = os.path.join(tmp, "lsq", "ck")
+        argv_b = arch + [f"--load-model={ck}", "--inference-only", "--quantize-emb-with-bit=4",
+                         "--quantize-mlp-with-bit=8", "--quant-scheme=lsq", "--quantization_flag"]
+        torch.cuda.synchronize()
+        k1.launches = k2.launches = k2_one.launches = k3.launches = 0
+        t2 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result_b = train.run(argv_b)
+        torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t2
+        n_test = max(1, CLI_SCHEME_BATCHES // 8)
+        launches_b = {"onehot_dense_grad": k1.launches, "packed_pooled_lookup": k2.launches,
+                      "int8_linear": k3.launches}
+        check(launches_b == {"onehot_dense_grad": 0, "packed_pooled_lookup": n_test,
+                             "int8_linear": 7 * n_test} and k2_one.launches == 0,
+              f"cli_schemes PTQ: launches {launches_b}: 1 grouped K2 and 7 K3 per batch x {n_test}")
+        args = train.build_parser().parse_args(argv_b)
+        args.onehot_update_max_rows, args.stream_update_max_rows = 20000, 0
+        ccfg, tc = train.make_configs(args)
+        ccfg, _, test_loader, _ = train.make_loaders(args, ccfg, tc)
+        state, _ = load_checkpoint(CheckpointManager(ck).latest(), init_train_state(ccfg, tc))
+        plain = make_serving_fn(ptq_export(ccfg, state.params, emb_bits=4, mlp_bits=8), plain=True)
+        want = train.evaluate(ccfg, state, test_loader, lambda s, b: plain(_on(b, torch.device(DEVICE))))
+        del state, plain
+        auc_err = abs(result_b["roc_auc"] - want["roc_auc"])
+        check(auc_err <= CLI_AUC_ATOL, f"cli_schemes PTQ: AUC {result_b['roc_auc']} vs plain path "
+                                       f"{want['roc_auc']}: {auc_err} <= {CLI_AUC_ATOL}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "cli_schemes", "entry": f"python -m {PKG}.train", "batch": 128, "k": CLI_K,
+          "steps": CLI_SCHEME_BATCHES, "tf32_default": tf32_default, "tf32_refused": refused,
+          "runs": rows,
+          "inference": {"of": "lsq", "wall_s": wall_b, "batches": n_test, "batch": 16384,
+                        "launches": launches_b, "roc_auc": result_b["roc_auc"],
+                        "roc_auc_plain": want["roc_auc"], "auc_abs_err": auc_err, "tol": CLI_AUC_ATOL},
+          "phase_s": time.perf_counter() - t0})
+    return {"onehot_dense_grad": 2 * CLI_SCHEME_BATCHES, "packed_pooled_lookup": launches_b["packed_pooled_lookup"],
+            "int8_linear": launches_b["int8_linear"]}
+
+
+def capped_tables(cfg, cap):
+    """`cfg` with its tables cut to `cap` rows (a quick forward's model)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, table_sizes=tuple(min(n, cap) for n in cfg.table_sizes))
+
+
+def phase_dp_schemes(cfg, params0, train_step_ms):
+    """The dp engine on the one-rank NCCL group under PACT and then LSQ,
+    INT8 exchange with error compensation, B = 128, k = 16: 32 steps of the
+    kernel path (counters from 0, one grouped K1 launch per step) against
+    32 of the plain path at the train phase's bounds, and the step time.
+    Returns K1's launches."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_quant_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_dense_grad as k1_one,
+        onehot_dense_grad_grouped as k1,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import comm_grad
+
+    total = 0
+    tc = dp_tc()
+    for i, name in enumerate(("pact", "lsq")):
+        t0 = time.perf_counter()
+        scfg = scheme_config(cfg, name)
+        batches = device_batches(scfg, B_TRAIN, K_MEGA, 130 + i)
+
+        def run(plain):
+            step = comm_grad.make_dp_train_step(scfg, tc, steps_per_dispatch=K_MEGA, plain=plain)
+            state = comm_grad.dp_state_from(scheme_params(scfg, params0), init_quant_state(scfg))
+            return step, run_chain(step, state, batches, SCHEME_STEPS // K_MEGA)
+
+        torch.cuda.synchronize()
+        k1.launches = k1_one.launches = 0
+        step, (sk, lk) = run(False)
+        torch.cuda.synchronize()
+        launches = {"onehot_dense_grad": k1.launches, "onehot_dense_grad_per_table": k1_one.launches}
+        check(launches == {"onehot_dense_grad": SCHEME_STEPS, "onehot_dense_grad_per_table": 0},
+              f"dp_schemes {name}: launches {launches}: 1 grouped K1 launch per step x {SCHEME_STEPS}")
+        total += SCHEME_STEPS
+        _, (sp, lp) = run(True)
+        vs_plain = path_diff(sk, lk, sp, lp, f"dp_schemes {name}: 32 steps kernel vs plain", scaled=True)
+        del sp
+        ms, chains, sk = event_ms_per_step(step, sk, batches, K_MEGA, chains=1, calls=2)
+        emit({"phase": "dp_schemes", "scheme": name, "world": 1, "backend": torch.distributed.get_backend(),
+              "batch": B_TRAIN, "k": K_MEGA, "steps": SCHEME_STEPS, "grad_quant_bits": 8,
+              "error_compensation": True, "launches": launches, "kernel_vs_plain_32_steps": vs_plain,
+              "first_loss": lk[0].item(), "last_loss": lk[-1].item(), "dp_step_ms": ms,
+              "train_phase_step_ms": train_step_ms, "phase_s": time.perf_counter() - t0})
+        del sk
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no usable CUDA card (torch.cuda.is_available() is false)",
@@ -2345,6 +2702,7 @@ def main() -> int:
     )
     from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
 
+    tf32_default = torch.backends.cuda.matmul.allow_tf32  # PyTorch's default, which the CLI runs under
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
@@ -2381,11 +2739,13 @@ def main() -> int:
     params0 = tree_map(torch.clone, params)
     state, train_launches, train_step_ms = phase_train(cfg, params)
     stream_launches, stream_step_ms = phase_train_stream(cfg, params0)
+    scheme_k1 = phase_schemes(cfg, params0, train_step_ms, flush)
     multihost.init_distributed()  # one rank, NCCL: the dp phases and cli_dp
     dp_launches = {"onehot_dense_grad": phase_dp(cfg, params0, train_step_ms)}
     for name, n in phase_dp_stream(cfg, params0, stream_step_ms["sgd"]).items():
         dp_launches[name] = dp_launches.get(name, 0) + n
     dp_launches["onehot_dense_grad"] += phase_pseudo(cfg, params0)
+    scheme_k1 += phase_dp_schemes(cfg, params0, train_step_ms)
     del params0
     phase_eval(cfg, state)
     t2 = time.perf_counter()
@@ -2404,6 +2764,9 @@ def main() -> int:
     cli_launches, cli_ms = phase_cli(cfg, train_step_ms)
     for name, n in cli_launches.items():
         launches[name] += n
+    for name, n in phase_cli_schemes(cfg, tf32_default).items():
+        launches[name] += n
+    launches["onehot_dense_grad"] += scheme_k1
     launches["onehot_dense_grad"] += phase_cli_dp(cfg, cli_ms) + phase_dp2(cfg)
     multihost.shutdown()
     launches["onehot_dense_grad"] += dp_launches["onehot_dense_grad"]
@@ -2420,11 +2783,13 @@ def main() -> int:
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"], "design": design}
 
-    emit({"phase": "kernels", "checked_by": {"onehot_dense_grad": ["kernel", "train", "train_stream", "dp",
-                                                                   "dp_stream", "pseudo", "cli", "cli_dp",
-                                                                   "dp2"],
-                                             "packed_pooled_lookup": ["kernel", "serve", "serve_onehot", "cli"],
-                                             "int8_linear": ["kernel", "serve", "serve_onehot", "cli"],
+    emit({"phase": "kernels", "checked_by": {"onehot_dense_grad": ["kernel", "train", "train_stream", "schemes",
+                                                                   "dp", "dp_stream", "pseudo", "dp_schemes",
+                                                                   "cli", "cli_schemes", "cli_dp", "dp2"],
+                                             "packed_pooled_lookup": ["kernel", "serve", "serve_onehot", "cli",
+                                                                      "cli_schemes"],
+                                             "int8_linear": ["kernel", "serve", "serve_onehot", "cli",
+                                                             "cli_schemes"],
                                              "onehot_pooled_lookup": ["kernel", "serve_onehot"],
                                              "stream_scatter_add": ["kernel", "train_stream", "dp_stream"],
                                              "dma_row_update": ["kernel"]}})

@@ -2,19 +2,30 @@
 models/dlrm.py for plain embedding tables.
 
 Structure (reference `DLRM_Net.forward`): bottom MLP(dense) -> per-table
-pooled lookups -> pairwise dot interaction -> top MLP -> click logit. Under
-QAT (the HAWQ scheme) the pooled lookups are fake-quantized with per-table
-scales kept in `QuantState` and refreshed every `scale_update_period` steps,
-and the MLP weights and biases are fake-quantized from their current min/max
-on every forward.
+pooled lookups -> pairwise dot interaction -> top MLP -> click logit. QAT
+(reference QAT forward, dlrm_s_pytorch_comm_grad.py:809-895) under one of
+the paper's three schemes:
+
+- HAWQ (the DQRM default): the pooled lookups are fake-quantized with
+  per-table scales kept in `QuantState` and refreshed every
+  `scale_update_period` steps; the MLP weights and biases from their current
+  min/max on every forward;
+- PACT: the DoReFa transform of the table rows before the pooling and of the
+  MLP weights and biases;
+- LSQ: learned step sizes (`params["lsq_emb"]`, `params["lsq_mlp"]`) for the
+  pooled lookups and the MLP.
+
+With `quantize_activation` (HAWQ only) an input QuantAct starts the integer
+MLP chain, whose scales pass from layer to layer, and a second QuantAct
+follows the interaction, optionally the INT16 integer one; their running
+ranges live in `QuantState`.
 
 `init_params` draws from the same `np.random.RandomState` stream in the same
 order as the JAX package (all embedding tables, then the bottom MLP, then the
 top MLP), so both packages start from bit-identical weights.
 
-Not in this slice (each raises `NotImplementedError`): QR/MD tables and
-weighted pooling (`v_W`), PACT and LSQ, the activation-quant branch and the
-integer interaction, bf16 tables and `compute_dtype="bfloat16"`.
+Not in this slice (each raises `NotImplementedError`): QR/MD tables,
+weighted pooling (`v_W`), bf16 tables and `compute_dtype="bfloat16"`.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import poo
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.interaction import (
     cat_interaction,
     dot_interaction,
+    quantized_dot_interaction,
 )
 
 Params = Dict[str, Any]
@@ -57,10 +69,12 @@ class QuantState(NamedTuple):
     is a Python `if` and never waits for the device."""
 
     emb_scales: torch.Tensor  # [T] float32, per-table pooled-output scale
-    act_min: torch.Tensor  # [2] float32, activation ranges (later slice)
+    # running ranges of the two QuantActs: [0] the dense input, [1] the
+    # interaction output (comm_grad.py:522-523)
+    act_min: torch.Tensor  # [2] float32
     act_max: torch.Tensor  # [2] float32
     step: int  # global iteration count driving the periodic refresh
-    act_fixed: int  # nonzero freezes activation ranges (later slice)
+    act_fixed: int  # nonzero freezes the activation ranges in train mode too
 
 
 def init_quant_state(
@@ -76,10 +90,19 @@ def init_quant_state(
     )
 
 
+def freeze_ranges(qstate: QuantState) -> QuantState:
+    """freeze_model (quant_modules.py:1071-1090): fix the activation ranges."""
+    return qstate._replace(act_fixed=1)
+
+
+def unfreeze_ranges(qstate: QuantState) -> QuantState:
+    """unfreeze_model (quant_modules.py:1093-1112)."""
+    return qstate._replace(act_fixed=0)
+
+
 def check_supported(config: DLRMConfig) -> None:
     """Raise `NotImplementedError` for what this slice of the port does not
-    run, naming the slice it waits for."""
-    qc = config.quant
+    run: QR/MD tables, weighted pooling and bf16 tables or compute."""
     if any(config.table_kind(k) != "dense" for k in range(config.num_tables)):
         raise NotImplementedError("QR/MD embedding tables: a later slice of the port")
     if config.weighted_pooling is not None:
@@ -88,12 +111,6 @@ def check_supported(config: DLRMConfig) -> None:
         raise NotImplementedError(
             "bf16 tables and compute_dtype='bfloat16': a later slice of the port"
         )
-    if qc.enabled and qc.quant_scheme != "hawq":
-        raise NotImplementedError(f"the {qc.quant_scheme} scheme: a later slice of the port")
-    if qc.enabled and (qc.quantize_activation or qc.modify_feature_interaction):
-        raise NotImplementedError(
-            "activation quantization and the integer interaction: a later slice of the port"
-        )
 
 
 def init_params(
@@ -101,20 +118,23 @@ def init_params(
     seed: int = 0,
     device: Optional[Union[str, torch.device]] = None,
 ) -> Params:
-    """Initialize {"emb": [table], "bot": [{"w","b"}], "top": [{"w","b"}]}.
+    """Initialize {"emb": [table], "bot": [{"w","b"}], "top": [{"w","b"}]},
+    under LSQ also the step sizes "lsq_emb" and "lsq_mlp".
 
     MLP: W ~ N(0, sqrt(2/(fan_in+fan_out))), b ~ N(0, sqrt(1/fan_out))
     (create_mlp, dlrm_s_pytorch.py:199-238). Embeddings: U(-1/sqrt(n),
     1/sqrt(n)) (create_emb, dlrm_s_pytorch.py:269-276). Each table is drawn
-    on the host and moved to `device` before the next is drawn.
+    on the host and moved to `device` before the next is drawn. LSQ steps
+    take no draw: s0 = 2 mean|w| / sqrt(Qp) (quantizer/lsq.py:42-45), one
+    0-d step per table at `embedding_bit`, and with `quantize_mlp` a
+    per-out-channel weight step and a 0-d bias step per layer at
+    `weight_bit` (QuantLinearLSQ, quant_learned_step_size_quan.py:32-57).
     """
     dev = resolve_device(device)
     if any(config.table_kind(k) != "dense" for k in range(config.num_tables)):
         raise NotImplementedError("QR/MD embedding tables: a later slice of the port")
     if config.weighted_pooling is not None:
         raise NotImplementedError("weighted pooling (v_W): a later slice of the port")
-    if config.quant.enabled and config.quant.quant_scheme == "lsq":
-        raise NotImplementedError("LSQ step sizes: a later slice of the port")
     rng = np.random.RandomState(seed)
     t_dtype = torch.bfloat16 if config.table_dtype == "bfloat16" else torch.float32
 
@@ -131,7 +151,31 @@ def init_params(
         bound = np.sqrt(1.0 / n)
         w = rng.uniform(-bound, bound, size=(n, config.embedding_dim)).astype(np.float32)
         emb.append(torch.from_numpy(w).to(dev, t_dtype))
-    return {"bot": mlp(config.mlp_bot), "top": mlp(config.mlp_top), "emb": emb}
+    params: Params = {"bot": mlp(config.mlp_bot), "top": mlp(config.mlp_top), "emb": emb}
+    return {**params, **init_lsq_steps(config, params)}
+
+
+def init_lsq_steps(config: DLRMConfig, params: Params) -> Params:
+    """LSQ's initial step sizes for `params` ({} unless the config is LSQ):
+    "lsq_emb", and with `quantize_mlp` "lsq_mlp" (see `init_params`)."""
+    qc = config.quant
+    if not (qc.enabled and qc.quant_scheme == "lsq"):
+        return {}
+    out: Params = {"lsq_emb": [_lsq_init(t.float().abs().mean(), qc.embedding_bit) for t in params["emb"]]}
+    if qc.quantize_mlp:
+        out["lsq_mlp"] = {
+            part: [{"w": _lsq_init(l["w"].abs().mean(dim=1), qc.weight_bit),
+                    "b": _lsq_init(l["b"].abs().mean(), qc.weight_bit)} for l in params[part]]
+            for part in ("bot", "top")
+        }
+    return out
+
+
+def _lsq_init(mean_abs: torch.Tensor, bits: int) -> torch.Tensor:
+    """2 mean|w| / sqrt(Qp), divided by sqrt(Qp) rounded to float32, as the
+    JAX package computes it."""
+    root = float(np.float32(np.sqrt(2 ** (bits - 1) - 1)))
+    return q.divide(2.0 * mean_abs, root)
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +197,50 @@ def update_emb_scales(config: DLRMConfig, params: Params, qstate: QuantState) ->
         return qstate
     with torch.no_grad():
         return qstate._replace(emb_scales=compute_emb_scales(config, params))
+
+
+def _quant_act(
+    x: torch.Tensor,
+    bits: int,
+    x_min: torch.Tensor,
+    x_max: torch.Tensor,
+    momentum: float,
+    train: bool,
+    percentile: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """QuantAct forward (quant_modules.py:538-637, symmetric mode): (x_fq,
+    scale, new_min, new_max). In train mode the range starts from the first
+    batch (the min == max sentinel), then follows the momentum EMA, or the
+    running extremum at momentum -1; `percentile` > 0 clips the observed
+    range (get_percentile_min_max, quant_modules.py:567-577). Outside train
+    mode the stored range stays."""
+    if train:
+        if percentile > 0.0:
+            cur_min, cur_max = q.get_percentile_min_max(x, 100.0 - percentile, percentile)
+        else:
+            cur_min, cur_max = x.detach().min(), x.detach().max()
+        uninit = x_min == x_max
+        if momentum == -1.0:
+            upd_min, upd_max = torch.minimum(x_min, cur_min), torch.maximum(x_max, cur_max)
+        else:
+            upd_min = x_min * momentum + cur_min * (1.0 - momentum)
+            upd_max = x_max * momentum + cur_max * (1.0 - momentum)
+        new_min = torch.where(uninit, x_min + cur_min, upd_min)
+        new_max = torch.where(uninit, x_max + cur_max, upd_max)
+    else:
+        new_min, new_max = x_min, x_max
+    scale = q.symmetric_quantization_params(bits, new_min, new_max)
+    return q.fake_quant(x, scale, bits), scale, new_min, new_max
+
+
+def _ranges_after(qstate: QuantState, slot: int, new_min: torch.Tensor,
+                  new_max: torch.Tensor, act_min: torch.Tensor, act_max: torch.Tensor):
+    """(act_min, act_max) with QuantAct `slot`'s new range written in, new
+    tensors; the old range stays while the ranges are frozen."""
+    if qstate.act_fixed > 0:
+        return act_min, act_max
+    i = torch.arange(2, device=act_min.device) == slot
+    return torch.where(i, new_min, act_min), torch.where(i, new_max, act_max)
 
 
 # ---------------------------------------------------------------------------
@@ -182,13 +270,50 @@ def _quant_linear_weights(layer, wbits: int, bbits: int, per_channel: bool):
     return s_w, q.fake_quant(w, s_w, wbits), q.fake_quant(b, s_w, bbits)
 
 
-def _apply_mlp_quant(layers, x: torch.Tensor, qc, last_linear: bool) -> torch.Tensor:
-    """Weight-only QAT MLP, HAWQ scheme: linear(x, fake_quant(w),
-    fake_quant(b)) with the bias sharing the weight scale."""
+def _apply_mlp_quant(layers, x: torch.Tensor, qc, last_linear: bool,
+                     lsq_steps=None) -> torch.Tensor:
+    """Weight-only QAT MLP (quant_modules.py:138-186): linear(x,
+    fake_quant(w), fake_quant(b)). HAWQ shares the weight scale with the
+    bias; PACT applies the DoReFa transform to weights and bias at
+    `weight_bit` (QuantLinearPACT, quant_pact_dorefa.py:42-53); LSQ takes
+    the layer's learned steps from `lsq_steps`, per out-channel for the
+    weights and per tensor for the bias (QuantLinearLSQ)."""
     n = len(layers)
     for i, layer in enumerate(layers):
-        _, w_fq, b_fq = _quant_linear_weights(layer, qc.weight_bit, qc.bias_bit, qc.mlp_channelwise)
+        if qc.quant_scheme == "pact":
+            w_fq = q.fake_quant_pact(layer["w"], qc.weight_bit)
+            b_fq = q.fake_quant_pact(layer["b"], qc.weight_bit)
+        elif qc.quant_scheme == "lsq":
+            st = lsq_steps[i]
+            w_fq = q.fake_quant_lsq(layer["w"], st["w"], qc.weight_bit, per_channel=True)
+            b_fq = q.fake_quant_lsq(layer["b"], st["b"], qc.weight_bit)
+        else:
+            _, w_fq, b_fq = _quant_linear_weights(layer, qc.weight_bit, qc.bias_bit,
+                                                  qc.mlp_channelwise)
         x = x @ w_fq.T + b_fq
+        if not (last_linear and i == n - 1):
+            x = torch.relu(x)
+    return x
+
+
+def _apply_mlp_quant_act(layers, x_fq: torch.Tensor, act_scale: torch.Tensor, qc,
+                         last_linear: bool) -> torch.Tensor:
+    """Integer-activation QAT MLP (quant_modules.py:128-180): x_int = x /
+    s_in, out = ste_round(x_int @ w_int.T + b_int) * (s_w s_in), the scales
+    chained through the stack; per-tensor scales only. The operands are
+    integers held in float32: true float32 matmuls keep them exact, TF32
+    would round them."""
+    n = len(layers)
+    x, s_in = x_fq, act_scale.detach()
+    for i, layer in enumerate(layers):
+        w = layer["w"]
+        s_w = q.symmetric_quantization_params(qc.weight_bit, w.detach().min(), w.detach().max())
+        w_int = q.quantize_ste(w, s_w, qc.weight_bit)
+        s_out = s_w * s_in
+        b_int = q.quantize_ste(layer["b"], s_out, qc.bias_bit)
+        out_int = q.ste_round((x / s_in) @ w_int.T + b_int)
+        x = out_int * s_out
+        s_in = s_out
         if not (last_linear and i == n - 1):
             x = torch.relu(x)
     return x
@@ -204,39 +329,62 @@ def lookup_all(
     params: Params,
     indices: torch.Tensor,  # [T, B, P]
     mask: Optional[torch.Tensor],
+    full_precision: bool = True,
     plain: bool = False,
 ) -> torch.Tensor:  # [T, B, D]
     """Raw pooled lookups of every table, differentiable through the tables.
     The tables with at most `onehot_lookup_max_rows` rows go through one
     launch of kernel K4 (its plain version with `plain=True`) per group of
-    up to 32 (`group_slots`); the others through `pooled_lookup`. The JAX
-    package's `full_precision` argument selects PACT's table fake-quant, a
-    later slice."""
+    up to 32 (`group_slots`); the others through `pooled_lookup`.
+
+    PACT (unless `full_precision`) pools DoReFa-transformed rows
+    (quant_pact_dorefa.py:97-105). Each table's normalizer max|tanh(w)| is
+    taken over the whole table; the transform then applies to the gathered
+    rows only (the K4 tables, small, are transformed whole). That gives the
+    bits of transforming each table first without writing a transformed
+    copy of the large tables every step."""
+    qc = config.quant
+    pact = qc.enabled and qc.quantize_emb and not full_precision and qc.quant_scheme == "pact"
     emb = params["emb"]
     lookup = onehot_pooled_lookup_grouped_plain if plain else onehot_pooled_lookup_grouped
     small = [k for k, t in enumerate(emb) if 0 < t.shape[0] <= config.onehot_lookup_max_rows]
     outs = {}
     for ks in group_slots(small):
-        pooled = lookup(make_onehot_lookup_group([emb[k] for k in ks], ks), indices, mask)
+        tables = [q.fake_quant_pact(emb[k], qc.embedding_bit) if pact else emb[k] for k in ks]
+        pooled = lookup(make_onehot_lookup_group(tables, ks), indices, mask)
         outs.update((k, pooled[k]) for k in ks)
     for k, table in enumerate(emb):
-        if k not in outs:
-            outs[k] = pooled_lookup(table, indices[k], None if mask is None else mask[k]).float()
+        if k in outs:
+            continue
+        row_fn = None
+        if pact:
+            norm = q.pact_normalizer(table)
+            row_fn = lambda rows, norm=norm: q.pact_apply(rows, norm, qc.embedding_bit)  # noqa: E731
+        outs[k] = pooled_lookup(table, indices[k], None if mask is None else mask[k], row_fn).float()
     return torch.stack([outs[k] for k in range(len(emb))])
 
 
 def emb_postprocess(
     config: DLRMConfig,
+    params: Params,
     pooled: torch.Tensor,  # [T, B, D] raw pooled lookups
     qstate: QuantState,
     full_precision: bool,
+    lsq_numel_scale: float = 1.0,
 ) -> torch.Tensor:
-    """Pooled-output fake-quant with the per-table scales (HAWQ, the DQRM
-    trick: quant_modules_not_quantize_grad.py:362-395), as one elementwise
-    op over the stacked tables."""
+    """Pooled-output fake-quant per table, as one elementwise op over the
+    stacked tables: HAWQ with the per-table scales (the DQRM trick,
+    quant_modules_not_quantize_grad.py:362-395), LSQ with each table's
+    learned step (quant_learned_step_size_quan.py:65-100), whose gradient
+    scale counts one table's [B, D] (times `lsq_numel_scale`). PACT
+    quantized the rows in `lookup_all`."""
     qc = config.quant
-    if not qc.enabled or full_precision or not qc.quantize_emb:
+    if not qc.enabled or full_precision or not qc.quantize_emb or qc.quant_scheme == "pact":
         return pooled
+    if qc.quant_scheme == "lsq":
+        steps = torch.stack(params["lsq_emb"])[:, None, None]
+        return q.fake_quant_lsq(pooled, steps, qc.embedding_bit, numel=pooled[0].numel(),
+                                numel_scale=lsq_numel_scale)
     return q.fake_quant(pooled, qstate.emb_scales[:, None, None], qc.embedding_bit)
 
 
@@ -249,14 +397,25 @@ def apply_emb(
     full_precision: bool,
     plain: bool = False,
 ) -> torch.Tensor:  # [T, B, D]
-    """Pooled lookups with the optional pooled-output fake-quant."""
-    pooled = lookup_all(config, params, indices, mask, plain=plain)
-    return emb_postprocess(config, pooled, qstate, full_precision)
+    """Pooled lookups with the optional fake-quant of the scheme."""
+    pooled = lookup_all(config, params, indices, mask, full_precision, plain=plain)
+    return emb_postprocess(config, params, pooled, qstate, full_precision)
 
 
 # ---------------------------------------------------------------------------
 # Forward and losses
 # ---------------------------------------------------------------------------
+
+
+def require_fp32_matmul(device: torch.device) -> None:
+    """The integer chain and the INT16 interaction multiply integers held in
+    float32, which TF32 (11 significant bits) rounds: raise unless float32
+    matmuls on the card are true float32, as PyTorch's defaults keep them."""
+    if device.type == "cuda" and (torch.backends.cuda.matmul.allow_tf32
+                                  or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            "quantize_activation / modify_feature_interaction need true float32 matmuls: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False and float32 matmul precision 'highest'")
 
 
 def forward(
@@ -268,38 +427,82 @@ def forward(
     train: bool = True,
     full_precision: bool = False,
     raw_pooled: Optional[torch.Tensor] = None,
+    lsq_numel_scale: float = 1.0,
     plain: bool = False,
 ) -> Tuple[torch.Tensor, QuantState]:
     """The DLRM forward: (logits [B], QuantState). The FP branch mirrors
-    `sequential_forward` (dlrm_s_pytorch.py:590-615), the weight-QAT branch
-    the quantized forward (comm_grad.py:852-859).
+    `sequential_forward` (dlrm_s_pytorch.py:590-615), the QAT branches the
+    quantized forward (comm_grad.py:809-895): the integer-activation chain
+    (`quantize_activation` and `quantize_mlp`), and weight-only QAT, whose
+    dense input still passes the input QuantAct when `quantize_activation`
+    is on and `quantize_mlp` off (the reference's branch 1, comm_grad.py:
+    846-853).
 
     `raw_pooled` injects precomputed raw pooled lookups [T, B, D] (before
-    fake-quant): the sparse train step cuts autograd there. `train` matters
-    only to the activation-quant branch of a later slice."""
+    the scheme's pooled-output fake-quant): the sparse train step cuts
+    autograd there. `train` moves the activation ranges; the returned
+    QuantState holds them (new tensors). `lsq_numel_scale`: see
+    `emb_postprocess`."""
     check_supported(config)
     qc = config.quant
     if qstate is None:
         qstate = init_quant_state(config, batch.dense.device)
     quantizing = qc.enabled and not full_precision
-    pooled = raw_pooled
-    if pooled is None:
-        pooled = lookup_all(config, params, batch.indices, batch.mask, plain=plain)
-    ly = emb_postprocess(config, pooled, qstate, not quantizing)
-    if quantizing and qc.quantize_mlp:
-        def mlp(part, x, last_linear):
-            return _apply_mlp_quant(params[part], x, qc, last_linear)
+    if quantizing and (qc.quantize_activation and qc.quantize_mlp or qc.modify_feature_interaction):
+        require_fp32_matmul(batch.dense.device)
+
+    def get_ly(fp_emb: bool) -> torch.Tensor:
+        pooled = raw_pooled
+        if pooled is None:
+            pooled = lookup_all(config, params, batch.indices, batch.mask, fp_emb, plain=plain)
+        return emb_postprocess(config, params, pooled, qstate, fp_emb, lsq_numel_scale)
+
+    def interact(x, ly):
+        if quantizing and qc.modify_feature_interaction:
+            return quantized_dot_interaction(x, ly, qc.interaction_bit, config.interact_itself)
+        if config.interaction == "dot":
+            return dot_interaction(x, ly, config.interact_itself)
+        return cat_interaction(x, ly)
+
+    act_min, act_max = qstate.act_min, qstate.act_max
+
+    def quant_act(slot, x):
+        nonlocal act_min, act_max
+        x_fq, scale, lo, hi = _quant_act(x, qc.activation_bit, qstate.act_min[slot],
+                                         qstate.act_max[slot], qc.act_range_momentum, train,
+                                         qc.act_percentile)
+        act_min, act_max = _ranges_after(qstate, slot, lo, hi, act_min, act_max)
+        return x_fq, scale
+
+    if not quantizing:
+        x = _apply_mlp_fp(params["bot"], batch.dense, False)
+        logits = _apply_mlp_fp(params["top"], interact(x, get_ly(True)), True)
+    elif qc.quantize_activation and qc.quantize_mlp:
+        # quant_input QuantAct -> integer MLP chains (comm_grad.py:863-879); the
+        # interaction is the dot one whatever `config.interaction` says
+        x_fq, s_act = quant_act(0, batch.dense)
+        x = _apply_mlp_quant_act(params["bot"], x_fq, s_act, qc, False)
+        ly = get_ly(False)
+        z = (quantized_dot_interaction(x, ly, qc.interaction_bit, config.interact_itself)
+             if qc.modify_feature_interaction else dot_interaction(x, ly, config.interact_itself))
+        z_fq, s_feat = quant_act(1, z)
+        logits = _apply_mlp_quant_act(params["top"], z_fq, s_feat, qc, True)
     else:
-        def mlp(part, x, last_linear):
-            return _apply_mlp_fp(params[part], x, last_linear)
-    x = mlp("bot", batch.dense, False)
-    z = (
-        dot_interaction(x, ly, config.interact_itself)
-        if config.interaction == "dot"
-        else cat_interaction(x, ly)
-    )
-    logits = mlp("top", z, True)
-    return logits.reshape(-1), qstate
+        if qc.quantize_mlp:
+            lsq_mlp = params.get("lsq_mlp")
+
+            def mlp(part, x, last_linear):
+                steps = lsq_mlp[part] if lsq_mlp is not None else None
+                return _apply_mlp_quant(params[part], x, qc, last_linear, steps)
+        else:
+            def mlp(part, x, last_linear):
+                return _apply_mlp_fp(params[part], x, last_linear)
+        dense_in = batch.dense
+        if qc.quantize_activation:  # the reference's branch 1: FP MLPs behind quant_input
+            dense_in, _ = quant_act(0, batch.dense)
+        x = mlp("bot", dense_in, False)
+        logits = mlp("top", interact(x, get_ly(False)), True)
+    return logits.reshape(-1), qstate._replace(act_min=act_min, act_max=act_max)
 
 
 def predict(

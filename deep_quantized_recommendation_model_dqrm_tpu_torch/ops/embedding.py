@@ -15,7 +15,7 @@ in one batched pass for the data-parallel engine.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -24,9 +24,14 @@ def pooled_lookup(
     table: torch.Tensor,  # [rows, D]
     indices: torch.Tensor,  # [B, P] int32, in [0, rows)
     mask: Optional[torch.Tensor] = None,  # [B, P] float
+    row_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:  # [B, D]
-    """Sum-pooled embedding lookup (EmbeddingBag mode="sum")."""
+    """Sum-pooled embedding lookup (EmbeddingBag mode="sum"). `row_fn`, an
+    elementwise map, applies to the gathered rows before the pooling, as
+    it would to the whole table first."""
     rows = table[indices.long()]  # [B, P, D]
+    if row_fn is not None:
+        rows = row_fn(rows)
     if mask is not None:
         rows = rows * mask[..., None].to(rows.dtype)
     return rows.sum(dim=1)

@@ -1,6 +1,8 @@
 """Pairwise feature interaction ops.
 
-Reference: `DLRM_Net.interact_features` (dlrm_s_pytorch.py:476-509). The dot
+Reference: `DLRM_Net.interact_features` (dlrm_s_pytorch.py:476-509) and the
+integer variant `modify_feature_interaction` (dlrm_s_pytorch_comm_grad.py:
+744-792). The dot
 interaction stacks the bottom-MLP output with all pooled embeddings, takes
 the pairwise Gram matrix with one batched matmul, and gathers its strictly
 lower triangle with static indices in the (i, j < i) order of the JAX
@@ -14,6 +16,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from deep_quantized_recommendation_model_dqrm_tpu_torch.ops import quant as q
 
 
 def _tril_indices(num_fea: int, interact_itself: bool) -> Tuple[np.ndarray, np.ndarray]:
@@ -52,3 +56,23 @@ def cat_interaction(x: torch.Tensor, ly: torch.Tensor) -> torch.Tensor:
     """Plain concatenation interaction (dlrm_s_pytorch.py:500-503)."""
     tb = torch.cat([x[None], ly], dim=0).transpose(0, 1)
     return tb.reshape(tb.shape[0], -1)
+
+
+def quantized_dot_interaction(
+    x: torch.Tensor,  # [B, D]
+    ly: torch.Tensor,  # [T, B, D]
+    bits: int = 16,
+    interact_itself: bool = False,
+) -> torch.Tensor:  # [B, D + npairs]
+    """Integer dot interaction (`--modify_feature_interaction`): the
+    features quantized to `bits` with one shared symmetric scale and the
+    straight-through gradient, their Gram matrix in float32 rescaled by
+    scale^2, then the lower triangle. The products of int16 values need
+    true float32 matmuls: under TF32 (11 significant bits) they round, so
+    the caller keeps `torch.backends.cuda.matmul.allow_tf32` off."""
+    t_all = torch.cat([x[None], ly], dim=0)  # [F, B, D]
+    scale = q.symmetric_quantization_params(bits, t_all.min(), t_all.max()).detach()
+    tb = q.quantize_ste(t_all, scale, bits).transpose(0, 1)  # float-typed integers
+    z = torch.bmm(tb, tb.transpose(1, 2)) * (scale * scale)
+    flat = z.reshape(z.shape[0], -1)[:, _tril_flat_index(tb.shape[1], interact_itself, z.device)]
+    return torch.cat([x, flat], dim=1)

@@ -12,12 +12,27 @@ Port of the JAX package's ops/quant.py, numerics matched bit for bit (both
 - quantize_ste / fake_quant / ste_round: the straight-through estimators of
   QAT (quant_utils.py:284-365), as `torch.autograd.Function`s where the JAX
   package has a `custom_vjp`
+- asymmetric scale = clamp(max - min, 1e-8) / (2^b - 1) with an integer zero
+  point (quant_utils.py:223-254), and the percentile-clipped range of QuantAct
+  (quant_utils.py:23-73) with `jnp.percentile`'s linear interpolation
+- the paper's Table 3 alternates: PACT/DoReFa weight fake-quant
+  (quant_pact_dorefa.py:15-40), whose normalizer max|tanh(w)| a caller may
+  take once per table and apply to gathered rows only (`pact_normalizer`,
+  `pact_apply`), and LSQ's learned step size (quantizer/lsq.py:18-58)
+- `batch_frexp` / `fixedpoint_requantize`: the dyadic requantization of the
+  integer-only path (quant_utils.py:256-281, 435-551) with float32 mantissas,
+  as the JAX package computes them without x64
 
-The PACT and LSQ functions belong to a later slice.
+The segmented PACT helpers of the mega-table engines come with those
+engines.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Tuple
+
+import numpy as np
 import torch
 
 # Matches torch.clamp(scale, min=1e-8) in quant_utils.py:155,216,241.
@@ -136,3 +151,167 @@ class _SteRound(torch.autograd.Function):
 def ste_round(x: torch.Tensor) -> torch.Tensor:
     """round(x) with the identity gradient (quant_utils.py:284-300)."""
     return _SteRound.apply(x)
+
+
+def asymmetric_quantization_params(
+    bits: int, sat_min: torch.Tensor, sat_max: torch.Tensor, integral_zero_point: bool = True
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Asymmetric scale and zero point (post-ReLU activations;
+    quant_utils.py:223-254), both constants w.r.t. autograd."""
+    scale = divide(torch.clamp_min(sat_max - sat_min, SCALE_EPS), 2**bits - 1).detach()
+    zero_point = -sat_min.detach() / scale
+    if integral_zero_point:
+        zero_point = torch.round(zero_point)
+    return scale, zero_point
+
+
+def _percentile_index(n: int, percentile: float) -> Tuple[int, int, float, float]:
+    """(low, high, low weight, high weight) of `jnp.percentile`'s linear
+    interpolation over n sorted values, in float32 as XLA evaluates it: the
+    position q = p * (0.01 * (n - 1)) with the two constants folded first,
+    then floor, ceil and the two weights."""
+    f32 = np.float32
+    q = f32(percentile) * f32(f32(0.01) * f32(n - 1))
+    low, high = np.floor(q), np.ceil(q)
+    hw = f32(q - low)
+    lw = f32(f32(1.0) - hw)
+    return int(min(max(low, 0), n - 1)), int(min(max(high, 0), n - 1)), float(lw), float(hw)
+
+
+def _percentile(sorted_flat: torch.Tensor, percentile: float) -> torch.Tensor:
+    """One percentile of sorted values: high * hw + low * lw with one
+    rounding of the sum (XLA fuses it into a multiply-add), computed in
+    float64 where the products are exact."""
+    low, high, lw, hw = _percentile_index(sorted_flat.numel(), percentile)
+    pair = sorted_flat[[low, high]].double()
+    lo_term = (pair[0].float() * lw).double()
+    return (pair[1] * hw + lo_term).float()
+
+
+def get_percentile_min_max(
+    x: torch.Tensor, lower_percentile: float, upper_percentile: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Percentile-clipped activation range (quant_utils.py:23-73) with
+    `jnp.percentile`'s linear interpolation. One sort of the flattened
+    values serves both ends at any size (`torch.quantile` refuses inputs
+    above 2^24 elements)."""
+    flat = torch.sort(x.detach().reshape(-1)).values
+    upper = _percentile(flat, upper_percentile)
+    lower = torch.zeros_like(upper) if lower_percentile == 0 else _percentile(flat, lower_percentile)
+    return lower, upper
+
+
+class _Identity(torch.autograd.Function):
+    """`fn(x, *rest)` forward, the identity backward to x alone."""
+
+    @staticmethod
+    def forward(ctx, fn, x, *rest):
+        ctx.n_rest = len(rest)
+        return fn(x, *rest)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, g) + (None,) * ctx.n_rest
+
+
+def pact_normalizer(x: torch.Tensor) -> torch.Tensor:
+    """max|tanh(x)| (0-d float32), the DoReFa normalizer of one table, a
+    constant w.r.t. autograd."""
+    return torch.linalg.vector_norm(torch.tanh(x.detach().float()), ord=math.inf)
+
+
+def _pact_transform(x: torch.Tensor, norm: torch.Tensor, bits: int) -> torch.Tensor:
+    n = 2**bits - 1
+    w_n = torch.tanh(x) / (2.0 * norm) + 0.5
+    w_q = divide(torch.round(w_n * n), n)
+    return 2.0 * w_q - 1.0
+
+
+def pact_apply(x: torch.Tensor, norm: torch.Tensor, bits: int) -> torch.Tensor:
+    """The DoReFa transform of x under a given normalizer, elementwise:
+    w_n = tanh(x) / (2 norm) + 0.5, rounded to 2^b - 1 levels, mapped back
+    to [-1, 1]; the identity backward. Rows gathered from a table and
+    transformed under the table's `pact_normalizer` equal the same rows of
+    `fake_quant_pact(table)` bit for bit."""
+    return _Identity.apply(_pact_transform, x, norm.detach(), bits)
+
+
+def fake_quant_pact(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """DoReFa/PACT-style weight fake-quant (quant_pact_dorefa.py:15-40)
+    over the whole tensor. The backward is the identity over the WHOLE
+    transform, tanh normalization included (the reference's
+    DoReFaQuant.backward, "formula (5)")."""
+    return pact_apply(x, pact_normalizer(x), bits)
+
+
+def _grad_scale(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """LSQ gradient scaling: the value of x, the gradient scaled by `scale`
+    (quantizer/lsq.py:5-9), written as the JAX package writes it."""
+    y = x * scale
+    return y + (x - y).detach()
+
+
+def lsq_grad_scale(numel: int, bits: int, numel_scale: float = 1.0) -> float:
+    """g = 1 / sqrt(numel * numel_scale * Qp) in float32, as XLA folds the
+    JAX package's constant expression; a Python float holding the float32
+    value exactly."""
+    f32 = np.float32
+    qp = 2 ** (bits - 1) - 1
+    return float(f32(1.0) / np.sqrt(f32(f32(numel * numel_scale) * f32(qp))))
+
+
+def fake_quant_lsq(
+    x: torch.Tensor,
+    step_size: torch.Tensor,
+    bits: int,
+    per_channel: bool = False,
+    numel_scale: float = 1.0,
+    numel: int = 0,
+) -> torch.Tensor:
+    """LSQ learned-step-size fake-quant (quantizer/lsq.py:18-58): the step
+    size is trainable, its gradient scaled by 1/sqrt(numel * numel_scale *
+    Qp); clip(x / s, -Qn, Qp), the round with the straight-through
+    gradient, times s. The clip splits the gradient at a tie, as
+    `jnp.clip` does. `numel` overrides x.numel() for a caller that stacks
+    several tensors with one step each (each tensor's own numel counts).
+    `numel_scale`: the data-parallel engines pass the world size, so the
+    scale reflects the global batch."""
+    qn = 2 ** (bits - 1)
+    qp = 2 ** (bits - 1) - 1
+    s = _grad_scale(step_size, lsq_grad_scale(numel or x.numel(), bits, numel_scale))
+    if per_channel:
+        s = _broadcast_scale(s, x)
+    lo = torch.tensor(-qn, dtype=x.dtype, device=x.device)
+    hi = torch.tensor(qp, dtype=x.dtype, device=x.device)
+    xq = torch.minimum(torch.maximum(x / s, lo), hi)
+    return ste_round(xq) * s
+
+
+def batch_frexp(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scales as (mantissa, exponent), x ~= m / 2^e * 2^-31 with m in
+    [0.5, 1) scaled by 2^31 and rounded half up (quant_utils.py:256-281);
+    float32 mantissas, as the JAX package keeps them without x64."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    ax = x.abs()
+    pos = ax > 0
+    e = torch.where(pos, torch.floor(torch.log2(ax)) + 1.0, torch.zeros_like(ax))
+    m = torch.where(pos, ax / torch.exp2(e), torch.zeros_like(ax))
+    m_shifted = torch.floor(m * (2.0**31) + 0.5)
+    return torch.sign(x) * m_shifted, 31.0 - e
+
+
+def fixedpoint_requantize(
+    x_int: torch.Tensor,
+    bits: int,
+    act_scale: torch.Tensor,
+    pre_act_scale: torch.Tensor,
+    pre_weight_scale: torch.Tensor,
+) -> torch.Tensor:
+    """x_int * (s_in / s_out) by a dyadic multiply (quant_utils.py:435-551,
+    `fixedpoint_fn`, symmetric branch), clamped to the symmetric range, in
+    float32 as the JAX package computes it without x64."""
+    n = intmax(bits)
+    new_scale = pre_act_scale * pre_weight_scale / act_scale
+    m, e = batch_frexp(new_scale)
+    out = torch.round(x_int.float() * m / torch.exp2(e))
+    return torch.clamp(out, -n - 1, n)

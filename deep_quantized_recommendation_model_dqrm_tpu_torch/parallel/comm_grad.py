@@ -19,6 +19,13 @@ card, gloo on the CPU), where JAX runs them inside one `shard_map`:
   them, dequantize, divide by the world size (sgd_..._parallel_comm.py:
   892-961), with optional error-feedback residuals
   (sgd_quantized_gradients.py:570-630);
+- the other dense parameters (LSQ's step sizes) take one plain mean
+  all-reduce; LSQ's gradient scales count the global batch
+  (`lsq_numel_scale` = the world size), so the mean step gradients equal the
+  single-device ones;
+- the activation ranges of the QuantActs move on each rank's own slice and
+  stay each rank's own, as each device's copy does in the JAX engines (whose
+  replicated state reads back as the first device's copy);
 - the update is the reference's manual SGD (`weight_update_parallel_comm`,
   sgd_..._parallel_comm.py:601-685); the tables take the routes of the
   single-device sparse step (`train_step.apply_table_updates`): one grouped
@@ -57,7 +64,9 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import (
     _lr,
     _on,
     _params_device,
+    _unflatten,
     apply_table_updates,
+    dense_keys,
     make_table_routes,
     repeat_step,
     sparse_grads,
@@ -225,6 +234,15 @@ def compressed_sparse_allgather(ids: torch.Tensor, vals: torch.Tensor, bits: int
     return all_ids, all_vals, s
 
 
+def _mean_tensors(tensors: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """The mean over the ranks of each tensor, through one float32
+    all-reduce of their concatenation."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat = q.divide(flat, float(dist.get_world_size(group)))
+    return [m.reshape(t.shape) for t, m in zip(tensors, flat.split([t.numel() for t in tensors]))]
+
+
 # ---------------------------------------------------------------------------
 # The steps
 # ---------------------------------------------------------------------------
@@ -268,7 +286,8 @@ def make_dp_train_step(
         params, qstate = state.params, state.qstate
         if qc.enabled:
             qstate = dlrm.update_emb_scales(config, params, qstate)
-        loss, new_qs, grads, g_pooled = sparse_grads(config, params, qstate, batch, plain)
+        loss, new_qs, grads, g_pooled = sparse_grads(config, params, qstate, batch, plain,
+                                                     lsq_numel_scale=float(n))
         lr = _lr(tc, qstate.step + 1)
 
         with torch.no_grad():
@@ -277,10 +296,7 @@ def make_dp_train_step(
                   for p, li, k in keys]
             new_ec = state.ec  # never read while error compensation is off
             if bits >= 32:
-                flat = torch.cat([g.reshape(-1) for g in gs])
-                dist.all_reduce(flat, group=group)  # one all-reduce for the 2 L tensors
-                means = [m.reshape(g.shape) for g, m in
-                         zip(gs, q.divide(flat, float(n)).split([g.numel() for g in gs]))]
+                means = _mean_tensors(gs, group)  # one all-reduce for the 2 L tensors
                 if tc.error_compensation:
                     new_ec = zero_ec(params)
             else:
@@ -293,6 +309,11 @@ def make_dp_train_step(
                                           for g, s in zip(gs, local)])
             mlp_params = {part: params[part] for part in ("bot", "top")}
             new_params = dict(params, **sgd_update(mlp_params, _nest(keys, means), lr))
+            others = [key for key in dense_keys(params) if key not in ("bot", "top")]
+            if others:  # LSQ's steps: one plain mean all-reduce, then SGD
+                rest = {key: grads[key] for key in others}
+                mean_rest = _unflatten(rest, _mean_tensors(tree_leaves(rest), group))
+                new_params.update(sgd_update({key: params[key] for key in others}, mean_rest, lr))
 
             # embedding rows: coalesce every table in one pass, then one scale
             # all-reduce and two all-gathers for all of them

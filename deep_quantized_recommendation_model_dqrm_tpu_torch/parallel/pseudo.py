@@ -23,6 +23,10 @@ dequantized and applied by manual SGD (`weights_update_added_quantization`,
   place.
 
 JAX runs the N micro-steps as one `lax.scan`; here they are a Python loop.
+Every QAT scheme reaches the micro-steps through the sparse step's
+`sparse_grads` (PACT's table transform included); the other parameters
+(LSQ's steps) and the activation ranges pass through unchanged, as in JAX's
+engine (pseudo.py:305-309).
 """
 
 from __future__ import annotations

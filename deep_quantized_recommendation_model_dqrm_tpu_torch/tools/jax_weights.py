@@ -31,6 +31,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import TrainS
 from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
 
 Device = Optional[Union[str, torch.device]]
+PARAM_KEYS = ("emb", "bot", "top", "lsq_emb", "lsq_mlp")
 
 
 def _tensor(a, dev: torch.device) -> torch.Tensor:
@@ -39,27 +40,26 @@ def _tensor(a, dev: torch.device) -> torch.Tensor:
 
 def params_from_numpy(np_params: Any, device: Device = None) -> Params:
     """The JAX package's params ({"emb": [..], "bot": [{"w","b"}], "top":
-    [..]} of plain tables) as the port's `Params` on `device`."""
+    [..]} of plain tables, and LSQ's "lsq_emb" and "lsq_mlp" where present)
+    as the port's `Params` on `device`."""
     dev = resolve_device(device)
     if any(isinstance(t, dict) for t in np_params["emb"]) or "v_W" in np_params:
         raise NotImplementedError("QR/MD tables and v_W: a later slice of the port")
-    return {
-        "emb": [_tensor(t, dev) for t in np_params["emb"]],
-        "bot": [{"w": _tensor(l["w"], dev), "b": _tensor(l["b"], dev)} for l in np_params["bot"]],
-        "top": [{"w": _tensor(l["w"], dev), "b": _tensor(l["b"], dev)} for l in np_params["top"]],
-    }
+    def port(tree):  # the port's layer order {"w", "b"}; jax.tree_util sorts keys
+        if isinstance(tree, dict):
+            return {k: port(tree[k]) for k in sorted(tree, key=lambda k: (k != "w", k))}
+        if isinstance(tree, (list, tuple)):
+            return [port(x) for x in tree]
+        return _tensor(tree, dev)
+
+    return {key: port(np_params[key]) for key in PARAM_KEYS if key in np_params}
 
 
 def params_to_numpy(params: Params) -> dict:
-    """The port's params as numpy arrays in the same nest of dicts and lists."""
-    def arr(t: torch.Tensor) -> np.ndarray:
-        return t.detach().cpu().numpy()
-
-    return {
-        "emb": [arr(t) for t in params["emb"]],
-        "bot": [{"w": arr(l["w"]), "b": arr(l["b"])} for l in params["bot"]],
-        "top": [{"w": arr(l["w"]), "b": arr(l["b"])} for l in params["top"]],
-    }
+    """The port's params as numpy arrays in the same nest of dicts and lists,
+    the keys in `PARAM_KEYS` order whatever order `params` holds them in."""
+    return {key: tree_map(lambda t: t.detach().cpu().numpy(), params[key])
+            for key in PARAM_KEYS if key in params}
 
 
 def train_state_from_numpy(np_params: Any, np_qstate: Any, device: Device = None,

@@ -31,7 +31,11 @@ What this slice does not run exits with a message naming the later slice
 (item 6), `--data-generation=dataset` and trace replay from per-table
 distribution files (item 4), `--export-stablehlo` and
 `--plot-compute-graph` (item 5), `--investigating-inputs` (item 7), and
-the model options `models/dlrm.check_supported` refuses (item 5).
+the model options `models/dlrm.check_supported` refuses (item 5): QR/MD
+tables, weighted pooling and bf16 tables or compute. Every QAT scheme runs
+(`--quant-scheme=hawq|pact|lsq`, `--quantize_activation`,
+`--quantize_act_and_lin`, `--modify_feature_interaction`,
+`--act-percentile`), under every engine.
 `--pin-table-layout` fixes a TPU memory layout and is accepted as a no-op.
 """
 

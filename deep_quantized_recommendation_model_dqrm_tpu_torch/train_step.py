@@ -32,6 +32,11 @@ clones it first (`clone_state`). `plain=True` makes the steps call the plain
 versions of K1, K4 and K5 on any device: the reference the kernels are held
 against on the card.
 
+Every QAT scheme of the model runs through both steps: HAWQ, PACT and LSQ,
+with or without the integer-activation chain. The parameters other than the
+tables (the MLPs and LSQ's step sizes) take autograd's dense gradients and
+SGD, or classic Adagrad under both Adagrad optimizers.
+
 Not in this slice (each raises `NotImplementedError`): QR/MD tables, weighted
 pooling (`v_W`), bf16 tables (`dlrm.check_supported`).
 """
@@ -196,7 +201,7 @@ def _build_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = False,
         params = tree_map(lambda t: t.detach().requires_grad_(), state.params)
         logits, new_qs = dlrm.forward(config, params, batch, qstate, train=True, plain=plain)
         loss = dlrm.training_loss(config, logits, batch.labels)
-        grads = torch.autograd.grad(loss, tree_leaves(params))
+        grads = _grads(loss, tree_leaves(params))
         if tc.loss_scale != 1.0:
             grads = [g * tc.loss_scale for g in grads]
         lr = _lr(tc, qstate.step + 1)
@@ -345,22 +350,39 @@ def apply_table_updates(
         _sparse_table_update(optimizer, tables[k], accs[k], *grad(k), lr)
 
 
+def _grads(loss: torch.Tensor, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
+    """d loss / d leaves; a leaf the forward did not use (LSQ's MLP steps
+    while the epoch schedule keeps the MLP in full precision) gets zeros, as
+    under jax.grad."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
+
+
+def dense_keys(params: dlrm.Params) -> List[str]:
+    """The parameter keys other than the tables: the MLPs and, under LSQ,
+    the step sizes (the JAX steps' `mlp_params`)."""
+    return [key for key in params if key != "emb"]
+
+
 def sparse_grads(config: DLRMConfig, params: dlrm.Params, qstate: dlrm.QuantState,
-                 batch: dlrm.Batch, plain: bool = False):
+                 batch: dlrm.Batch, plain: bool = False, lsq_numel_scale: float = 1.0):
     """Forward and backward with autograd cut at the raw pooled lookups (no
-    table gradient is formed): (loss, the forward's QuantState, the MLP
-    gradients as a {"bot", "top"} nest, the gradient [T, B, D] w.r.t. the
-    pooled lookups)."""
+    table gradient is formed): (loss, the forward's QuantState, the
+    gradients of every other parameter as a nest keyed like the params
+    ({"bot", "top"} and, under LSQ, "lsq_emb" and "lsq_mlp"), the gradient
+    [T, B, D] w.r.t. the pooled lookups). Under QAT the lookups take the
+    scheme's table transform (PACT's), whose gradient is the identity."""
     with torch.no_grad():
-        raw_pooled = dlrm.lookup_all(config, params, batch.indices, batch.mask, plain=plain)
-    mlp = {part: tree_map(lambda t: t.detach().requires_grad_(), params[part])
-           for part in ("bot", "top")}
+        raw_pooled = dlrm.lookup_all(config, params, batch.indices, batch.mask,
+                                     not config.quant.enabled, plain=plain)
+    dense = {key: tree_map(lambda t: t.detach().requires_grad_(), params[key])
+             for key in dense_keys(params)}
     pooled = raw_pooled.requires_grad_()
-    logits, new_qs = dlrm.forward(config, {**mlp, "emb": params["emb"]}, batch, qstate,
-                                  train=True, raw_pooled=pooled)
+    logits, new_qs = dlrm.forward(config, {**dense, "emb": params["emb"]}, batch, qstate,
+                                  train=True, raw_pooled=pooled, lsq_numel_scale=lsq_numel_scale)
     loss = dlrm.training_loss(config, logits, batch.labels)
-    *mlp_grads, g_pooled = torch.autograd.grad(loss, tree_leaves(mlp) + [pooled])
-    return loss, new_qs, _unflatten(mlp, mlp_grads), g_pooled
+    *grads, g_pooled = _grads(loss, tree_leaves(dense) + [pooled])
+    return loss, new_qs, _unflatten(dense, grads), g_pooled
 
 
 def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = False,
@@ -388,13 +410,13 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
         lr = _lr(tc, qstate.step + 1)
 
         with torch.no_grad():
-            mlp_params = {part: params[part] for part in ("bot", "top")}
+            mlp_params = {key: params[key] for key in mlp_grads}
             opt_state = state.opt_state
             if opt == "sgd":
                 new_params = dict(params, **sgd_update(mlp_params, mlp_grads, lr))
-            else:  # classic Adagrad on the MLP under both optimizers
+            else:  # classic Adagrad on the rest under both optimizers
                 new_mlp, new_acc = adagrad_update(
-                    mlp_params, mlp_grads, {part: opt_state[part] for part in mlp_params}, lr)
+                    mlp_params, mlp_grads, {key: opt_state[key] for key in mlp_params}, lr)
                 new_params = dict(params, **new_mlp)
                 opt_state = dict(opt_state, **new_acc)
             apply_table_updates(routes, opt, params["emb"], opt_state["emb"] if opt != "sgd" else None,
@@ -520,7 +542,8 @@ def make_grad_probe(config: DLRMConfig, tc: TrainConfig, device: Device = None):
         if config.quant.enabled:
             qstate = dlrm.update_emb_scales(config, params, qstate)
         with torch.no_grad():
-            pooled = dlrm.lookup_all(config, params, batch.indices, batch.mask)
+            pooled = dlrm.lookup_all(config, params, batch.indices, batch.mask,
+                                     not config.quant.enabled)
         pooled.requires_grad_()
         logits, _ = dlrm.forward(config, params, batch, qstate, train=True, raw_pooled=pooled)
         loss = dlrm.training_loss(config, logits, batch.labels)

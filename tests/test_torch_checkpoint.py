@@ -1,6 +1,7 @@
 """The port's npz checkpoints against the JAX package's: each package saves
 a trained state and the other loads it, bit for bit, under SGD, Adagrad and
-RWSAdagrad; two-slot rotation, `latest()`, `load_metadata` and the legacy
+RWSAdagrad (also with LSQ's steps and the QuantActs' ranges); two-slot
+rotation, `latest()`, `load_metadata` and the legacy
 sidecar; and the same error messages."""
 
 import json
@@ -29,8 +30,12 @@ SIZES = (300, 20, 7)
 META = {"epoch": 1, "batch": 3, "test_acc": 0.5, "table_sizes": list(SIZES)}
 
 
-def configs(optimizer):
-    quant = dict(enabled=True, embedding_bit=4, weight_bit=4, scale_update_period=2)
+SCHEMES = {"hawq": {}, "lsq": dict(quant_scheme="lsq"),
+           "act": dict(quantize_activation=True, modify_feature_interaction=True)}
+
+
+def configs(optimizer, scheme="hawq"):
+    quant = dict(enabled=True, embedding_bit=4, weight_bit=4, scale_update_period=2, **SCHEMES[scheme])
     out = []
     for m in (jcfg, tcfg):
         c = m.DLRMConfig(table_sizes=SIZES, embedding_dim=4, mlp_bot=(13, 8, 4),
@@ -40,10 +45,10 @@ def configs(optimizer):
     return out
 
 
-def trained_jax_state(optimizer):
+def trained_jax_state(optimizer, scheme="hawq"):
     """A JAX state after three sparse steps: nonzero accumulators, a
     nonzero qstate step."""
-    (jc, jtc), _ = configs(optimizer)
+    (jc, jtc), _ = configs(optimizer, scheme)
     state = jts.init_train_state(jc, jtc, seed=0)
     step = jax.jit(jts._build_sparse_step_fn(jc, jtc))
     rng = np.random.RandomState(1)
@@ -107,6 +112,35 @@ def test_port_saves_jax_loads(tmp_path, optimizer):
     got, meta = jck.load_checkpoint(path, jts.init_train_state(jc, jtc, seed=5))
     assert meta == META
     for x, y in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(jstate)):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "rwsadagrad"])
+@pytest.mark.parametrize("scheme", ["lsq", "act"])
+def test_scheme_state_round_trips_between_packages(tmp_path, scheme, optimizer):
+    """LSQ's steps and their accumulators (`.params['lsq_emb'][k]`,
+    `.opt_state['lsq_mlp']['top'][1]['w']`, ...) and the QuantActs' ranges:
+    the port loads JAX's file bit for bit, saves the same keys and bytes,
+    and JAX loads the port's file."""
+    jstate = trained_jax_state(optimizer, scheme)
+    jpath, tpath = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
+    jck.save_checkpoint(jpath, jstate, META)
+    _, (tc, ttc) = configs(optimizer, scheme)
+    got, _ = tck.load_checkpoint(jpath, tts.init_train_state(tc, ttc, seed=5, device="cpu"))
+    assert_same_state(jstate, got)
+    tck.save_checkpoint(tpath, got, META)
+    with np.load(tpath) as a, np.load(jpath) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        if scheme == "lsq":
+            assert ".params['lsq_emb'][2]" in a.files and ".params['lsq_mlp']['top'][1]['w']" in a.files
+            assert (".opt_state['lsq_mlp']['bot'][0]['b']" in a.files) == (optimizer != "sgd")
+        else:
+            assert float(a[".qstate.act_max"][1]) > 0.0
+    (jc, jtc), _ = configs(optimizer, scheme)
+    back, _ = jck.load_checkpoint(tpath, jts.init_train_state(jc, jtc, seed=5))
+    for x, y in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(jstate)):
         np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
 
 

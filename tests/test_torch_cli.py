@@ -1,8 +1,9 @@
 """The port's CLI (`…_torch.train`) against the JAX package's: the parser's
 flags, the same argv through both CLIs under SGD and Adagrad (QAT, save,
 test-freq, megasteps), a resume from the saved slot with grad-accum `sum`,
-PTQ inference on the other package's checkpoint, and the loud rejection of
-what this slice does not run (the parallel engines' runs:
+PTQ inference on the other package's checkpoint, the paper's PACT, LSQ and
+integer-activation configurations with checkpoints either package reads,
+and the loud rejection of what this slice does not run (the parallel engines' runs:
 tests/test_torch_parallel_cli.py).
 
 Tables 30000-500-20-7: the 30000-row table takes the scatter branch of the
@@ -210,14 +211,88 @@ def test_ptq_inference_on_the_other_packages_checkpoint(sgd_runs):
         assert abs(got[k] - want[k]) <= PTQ_METRIC_ATOL, (k, got[k], want[k])
 
 
+SCHEME_ARGV = {
+    "pact": ["--quant-scheme=pact"],
+    "lsq": ["--quant-scheme=lsq"],
+    "act_int16": ["--quantize_act_and_lin", "--modify_feature_interaction", "--act-percentile=99.9"],
+}
+
+
+@pytest.fixture(scope="module")
+def scheme_runs(tmp_path_factory):
+    tmp = str(tmp_path_factory.mktemp("cli_schemes"))
+    return {name: both(tmp, name, TRAIN + ["--steps-per-dispatch=2"] + argv)
+            for name, argv in SCHEME_ARGV.items()}
+
+
+@pytest.mark.parametrize("name", sorted(SCHEME_ARGV))
+def test_scheme_run_and_checkpoints_match_jax(scheme_runs, name):
+    """The paper's other QAT configurations through both CLIs (PACT, LSQ,
+    and the integer-activation chain with the INT16 interaction and a 99.9
+    percentile): logged losses within 1e-5 relative, metrics within 1e-4,
+    both checkpoint slots under the same keys (LSQ's steps as
+    `.params['lsq_emb'][k]` and `.params['lsq_mlp'][part][i][w|b]`, the
+    activation ranges as `.qstate.act_min|act_max`) within 1e-5, the
+    trajectory bound of tests/test_torch_train_step.py (the chain's 16
+    steps part by up to 8.2e-6 in the top MLP)."""
+    res = scheme_runs[name]
+    assert_runs_agree(res)
+    dt, dj = res["torch"][1], res["jax"][1]
+    assert_checkpoints_agree(dt, dj, 1e-5)
+    with np.load(os.path.join(dt, "ck", "dqrm_0.npz")) as z:
+        if name == "lsq":
+            assert ".params['lsq_emb'][3]" in z.files and ".params['lsq_mlp']['top'][1]['w']" in z.files
+        if name == "act_int16":
+            assert float(z[".qstate.act_max"][1]) > 0.0
+
+
+@pytest.mark.parametrize("name", sorted(SCHEME_ARGV))
+def test_scheme_checkpoints_load_across_packages(scheme_runs, name, tmp_path):
+    """Each package restores the other's checkpoint of each configuration
+    (every leaf bit for bit), and evaluates it (`--inference-only`, eval
+    mode on the stored activation ranges) to metrics within 1e-4 of the
+    other package's evaluation of the same file."""
+    res = scheme_runs[name]
+    dt, dj = res["torch"][1], res["jax"][1]
+    argv = TRAIN + SCHEME_ARGV[name]
+    args = ttrain.build_parser().parse_args(argv)
+    tcfg_, ttc = ttrain.make_configs(args)
+    jargs = jtrain.build_parser().parse_args(argv)
+    jcfg_, jtc = jtrain.make_configs(jargs)
+    tstate, _ = CheckpointManager(os.path.join(dj, "ck")).restore(init_train_state(tcfg_, ttc, device="cpu"))
+    jstate, _ = JManager(os.path.join(dt, "ck")).restore(j_init(jcfg_, jtc))
+    with np.load(JManager(os.path.join(dj, "ck")).latest()) as z:
+        np.testing.assert_array_equal(z[".qstate.act_max"], tstate.qstate.act_max.numpy())
+        if name == "lsq":
+            np.testing.assert_array_equal(z[".params['lsq_emb'][2]"], tstate.params["lsq_emb"][2].numpy())
+    with np.load(CheckpointManager(os.path.join(dt, "ck")).latest()) as z:
+        np.testing.assert_array_equal(z[".qstate.act_min"], np.asarray(jstate.qstate.act_min))
+        if name == "lsq":
+            np.testing.assert_array_equal(z[".params['lsq_mlp']['bot'][0]['w']"],
+                                          np.asarray(jstate.params["lsq_mlp"]["bot"][0]["w"]))
+    got = ttrain.run(argv + [f"--load-model={dj}/ck", "--inference-only", "--platform=cpu"])
+    want = jtrain.run(argv + [f"--load-model={dj}/ck", "--inference-only"])
+    for k in ("accuracy", "roc_auc"):
+        assert abs(got[k] - want[k]) <= METRIC_ATOL, (k, got[k], want[k])
+
+
+def test_act_with_linear_channel_raises_as_jax():
+    """`--quantize_activation --linear_channel`: both CLIs raise QuantConfig's
+    ValueError (the integer chain needs per-tensor scales)."""
+    argv = COMMON + ["--quantize_activation", "--linear_channel"]
+    with pytest.raises(ValueError, match="per-tensor") as want:
+        jtrain.run(argv)
+    with pytest.raises(ValueError, match="per-tensor") as got:
+        ttrain.run(argv + ["--platform=cpu"])
+    assert str(got.value) == str(want.value)
+
+
 @pytest.mark.parametrize("flag,item", [
     ("--parallelism=hybrid", 6), ("--parallelism=rowshard", 6), ("--ranking-range", 6),
     ("--data-generation=dataset", 4), ("--export-stablehlo=/nonexistent/x", 5),
     ("--plot-compute-graph", 5), ("--investigating-inputs", 7),
     ("--qr-flag", 5), ("--md-flag", 5), ("--weighted-pooling=fixed", 5),
     ("--table-dtype=bfloat16", 5), ("--compute-dtype=bfloat16", 5),
-    ("--quant-scheme=pact", 5), ("--quantize_activation", 5),
-    ("--modify_feature_interaction", 5),
 ])
 def test_unported_flags_exit_naming_their_slice(flag, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1 item {item}"):

@@ -2,7 +2,9 @@
 package's on the CPU: the batched coalesce, the partition helpers, the
 process group and its probe, the compressed collectives, the dp step at
 grad bits 8 and 4 with and without error compensation and under QAT (also
-with the K1 and K5 routes, their plain versions here), the 32-bit step
+with the K1 and K5 routes, their plain versions here) and under PACT, LSQ
+(its steps through one plain mean all-reduce, their gradient scale at the
+global batch) and the integer-activation chain (each rank's own ranges), the 32-bit step
 against the single-device sparse step, the no-sync step, the weight sync
 and the rank-sharded eval.
 
@@ -74,6 +76,15 @@ DP_CASES = {
 DP_CASES.update({
     f"{name}_routes": (quant, dict(tc, **ROUTES))
     for name, (quant, tc) in list(DP_CASES.items())[-3:]
+})
+# the paper's other QAT configurations, INT8 exchange with error compensation
+DP_CASES.update({
+    "pact_bits8_ec": (dict(QAT, quant_scheme="pact"), dict(grad_quant_bits=8, error_compensation=True)),
+    "lsq_bits8_ec": (dict(QAT, quant_scheme="lsq"), dict(grad_quant_bits=8, error_compensation=True)),
+    "lsq_bits8_ec_routes": (dict(QAT, quant_scheme="lsq"),
+                            dict(grad_quant_bits=8, error_compensation=True, **ROUTES)),
+    "act_bits8_ec": (dict(QAT, quantize_activation=True, modify_feature_interaction=True),
+                     dict(grad_quant_bits=8, error_compensation=True)),
 })
 
 
@@ -440,6 +451,8 @@ def test_dp_step_world2_matches_jax(world2, name):
     np.testing.assert_allclose(got["qstate"]["emb_scales"], np.asarray(js.qstate.emb_scales),
                                rtol=2.4e-7, atol=0)
     assert int(got["qstate"]["step"]) == int(js.qstate.step) == STEPS
+    for f in ("act_min", "act_max"):  # each rank's own ranges; JAX reads back its first device's
+        np.testing.assert_allclose(got["qstate"][f], np.asarray(getattr(js.qstate, f)), rtol=1e-5)
     if not jobs[name]["tc"].get("onehot_update_max_rows"):
         # no atomics on the CPU: the replicas agree bit for bit
         for a, b in zip(tree_leaves(got["params"]), tree_leaves(out1[name]["state"]["params"])):

@@ -1,7 +1,9 @@
 """The port imports with jax blocked, loads nothing of the JAX package, and
 its entry points, the CLI's `train.run` among them (also under
 `--parallelism=dp`, `dp-nosync` and `pseudo`, on a one-rank gloo group),
-refuse to fall back to the CPU without being asked."""
+refuse to fall back to the CPU without being asked. A PACT, an LSQ and an
+integer-activation step (sparse and dense) and their CLI runs load no jax
+either."""
 
 import os
 import subprocess
@@ -60,6 +62,18 @@ SCRIPT = textwrap.dedent(
     state, loss = step(state, random_batch(cfg, 4, np.random.RandomState(0), device="cpu"))
     acc = state.opt_state["top"][-1]["b"]  # the logit's bias always has a gradient
     assert acc.device.type == "cpu" and bool(acc.any())
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import QuantConfig
+    for qc in (QuantConfig(enabled=True, quant_scheme="pact"), QuantConfig(enabled=True, quant_scheme="lsq"),
+               QuantConfig(enabled=True, quantize_activation=True, modify_feature_interaction=True,
+                           act_percentile=99.9)):
+        qcfg = DLRMConfig(mlp_top=(10, 4, 1), quant=qc)
+        for sparse in (True, False):
+            state = ts.init_train_state(qcfg, TrainConfig(), device="cpu")
+            step = ts.make_train_step(qcfg, TrainConfig(), sparse_emb_grad=sparse, device="cpu")
+            state, loss = step(state, random_batch(qcfg, 8, np.random.RandomState(1), device="cpu"))
+            assert state.qstate.step == 1 and bool(torch.isfinite(loss))
+            assert ("lsq_emb" in state.params) == (qc.quant_scheme == "lsq")
+            assert (float(state.qstate.act_max[1]) > 0) == qc.quantize_activation
     from deep_quantized_recommendation_model_dqrm_tpu_torch import train
     argv = ["--num-batches=1", "--arch-mlp-bot=4-3-2", "--arch-sparse-feature-size=2",
             "--mini-batch-size=4", "--test-mini-batch-size=4", "--print-freq=1"]
@@ -87,6 +101,10 @@ SCRIPT = textwrap.dedent(
     assert not dist.is_initialized()
     for mode in ("dp", "dp-nosync", "pseudo"):
         m = train.run(argv + ["--platform=cpu", f"--parallelism={mode}", "--num-pseudo-workers=2"])
+        assert set(m) >= {"accuracy", "roc_auc"} and not dist.is_initialized()
+    for extra in (["--quant-scheme=pact"], ["--quant-scheme=lsq", "--parallelism=dp"],
+                  ["--quantize_act_and_lin", "--modify_feature_interaction", "--act-percentile=99.9"]):
+        m = train.run(argv + ["--platform=cpu", "--quantization_flag"] + extra)
         assert set(m) >= {"accuracy", "roc_auc"} and not dist.is_initialized()
     loaded = [m for m in sys.modules if m == jax_pkg or m.startswith(jax_pkg + ".")]
     assert not loaded and "jax" not in sys.modules or sys.modules["jax"] is None

@@ -1,8 +1,9 @@
 """The port's simulated N-worker step (`…_torch/parallel/pseudo.py`) against
 the JAX package's: N = 4 workers, 3 steps from the same state (carried
 over with `tools/jax_weights`) on the same batches, at grad bits 32 and at
-bits 8 with error compensation, also under QAT and with the K1 and K5
-routes (their plain versions here). Parameters, residuals and losses within
+bits 8 with error compensation, also under QAT, under PACT, LSQ and the
+integer-activation chain, and with the K1 and K5 routes (their plain
+versions here); LSQ's steps and the activation ranges carried unchanged. Parameters, residuals and losses within
 atol 2e-5, the bound JAX's tests/test_pseudo_ranking.py:35-51 holds the
 pseudo step to against the single step; and at 32 bits the port's pseudo
 step against the port's single-device sparse step."""
@@ -44,6 +45,10 @@ CASES = {
     "bits8_ec_routes": (None, dict(grad_quant_bits=8, error_compensation=True, **ROUTES)),
     "qat_bits8_ec_routes": (QAT, dict(grad_quant_bits=8, error_compensation=True, **ROUTES)),
     "bits4": (None, dict(grad_quant_bits=4)),
+    "pact_bits8_ec": (dict(QAT, quant_scheme="pact"), dict(grad_quant_bits=8, error_compensation=True)),
+    "lsq_bits8_ec": (dict(QAT, quant_scheme="lsq"), dict(grad_quant_bits=8, error_compensation=True)),
+    "act_bits8_ec": (dict(QAT, quantize_activation=True, modify_feature_interaction=True),
+                     dict(grad_quant_bits=8, error_compensation=True)),
 }
 
 
@@ -107,3 +112,35 @@ def test_pseudo_rejects_an_uneven_split():
     b = to_torch(j_random_batch(jcfg.DLRMConfig(**CFG_KW), 30, np.random.RandomState(0)))
     with pytest.raises(ValueError, match="does not split into 4 workers"):
         tpseudo.make_pseudo_train_step(tc_cfg, ttc, N, device="cpu")(ps, b)
+
+
+@pytest.mark.parametrize("name", ["lsq_bits8_ec", "act_bits8_ec"])
+def test_pseudo_carries_lsq_steps_and_act_ranges(name):
+    """The buffer algorithm updates the tables and the MLPs only
+    (weights_update_added_quantization, sgd_quantized_gradients.py:
+    349-421): LSQ's steps and the activation ranges come out of 3 pseudo
+    steps as they went in, bit for bit, in JAX's engine (pseudo.py:305-309,
+    which drops the forward's QuantState) and in the port's."""
+    (jc, jtc), (tc_cfg, ttc) = configs(*CASES[name])
+    js = jpseudo.init_pseudo_state(jc, jtc, seed=0)
+    js = js._replace(qstate=js.qstate._replace(act_min=js.qstate.act_min - 0.5,
+                                               act_max=js.qstate.act_max + 1.5))
+    ts = pseudo_state_from_numpy(jax.tree_util.tree_map(np.asarray, js), "cpu")
+    before = replica_state_to_numpy(ts)
+    jstep = jpseudo.make_pseudo_train_step(jc, jtc, N)
+    tstep = tpseudo.make_pseudo_train_step(tc_cfg, ttc, N, device="cpu")
+    rng = np.random.RandomState(5)
+    for _ in range(3):
+        b = j_random_batch(jc, B, rng)
+        js, _ = jstep(js, b)
+        ts, _ = tstep(ts, to_torch(b))
+    after = replica_state_to_numpy(ts)
+    for key in [k for k in before["params"] if k.startswith("lsq")]:
+        for a, b_, j in zip(*(jax.tree_util.tree_leaves(t) for t in (
+                before["params"][key], after["params"][key], js.params[key]))):
+            np.testing.assert_array_equal(b_, a)
+            np.testing.assert_array_equal(np.asarray(j), a)
+    for f in ("act_min", "act_max"):
+        np.testing.assert_array_equal(after["qstate"][f], before["qstate"][f])
+        np.testing.assert_array_equal(np.asarray(getattr(js.qstate, f)), before["qstate"][f])
+    assert not np.array_equal(after["params"]["top"][0]["w"], before["params"]["top"][0]["w"])

@@ -5,7 +5,10 @@ streaming (K5) branch and the Adagrad/RWSAdagrad branches of the sparse step,
 the grouped K1 branch bit for bit against a per-table reference, megasteps,
 the dense step through K4's backward and under Adagrad and RWSAdagrad,
 `clone_state`, `config_for_epoch`, `make_grad_probe`, and evaluation with
-ROC AUC."""
+ROC AUC; and the paper's other QAT configurations (PACT, LSQ, the
+integer-activation chain with the INT16 interaction): 20-step sparse
+trajectories against JAX, the sparse step against the dense step, LSQ's
+steps under Adagrad and RWSAdagrad."""
 
 import dataclasses
 
@@ -408,7 +411,9 @@ def test_clone_state_copies_optimizer_state():
 
 
 @pytest.mark.parametrize("quant", [dict(enabled=False), INT4, dict(INT4, bias_bit=32),
-                                   dict(INT4, quantize_mlp=False)])
+                                   dict(INT4, quantize_mlp=False), dict(INT4, quant_scheme="pact"),
+                                   dict(INT4, quant_scheme="lsq"),
+                                   dict(INT4, quantize_activation=True, modify_feature_interaction=True)])
 def test_config_for_epoch_matches_jax(quant):
     jc, tc = configs((30, 20), quant)
     for kw in (dict(), dict(pretrain_epochs=2), dict(quantize_mlp_from_epoch=3),
@@ -450,3 +455,111 @@ def test_later_slices_raise():
             tts.make_grad_probe(cfg, tcfg.TrainConfig(), device="cpu")
     with pytest.raises(ValueError):
         tts.make_train_step(configs((30, 20), INT4)[1], tcfg.TrainConfig(optimizer="adam"), device="cpu")
+
+
+SCHEMES = {
+    "pact": dict(INT4, quant_scheme="pact", scale_update_period=10),
+    "lsq": dict(INT4, quant_scheme="lsq", scale_update_period=10),
+    "act": dict(INT4, quantize_activation=True, modify_feature_interaction=True, act_percentile=99.9,
+                scale_update_period=10),
+}
+
+
+@pytest.mark.parametrize("scheme", sorted(SCHEMES))
+def test_sparse_step_trajectory_schemes(monkeypatch, scheme):
+    """20 sparse steps under each of the paper's other QAT configurations
+    against JAX's compiled `_build_sparse_step_fn` (K1 interpreted on the 9
+    tables of at most 500 rows): PACT (the DoReFa transform of the tables'
+    rows and of the MLP), LSQ (its steps trained beside the MLP), and HAWQ
+    with the integer-activation chain, the INT16 interaction and a 99.9
+    percentile. Losses within 1e-4 relative, parameters (LSQ's steps among
+    them) within 1e-5, the activation ranges within 1e-5 relative."""
+    monkeypatch.setenv("DQRM_ONEHOT_INTERPRET", "1")
+    jc, tc = configs("kaggle_narrow", SCHEMES[scheme])
+    jtc, ttc = train_configs(batch_size=64, learning_rate=0.1, onehot_update_max_rows=500)
+    js, ts = start(jc, jtc)
+    assert sorted(ts.params) == sorted(js.params)
+    jstep = jax.jit(jts._build_sparse_step_fn(jc, jtc))
+    tstep = tts.make_train_step(tc, ttc, sparse_emb_grad=True, device="cpu")
+    rng = np.random.RandomState(4)
+    for i in range(20):
+        b = jsyn.random_batch(jc, 64, rng)
+        js, jl = jstep(js, b)
+        ts, tl = tstep(ts, to_torch(b))
+        np.testing.assert_allclose(float(tl), float(jl), rtol=1e-4, err_msg=f"step {i}")
+    assert_params_close(js.params, ts.params, atol=1e-5)
+    np.testing.assert_allclose(ts.qstate.act_min.numpy(), np.asarray(js.qstate.act_min), rtol=1e-5)
+    np.testing.assert_allclose(ts.qstate.act_max.numpy(), np.asarray(js.qstate.act_max), rtol=1e-5)
+    if scheme == "act":
+        assert float(ts.qstate.act_max[1]) > 0.0
+
+
+@pytest.mark.parametrize("scheme", ["pact", "lsq"])
+def test_sparse_step_matches_dense_step_for_schemes(scheme):
+    """As JAX's tests/test_model.py::test_sparse_step_matches_dense_for_schemes:
+    the sparse step is exact for PACT (its STE is the identity over the
+    whole table transform, so d loss / d table is the scatter of the pooled
+    gradient) and for LSQ (it quantizes the pooled output): 3 steps of each
+    from one state agree to 1e-5 in loss and 1e-6 in every parameter, LSQ's
+    steps within 1e-7."""
+    _, tc = configs((300, 100, 40), dict(INT4, quant_scheme=scheme, scale_update_period=2))
+    ttc = tcfg.TrainConfig(batch_size=32, learning_rate=0.1)
+    s1 = tts.init_train_state(tc, ttc, device="cpu")
+    s2 = tts.clone_state(s1)
+    dense = tts.make_train_step(tc, ttc, device="cpu")
+    sparse = tts.make_train_step(tc, ttc, sparse_emb_grad=True, device="cpu")
+    rng = np.random.RandomState(2)
+    for _ in range(3):
+        b = tsyn.random_batch(tc, 32, rng, device="cpu")
+        s1, l1 = dense(s1, b)
+        s2, l2 = sparse(s2, b)
+        np.testing.assert_allclose(float(l1), float(l2), rtol=1e-5)
+    for key in s1.params:
+        tol = 1e-7 if key.startswith("lsq") else 1e-6
+        for a, b_ in zip(tree_leaves(s1.params[key]), tree_leaves(s2.params[key])):
+            np.testing.assert_allclose(a.numpy(), b_.numpy(), rtol=0, atol=tol)
+    assert ("lsq_emb" in s1.params) == (scheme == "lsq")
+
+
+@pytest.mark.parametrize("optimizer", ["adagrad", "rwsadagrad"])
+@pytest.mark.parametrize("sparse", [True, False])
+def test_lsq_step_under_adagrad_matches_jax(optimizer, sparse):
+    """One LSQ step under Adagrad and RWSAdagrad against JAX's, sparse and
+    dense: the steps take classic Adagrad under both (their accumulators in
+    the optimizer state under the JAX keys), loss within 1e-5 relative,
+    parameters and accumulators within 1e-5."""
+    jc, tc = configs((300, 100, 40), dict(INT4, quant_scheme="lsq", scale_update_period=2))
+    jtc, ttc = train_configs(batch_size=32, learning_rate=0.01, optimizer=optimizer)
+    js, ts = start(jc, jtc)
+    assert sorted(ts.opt_state) == sorted(js.opt_state)
+    build = jts._build_sparse_step_fn if sparse else jts._build_step_fn
+    b = jsyn.random_batch(jc, 32, np.random.RandomState(6))
+    js, jl = jax.jit(build(jc, jtc))(js, b)
+    ts, tl = tts.make_train_step(tc, ttc, sparse_emb_grad=sparse, device="cpu")(ts, to_torch(b))
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    assert_params_close(js.params, ts.params, atol=1e-5)
+    assert_tree_close(js.opt_state, opt_state_to_numpy(ts.opt_state), rtol=1e-5, atol=1e-5)
+    assert not np.array_equal(opt_state_to_numpy(ts.opt_state)["lsq_emb"][0], 0.0)
+
+
+def test_clone_state_and_grad_probe_carry_the_scheme_state():
+    """`clone_state` copies LSQ's steps and the activation ranges;
+    `make_grad_probe` sees PACT's transformed rows, as JAX's does."""
+    _, tc = configs((300, 100, 40), dict(INT4, quant_scheme="lsq"))
+    s = tts.init_train_state(tc, tcfg.TrainConfig(), device="cpu")
+    s = s._replace(qstate=s.qstate._replace(act_max=torch.ones(2)))
+    c = tts.clone_state(s)
+    for a, b_ in zip(tree_leaves(s.params), tree_leaves(c.params)):
+        assert torch.equal(a, b_) and a.data_ptr() != b_.data_ptr()
+    assert torch.equal(c.qstate.act_max, s.qstate.act_max)
+    assert c.qstate.act_max.data_ptr() != s.qstate.act_max.data_ptr()
+    jc, tc = configs((100, 50, 10), dict(INT4, quant_scheme="pact", scale_update_period=1), pooling_size=2)
+    jtc, ttc = train_configs(batch_size=32)
+    js, ts = start(jc, jtc)
+    b = jsyn.random_batch(jc, 32, np.random.RandomState(11))
+    jout, jl = jts.make_grad_probe(jc, jtc)(js.params, js.qstate, b)
+    tout, tl = tts.make_grad_probe(tc, ttc, device="cpu")(ts.params, ts.qstate, to_torch(b))
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    for k in range(3):
+        np.testing.assert_allclose(tout[f"table_{k}_rows"].numpy(), np.asarray(jout[f"table_{k}_rows"]),
+                                   rtol=1e-5, atol=1e-7)
