@@ -6,7 +6,10 @@ Kaggle DQRM, training, checkpoints and PTQ serving through the CLI, the
 data-parallel engines (dp on one NCCL rank and on two gloo ranks sharing
 the card, pseudo) directly and through the CLI, and the paper's other QAT
 configurations (PACT, LSQ, the integer-activation chain with the INT16
-interaction) through the sparse step, the dp engine and the CLI.
+interaction) through the sparse step, the dp engine and the CLI, the
+reference's QR/MD tables and weighted pooling through the sparse step,
+serving and the CLI, and the Terabyte model at its full 49M rows on bf16
+tables, trained and served.
 
     python3 chip_smoke.py
 
@@ -85,7 +88,24 @@ launch counters of its kernels set to 0 just before and read just after:
    a save, under PyTorch's float32 matmul defaults (the integer chain
    refuses TF32), then `--inference-only` PTQ of the LSQ checkpoint (one
    grouped K2 and 7 K3 launches per batch), its AUC against the plain
-   path.
+   path;
+17. tricks: the `train` cell's sparse step under --qr-flag (mult, c = 4,
+   threshold 200), --md-flag (temperature 0.3) and
+   --weighted-pooling=learned: 32 steps of the kernel path against the
+   plain path, 32 timed with one K1 launch per step, then PTQ serving
+   (QR and v_W at INT4, MD at INT8, v_W also through K4 with the pooling
+   weights) against the plain path with its launches per batch;
+18. tb_bf16: bench.py's Terabyte leg at its real cardinalities (49,126,297
+   rows, d = 64) on bf16 tables: INT4 HAWQ, B = 2048, SGD at 0.1, K1 on
+   the 16 tables of at most 20000 rows; 16 steps of the kernel path
+   against the plain path (bf16 tables within one ulp per update), 32
+   timed, a profiled megastep, compute_dtype="bfloat16" beside float32;
+19. tb_serve: PTQ export of that state (1,572,818,576 bytes), one batch of
+   16384 through one grouped K2 and 7 K3 launches and with
+   mlp_impl="int8", each against its plain path;
+20. cli_tricks: `train.run --qr-flag --weighted-pooling=learned` (64 steps,
+   a save, then PTQ from the checkpoint) and `--table-dtype=bfloat16
+   --compute-dtype=bfloat16` (64 steps) at the Kaggle width.
 
 Kernel K6 (`dma_row_update`) is on no path; its kernel phase holds it
 against its plain version on the 2,202,608-row table.
@@ -94,9 +114,10 @@ Every check raises, so any failure exits non-zero. Phases in order: device,
 build, model, kernel (K2, K3, K3 at K = 1728, K1 with D = 512, K4 with
 D = 512, K5 with Zipf ids, K6), train, profile (train), train_stream with
 profile (SGD), schemes (pact, lsq, act, each with its profile), dp with
-profile, dp_stream, pseudo, dp_schemes, eval, export, serve, profile
-(serve), serve_onehot with profile, serve_cat, cli, cli_schemes, cli_dp,
-dp2, kernels.
+profile, dp_stream, pseudo, dp_schemes, tricks (qr, md, vw), eval,
+export, serve, profile (serve), serve_onehot with profile, serve_cat,
+tb_bf16 with profile, tb_serve, cli, cli_schemes, cli_tricks, cli_dp, dp2,
+kernels.
 
 Output: one JSON line per phase; then the {"kernels": [...]} summary; then
 the card's name and power limit as nvidia-smi gives them; and last
@@ -2255,8 +2276,8 @@ def phase_dp2(cfg):
                 p.kill()
                 p.join()
     check(sorted(results) == list(range(DP2_RANKS)), f"dp2: both ranks reported ({sorted(results)})")
-    for r, res in sorted(results.items()):
-        check("error" not in res, f"dp2: rank {r} failed:\n{res.get('error')}")
+    errors = {r: res["error"] for r, res in sorted(results.items()) if "error" in res}
+    check(not errors, "dp2: " + "\n".join(f"rank {r} failed:\n{e}" for r, e in errors.items()))
     r0, r1 = results[0], results[1]
     check(r0["world"] == (0, 2) and r1["world"] == (1, 2), "dp2: ranks 0 and 1 of 2")
     check(r0["losses"] == r1["losses"], "dp2: both ranks report the same losses")
@@ -2687,6 +2708,483 @@ def phase_dp_schemes(cfg, params0, train_step_ms):
     return total
 
 
+TB_B = 2048  # bench.py's Terabyte leg: B = 2048, SGD at 0.1, K1 on the tables of <= 20000 rows
+TB_STEPS = 16  # kernel path against plain path: one megastep each
+TB_CHAIN_MEGASTEPS = 2  # the timed main path, counters from 0
+TB_COMPUTE_STEPS = 8  # compute_dtype="bfloat16" against float32, each timed twice
+TB_TABLE_BYTES = 6_288_166_016  # 49,126,297 rows x 64 bf16 values
+TB_SERVE_BYTES = 1_572_818_576  # INT4 tables + INT8 MLP: the paper's Table 3b packed model
+TRICK_OPTIONS = {  # the train phase's sparse step under the reference's table options
+    "qr": dict(qr_flag=True, qr_operation="mult", qr_collisions=4, qr_threshold=200),
+    "md": dict(md_flag=True, md_temperature=0.3),
+    "vw": dict(weighted_pooling="learned"),
+}
+TRICK_STEPS = 32  # kernel path against plain path
+TRICK_CHAIN_MEGASTEPS = 2  # the timed main path, counters from 0
+CLI_TRICK_BATCHES = 64
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |x| (2^(e - 7) for |x| in [2^e, 2^(e + 1)))."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().float().clamp_min(2.0 ** -126))) - 7)
+
+
+def terabyte_params(cfg, seed):
+    """Terabyte params on the card: the MLPs from `init_params` (drawn with
+    tables of one row), each table U(-1/sqrt(n), 1/sqrt(n)) from a
+    `torch.Generator` on the card in chunks of 2M rows, rounded to the
+    table's bf16 (numpy would take tens of seconds for 49M x 64 values; the
+    JAX bench draws them on its chip too, bench.py `_fast_device_init`).
+    Nothing on the card is compared with JAX weights."""
+    import dataclasses
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_params
+
+    params = init_params(dataclasses.replace(cfg, table_sizes=(1,) * cfg.num_tables), seed=seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    emb = []
+    for n in cfg.table_sizes:
+        t = torch.empty((n, cfg.embedding_dim), dtype=torch.bfloat16, device=DEVICE)
+        bound = float(np.sqrt(1.0 / n))
+        for lo in range(0, n, 2_000_000):
+            hi = min(n, lo + 2_000_000)
+            t[lo:hi] = torch.empty((hi - lo, cfg.embedding_dim), device=DEVICE).uniform_(-bound, bound,
+                                                                                          generator=gen)
+        emb.append(t)
+    params["emb"] = emb
+    return params
+
+
+def phase_tb_bf16(train_step_ms):
+    """bench.py's Terabyte leg (bench.py:366-395): `terabyte_config` at its
+    real cardinalities (26 tables, 49,126,297 rows, d = 64) on bf16 tables,
+    INT4 HAWQ QAT with scale_update_period=1000, B = 2048, SGD at 0.1, K1 on
+    the 16 tables of at most 20000 rows, megasteps of 16. One megastep of
+    the kernel path against one of the plain path from one start: losses
+    within TRAIN_LOSS_RTOL, every bf16 table element within one bf16 ulp
+    (of the larger of its two values and of the table's init bound
+    1/sqrt(n)) per update its row took: K1's and `index_add_`'s atomics add
+    in a run-dependent order, and each add rounds to bf16. The MLP within
+    1e-5.
+    The scale refresh fires at step 0; its next, at step 1000, is not
+    reached (the train phase covers the refresh). Then the main path with
+    the counters from 0 (one K1 launch per step), timed by CUDA events, a
+    profiled megastep, and 8 steps with compute_dtype="bfloat16" beside 8 in
+    float32 by the same clock, twice each after one untimed call of each.
+    Returns (config, the trained params, K1's launches)."""
+    import dataclasses
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import QuantConfig, TrainConfig, terabyte_config
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_quant_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_dense_grad as k1_one,
+        onehot_dense_grad_grouped as k1,
+        onehot_pooled_lookup_grouped_fwd as k4,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import TrainState, make_multi_train_step
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(terabyte_config(QuantConfig(enabled=True, embedding_bit=4, weight_bit=4,
+                                                          scale_update_period=1000)), table_dtype="bfloat16")
+    tc = TrainConfig(batch_size=TB_B, learning_rate=0.1, onehot_update_max_rows=SMALL_ROWS)
+    params = terabyte_params(cfg, 0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    table_bytes = sum(t.numel() * t.element_size() for t in params["emb"])
+    check(table_bytes == TB_TABLE_BYTES and all(t.dtype == torch.bfloat16 for t in params["emb"]),
+          f"tb_bf16: {table_bytes} bytes of bf16 tables")
+    small = [k for k, n in enumerate(cfg.table_sizes) if n <= SMALL_ROWS]
+    batches = device_batches(cfg, TB_B, K_MEGA, 200)
+
+    # kernel path against plain path: the plain path from a copy, the kernel path in place
+    t1 = time.perf_counter()
+    plain_st, plain_losses = run_chain(make_multi_train_step(cfg, tc, K_MEGA, sparse_emb_grad=True, plain=True),
+                                       TrainState(tree_map(torch.clone, params), None, init_quant_state(cfg)),
+                                       batches, TB_STEPS // K_MEGA)
+    state, losses = run_chain(make_multi_train_step(cfg, tc, K_MEGA, sparse_emb_grad=True),
+                              TrainState(params, None, init_quant_state(cfg)), batches, TB_STEPS // K_MEGA)
+    check(bool(torch.isfinite(losses).all()), "tb_bf16: finite losses")
+    loss_err = ((losses - plain_losses).abs() / plain_losses.abs()).max().item()
+    check(loss_err <= TRAIN_LOSS_RTOL, f"tb_bf16: 16 steps, loss kernel vs plain {loss_err} <= {TRAIN_LOSS_RTOL}")
+    beyond, max_ulps, max_touch, differ, worst = 0, 0.0, 0, 0, []
+    for k, (a, b) in enumerate(zip(state.params["emb"], plain_st.params["emb"])):
+        touches = torch.bincount(batches.indices[:, k].reshape(-1).long(), minlength=a.shape[0])
+        # ulps at the larger of the two values and the table's init bound
+        # 1/sqrt(n): a value that an update cancelled to near 0 carries the
+        # rounding of the operands, not of its own magnitude
+        ulp = bf16_ulp(torch.maximum(torch.maximum(a.abs(), b.abs()),
+                                     torch.tensor(float(np.sqrt(1.0 / a.shape[0])), device=a.device).to(a.dtype)))
+        ulps = (a.float() - b.float()).abs() / ulp
+        out = ulps > touches[:, None]
+        beyond += int(out.sum())
+        differ += int((a != b).sum())
+        max_ulps = max(max_ulps, ulps.max().item())
+        max_touch = max(max_touch, int(touches.max()))
+        for r, c in out.nonzero()[:4].tolist():
+            worst.append({"table": k, "row": r, "col": c, "kernel": a[r, c].item(), "plain": b[r, c].item(),
+                          "ulps": ulps[r, c].item(), "updates_of_the_row": int(touches[r])})
+    mlp_err = max((x - y).abs().max().item() for part in ("bot", "top")
+                  for x, y in zip(leaves(state.params[part]), leaves(plain_st.params[part])))
+    check(beyond == 0, f"tb_bf16: {beyond} table elements beyond one bf16 ulp per update of their row: {worst}")
+    check(mlp_err <= TRAIN_PARAM_ATOL, f"tb_bf16: MLP kernel vs plain {mlp_err} <= {TRAIN_PARAM_ATOL}")
+    del plain_st
+    compare_s = time.perf_counter() - t1
+    check(state.qstate.step == TB_STEPS, "tb_bf16: qstate.step")
+
+    multi = make_multi_train_step(cfg, tc, K_MEGA, sparse_emb_grad=True)
+    torch.cuda.synchronize()
+    k1.launches = k1_one.launches = k4.launches = 0
+    ms, chains, state = event_ms_per_step(multi, state, batches, K_MEGA, chains=1, calls=TB_CHAIN_MEGASTEPS)
+    torch.cuda.synchronize()
+    steps = TB_CHAIN_MEGASTEPS * K_MEGA
+    launches = {"onehot_dense_grad": k1.launches, "onehot_dense_grad_per_table": k1_one.launches,
+                "onehot_pooled_lookup": k4.launches}
+    check(launches == {"onehot_dense_grad": steps, "onehot_dense_grad_per_table": 0, "onehot_pooled_lookup": 0},
+          f"tb_bf16: launches {launches}: 1 grouped K1 launch per step x {steps}")
+    check(bool(torch.isfinite(multi.losses).all()), "tb_bf16: finite main-path losses")
+    state = profile_megastep("tb_bf16", multi, state, batches, K_MEGA, batch=TB_B)
+
+    # compute_dtype="bfloat16" beside float32, 8 steps each, turns f32 bf16 bf16 f32
+    bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    steps8 = {name: make_multi_train_step(c, tc, TB_COMPUTE_STEPS, sparse_emb_grad=True)
+              for name, c in (("float32", cfg), ("bfloat16", bcfg))}
+    half = device_batches(cfg, TB_B, TB_COMPUTE_STEPS, 201)
+    for step in steps8.values():  # first use: cuBLAS picks its kernels
+        state, _ = step(state, half)
+    compute_ms = {"float32": [], "bfloat16": []}
+    for name in ("float32", "bfloat16", "bfloat16", "float32"):
+        m, _, state = event_ms_per_step(steps8[name], state, half, TB_COMPUTE_STEPS, chains=1, calls=1)
+        check(bool(torch.isfinite(steps8[name].losses).all()), f"tb_bf16: finite {name}-compute losses")
+        compute_ms[name].append(m)
+    emit({"phase": "tb_bf16", "config": "terabyte", "source": "bench.py:366-395",
+          "table_dtype": "bfloat16", "table_bytes": table_bytes, "rows": sum(cfg.table_sizes),
+          "tables": cfg.num_tables, "embedding_dim": cfg.embedding_dim, "batch": TB_B, "k": K_MEGA,
+          "k1_tables": len(small), "k1_rows": sum(cfg.table_sizes[k] for k in small),
+          "scale_refresh": "at step 0 only: the next, at step 1000, is not reached (the train phase covers it)",
+          "kernel_vs_plain_16_steps": {"loss_max_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL,
+                                       "mlp_max_abs_err": mlp_err, "mlp_atol": TRAIN_PARAM_ATOL,
+                                       "table_max_bf16_ulps": max_ulps,
+                                       "table_elements_that_differ": differ,
+                                       "table_elements_beyond_bound": beyond,
+                                       "bound": "one bf16 ulp (of the larger value, at least the "
+                                                "table's init bound) per update of the row",
+                                       "most_updates_of_a_row": max_touch},
+          "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
+          "first_loss": losses[0].item(), "last_loss": multi.losses[-1].item(),
+          "train_step_ms": ms, "samples_per_s": TB_B / ms * 1e3, "kaggle_train_step_ms": train_step_ms,
+          "compute_dtype_step_ms": compute_ms,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "init_s": init_s, "compare_s": compare_s, "phase_s": time.perf_counter() - t0})
+    return cfg, state.params, launches["onehot_dense_grad"]
+
+
+def serve_layers_ms(sm, batch, flush):
+    """The 7 int8 layers alone on the serving path's activations: K3 (ms)
+    against `mlp_impl="int8"`'s dynamic int8 products, each with its plain
+    version's ms."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
+        packed_pooled_lookup_grouped_plain,
+        make_packed_group,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import (
+        int8_linear,
+        int8_linear_dynamic,
+        int8_linear_dynamic_plain,
+        int8_linear_xla,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.interaction import dot_interaction
+
+    work = []
+    with torch.inference_mode():
+        x = batch.dense
+        for l in sm.bot:
+            work.append((x, l))
+            x = int8_linear_xla(x, l, relu=True)
+        ly = packed_pooled_lookup_grouped_plain(make_packed_group(sm.emb), batch.indices)
+        x = dot_interaction(x, ly)
+        for l in sm.top:
+            work.append((x.contiguous(), l))
+            x = int8_linear_xla(x, l, relu=True)
+    return {fn.__name__ + "_ms": time_ms(lambda: [fn(x, l) for x, l in work], flush)
+            for fn in (int8_linear, int8_linear_xla, int8_linear_dynamic, int8_linear_dynamic_plain)}
+
+
+def phase_tb_serve(cfg, params, flush):
+    """PTQ export of the tb_bf16 state (INT4 tables packed from bf16, INT8
+    MLP): `serving_model_bytes` equal to the paper's Table 3b packed
+    Terabyte model, then one batch of 16384 through `make_serving_fn` (one
+    grouped K2 launch for the 26 tables, 7 K3 launches) against its plain
+    path, and the same batch with `mlp_impl="int8"` against its plain
+    version, timed beside K3's. Returns the launches."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
+        packed_pooled_lookup_grouped as k2,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import (
+        int8_linear as k3,
+        int8_linear_dynamic,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import (
+        make_serving_fn,
+        ptq_export,
+        serving_model_bytes,
+    )
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    sm = ptq_export(cfg, params, emb_bits=4, mlp_bits=8)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    nbytes = serving_model_bytes(sm)
+    check(nbytes == TB_SERVE_BYTES, f"tb_serve: serving_model_bytes {nbytes} == {TB_SERVE_BYTES}")
+    batch = random_batch(cfg, B_MAIN, np.random.RandomState(210))
+    rows = {}
+    launches = {"packed_pooled_lookup": 0, "int8_linear": 0}
+    for impl in (None, "int8"):
+        fn, plain = make_serving_fn(sm, mlp_impl=impl), make_serving_fn(sm, mlp_impl=impl, plain=True)
+        fn(batch)
+        torch.cuda.synchronize()
+        k2.launches = k3.launches = int8_linear_dynamic.launches = 0
+        got = fn(batch)
+        torch.cuda.synchronize()
+        got_launches = {"packed_pooled_lookup": k2.launches, "int8_linear": k3.launches,
+                        "int8_linear_dynamic": int8_linear_dynamic.launches}
+        want = plain(batch)
+        err = (got - want).abs().max().item()
+        check(got.shape == (B_MAIN,) and bool(torch.isfinite(got).all())
+              and bool(((got >= 0) & (got <= 1)).all()), f"tb_serve {impl}: finite probabilities")
+        check(err <= SERVE_ATOL, f"tb_serve {impl}: vs plain path {err} <= {SERVE_ATOL}")
+        n_mlp = len(cfg.mlp_bot) + len(cfg.mlp_top) - 2
+        expect = {"packed_pooled_lookup": 1, "int8_linear": n_mlp if impl is None else 0,
+                  "int8_linear_dynamic": 0 if impl is None else n_mlp}
+        check(got_launches == expect, f"tb_serve {impl}: launches {got_launches} == {expect}")
+        launches["packed_pooled_lookup"] += got_launches["packed_pooled_lookup"]
+        launches["int8_linear"] += got_launches["int8_linear"]
+        rows[impl or "k3"] = {"launches": got_launches, "max_abs_err_vs_plain": err, "tol": SERVE_ATOL,
+                              "batch_ms": time_ms(lambda: fn(batch), flush, reps=10),
+                              "batch_ms_plain": time_ms(lambda: plain(batch), flush, reps=5)}
+        if impl is None:
+            k3_probs = got
+        else:
+            rows["int8"]["max_abs_diff_vs_k3"] = (got - k3_probs).abs().max().item()
+    emit({"phase": "tb_serve", "config": "terabyte", "of": "tb_bf16 state", "emb_bits": 4, "mlp_bits": 8,
+          "serving_model_bytes": nbytes, "expected_bytes": TB_SERVE_BYTES, "batch": B_MAIN,
+          "paths": rows, "mlp_layers": serve_layers_ms(sm, batch, flush),
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "export_s": export_s, "phase_s": time.perf_counter() - t0})
+    return launches
+
+
+def phase_tricks(cfg, params0, train_step_ms):
+    """The train phase's sparse step (Kaggle INT4 QAT, B = 128, megasteps of
+    16, SGD at 0.1, K1 on the tables of at most 20000 rows) under the
+    reference's --qr-flag (mult, c = 4, threshold 200), --md-flag
+    (temperature 0.3) and --weighted-pooling=learned: 32 steps of the kernel
+    path against 32 of the plain path at the train phase's bounds, the main
+    path with the counters from 0 (one K1 launch per step) timed beside the
+    train phase's step, then PTQ serving of the trained state (QR and v_W
+    at INT4, MD at INT8; v_W also with onehot_lookup_max_rows=20000, K4
+    with the pooling weights) against its plain path with K2's, K3's and
+    K4's launches per batch. Returns the launches."""
+    import dataclasses
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import TrainConfig
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_params, init_quant_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_dense_grad as k1_one,
+        onehot_dense_grad_grouped as k1,
+        onehot_pooled_lookup_grouped_fwd as k4,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
+        packed_pooled_lookup_grouped as k2,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import int8_linear as k3
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import (
+        make_serving_fn,
+        ptq_export,
+        serving_model_bytes,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import TrainState, make_multi_train_step
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
+
+    total = {"onehot_dense_grad": 0, "packed_pooled_lookup": 0, "int8_linear": 0, "onehot_pooled_lookup": 0}
+    tc = TrainConfig(batch_size=B_TRAIN, learning_rate=0.1, onehot_update_max_rows=SMALL_ROWS)
+    for i, (name, opts) in enumerate(TRICK_OPTIONS.items()):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        tcfg = dataclasses.replace(cfg, **opts)
+        if name == "vw":  # the plain tables of the train phase, v_W at ones
+            params = {**params0, "v_W": [torch.ones((n,), device=DEVICE) for n in cfg.table_sizes]}
+        else:
+            params = init_params(tcfg, seed=0)
+        batches = device_batches(tcfg, B_TRAIN, K_MEGA, 300 + i)
+        runs = {plain: run_chain(make_multi_train_step(tcfg, tc, K_MEGA, sparse_emb_grad=True, plain=plain),
+                                 TrainState(tree_map(torch.clone, params), None, init_quant_state(tcfg)),
+                                 batches, TRICK_STEPS // K_MEGA) for plain in (False, True)}
+        vs_plain = path_diff(*runs[False], *runs[True], f"tricks {name}: 32 steps kernel vs plain")
+        state, losses = runs[False]
+        del runs, params
+        multi = make_multi_train_step(tcfg, tc, K_MEGA, sparse_emb_grad=True)
+        torch.cuda.synchronize()
+        k1.launches = k1_one.launches = k4.launches = 0
+        ms, _, state = event_ms_per_step(multi, state, batches, K_MEGA, chains=1, calls=TRICK_CHAIN_MEGASTEPS)
+        torch.cuda.synchronize()
+        steps = TRICK_CHAIN_MEGASTEPS * K_MEGA
+        launches = {"onehot_dense_grad": k1.launches, "onehot_dense_grad_per_table": k1_one.launches,
+                    "onehot_pooled_lookup": k4.launches}
+        check(launches == {"onehot_dense_grad": steps, "onehot_dense_grad_per_table": 0,
+                           "onehot_pooled_lookup": 0},
+              f"tricks {name}: launches {launches}: 1 grouped K1 launch per step x {steps}")
+        check(bool(torch.isfinite(multi.losses).all()), f"tricks {name}: finite losses")
+        total["onehot_dense_grad"] += steps
+        if name == "vw":
+            moved = sum(int((v != 1).sum()) for v in state.params["v_W"])
+            check(moved > 0, "tricks vw: the learned pooling weights moved")
+
+        bits = 8 if name == "md" else 4
+        sm = ptq_export(tcfg, state.params, emb_bits=bits, mlp_bits=8)
+        batch = random_batch(tcfg, B_MAIN, np.random.RandomState(310 + i))
+        serve = {}
+        for onehot in ((0, SMALL_ROWS) if name == "vw" else (0,)):
+            fn = make_serving_fn(sm, onehot_lookup_max_rows=onehot)
+            plain = make_serving_fn(sm, onehot_lookup_max_rows=onehot, plain=True)
+            fn(batch)
+            torch.cuda.synchronize()
+            k2.launches = k3.launches = k4.launches = 0
+            got = fn(batch)
+            torch.cuda.synchronize()
+            got_launches = {"packed_pooled_lookup": k2.launches, "int8_linear": k3.launches,
+                            "onehot_pooled_lookup": k4.launches}
+            err = (got - plain(batch)).abs().max().item()
+            check(got.shape == (B_MAIN,) and bool(torch.isfinite(got).all()), f"tricks {name}: served finite")
+            check(err <= SERVE_ATOL, f"tricks {name} onehot={onehot}: vs plain path {err} <= {SERVE_ATOL}")
+            expect = {"packed_pooled_lookup": 1, "int8_linear": 7, "onehot_pooled_lookup": 1 if onehot else 0}
+            check(got_launches == expect, f"tricks {name} onehot={onehot}: launches {got_launches} == {expect}")
+            for k, v in got_launches.items():
+                total[k] += v
+            serve[f"onehot_lookup_max_rows={onehot}"] = {"launches_per_batch": got_launches,
+                                                         "max_abs_err_vs_plain": err, "tol": SERVE_ATOL}
+        emit({"phase": "tricks", "option": name, "flags": opts, "batch": B_TRAIN, "k": K_MEGA,
+              "tables": [tcfg.table_kind(k) for k in range(tcfg.num_tables)].count(
+                  {"qr": "qr", "md": "md", "vw": "dense"}[name]),
+              "kernel_vs_plain_32_steps": vs_plain, "launches": launches,
+              "launches_per_step": {k: v / steps for k, v in launches.items()},
+              "first_loss": losses[0].item(), "last_loss": multi.losses[-1].item(),
+              "step_ms": ms, "train_phase_step_ms": train_step_ms,
+              "serve": {"emb_bits": bits, "batch": B_MAIN, "serving_model_bytes": serving_model_bytes(sm),
+                        **serve},
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(), "phase_s": time.perf_counter() - t0})
+        del state, sm
+    return total
+
+
+def phase_cli_tricks(cfg):
+    """`train.run` at the Kaggle width with `--qr-flag
+    --weighted-pooling=learned` for 64 steps and a save, then
+    `--inference-only` PTQ of that checkpoint (one grouped K2 and 7 K3
+    launches per batch of 16384) with its AUC against this script's own on
+    the plain path; and with `--table-dtype=bfloat16
+    --compute-dtype=bfloat16` for 64 steps. INT4 QAT, B = 128, megasteps
+    of 16, one grouped K1 launch per step. Returns the launches."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch import train
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_dense_grad as k1_one,
+        onehot_dense_grad_grouped as k1,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
+        packed_pooled_lookup_grouped as k2,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import int8_linear as k3
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import make_serving_fn, ptq_export
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import _on, init_train_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        load_checkpoint,
+    )
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dqrm_cli_tricks_")
+    rows = {}
+    try:
+        arch = ["--data-generation=random", f"--num-batches={CLI_TRICK_BATCHES}",
+                "--arch-embedding-size=" + "-".join(str(n) for n in cfg.table_sizes),
+                "--arch-sparse-feature-size=16", "--arch-mlp-bot=13-512-256-64-16",
+                "--arch-mlp-top=512-256-1", "--quantization_flag", "--embedding_bit=4", "--weight_bit=4",
+                "--scale-update-period=200"]
+        train_args = ["--learning-rate=0.1", "--mini-batch-size=128", f"--steps-per-dispatch={CLI_K}",
+                      f"--print-freq={CLI_TRICK_BATCHES // 2}"]
+        runs = {"qr_vw": ["--qr-flag", "--weighted-pooling=learned"],
+                "bf16": ["--table-dtype=bfloat16", "--compute-dtype=bfloat16"]}
+        out = io.StringIO()
+        for name, flags in runs.items():
+            ck, log = os.path.join(tmp, name, "ck"), os.path.join(tmp, name, "log")
+            torch.cuda.synchronize()
+            k1.launches = k1_one.launches = k2.launches = k3.launches = 0
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                result = train.run(arch + train_args + flags + [f"--save-model={ck}", f"--log-dir={log}"])
+            torch.cuda.synchronize()
+            launches = {"onehot_dense_grad": k1.launches, "packed_pooled_lookup": k2.launches,
+                        "int8_linear": k3.launches}
+            check(launches == {"onehot_dense_grad": CLI_TRICK_BATCHES, "packed_pooled_lookup": 0,
+                               "int8_linear": 0} and k1_one.launches == 0,
+                  f"cli_tricks {name}: launches {launches}: 1 grouped K1 launch per step")
+            with open(os.path.join(log, "run.scalars.jsonl")) as f:
+                losses = [json.loads(line)["value"] for line in f if json.loads(line)["tag"] == "Train/Loss"]
+            check(len(losses) == 2 and all(np.isfinite(losses)), f"cli_tricks {name}: losses {losses}")
+            check(np.isfinite(result["roc_auc"]), f"cli_tricks {name}: final eval {result}")
+            last = CheckpointManager(ck).latest()
+            with np.load(last) as z:
+                key = ".params['emb'][2]['q']" if name == "qr_vw" else ".params['emb'][2]"
+                check(key in z.files and (name != "bf16" or z[key].dtype.kind == "V"),
+                      f"cli_tricks {name}: {key} in the checkpoint")
+            rows[name] = {"wall_s": time.perf_counter() - t1, "losses": losses, "launches": launches,
+                          "final_eval": result, "checkpoint_bytes": os.path.getsize(last)}
+
+        ck = os.path.join(tmp, "qr_vw", "ck")
+        argv_b = arch + runs["qr_vw"] + [f"--load-model={ck}", "--inference-only", "--quantize-emb-with-bit=4",
+                                         "--quantize-mlp-with-bit=8"]
+        torch.cuda.synchronize()
+        k1.launches = k2.launches = k3.launches = 0
+        t2 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result_b = train.run(argv_b)
+        torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t2
+        n_test = max(1, CLI_TRICK_BATCHES // 8)
+        launches_b = {"onehot_dense_grad": k1.launches, "packed_pooled_lookup": k2.launches,
+                      "int8_linear": k3.launches}
+        check(launches_b == {"onehot_dense_grad": 0, "packed_pooled_lookup": n_test, "int8_linear": 7 * n_test},
+              f"cli_tricks PTQ: launches {launches_b}: 1 grouped K2 and 7 K3 per batch x {n_test}")
+        args = train.build_parser().parse_args(argv_b)
+        args.onehot_update_max_rows, args.stream_update_max_rows = 20000, 0
+        ccfg, tc = train.make_configs(args)
+        ccfg, _, test_loader, _ = train.make_loaders(args, ccfg, tc)
+        state, _ = load_checkpoint(CheckpointManager(ck).latest(), init_train_state(ccfg, tc))
+        plain = make_serving_fn(ptq_export(ccfg, state.params, emb_bits=4, mlp_bits=8), plain=True)
+        want = train.evaluate(ccfg, state, test_loader, lambda s, b: plain(_on(b, torch.device(DEVICE))))
+        del state, plain
+        auc_err = abs(result_b["roc_auc"] - want["roc_auc"])
+        check(auc_err <= CLI_AUC_ATOL, f"cli_tricks PTQ: AUC {result_b['roc_auc']} vs plain path "
+                                       f"{want['roc_auc']}: {auc_err} <= {CLI_AUC_ATOL}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "cli_tricks", "entry": f"python -m {PKG}.train", "batch": 128, "k": CLI_K,
+          "steps": CLI_TRICK_BATCHES, "runs": rows,
+          "inference": {"of": "qr_vw", "wall_s": wall_b, "batches": n_test, "batch": 16384,
+                        "launches": launches_b, "roc_auc": result_b["roc_auc"],
+                        "roc_auc_plain": want["roc_auc"], "auc_abs_err": auc_err, "tol": CLI_AUC_ATOL},
+          "phase_s": time.perf_counter() - t0})
+    return {"onehot_dense_grad": 2 * CLI_TRICK_BATCHES, "packed_pooled_lookup": launches_b["packed_pooled_lookup"],
+            "int8_linear": launches_b["int8_linear"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no usable CUDA card (torch.cuda.is_available() is false)",
@@ -2746,6 +3244,7 @@ def main() -> int:
         dp_launches[name] = dp_launches.get(name, 0) + n
     dp_launches["onehot_dense_grad"] += phase_pseudo(cfg, params0)
     scheme_k1 += phase_dp_schemes(cfg, params0, train_step_ms)
+    trick_launches = phase_tricks(cfg, params0, train_step_ms)
     del params0
     phase_eval(cfg, state)
     t2 = time.perf_counter()
@@ -2761,10 +3260,23 @@ def main() -> int:
     launches["onehot_pooled_lookup"] = onehot_launches["onehot_pooled_lookup"]
     del sm
     phase_serve_cat(flush)
+    tb_cfg, tb_params, tb_k1 = phase_tb_bf16(train_step_ms)
+    tb_launches = phase_tb_serve(tb_cfg, tb_params, flush)
+    del tb_params
+    # give the Terabyte phases' cached blocks (some 45 GB) back to the card:
+    # dp2's two processes each need their own Kaggle model on it
+    torch.cuda.empty_cache()
     cli_launches, cli_ms = phase_cli(cfg, train_step_ms)
     for name, n in cli_launches.items():
         launches[name] += n
     for name, n in phase_cli_schemes(cfg, tf32_default).items():
+        launches[name] += n
+    for name, n in phase_cli_tricks(cfg).items():
+        launches[name] += n
+    for name, n in trick_launches.items():
+        launches[name] += n
+    launches["onehot_dense_grad"] += tb_k1
+    for name, n in tb_launches.items():
         launches[name] += n
     launches["onehot_dense_grad"] += scheme_k1
     launches["onehot_dense_grad"] += phase_cli_dp(cfg, cli_ms) + phase_dp2(cfg)
@@ -2785,12 +3297,14 @@ def main() -> int:
 
     emit({"phase": "kernels", "checked_by": {"onehot_dense_grad": ["kernel", "train", "train_stream", "schemes",
                                                                    "dp", "dp_stream", "pseudo", "dp_schemes",
-                                                                   "cli", "cli_schemes", "cli_dp", "dp2"],
-                                             "packed_pooled_lookup": ["kernel", "serve", "serve_onehot", "cli",
-                                                                      "cli_schemes"],
-                                             "int8_linear": ["kernel", "serve", "serve_onehot", "cli",
-                                                             "cli_schemes"],
-                                             "onehot_pooled_lookup": ["kernel", "serve_onehot"],
+                                                                   "tricks", "tb_bf16", "cli", "cli_schemes",
+                                                                   "cli_tricks", "cli_dp", "dp2"],
+                                             "packed_pooled_lookup": ["kernel", "serve", "serve_onehot", "tricks",
+                                                                      "tb_serve", "cli", "cli_schemes",
+                                                                      "cli_tricks"],
+                                             "int8_linear": ["kernel", "serve", "serve_onehot", "tricks",
+                                                             "tb_serve", "cli", "cli_schemes", "cli_tricks"],
+                                             "onehot_pooled_lookup": ["kernel", "serve_onehot", "tricks"],
                                              "stream_scatter_add": ["kernel", "train_stream", "dp_stream"],
                                              "dma_row_update": ["kernel"]}})
     grouped = "one launch for a group of tables"

@@ -14,8 +14,11 @@
 //       lookups read (`rows_grad_from_pooled` followed by the TPU kernel's
 //       scatter). An id outside [0, n_i) (-1 padding included) adds
 //       nothing. The out_i are consecutive row ranges of one flat buffer.
-//   K4: out[k_i, b, :] = sum_{p = 0..P-1 in order} w[k_i, b, p] * table_i[idx[k_i, b, p], :],
-//       where an id outside [0, n_i) adds nothing and a missing w means 1.
+//   K4: out_i[b, :] = sum_{p = 0..P-1 in order} w[k_i, b, p] * table_i[idx[k_i, b, p], :],
+//       where an id outside [0, n_i) adds nothing and a missing w means 1;
+//       out_i is the [B, D_i] block at float offset col_i * B of the output
+//       (col_i = k_i * D for a [T, B, D] output; the serving model's QR/MD
+//       members pass their own columns and widths D_i).
 // The per-table entries of the wrapper are the same kernels with one table
 // (K1 with P = 1 and no mask).
 //
@@ -53,10 +56,10 @@
 //   float add), which is why few updates per row go to L2 directly.
 //   Duplicate ids are summed in an order that changes from run to run: the
 //   result equals the sequential scatter up to float32 summation order.
-// - K4: blockIdx.y is the table; D/4 threads take one bag, each reading
+// - K4: blockIdx.y is the table; D_i/4 threads take one bag, each reading
 //   16 bytes of a row per id, summing the P terms in p order with the _rn
 //   intrinsics (no contraction into FMAs; exact for P = 1), and writing 16
-//   bytes straight into the table's slot of the [T, B, D] output. Where D is
+//   bytes straight into the table's block of the output. Where a D_i is
 //   not a multiple of 4, or an address is not 16-byte aligned, one thread
 //   takes one value instead.
 
@@ -98,9 +101,11 @@ struct GradGroup {
 };
 
 struct LookupTable {
-  const float* data;  // [rows, D]
+  const float* data;  // [rows, dim]
   long long rows;
   long long slot;
+  long long dim;
+  long long col;  // the output block starts at col * B
 };
 
 struct LookupGroup {
@@ -181,9 +186,10 @@ __global__ void __launch_bounds__(kThreads) pooled_lookup_grouped_kernel(
     const __grid_constant__ LookupGroup group,
     const int32_t* __restrict__ idx,  // [T, B, P]
     const float* __restrict__ w,      // [T, B, P] or null (weights of one)
-    float* __restrict__ out,          // [T, B, D]
-    int B, int P, int D) {
+    float* __restrict__ out,          // the tables' [B, dim] blocks
+    int B, int P) {
   const LookupTable& d = group.t[blockIdx.y];
+  const int D = (int)d.dim;
   const int lanes = D / VEC;
   const int64_t item = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (item >= (int64_t)B * lanes) return;
@@ -202,7 +208,7 @@ __global__ void __launch_bounds__(kThreads) pooled_lookup_grouped_kernel(
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(m, v[e]));
   }
-  float* o = out + (d.slot * B + b) * (int64_t)D + lane * VEC;
+  float* o = out + d.col * B + b * (int64_t)D + lane * VEC;
   if constexpr (VEC == 4) {
     *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
   } else {
@@ -266,28 +272,35 @@ extern "C" int dqrm_dense_grad_grouped(
   return (int)cudaGetLastError();
 }
 
-// K4 for `count` float32 tables described by `tables` (host memory, 3 int64
-// each: data address, rows, slot; checked by the caller): idx [T, B, P],
-// w [T, B, P] or null, out [T, B, D]; only the group's slots are written.
+// K4 for `count` float32 tables described by `tables` (host memory, 5 int64
+// each: data address, rows, slot, dim, col; checked by the caller): idx
+// [T, B, P], w [T, B, P] or null; table i writes the [B, dim_i] block at
+// out + col_i * B, and nothing else of `out` is written. `max_dim` is the
+// largest dim of the group.
 extern "C" int dqrm_pooled_lookup_grouped(
     const long long* tables, int count, const void* idx, const void* w, void* out, int B, int P,
-    int D, void* stream) {
-  if (tables == nullptr || count <= 0 || count > kMaxTables || B < 0 || P < 0 || D <= 0) {
+    int max_dim, void* stream) {
+  if (tables == nullptr || count <= 0 || count > kMaxTables || B < 0 || P < 0 || max_dim <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   LookupGroup group = {};
   group.count = count;
-  bool vec4 = D % 4 == 0 && aligned16(out);
+  bool vec4 = aligned16(out);
   for (int i = 0; i < count; ++i) {
     LookupTable& t = group.t[i];
-    t.data = reinterpret_cast<const float*>(tables[3 * i]);
-    t.rows = tables[3 * i + 1];
-    t.slot = tables[3 * i + 2];
-    if (t.data == nullptr || t.rows <= 0 || t.slot < 0) return (int)cudaErrorInvalidValue;
-    vec4 = vec4 && aligned16(t.data);
+    t.data = reinterpret_cast<const float*>(tables[5 * i]);
+    t.rows = tables[5 * i + 1];
+    t.slot = tables[5 * i + 2];
+    t.dim = tables[5 * i + 3];
+    t.col = tables[5 * i + 4];
+    if (t.data == nullptr || t.rows <= 0 || t.slot < 0 || t.dim <= 0 || t.dim > max_dim ||
+        t.col < 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    vec4 = vec4 && t.dim % 4 == 0 && (t.col * B) % 4 == 0 && aligned16(t.data);
   }
   if (B == 0) return (int)cudaGetLastError();
-  const int lanes = vec4 ? D / 4 : D;
+  const int lanes = vec4 ? max_dim / 4 : max_dim;
   const long long blocks = ((long long)B * lanes + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks, (unsigned)count);
@@ -296,9 +309,9 @@ extern "C" int dqrm_pooled_lookup_grouped(
   const float* wf = static_cast<const float*>(w);
   float* of = static_cast<float*>(out);
   if (vec4) {
-    pooled_lookup_grouped_kernel<4><<<grid, kThreads, 0, s>>>(group, ids, wf, of, B, P, D);
+    pooled_lookup_grouped_kernel<4><<<grid, kThreads, 0, s>>>(group, ids, wf, of, B, P);
   } else {
-    pooled_lookup_grouped_kernel<1><<<grid, kThreads, 0, s>>>(group, ids, wf, of, B, P, D);
+    pooled_lookup_grouped_kernel<1><<<grid, kThreads, 0, s>>>(group, ids, wf, of, B, P);
   }
   return (int)cudaGetLastError();
 }

@@ -11,12 +11,15 @@
 //
 // Contract (the JAX op order), per table of the group: for each bag b and
 // value d,
-//   out[slot, b, d] = sum_{p = 0..P-1 in order} (v(r, d) * s  [+ bias[r]]) * mask[slot, b, p]
+//   out_t[b, d] = sum_{p = 0..P-1 in order} (v(r, d) * s  [+ bias[r]]) * mask[slot, b, p]
 // with r = clamp(idx[slot, b, p], 0, rows - 1), v the unpacked integer (minus
 // 2^(bits-1) for symmetric tables), s the table scale or scale[r]; `slot` is
-// the table's place in the [T, B, P] ids and mask and in the [T, B, D]
-// output. INT4 layout: byte j holds value j in its low nibble and value
-// j + D/2 in its high nibble.
+// the table's place in the [T, B, P] ids and mask, and out_t the [B, D_t]
+// block at float offset col * B of the output (col = slot * D for a
+// [T, B, D] output; the serving model's QR/MD members pass their own
+// columns and widths, so one launch serves tables of any D). INT4 layout:
+// byte j holds value j in its low nibble and value j + D/2 in its high
+// nibble.
 //
 // What bounds it on this card: bytes. Each lookup reads one packed row of
 // D/2 (INT4) or D (INT8) bytes at a random address, which costs a whole
@@ -59,7 +62,7 @@ struct TableDesc {  // 8 x int64, the layout of the wrapper's descriptor rows
   long long bits;
   long long dim;        // D
   long long slot;
-  long long unused;
+  long long col;        // the output block [B, dim] starts at out + col * B
 };
 
 constexpr int kThreads = 256;
@@ -148,7 +151,7 @@ __global__ void __launch_bounds__(kThreads) packed_pooled_lookup_kernel(
   const int64_t bp = (int64_t)B * P;
   const int32_t* ids = idx + d.slot * bp;
   const float* msk = mask ? mask + d.slot * bp : nullptr;
-  float* o = out + d.slot * B * d.dim;
+  float* o = out + d.col * B;
   if (d.bits == 4) {
     if (d.bias) {
       pool_table<4, true>(d, ids, msk, o, B, P);
@@ -194,15 +197,17 @@ extern "C" int dqrm_packed_pooled_lookup(
     return (int)cudaErrorInvalidValue;
   }
   TableDesc one = {static_cast<const uint8_t*>(data), static_cast<const float*>(scale),
-                   static_cast<const float*>(bias), rows, bits, D, 0, 0};
+                   static_cast<const float*>(bias), rows, bits, D, 0, 0};  // slot 0, col 0
   return launch(nullptr, one, 1, idx, mask, out, B, P, items_per_bag(bits, D),
                 static_cast<cudaStream_t>(stream));
 }
 
 // A group of `tables` tables described by `descs` (device memory, one
 // TableDesc each, checked by the caller): idx [T, B, P], mask [T, B, P] or
-// null, out [T, B, D], T above every slot. `max_items_per_bag` is the
-// largest items_per_bag of the group's tables.
+// null, out holding every table's [B, D] block at col * B (the caller checks
+// that the blocks of the 16-byte-store path start 16-byte aligned), T above
+// every slot. `max_items_per_bag` is the largest items_per_bag of the
+// group's tables.
 extern "C" int dqrm_packed_pooled_lookup_grouped(
     const void* descs, int tables, const void* idx, const void* mask, void* out, int B, int P,
     int max_items_per_bag, void* stream) {

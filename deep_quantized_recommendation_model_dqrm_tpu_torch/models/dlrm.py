@@ -1,5 +1,5 @@
 """DLRM/DQRM as plain functions on tensors: port of the JAX package's
-models/dlrm.py for plain embedding tables.
+models/dlrm.py.
 
 Structure (reference `DLRM_Net.forward`): bottom MLP(dense) -> per-table
 pooled lookups -> pairwise dot interaction -> top MLP -> click logit. QAT
@@ -20,23 +20,30 @@ MLP chain, whose scales pass from layer to layer, and a second QuantAct
 follows the interaction, optionally the INT16 integer one; their running
 ranges live in `QuantState`.
 
+Embedding tables are float32 or bfloat16 ([rows, D] tensors), or the
+compositional tricks as dicts: QR {"q", "r"} and MD {"table"[, "proj"]}
+(models/tricks.py), looked up at full precision under every scheme. With
+`weighted_pooling` each table has a per-row pooling weight
+(`params["v_W"]`, ones at init; "fixed" keeps them constant, "learned"
+trains them) that multiplies the bag mask. `compute_dtype="bfloat16"` runs
+the MLP and dot-interaction products on bf16 operands with float32 sums
+(`ops/matmul.py`); the integer-activation chain stays float32.
+
 `init_params` draws from the same `np.random.RandomState` stream in the same
 order as the JAX package (all embedding tables, then the bottom MLP, then the
 top MLP), so both packages start from bit-identical weights.
-
-Not in this slice (each raises `NotImplementedError`): QR/MD tables,
-weighted pooling (`v_W`), bf16 tables and `compute_dtype="bfloat16"`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from deep_quantized_recommendation_model_dqrm_tpu_torch.config import DLRMConfig
 from deep_quantized_recommendation_model_dqrm_tpu_torch.device import resolve_device
+from deep_quantized_recommendation_model_dqrm_tpu_torch.models import tricks
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops import quant as q
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
     group_slots,
@@ -44,12 +51,13 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update i
     onehot_pooled_lookup_grouped,
     onehot_pooled_lookup_grouped_plain,
 )
-from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import pooled_lookup
+from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import clamp_ids, pooled_lookup
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.interaction import (
     cat_interaction,
     dot_interaction,
     quantized_dot_interaction,
 )
+from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.matmul import linear
 
 Params = Dict[str, Any]
 
@@ -100,17 +108,28 @@ def unfreeze_ranges(qstate: QuantState) -> QuantState:
     return qstate._replace(act_fixed=0)
 
 
-def check_supported(config: DLRMConfig) -> None:
-    """Raise `NotImplementedError` for what this slice of the port does not
-    run: QR/MD tables, weighted pooling and bf16 tables or compute."""
-    if any(config.table_kind(k) != "dense" for k in range(config.num_tables)):
-        raise NotImplementedError("QR/MD embedding tables: a later slice of the port")
-    if config.weighted_pooling is not None:
-        raise NotImplementedError("weighted pooling (v_W): a later slice of the port")
-    if config.table_dtype != "float32" or config.compute_dtype != "float32":
+def check_supported(config: DLRMConfig, engine: Optional[str] = None) -> None:
+    """Raise `NotImplementedError` for what the port does not run yet: QR/MD
+    tables, weighted pooling and bf16 tables or compute under the
+    data-parallel and pseudo engines (`engine` names the caller). The
+    single-device steps, evaluation and serving run them all."""
+    if engine is None:
+        return
+    what = [name for name, on in (
+        ("QR/MD tables", any(config.table_kind(k) != "dense" for k in range(config.num_tables))),
+        ("weighted pooling (v_W)", config.weighted_pooling is not None),
+        ("bf16 tables", config.table_dtype != "float32"),
+        ("compute_dtype='bfloat16'", config.compute_dtype != "float32"),
+    ) if on]
+    if what:
         raise NotImplementedError(
-            "bf16 tables and compute_dtype='bfloat16': a later slice of the port"
-        )
+            f"{', '.join(what)} under the {engine} engine: a later slice of the port "
+            "(ROADMAP.md queue 1 item 6)")
+
+
+def trick_slots(config: DLRMConfig) -> Tuple[int, ...]:
+    """The tables that are QR or MD dicts."""
+    return tuple(k for k in range(config.num_tables) if config.table_kind(k) != "dense")
 
 
 def init_params(
@@ -119,22 +138,22 @@ def init_params(
     device: Optional[Union[str, torch.device]] = None,
 ) -> Params:
     """Initialize {"emb": [table], "bot": [{"w","b"}], "top": [{"w","b"}]},
-    under LSQ also the step sizes "lsq_emb" and "lsq_mlp".
+    with `weighted_pooling` also "v_W" (ones, one [rows] float32 vector per
+    table), under LSQ also the step sizes "lsq_emb" and "lsq_mlp".
 
     MLP: W ~ N(0, sqrt(2/(fan_in+fan_out))), b ~ N(0, sqrt(1/fan_out))
     (create_mlp, dlrm_s_pytorch.py:199-238). Embeddings: U(-1/sqrt(n),
-    1/sqrt(n)) (create_emb, dlrm_s_pytorch.py:269-276). Each table is drawn
-    on the host and moved to `device` before the next is drawn. LSQ steps
-    take no draw: s0 = 2 mean|w| / sqrt(Qp) (quantizer/lsq.py:42-45), one
-    0-d step per table at `embedding_bit`, and with `quantize_mlp` a
-    per-out-channel weight step and a 0-d bias step per layer at
-    `weight_bit` (QuantLinearLSQ, quant_learned_step_size_quan.py:32-57).
+    1/sqrt(n)) (create_emb, dlrm_s_pytorch.py:269-276), in `table_dtype`;
+    QR tables draw q then r, MD tables the table then the projection
+    (float32), from the one stream (JAX dlrm.py:134-193). Each table is
+    drawn on the host and moved to `device` before the next is drawn. LSQ
+    steps take no draw: s0 = 2 mean|w| / sqrt(Qp) (quantizer/lsq.py:42-45),
+    one 0-d step per table at `embedding_bit` (1.0 for a QR/MD table, which
+    LSQ does not quantize), and with `quantize_mlp` a per-out-channel weight
+    step and a 0-d bias step per layer at `weight_bit` (QuantLinearLSQ,
+    quant_learned_step_size_quan.py:32-57).
     """
     dev = resolve_device(device)
-    if any(config.table_kind(k) != "dense" for k in range(config.num_tables)):
-        raise NotImplementedError("QR/MD embedding tables: a later slice of the port")
-    if config.weighted_pooling is not None:
-        raise NotImplementedError("weighted pooling (v_W): a later slice of the port")
     rng = np.random.RandomState(seed)
     t_dtype = torch.bfloat16 if config.table_dtype == "bfloat16" else torch.float32
 
@@ -146,12 +165,31 @@ def init_params(
             layers.append({"w": torch.from_numpy(w).to(dev), "b": torch.from_numpy(b).to(dev)})
         return layers
 
+    def uniform(bound, shape, dtype=t_dtype):
+        return torch.from_numpy(rng.uniform(-bound, bound, size=shape).astype(np.float32)).to(dev, dtype)
+
     emb = []
-    for n in config.table_sizes:
+    md_dims = config.md_dims()
+    d = config.embedding_dim
+    for k, n in enumerate(config.table_sizes):
         bound = np.sqrt(1.0 / n)
-        w = rng.uniform(-bound, bound, size=(n, config.embedding_dim)).astype(np.float32)
-        emb.append(torch.from_numpy(w).to(dev, t_dtype))
+        kind = config.table_kind(k)
+        if kind == "qr":
+            c = config.qr_collisions
+            d_q = d // 2 if config.qr_operation == "concat" else d
+            emb.append({"q": uniform(bound, ((n + c - 1) // c, d_q)),
+                        "r": uniform(bound, (c, d - d_q if config.qr_operation == "concat" else d))})
+        elif kind == "md":
+            entry = {"table": uniform(bound, (n, md_dims[k]))}
+            if md_dims[k] < d:
+                lim = np.sqrt(6.0 / (md_dims[k] + d))
+                entry["proj"] = uniform(lim, (d, md_dims[k]), torch.float32)
+            emb.append(entry)
+        else:
+            emb.append(uniform(bound, (n, d)))
     params: Params = {"bot": mlp(config.mlp_bot), "top": mlp(config.mlp_top), "emb": emb}
+    if config.weighted_pooling is not None:
+        params["v_W"] = [torch.ones((n,), dtype=torch.float32, device=dev) for n in config.table_sizes]
     return {**params, **init_lsq_steps(config, params)}
 
 
@@ -161,7 +199,10 @@ def init_lsq_steps(config: DLRMConfig, params: Params) -> Params:
     qc = config.quant
     if not (qc.enabled and qc.quant_scheme == "lsq"):
         return {}
-    out: Params = {"lsq_emb": [_lsq_init(t.float().abs().mean(), qc.embedding_bit) for t in params["emb"]]}
+    out: Params = {"lsq_emb": [
+        _lsq_init(t.float().abs().mean(), qc.embedding_bit) if not isinstance(t, dict)
+        else torch.ones((), dtype=torch.float32, device=params["bot"][0]["w"].device)
+        for t in params["emb"]]}
     if qc.quantize_mlp:
         out["lsq_mlp"] = {
             part: [{"w": _lsq_init(l["w"].abs().mean(dim=1), qc.weight_bit),
@@ -185,8 +226,12 @@ def _lsq_init(mean_abs: torch.Tensor, bits: int) -> torch.Tensor:
 
 def compute_emb_scales(config: DLRMConfig, params: Params) -> torch.Tensor:
     """Per-table whole-table symmetric scales [T] (the periodic min/max
-    scan, quant_utils.py:141-194)."""
-    return torch.stack([q.table_scale(config.quant.embedding_bit, t) for t in params["emb"]])
+    scan, quant_utils.py:141-194), each reduced in its table's dtype; a
+    QR/MD table, which stays in full precision, gets the placeholder 1.0."""
+    dev = params["bot"][0]["w"].device
+    return torch.stack([
+        torch.ones((), dtype=torch.float32, device=dev) if isinstance(t, dict)
+        else q.table_scale(config.quant.embedding_bit, t) for t in params["emb"]])
 
 
 def update_emb_scales(config: DLRMConfig, params: Params, qstate: QuantState) -> QuantState:
@@ -248,11 +293,12 @@ def _ranges_after(qstate: QuantState, slot: int, new_min: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _apply_mlp_fp(layers, x: torch.Tensor, last_linear: bool) -> torch.Tensor:
-    """FP32 MLP: Linear+ReLU stacks; the last top layer emits raw logits."""
+def _apply_mlp_fp(layers, x: torch.Tensor, last_linear: bool, bf16: bool = False) -> torch.Tensor:
+    """FP32 MLP: Linear+ReLU stacks; the last top layer emits raw logits.
+    `bf16`: the products on bf16 operands (`ops.matmul.linear`)."""
     n = len(layers)
     for i, layer in enumerate(layers):
-        x = x @ layer["w"].T + layer["b"]
+        x = linear(x, layer["w"], bf16) + layer["b"]
         if not (last_linear and i == n - 1):
             x = torch.relu(x)
     return x
@@ -271,13 +317,14 @@ def _quant_linear_weights(layer, wbits: int, bbits: int, per_channel: bool):
 
 
 def _apply_mlp_quant(layers, x: torch.Tensor, qc, last_linear: bool,
-                     lsq_steps=None) -> torch.Tensor:
+                     lsq_steps=None, bf16: bool = False) -> torch.Tensor:
     """Weight-only QAT MLP (quant_modules.py:138-186): linear(x,
     fake_quant(w), fake_quant(b)). HAWQ shares the weight scale with the
     bias; PACT applies the DoReFa transform to weights and bias at
     `weight_bit` (QuantLinearPACT, quant_pact_dorefa.py:42-53); LSQ takes
     the layer's learned steps from `lsq_steps`, per out-channel for the
-    weights and per tensor for the bias (QuantLinearLSQ)."""
+    weights and per tensor for the bias (QuantLinearLSQ). `bf16`: the
+    products on bf16 operands."""
     n = len(layers)
     for i, layer in enumerate(layers):
         if qc.quant_scheme == "pact":
@@ -290,7 +337,7 @@ def _apply_mlp_quant(layers, x: torch.Tensor, qc, last_linear: bool,
         else:
             _, w_fq, b_fq = _quant_linear_weights(layer, qc.weight_bit, qc.bias_bit,
                                                   qc.mlp_channelwise)
-        x = x @ w_fq.T + b_fq
+        x = linear(x, w_fq, bf16) + b_fq
         if not (last_linear and i == n - 1):
             x = torch.relu(x)
     return x
@@ -324,6 +371,60 @@ def _apply_mlp_quant_act(layers, x_fq: torch.Tensor, act_scale: torch.Tensor, qc
 # ---------------------------------------------------------------------------
 
 
+def pooling_weights(
+    config: DLRMConfig,
+    vw: Optional[List[torch.Tensor]],
+    indices: torch.Tensor,  # [T, B, P]
+    mask: Optional[torch.Tensor],  # [T, B, P]
+) -> Optional[torch.Tensor]:  # [T, B, P]
+    """The bag mask composed with the pooling weights: mask * v_W[k][idx]
+    per table (per_sample_weights, apply_emb, dlrm_s_pytorch.py:407-411), or
+    the mask alone without weighted pooling. `vw` is `params["v_W"]`;
+    "fixed" weights take no gradient."""
+    if config.weighted_pooling is None:
+        return mask
+    w = torch.stack([v[clamp_ids(indices[k], v.shape[0])[0]] for k, v in enumerate(vw)])
+    if config.weighted_pooling == "fixed":
+        w = w.detach()
+    return w if mask is None else mask * w
+
+
+def trick_pooled_lookup(
+    config: DLRMConfig,
+    table: Dict[str, torch.Tensor],
+    indices: torch.Tensor,  # [B, P]
+    mask: Optional[torch.Tensor],  # [B, P]
+) -> torch.Tensor:  # [B, D] float32
+    """Pooled lookup of one QR or MD table (the dict dispatch of the
+    reference's create_emb, dlrm_s_pytorch.py:239-286), in full precision
+    under every scheme."""
+    if "q" in table:
+        pooled = tricks.qr_pooled_lookup(table, indices, mask, config.qr_collisions, config.qr_operation)
+    else:
+        pooled = tricks.md_pooled_lookup(table, indices, mask)
+    return pooled.float()
+
+
+def splice_trick_pooled(
+    config: DLRMConfig,
+    emb: List[Any],  # the tables; the QR/MD dicts differentiable
+    weights: Optional[torch.Tensor],  # [T, B, P] `pooling_weights`
+    indices: torch.Tensor,  # [T, B, P]
+    pooled: torch.Tensor,  # [T, B, D]
+) -> torch.Tensor:  # [T, B, D]
+    """`pooled` with the QR/MD slots recomputed from `emb` with their
+    gradient: the sparse step cuts autograd at the pooled lookups, and the
+    trick tables, small by construction, take dense gradients through this
+    recompute (JAX dlrm.py:466-499)."""
+    ks = trick_slots(config)
+    if not ks:
+        return pooled
+    parts = list(pooled.unbind(0))
+    for k in ks:
+        parts[k] = trick_pooled_lookup(config, emb[k], indices[k], None if weights is None else weights[k])
+    return torch.stack(parts)
+
+
 def lookup_all(
     config: DLRMConfig,
     params: Params,
@@ -332,35 +433,44 @@ def lookup_all(
     full_precision: bool = True,
     plain: bool = False,
 ) -> torch.Tensor:  # [T, B, D]
-    """Raw pooled lookups of every table, differentiable through the tables.
-    The tables with at most `onehot_lookup_max_rows` rows go through one
-    launch of kernel K4 (its plain version with `plain=True`) per group of
-    up to 32 (`group_slots`); the others through `pooled_lookup`.
+    """Raw pooled lookups of every table, differentiable through the tables
+    (and learned pooling weights), float32. The mask is composed with the
+    pooling weights first (`pooling_weights`). The float32 tables with at
+    most `onehot_lookup_max_rows` rows go through one launch of kernel K4
+    (its plain version with `plain=True`) per group of up to 32
+    (`group_slots`), the weights as K4's; the other tables through
+    `pooled_lookup`, QR/MD tables through `trick_pooled_lookup`.
 
     PACT (unless `full_precision`) pools DoReFa-transformed rows
     (quant_pact_dorefa.py:97-105). Each table's normalizer max|tanh(w)| is
     taken over the whole table; the transform then applies to the gathered
     rows only (the K4 tables, small, are transformed whole). That gives the
     bits of transforming each table first without writing a transformed
-    copy of the large tables every step."""
+    copy of the large tables every step. QR/MD tables take no transform."""
     qc = config.quant
     pact = qc.enabled and qc.quantize_emb and not full_precision and qc.quant_scheme == "pact"
     emb = params["emb"]
+    weights = pooling_weights(config, params.get("v_W"), indices, mask)
     lookup = onehot_pooled_lookup_grouped_plain if plain else onehot_pooled_lookup_grouped
-    small = [k for k, t in enumerate(emb) if 0 < t.shape[0] <= config.onehot_lookup_max_rows]
+    small = [k for k, t in enumerate(emb) if not isinstance(t, dict) and t.dtype == torch.float32
+             and 0 < t.shape[0] <= config.onehot_lookup_max_rows]
     outs = {}
     for ks in group_slots(small):
         tables = [q.fake_quant_pact(emb[k], qc.embedding_bit) if pact else emb[k] for k in ks]
-        pooled = lookup(make_onehot_lookup_group(tables, ks), indices, mask)
+        pooled = lookup(make_onehot_lookup_group(tables, ks), indices, weights)
         outs.update((k, pooled[k]) for k in ks)
     for k, table in enumerate(emb):
         if k in outs:
+            continue
+        w = None if weights is None else weights[k]
+        if isinstance(table, dict):
+            outs[k] = trick_pooled_lookup(config, table, indices[k], w)
             continue
         row_fn = None
         if pact:
             norm = q.pact_normalizer(table)
             row_fn = lambda rows, norm=norm: q.pact_apply(rows, norm, qc.embedding_bit)  # noqa: E731
-        outs[k] = pooled_lookup(table, indices[k], None if mask is None else mask[k], row_fn).float()
+        outs[k] = pooled_lookup(table, indices[k], w, row_fn).float()
     return torch.stack([outs[k] for k in range(len(emb))])
 
 
@@ -377,15 +487,22 @@ def emb_postprocess(
     quant_modules_not_quantize_grad.py:362-395), LSQ with each table's
     learned step (quant_learned_step_size_quan.py:65-100), whose gradient
     scale counts one table's [B, D] (times `lsq_numel_scale`). PACT
-    quantized the rows in `lookup_all`."""
+    quantized the rows in `lookup_all`. QR/MD slots pass unchanged."""
     qc = config.quant
     if not qc.enabled or full_precision or not qc.quantize_emb or qc.quant_scheme == "pact":
         return pooled
     if qc.quant_scheme == "lsq":
         steps = torch.stack(params["lsq_emb"])[:, None, None]
-        return q.fake_quant_lsq(pooled, steps, qc.embedding_bit, numel=pooled[0].numel(),
-                                numel_scale=lsq_numel_scale)
-    return q.fake_quant(pooled, qstate.emb_scales[:, None, None], qc.embedding_bit)
+        out = q.fake_quant_lsq(pooled, steps, qc.embedding_bit, numel=pooled[0].numel(),
+                               numel_scale=lsq_numel_scale)
+    else:
+        out = q.fake_quant(pooled, qstate.emb_scales[:, None, None], qc.embedding_bit)
+    ks = trick_slots(config)
+    if ks:
+        trick = torch.zeros((config.num_tables, 1, 1), dtype=torch.bool, device=pooled.device)
+        trick[list(ks)] = True
+        out = torch.where(trick, pooled, out)
+    return out
 
 
 def apply_emb(
@@ -442,9 +559,11 @@ def forward(
     the scheme's pooled-output fake-quant): the sparse train step cuts
     autograd there. `train` moves the activation ranges; the returned
     QuantState holds them (new tensors). `lsq_numel_scale`: see
-    `emb_postprocess`."""
-    check_supported(config)
+    `emb_postprocess`. `compute_dtype="bfloat16"` puts the products of the
+    float32 and weight-only MLPs and of the dot interaction on bf16
+    operands; the integer chain and the INT16 interaction stay float32."""
     qc = config.quant
+    bf16 = config.compute_dtype == "bfloat16"
     if qstate is None:
         qstate = init_quant_state(config, batch.dense.device)
     quantizing = qc.enabled and not full_precision
@@ -461,7 +580,7 @@ def forward(
         if quantizing and qc.modify_feature_interaction:
             return quantized_dot_interaction(x, ly, qc.interaction_bit, config.interact_itself)
         if config.interaction == "dot":
-            return dot_interaction(x, ly, config.interact_itself)
+            return dot_interaction(x, ly, config.interact_itself, bf16)
         return cat_interaction(x, ly)
 
     act_min, act_max = qstate.act_min, qstate.act_max
@@ -475,8 +594,8 @@ def forward(
         return x_fq, scale
 
     if not quantizing:
-        x = _apply_mlp_fp(params["bot"], batch.dense, False)
-        logits = _apply_mlp_fp(params["top"], interact(x, get_ly(True)), True)
+        x = _apply_mlp_fp(params["bot"], batch.dense, False, bf16)
+        logits = _apply_mlp_fp(params["top"], interact(x, get_ly(True)), True, bf16)
     elif qc.quantize_activation and qc.quantize_mlp:
         # quant_input QuantAct -> integer MLP chains (comm_grad.py:863-879); the
         # interaction is the dot one whatever `config.interaction` says
@@ -493,10 +612,10 @@ def forward(
 
             def mlp(part, x, last_linear):
                 steps = lsq_mlp[part] if lsq_mlp is not None else None
-                return _apply_mlp_quant(params[part], x, qc, last_linear, steps)
+                return _apply_mlp_quant(params[part], x, qc, last_linear, steps, bf16)
         else:
             def mlp(part, x, last_linear):
-                return _apply_mlp_fp(params[part], x, last_linear)
+                return _apply_mlp_fp(params[part], x, last_linear, bf16)
         dense_in = batch.dense
         if qc.quantize_activation:  # the reference's branch 1: FP MLPs behind quant_input
             dense_in, _ = quant_act(0, batch.dense)

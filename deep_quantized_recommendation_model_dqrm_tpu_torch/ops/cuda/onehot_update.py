@@ -25,7 +25,9 @@ K4:
 - `onehot_pooled_lookup_fwd` — K4's forward for one table, dispatching the
   same way;
 - `OnehotLookupGroup` / `make_onehot_lookup_group` — float32 tables looked
-  up together, each into its slot of a [T, B, D] output;
+  up together, each into its slot of a [T, B, D] output, or (given
+  `cols`) tables of any widths, each into its [B, D_i] block of a flat
+  output (the serving model's QR and MD members);
 - `onehot_pooled_lookup_grouped_plain` / `onehot_pooled_lookup_grouped_fwd`
   — the lookups of a group: a loop of `pooled_lookup_weighted_plain`, and
   the wrapper that launches the kernel once for the group;
@@ -52,6 +54,7 @@ import torch
 
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda import _build
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import (
+    block_view,
     check_slots_fit,
     clamp_ids,
     grouped_lookup_out,
@@ -259,55 +262,71 @@ def pooled_lookup_weighted_plain(
 
 class OnehotLookupGroup(NamedTuple):
     """Tables looked up together: table `tables[i]` reads ids and mask
-    `slots[i]` of a [T, B, P] batch and writes slot `slots[i]` of the
-    [T, B, D] output. `descs` is the kernel's descriptor (one row of 3 int64
-    per table: address, rows, slot) in host memory; it holds raw addresses,
-    so the group keeps the tables, which must outlive it. `grad` is the K1
-    group of the tables' gradients."""
+    `slots[i]` of a [T, B, P] batch and writes the [B, D_i] block at float
+    offset `cols[i] * B` of the output: slot `slots[i]` of a [T, B, D]
+    output (the tables share D, `dim`), or for a group made with `cols` a
+    block of the caller's flat output of `width * B` floats (`width` is
+    None otherwise; `dim` is None where the widths differ). `descs` is the
+    kernel's descriptor (one row of 5 int64 per table: address, rows, slot,
+    D_i, column) in host memory; it holds raw addresses, so the group keeps
+    the tables, which must outlive it. `grad` is the K1 group of the
+    tables' gradients (one D only)."""
 
     tables: Tuple[torch.Tensor, ...]
     slots: Tuple[int, ...]
-    dim: int
+    dim: Optional[int]
+    cols: Tuple[int, ...]
+    width: Optional[int]
     descs: torch.Tensor
-    grad: DenseGradGroup
+    grad: Optional[DenseGradGroup]
 
 
 def make_onehot_lookup_group(tables: Sequence[torch.Tensor],
-                             slots: Optional[Sequence[int]] = None) -> OnehotLookupGroup:
-    """Group `tables` (slot i for table i unless `slots` is given). The
-    tables are [rows, D] with one D, on one device."""
+                             slots: Optional[Sequence[int]] = None,
+                             cols: Optional[Sequence[int]] = None) -> OnehotLookupGroup:
+    """Group `tables` (slot i for table i unless `slots` is given), on one
+    device. Without `cols` the tables are [rows, D] with one D and write
+    their slots of a [T, B, D] output; with `cols` they may differ in D and
+    write [B, D_i] blocks at `cols[i] * B` of a flat output."""
     tables = tuple(tables)
     slots = tuple(int(k) for k in (range(len(tables)) if slots is None else slots))
     _check_slots(slots, len(tables))
     if any(t.dim() != 2 for t in tables):
         raise ValueError("grouped tables must be [rows, D]")
-    dims = {t.shape[1] for t in tables}
-    if len(dims) != 1:
-        raise ValueError(f"grouped tables must share D, got {sorted(dims)}")
+    dims = [t.shape[1] for t in tables]
+    if cols is None and len(set(dims)) != 1:
+        raise ValueError(f"grouped tables must share D, got {sorted(set(dims))}")
     if len({t.device for t in tables}) != 1:
         raise ValueError("grouped tables must lie on one device")
+    flat = cols is not None
+    cols = tuple(int(c) for c in cols) if flat else tuple(k * dims[0] for k in slots)
+    if len(cols) != len(tables) or min(cols) < 0:
+        raise ValueError(f"each table needs a column >= 0, got {cols}")
     rows = [t.shape[0] for t in tables]
-    descs = torch.tensor([[t.data_ptr(), n, k] for t, n, k in zip(tables, rows, slots)],
-                         dtype=torch.int64)
-    return OnehotLookupGroup(tables=tables, slots=slots, dim=dims.pop(), descs=descs,
-                             grad=make_dense_grad_group(rows, slots))
+    descs = torch.tensor([[t.data_ptr(), n, k, d, c]
+                          for t, n, k, d, c in zip(tables, rows, slots, dims, cols)], dtype=torch.int64)
+    dim = dims[0] if len(set(dims)) == 1 else None
+    return OnehotLookupGroup(tables=tables, slots=slots, dim=dim, cols=cols,
+                             width=max(c + d for c, d in zip(cols, dims)) if flat else None, descs=descs,
+                             grad=make_dense_grad_group(rows, slots) if dim is not None else None)
 
 
 def onehot_pooled_lookup_grouped_plain(
     group: OnehotLookupGroup,
     indices: torch.Tensor,  # [T, B, P] int32
     mask: Optional[torch.Tensor] = None,  # [T, B, P]; None means weights of one
-    out: Optional[torch.Tensor] = None,  # [T, B, D] float32
-) -> torch.Tensor:  # [T, B, D] float32
+    out: Optional[torch.Tensor] = None,  # [T, B, D] float32, or flat (see the group)
+) -> torch.Tensor:
     """Plain version of the grouped K4: `pooled_lookup_weighted_plain` of each
-    table into its slot of `out` (a new tensor unless given; slots outside
-    the group are then 0). Differentiable."""
+    table into its block of `out` (a new [T, B, D] tensor unless given;
+    slots outside the group are then 0). Differentiable."""
     _check_mask(mask, indices)
-    out = grouped_lookup_out(group.slots, group.dim, indices, out)
-    for t, k in zip(group.tables, group.slots):
+    out = grouped_lookup_out(group.slots, group.dim, indices, out, group.width)
+    B = indices.shape[1]
+    for t, k, c in zip(group.tables, group.slots, group.cols):
         w = torch.ones(indices.shape[1:], dtype=torch.float32, device=indices.device) \
             if mask is None else mask[k]
-        out[k] = pooled_lookup_weighted_plain(t, indices[k], w)
+        block_view(out, c, B, t.shape[1]).copy_(pooled_lookup_weighted_plain(t, indices[k], w))
     return out
 
 
@@ -316,7 +335,8 @@ def _launch_lookup(group: OnehotLookupGroup, indices, mask, out, dev: torch.devi
     lib = _build.load("onehot_update", _SIGNATURES)
     err = lib.dqrm_pooled_lookup_grouped(
         group.descs.data_ptr(), len(group.tables), indices.data_ptr(),
-        mask.data_ptr() if mask is not None else None, out.data_ptr(), B, P, group.dim, _stream(dev),
+        mask.data_ptr() if mask is not None else None, out.data_ptr(), B, P,
+        max(t.shape[1] for t in group.tables), _stream(dev),
     )
     _build.check(err, "pooled_lookup_grouped")
 
@@ -332,19 +352,19 @@ def onehot_pooled_lookup_grouped_fwd(
     group: OnehotLookupGroup,
     indices: torch.Tensor,  # [T, B, P] int32
     mask: Optional[torch.Tensor] = None,  # [T, B, P] float32
-    out: Optional[torch.Tensor] = None,  # [T, B, D] float32
-) -> torch.Tensor:  # [T, B, D] float32
-    """K4 for every table of `group` in one launch, into its slot of `out`
-    (a new tensor unless given; slots outside the group are then 0): the
-    plain version for a CPU tensor, the CUDA kernel for a CUDA tensor. No
-    gradient.
+    out: Optional[torch.Tensor] = None,  # [T, B, D] float32, or flat (see the group)
+) -> torch.Tensor:
+    """K4 for every table of `group` in one launch, into its block of `out`
+    (a new [T, B, D] tensor unless given; slots outside the group are then
+    0): the plain version for a CPU tensor, the CUDA kernel for a CUDA
+    tensor. No gradient.
 
     Counts its kernel launches in `onehot_pooled_lookup_grouped_fwd.launches`."""
     if indices.device.type == "cpu":
         with torch.no_grad():
             return onehot_pooled_lookup_grouped_plain(group, indices, mask, out)
     dev = _check_lookup_args(group, indices, mask)
-    out = grouped_lookup_out(group.slots, group.dim, indices, out)
+    out = grouped_lookup_out(group.slots, group.dim, indices, out, group.width)
     _launch_lookup(group, indices, mask, out, dev)
     onehot_pooled_lookup_grouped_fwd.launches += 1
     return out
@@ -397,6 +417,8 @@ def onehot_pooled_lookup_grouped(
         return onehot_pooled_lookup_grouped_fwd(group, indices, mask, out)
     if out is not None:
         raise ValueError("out= takes no gradient")
+    if group.width is not None or group.grad is None:
+        raise ValueError("a gradient needs a group of one D writing its slots")
     return _OnehotPooledLookupGrouped.apply(group, indices, mask, *group.tables)
 
 

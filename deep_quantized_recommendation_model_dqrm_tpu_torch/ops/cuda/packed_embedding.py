@@ -21,8 +21,11 @@ on the card the hand-written kernel (csrc/packed_embedding.cu) is the lookup.
   kernel's descriptor array built once;
 - `packed_pooled_lookup_grouped_plain` / `packed_pooled_lookup_grouped` —
   every table of a group over [T, B, P] ids into its slot of one [T, B, D]
-  output (the caller's, or a new one): a loop of `packed_pooled_lookup`,
-  and the wrapper that launches the same kernel once for the whole group.
+  output (the caller's, or a new one), or, for a group made with `cols`,
+  into its [B, D_i] block of a flat output, so that tables of different D
+  (MD's widths, QR's halves) share one launch: a loop of
+  `packed_pooled_lookup`, and the wrapper that launches the same kernel
+  once for the whole group.
 
 Out-of-range ids are clamped to [0, rows - 1] by both, as the JAX package's
 fused serving path does; the JAX per-table path returns filler rows for them.
@@ -37,7 +40,10 @@ import torch
 
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops import quant as q
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda import _build
-from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import grouped_lookup_out
+from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import (
+    block_view,
+    grouped_lookup_out,
+)
 
 
 class PackedTable(NamedTuple):
@@ -59,12 +65,14 @@ class PackedTable(NamedTuple):
 
 
 def pack_table(table: torch.Tensor, bits: int = 4, rowwise: bool = False) -> PackedTable:
-    """Quantize + bit-pack a [rows, D] float32 table (bit-identical to the
-    JAX package's `pack_table`)."""
-    if table.dtype != torch.float32:
-        raise NotImplementedError(
-            "packing bfloat16 tables: training slice of the port"
-        )
+    """Quantize + bit-pack a [rows, D] float32 or bf16 table (bit-identical
+    to the JAX package's `pack_table`, whose reductions run in the table's
+    dtype and whose arithmetic promotes a bf16 table wherever it meets a
+    float32 operand). Scale and bias are stored as float32: the 8-bit
+    rowwise pair of a bf16 table holds bf16 values, which the lookup
+    multiplies in float32 as the JAX package does."""
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"pack_table takes float32 or bfloat16 tables, got {table.dtype}")
     if bits not in (4, 8):
         raise ValueError(f"unsupported pack bits {bits}")
     rows, D = table.shape
@@ -89,11 +97,12 @@ def pack_table(table: torch.Tensor, bits: int = 4, rowwise: bool = False) -> Pac
             inv = torch.where(rng == 0, torch.ones_like(rng), q.divide(n, rng))
             scale = q.divide(rng, n)
             qv = torch.clamp(torch.round((table - bias[:, None]) * inv[:, None]), 0, n)
+            scale, bias = scale.float(), bias.float()
         qv = qv.to(torch.uint8)
     else:
         scale = q.table_scale(bits, table)
         n = q.intmax(bits)
-        qv = torch.clamp(torch.round(table / scale), -n - 1, n).to(torch.int32)
+        qv = torch.clamp(torch.round(table.float() / scale), -n - 1, n).to(torch.int32)
         # signed values stored offset into the unsigned nibble/byte range
         qv = (qv + 2 ** (bits - 1)).to(torch.uint8)
         bias = None
@@ -224,56 +233,83 @@ packed_pooled_lookup_kernel.launches = 0
 
 class PackedGroup(NamedTuple):
     """Packed tables looked up together: table `tables[i]` reads ids and mask
-    `slots[i]` of a [T, B, P] batch and writes slot `slots[i]` of the
-    [T, B, D] output. `descs` is the kernel's descriptor array (one row of 8
-    int64 per table: data, scale and bias addresses, rows, bits, D, slot, 0),
-    on the tables' device; it holds raw addresses, so the group keeps the
-    tables, which must outlive it."""
+    `slots[i]` of a [T, B, P] batch and writes the [B, D_i] block at float
+    offset `cols[i] * B` of the output: slot `slots[i]` of a [T, B, D]
+    output (the tables share D, `dim`), or for a group made with `cols` a
+    block of the caller's flat output of `width * B` floats (`width` is
+    None otherwise; `dim` is None where the widths differ). `descs` is the
+    kernel's descriptor array (one row of 8 int64 per table: data, scale and
+    bias addresses, rows, bits, D_i, slot, column), on the tables' device;
+    it holds raw addresses, so the group keeps the tables, which must
+    outlive it."""
 
     tables: tuple
     slots: tuple
-    dim: int
+    dim: Optional[int]
+    cols: tuple
+    width: Optional[int]
     descs: torch.Tensor
     max_items_per_bag: int  # 8-byte row chunks (or bytes) per bag, the largest
 
 
-def make_packed_group(tables: Sequence[PackedTable], slots: Optional[Sequence[int]] = None) -> PackedGroup:
+def _vector_rows(pt: PackedTable) -> bool:
+    """Whether the kernel takes the table's rows in 8-byte chunks (and
+    writes its sums as 16-byte stores)."""
+    return pt.data.shape[1] % 8 == 0
+
+
+def make_packed_group(tables: Sequence[PackedTable], slots: Optional[Sequence[int]] = None,
+                      cols: Optional[Sequence[int]] = None) -> PackedGroup:
     """Group `tables` (slot i for table i unless `slots` is given) and build
-    the kernel's descriptor array once. The tables share D and a device."""
+    the kernel's descriptor array once. Without `cols` the tables share D
+    and write their slots of a [T, B, D] output; with `cols` they may
+    differ in D and write [B, D_i] blocks at `cols[i] * B` of a flat
+    output (a table with 8-byte row chunks needs a column that is a
+    multiple of 4: its block takes 16-byte stores)."""
     tables = tuple(tables)
     slots = tuple(range(len(tables)) if slots is None else slots)
     if not tables or len(slots) != len(tables) or len(set(slots)) != len(slots) or min(slots) < 0:
         raise ValueError("a group needs tables, each with its own slot >= 0")
     dims = {pt.dim for pt in tables}
-    if len(dims) != 1:
-        raise ValueError(f"grouped tables must share D, got {sorted(dims)}")
+    flat = cols is not None
+    if not flat:
+        if len(dims) != 1:
+            raise ValueError(f"grouped tables must share D, got {sorted(dims)}")
+        cols = tuple(k * pt.dim for k, pt in zip(slots, tables))
+    cols = tuple(int(c) for c in cols)
+    if len(cols) != len(tables) or min(cols) < 0 or any(
+            c % 4 for c, pt in zip(cols, tables) if _vector_rows(pt)):
+        raise ValueError(f"bad output columns {cols}")
     dev = tables[0].data.device
     for pt in tables:
         _check_table(pt, dev)
     rows, items = [], []
-    for pt, slot in zip(tables, slots):
+    for pt, slot, col in zip(tables, slots, cols):
         dp = pt.data.shape[1]
-        items.append(dp // 8 if dp % 8 == 0 else dp)
+        items.append(dp // 8 if _vector_rows(pt) else dp)
         rows.append([pt.data.data_ptr(), pt.scale.data_ptr(),
                      pt.bias.data_ptr() if pt.bias is not None else 0,
-                     pt.rows, pt.bits, pt.dim, slot, 0])
+                     pt.rows, pt.bits, pt.dim, slot, col])
     descs = torch.tensor(rows, dtype=torch.int64).to(dev)
-    return PackedGroup(tables=tables, slots=slots, dim=dims.pop(), descs=descs,
-                       max_items_per_bag=max(items))
+    return PackedGroup(tables=tables, slots=slots, dim=dims.pop() if len(dims) == 1 else None,
+                       cols=cols, width=max(c + pt.dim for c, pt in zip(cols, tables)) if flat else None,
+                       descs=descs, max_items_per_bag=max(items))
 
 
 def packed_pooled_lookup_grouped_plain(
     group: PackedGroup,
     indices: torch.Tensor,  # [T, B, P] int32
     mask: Optional[torch.Tensor] = None,  # [T, B, P]
-    out: Optional[torch.Tensor] = None,  # [T, B, D] float32
-) -> torch.Tensor:  # [T, B, D] float32
+    out: Optional[torch.Tensor] = None,  # [T, B, D] float32, or flat (see the group)
+) -> torch.Tensor:
     """Plain version of the grouped lookup: `packed_pooled_lookup` of each
-    table of the group into its slot of `out` (a new tensor unless given;
-    its slots outside the group are then 0)."""
-    out = grouped_lookup_out(group.slots, group.dim, indices, out)
-    for pt, k in zip(group.tables, group.slots):
-        out[k] = packed_pooled_lookup(pt, indices[k], None if mask is None else mask[k])
+    table of the group into its block of `out` (a new [T, B, D] tensor
+    unless given; its slots outside the group are then 0)."""
+    out = grouped_lookup_out(group.slots, group.dim, indices, out, group.width)
+    B = indices.shape[1]
+    for pt, k, c in zip(group.tables, group.slots, group.cols):
+        block_view(out, c, B, pt.dim).copy_(
+            packed_pooled_lookup(pt, indices[k], None if mask is None else mask[k]))
     return out
 
 
@@ -281,12 +317,12 @@ def packed_pooled_lookup_grouped(
     group: PackedGroup,
     indices: torch.Tensor,  # [T, B, P] int32
     mask: Optional[torch.Tensor] = None,  # [T, B, P] float32
-    out: Optional[torch.Tensor] = None,  # [T, B, D] float32
-) -> torch.Tensor:  # [T, B, D] float32
-    """Every table of `group` in one launch, into its slot of `out` (a new
-    tensor unless given; its slots outside the group are then 0): the plain
-    version for a CPU tensor, the CUDA kernel (csrc/packed_embedding.cu) for
-    a CUDA tensor.
+    out: Optional[torch.Tensor] = None,  # [T, B, D] float32, or flat (see the group)
+) -> torch.Tensor:
+    """Every table of `group` in one launch, into its block of `out` (a new
+    [T, B, D] tensor unless given; its slots outside the group are then 0):
+    the plain version for a CPU tensor, the CUDA kernel
+    (csrc/packed_embedding.cu) for a CUDA tensor.
 
     Counts its kernel launches in `packed_pooled_lookup_grouped.launches`."""
     if indices.device.type == "cpu":
@@ -294,13 +330,16 @@ def packed_pooled_lookup_grouped(
     dev = indices.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    out = grouped_lookup_out(group.slots, group.dim, indices, out)
+    out = grouped_lookup_out(group.slots, group.dim, indices, out, group.width)
     if group.descs.device != dev:
         raise ValueError("packed tables, indices and mask must be on one device")
     _check_ids(indices, mask, dev)
+    if out.data_ptr() % 16:
+        raise ValueError("the output must start 16-byte aligned")
     _, B, P = indices.shape
     if B == 0 or P == 0:
-        out[list(group.slots)] = 0.0
+        for pt, c in zip(group.tables, group.cols):
+            block_view(out, c, B, pt.dim).zero_()
         return out
     lib = _build.load("packed_embedding", _SIGNATURES)
     err = lib.dqrm_packed_pooled_lookup_grouped(

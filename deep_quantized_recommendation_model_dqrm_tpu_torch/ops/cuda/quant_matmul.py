@@ -14,6 +14,16 @@ Both take `relu=True` to apply ReLU to the result, as the serving MLP does
 after every layer but the last; the kernel fuses it into its epilogue. The
 kernel runs on the tensor cores with x split into three bf16 terms, so it
 agrees with the plain version to float32 rounding, not bit for bit.
+
+`int8_linear_dynamic` is the serving MLP's `mlp_impl="int8"` (the JAX
+package's `int8_linear_dynamic`, quant_matmul.py:101-119, which XLA
+computes with one int8 x int8 -> int32 product: no Pallas kernel): x
+quantized per row to int8 at s_x = max(max|x|, 1e-8) / 127, the int32
+product with the int8 weights by `torch._int_mm` (Hopper's int8 tensor
+cores on the card, which need M > 16 and K, N multiples of 8: zeros pad
+them, exactly, and the result is sliced back), then acc * (s_x s_w) + b.
+`int8_linear_dynamic_plain` takes the int32 product as an exact float64
+product instead: the reference the card's path is held to.
 """
 
 from __future__ import annotations
@@ -96,3 +106,53 @@ def int8_linear(x: torch.Tensor, qw: QuantLinearWeights, relu: bool = False) -> 
 
 
 int8_linear.launches = 0
+
+
+def _quantize_rows(x: torch.Tensor):
+    """(int8 x, per-row scale): s_x = max(max|x|, 1e-8) / 127, x / s_x
+    rounded half to even and clipped to [-127, 127] (true divisions, as the
+    JAX package computes them)."""
+    s_x = q.divide(torch.clamp_min(x.abs().amax(dim=1), 1e-8), 127.0)
+    return torch.clamp(torch.round(x / s_x[:, None]), -127, 127).to(torch.int8), s_x
+
+
+def _rescale(acc: torch.Tensor, s_x: torch.Tensor, qw: QuantLinearWeights, relu: bool) -> torch.Tensor:
+    out = acc.to(torch.float32) * (s_x[:, None] * qw.scale[None, :]) + qw.bias
+    return torch.relu(out) if relu else out
+
+
+def int8_linear_dynamic_plain(x: torch.Tensor, qw: QuantLinearWeights,
+                              relu: bool = False) -> torch.Tensor:
+    """Plain version of `int8_linear_dynamic`: the int32 product as a
+    float64 product of the integers (exact: |sum| < 2^53)."""
+    x_int, s_x = _quantize_rows(x)
+    acc = (x_int.double() @ qw.w_int.double().T).to(torch.int32)
+    return _rescale(acc, s_x, qw, relu)
+
+
+def _pad_to(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    if t.shape == (rows, cols):
+        return t
+    return torch.nn.functional.pad(t, (0, cols - t.shape[1], 0, rows - t.shape[0]))
+
+
+def int8_linear_dynamic(x: torch.Tensor, qw: QuantLinearWeights, relu: bool = False) -> torch.Tensor:
+    """Dynamic int8 activations, int8 x int8 -> int32 product
+    (`torch._int_mm`), rescale, then ReLU if `relu`. On the card M, K and N
+    are zero-padded to what `torch._int_mm` takes there.
+
+    Counts its products in `int8_linear_dynamic.launches`."""
+    x_int, s_x = _quantize_rows(x)
+    M, K = x_int.shape
+    N = qw.w_int.shape[0]
+    w_int = qw.w_int
+    if x.device.type == "cuda":
+        up8 = lambda n: -(-n // 8) * 8  # noqa: E731
+        Mp, Kp, Np = max(M, 17), up8(K), up8(N)
+        x_int, w_int = _pad_to(x_int, Mp, Kp), _pad_to(w_int, Np, Kp)
+    acc = torch._int_mm(x_int, w_int.T)[:M, :N]
+    int8_linear_dynamic.launches += 1
+    return _rescale(acc, s_x, qw, relu)
+
+
+int8_linear_dynamic.launches = 0

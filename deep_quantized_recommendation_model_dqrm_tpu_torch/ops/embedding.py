@@ -86,20 +86,36 @@ def check_slots_fit(slots: Tuple[int, ...], indices: torch.Tensor) -> None:
 
 def grouped_lookup_out(
     slots: Tuple[int, ...],
-    dim: int,
+    dim: Optional[int],
     indices: torch.Tensor,  # [T, B, P]
     out: Optional[torch.Tensor] = None,
-) -> torch.Tensor:  # [T, B, dim] float32
-    """The [T, B, dim] float32 output of a grouped lookup whose tables write
-    `slots`: `out` once checked, else a new tensor whose other slots read 0."""
+    width: Optional[int] = None,
+) -> torch.Tensor:
+    """The output of a grouped lookup whose tables write `slots`: without
+    `width`, float32 [T, B, dim] (`out` once checked, else a new tensor whose
+    other slots read 0); with `width` (a group writing [B, D_i] blocks at
+    columns of a flat output), the caller's contiguous float32 `out` of at
+    least width * B values."""
     check_slots_fit(slots, indices)
     T, B, _ = indices.shape
+    if width is not None:
+        if out is None or out.dtype != torch.float32 or out.numel() < width * B \
+                or not out.is_contiguous() or out.device != indices.device:
+            raise ValueError(f"a group of columns writes a contiguous float32 out= of at least "
+                             f"{width} x {B}")
+        return out
     if out is None:
         alloc = torch.empty if len(slots) == T else torch.zeros
         return alloc((T, B, dim), dtype=torch.float32, device=indices.device)
     if out.shape != (T, B, dim) or out.dtype != torch.float32 or out.device != indices.device:
         raise ValueError(f"out must be float32 [{T}, {B}, {dim}] on {indices.device}")
     return out
+
+
+def block_view(out: torch.Tensor, col: int, B: int, dim: int) -> torch.Tensor:
+    """The [B, dim] block at float offset col * B of a contiguous grouped
+    lookup output (slot k of a [T, B, D] output is the block at k * D)."""
+    return out.view(-1)[col * B:(col + dim) * B].view(B, dim)
 
 
 def clamp_ids(ids: torch.Tensor, num_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops import quant as q
+from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.matmul import gram
 
 
 def _tril_indices(num_fea: int, interact_itself: bool) -> Tuple[np.ndarray, np.ndarray]:
@@ -43,11 +44,14 @@ def dot_interaction(
     x: torch.Tensor,  # [B, D] bottom MLP output
     ly: torch.Tensor,  # [T, B, D] pooled embeddings
     interact_itself: bool = False,
+    bf16: bool = False,
 ) -> torch.Tensor:  # [B, D + npairs]
     """Dot-product interaction: Gram matrix lower triangle + dense passthrough,
-    in float32 (a plain product, as XLA computed it)."""
+    in float32 (a plain product, as XLA computed it), or with `bf16` on bf16
+    operands with float32 sums (the JAX package's `compute_dtype=bfloat16`;
+    the dense passthrough stays float32)."""
     tb = torch.cat([x[None], ly], dim=0).transpose(0, 1)  # [B, F, D]
-    z = torch.bmm(tb, tb.transpose(1, 2))  # [B, F, F]
+    z = gram(tb, bf16)  # [B, F, F]
     flat = z.reshape(z.shape[0], -1)[:, _tril_flat_index(tb.shape[1], interact_itself, z.device)]
     return torch.cat([x, flat], dim=1)
 

@@ -267,7 +267,7 @@ def make_dp_train_step(
     steps per call over a list of batches or one stacked Batch
     (`train_step.repeat_step`). `plain=True` takes the plain versions of K1,
     K4 and K5. `group` and `backend`: see `world_size`."""
-    _check(config, tc)
+    _check(config, tc, "data-parallel")
     if tc.ranking_range:
         raise NotImplementedError("ranking_range: a later slice of the port (ROADMAP.md queue 1 item 6)")
     dev = resolve_device(device)
@@ -366,6 +366,7 @@ def make_dp_nosync_train_step(config: DLRMConfig, tc: TrainConfig, group=None,
     dense autograd and manual SGD, and the replicas drift until
     `make_weight_sync` averages them. Returns (DPState, the loss averaged
     over the ranks)."""
+    dlrm.check_supported(config, "dp-nosync")
     world_size(device, backend, group)
     local = _build_step_fn(config, tc.replace(optimizer="sgd"), plain=plain, device=device)
 
@@ -382,7 +383,7 @@ def make_dp_eval_step(config: DLRMConfig, group=None, plain: bool = False, devic
     dlrm_s_pytorch_comm_grad.py:1170-1305): each rank scores its batch slice
     and the probabilities are all-gathered, so every rank sees the global
     batch's [N B] scores in rank order."""
-    dlrm.check_supported(config)
+    dlrm.check_supported(config, "data-parallel")
     dev = resolve_device(device)
     world_size(dev, backend, group)
 

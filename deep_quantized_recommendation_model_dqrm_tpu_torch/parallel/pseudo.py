@@ -82,7 +82,7 @@ def make_pseudo_train_step(config: DLRMConfig, tc: TrainConfig, num_workers: int
     """The simulated N-worker step: takes (PseudoState, a Batch of B rows,
     B % num_workers == 0) and returns (new state, mean loss of the N
     micro-steps). `plain=True` takes the plain versions of K1, K4 and K5."""
-    _check(config, tc)
+    _check(config, tc, "pseudo")
     dev = resolve_device(device)
     qc = config.quant
     gb = tc.grad_quant_bits

@@ -1,21 +1,25 @@
 """Serving: post-training quantization export + packed inference engine.
 
-Port of the JAX package's serving.py for plain embedding tables:
+Port of the JAX package's serving.py:
 
-- `ptq_export` packs trained float32 params into a `ServingModel`: tables
-  bit-packed to INT4/INT8 (symmetric per-table, or rowwise ATen-style),
-  MLP weights INT8 per output channel (or kept float32);
+- `ptq_export` packs trained params (float32 or bf16 tables) into a
+  `ServingModel`: tables bit-packed to INT4/INT8 (symmetric per-table, or
+  rowwise ATen-style), each component of a QR or MD table packed the same
+  way (an MD projection stays float32), the pooling weights `v_W` kept
+  float32, MLP weights INT8 per output channel (or kept float32);
 - `make_serving_fn` builds the inference function over the packed model:
   one grouped gather-dequant-pool launch for the packed tables (kernel K2),
   or for tables with at most `onehot_lookup_max_rows` rows, unpacked once,
-  one grouped launch of kernel K4, int8 dequant matmuls with the
-  ReLU fused (kernel K3), dot or cat interaction, sigmoid,
-  `loss_threshold` clip;
+  one grouped launch of kernel K4; QR's quotient and remainder and MD's
+  narrow tables are members of the same launches, composed or projected
+  after them; `v_W[ids]` times the mask as both kernels' weights; int8
+  dequant matmuls with the ReLU fused (kernel K3), or with
+  `mlp_impl="int8"` dynamic int8 activations and an int8 product; dot or
+  cat interaction, sigmoid, `loss_threshold` clip;
 - `ServingEngine` pads requests on the host to the nearest bucket size and
   chunks large ones; `MicroBatcher` aggregates concurrent requests from many
   threads into one device batch per dispatch.
 
-The QR/MD/weighted-pooling entries, `mlp_impl="int8"`,
 `ptq_export_streaming` and `export_stablehlo` wait for later slices of the
 port.
 """
@@ -25,13 +29,13 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Callable, List, NamedTuple, Optional, Sequence
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from deep_quantized_recommendation_model_dqrm_tpu_torch.config import DLRMConfig
-from deep_quantized_recommendation_model_dqrm_tpu_torch.models import dlrm
+from deep_quantized_recommendation_model_dqrm_tpu_torch.models import dlrm, tricks
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
     group_slots,
     make_onehot_lookup_group,
@@ -49,9 +53,12 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embeddin
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import (
     QuantLinearWeights,
     int8_linear,
+    int8_linear_dynamic,
+    int8_linear_dynamic_plain,
     int8_linear_xla,
     quantize_linear_weights,
 )
+from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import block_view
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.interaction import (
     cat_interaction,
     dot_interaction,
@@ -60,10 +67,21 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.interaction import (
 
 class ServingModel(NamedTuple):
     config: DLRMConfig
-    emb: List[PackedTable]
+    # per table: a PackedTable, or for QR {"q", "r"} of PackedTables and for
+    # MD {"table": PackedTable[, "proj": float32 [D, d_k]]}
+    emb: List[Any]
     bot: List  # QuantLinearWeights or fp32 {"w","b"} dicts
     top: List
     mlp_bits: int  # 32 = fp32 MLP
+    vw: Optional[List[torch.Tensor]] = None  # per-row pooling weights, float32 [n_k]
+
+
+def _pack_entry(t, emb_bits: int, rowwise: bool):
+    """A table packed, or each component of a QR/MD dict (the projection
+    kept as it is); JAX serving.py:98-114."""
+    if not isinstance(t, dict):
+        return pack_table(t, bits=emb_bits, rowwise=rowwise)
+    return {k: v if k == "proj" else pack_table(v, bits=emb_bits, rowwise=rowwise) for k, v in t.items()}
 
 
 def ptq_export(
@@ -75,28 +93,33 @@ def ptq_export(
 ) -> ServingModel:
     """Pack a trained model for serving (quantize_dynamic +
     quantize_embedding, dlrm_s_pytorch.py:1446-1471). emb_bits in {4, 8},
-    mlp_bits in {8, 32}. The model stays on the params' device."""
+    mlp_bits in {8, 32}. QR/MD tables pack each component at emb_bits (the
+    reference's PTQ packs plain tables only); INT4 needs even widths, so an
+    MD model with odd widths packs at 8 bits. The pooling weights ride
+    along in float32. The model stays on the params' device."""
     if emb_bits not in (4, 8):
         raise ValueError("emb_bits must be 4 or 8 for packed serving")
     if mlp_bits not in (8, 32):
         raise ValueError("mlp_bits must be 8 or 32")
-    if config.weighted_pooling is not None or any(isinstance(t, dict) for t in params["emb"]):
-        raise NotImplementedError(
-            "QR/MD tables and weighted pooling in serving: a later slice of the port"
-        )
-    emb = [pack_table(t, bits=emb_bits, rowwise=rowwise) for t in params["emb"]]
+    emb = [_pack_entry(t, emb_bits, rowwise) for t in params["emb"]]
     if mlp_bits == 8:
         bot = [quantize_linear_weights(l["w"], l["b"], 8) for l in params["bot"]]
         top = [quantize_linear_weights(l["w"], l["b"], 8) for l in params["top"]]
     else:
         bot, top = params["bot"], params["top"]
-    return ServingModel(config=config, emb=emb, bot=bot, top=top, mlp_bits=mlp_bits)
+    vw = list(params["v_W"]) if config.weighted_pooling is not None else None
+    return ServingModel(config=config, emb=emb, bot=bot, top=top, mlp_bits=mlp_bits, vw=vw)
 
 
 def serving_model_bytes(sm: ServingModel) -> int:
     """Model size in bytes (the paper's 8x compression measurement,
     Table 3)."""
-    n = sum(e.nbytes() for e in sm.emb)
+    n = 0
+    for e in sm.emb:
+        for v in (e.values() if isinstance(e, dict) else [e]):
+            n += v.nbytes() if isinstance(v, PackedTable) else v.numel() * 4
+    if sm.vw is not None:
+        n += sum(v.numel() * 4 for v in sm.vw)
     for layers in (sm.bot, sm.top):
         for l in layers:
             if isinstance(l, QuantLinearWeights):
@@ -111,12 +134,51 @@ def _apply_mlp_serving(layers, x, mlp_bits: int, last_linear: bool, linear8) -> 
     for i, l in enumerate(layers):
         relu = not (last_linear and i == nl - 1)
         if mlp_bits == 8:
-            x = linear8(x, l, relu=relu)  # ReLU fused into the kernel's epilogue
+            x = linear8(x, l, relu=relu)  # ReLU fused into K3's epilogue
         else:
             x = x @ l["w"].T + l["b"]
             if relu:
                 x = torch.relu(x)
     return x
+
+
+class _Member(NamedTuple):
+    """One packed table of the lookup: reads id row `slot`, writes the
+    [B, dim] block at column `col` of the output."""
+
+    pt: PackedTable
+    slot: int
+    col: int
+
+
+def _members(sm: ServingModel):
+    """(members, QR slots, width): every packed table of the model with its
+    id row and output column. Plain tables (and MD tables of the full width)
+    write slot k of the leading [T, B, D] block; QR's q and r read the
+    extra id rows T + i and T + n_qr + i (ids // c and ids % c) and MD's
+    narrow tables their own ids, and write blocks after it, each at a
+    column that is a multiple of 4 (16-byte aligned)."""
+    T, D = len(sm.emb), sm.config.embedding_dim
+    qr = [k for k, e in enumerate(sm.emb) if isinstance(e, dict) and "q" in e]
+    members, col = [], T * D
+
+    def extra(pt, slot):
+        nonlocal col
+        members.append(_Member(pt, slot, col))
+        col += -(-pt.dim // 4) * 4
+
+    for k, e in enumerate(sm.emb):
+        if not isinstance(e, dict):
+            members.append(_Member(e, k, k * D))
+        elif "q" in e:
+            i = qr.index(k)
+            extra(e["q"], T + i)
+            extra(e["r"], T + len(qr) + i)
+        elif "proj" in e:
+            extra(e["table"], k)
+        else:
+            members.append(_Member(e["table"], k, k * D))
+    return members, qr, col
 
 
 def make_serving_fn(
@@ -139,42 +201,93 @@ def make_serving_fn(
     beside the packed model (the 18 such Kaggle tables hold 47,398 rows:
     3,033,472 bytes of float32 at D = 16; `serving_model_bytes` stays the
     export's size), and one `onehot_pooled_lookup_grouped_fwd` launch
-    (kernel K4) looks them up into their slots of the same output.
-    `fused_gather=True` is accepted for the JAX package's signature:
-    that package's one gather for all tables gives the per-table results,
-    and here every lookup is one grouped launch already. `plain=True` calls
-    the plain versions on any device — the reference the kernels are checked
-    against on the card. `use_pallas_lookup` and `use_pallas_mlp` are
-    accepted for the JAX package's signature and change nothing: there they
-    choose the Pallas kernels over XLA's gather and matmul, and here the
-    kernels are the only path."""
+    (kernel K4) per 32 of them looks them up into the same output.
+
+    QR and MD tables (JAX serving.py:388-445): each QR table's q and r are
+    two members of those launches, reading ids // c and ids % c (one
+    [T + 2 n_qr, B, P] id tensor built per batch in one pass), composed
+    after the launch; an MD table's narrow table writes its own block of
+    the output, projected after the launch. The blocks have any width, so
+    one K2 launch serves all the packed tables. With weighted pooling the
+    weights v_W[k][ids] (one gather from the vectors concatenated here,
+    once) times the mask are the kernels' weights.
+
+    `mlp_impl="int8"` runs the int8 layers as `int8_linear_dynamic` (the
+    reference's quantize_dynamic: int8 activations, an int8 product, a
+    rescale) instead of K3. `fused_gather=True` is accepted for the JAX
+    package's signature: that package's one gather for all tables gives the
+    per-table results, and here every lookup is one grouped launch already.
+    `plain=True` calls the plain versions on any device — the reference the
+    kernels are checked against on the card. `use_pallas_lookup` and
+    `use_pallas_mlp` are accepted for the JAX package's signature and change
+    nothing: there they choose the Pallas kernels over XLA's gather and
+    matmul, and here the kernels are the only path."""
     del use_pallas_lookup, use_pallas_mlp  # the kernels are the only path
-    if mlp_impl == "int8":
-        raise NotImplementedError(
-            "mlp_impl='int8' (dynamic activation quant + int8 GEMM): a later slice of the port"
-        )
-    if mlp_impl is not None:
+    if mlp_impl not in (None, "int8"):
         raise ValueError(f"unknown mlp_impl {mlp_impl!r}")
     del fused_gather  # the grouped lookup below is the fused path
     cfg = sm.config
+    T, D = len(sm.emb), cfg.embedding_dim
     grouped = packed_pooled_lookup_grouped_plain if plain else packed_pooled_lookup_grouped
     onehot = onehot_pooled_lookup_grouped_plain if plain else onehot_pooled_lookup_grouped_fwd
-    linear8 = int8_linear_xla if plain else int8_linear
-    small = [k for k, pt in enumerate(sm.emb) if 0 < pt.rows <= onehot_lookup_max_rows]
-    big = [k for k in range(len(sm.emb)) if k not in small]
-    group = make_packed_group([sm.emb[k] for k in big], big) if big else None
-    onehot_groups = [make_onehot_lookup_group([unpack_table(sm.emb[k]) for k in ks], ks)
-                     for ks in group_slots(small)]
+    if mlp_impl == "int8":
+        linear8 = int8_linear_dynamic_plain if plain else int8_linear_dynamic
+    else:
+        linear8 = int8_linear_xla if plain else int8_linear
+    members, qr, width = _members(sm)
+    flat = width != T * D or any(m.pt.dim != D for m in members)
+
+    def cols(ms):  # the flat layout's columns, else each table's slot of [T, B, D]
+        return [m.col for m in ms] if flat else None
+
+    by_slot = {m.slot: m for m in members}
+    post = []  # (slot, entry, its members): the QR tables to compose, the MD tables to project
+    for k, e in enumerate(sm.emb):
+        if isinstance(e, dict) and "q" in e:
+            i = qr.index(k)
+            post.append((k, e, [by_slot[T + i], by_slot[T + len(qr) + i]]))
+        elif isinstance(e, dict) and "proj" in e:
+            post.append((k, e, [by_slot[k]]))
+    small = [m for m in members if 0 < m.pt.rows <= onehot_lookup_max_rows]
+    big = [m for m in members if not 0 < m.pt.rows <= onehot_lookup_max_rows]
+    group = make_packed_group([m.pt for m in big], [m.slot for m in big], cols(big)) if big else None
+    onehot_groups = []
+    for part in group_slots(range(len(small))):
+        ms = [small[i] for i in part]
+        onehot_groups.append(make_onehot_lookup_group(
+            [unpack_table(m.pt) for m in ms], [m.slot for m in ms], cols(ms)))
+    vw_flat = vw_off = vw_max = None
+    if sm.vw is not None:
+        dev = sm.vw[0].device
+        vw_flat = torch.cat(list(sm.vw))
+        sizes = torch.tensor([v.shape[0] for v in sm.vw], dtype=torch.int64, device=dev)
+        vw_off = (torch.cumsum(sizes, 0) - sizes)[:, None, None]
+        vw_max = (sizes - 1)[:, None, None]
+    qsel = torch.tensor(qr, dtype=torch.int64, device=members[0].pt.data.device)
 
     @torch.inference_mode()
     def fn(batch: dlrm.Batch) -> torch.Tensor:
-        # [T, B, D]: the K2 group and the K4 groups write its slots between them
-        T, B, _ = batch.indices.shape
-        ly = torch.empty((T, B, cfg.embedding_dim), device=batch.indices.device)
+        indices, w = batch.indices, batch.mask
+        B = indices.shape[1]
+        if vw_flat is not None:  # per_sample_weights v_W[ids] composed with the mask
+            rows = vw_flat[torch.minimum(indices.long().clamp_min(0), vw_max) + vw_off]
+            w = rows if w is None else w * rows
+        if qr:
+            c = cfg.qr_collisions
+            qi = indices[qsel]
+            indices = torch.cat([indices, qi // c, qi % c])
+            if w is not None:
+                w = torch.cat([w, w[qsel], w[qsel]])
+        out = torch.empty(((width if flat else T * D) * B,), device=indices.device)
+        ly = out[:T * D * B].view(T, B, D)
+        kernel_out = out if flat else ly
         if group is not None:
-            grouped(group, batch.indices, batch.mask, out=ly)
+            grouped(group, indices, w, out=kernel_out)
         for og in onehot_groups:
-            onehot(og, batch.indices, batch.mask, out=ly)
+            onehot(og, indices, w, out=kernel_out)
+        for k, e, ms in post:
+            blocks = [block_view(out, m.col, B, m.pt.dim) for m in ms]
+            ly[k] = tricks.qr_compose(*blocks, cfg.qr_operation) if "q" in e else tricks.md_project(e, blocks[0])
         x = _apply_mlp_serving(sm.bot, batch.dense, sm.mlp_bits, False, linear8)
         z = (
             dot_interaction(x, ly, cfg.interact_itself)
@@ -213,7 +326,8 @@ class ServingEngine:
         del use_pallas_lookup, use_pallas_mlp
         self.sm = sm
         self.buckets = sorted(buckets)
-        self.device = sm.emb[0].data.device
+        e = sm.emb[0]
+        self.device = (next(iter(e.values())) if isinstance(e, dict) else e).data.device
         self.fn = make_serving_fn(
             sm, mlp_impl=mlp_impl, onehot_lookup_max_rows=onehot_lookup_max_rows,
             plain=plain,

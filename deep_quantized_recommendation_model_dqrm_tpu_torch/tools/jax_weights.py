@@ -6,6 +6,11 @@ and a packed serving model as NamedTuples of arrays. These functions take
 them as numpy arrays (or anything `np.asarray` accepts, read by attribute
 name), so the port imports nothing of JAX. Values are copied in their own dtype (uint8 packed
 data, int8 weights, float32 scales): no float conversion touches them.
+The params may hold QR/MD dict tables, the pooling weights "v_W" and bf16
+tables: a bf16 array (numpy's 2-byte record type, which the JAX package's
+`np.asarray` and `np.load` give) is read by its bits; the other way, a bf16
+tensor becomes a float32 array of the same values, which the JAX package
+casts back exactly.
 """
 
 from __future__ import annotations
@@ -31,20 +36,27 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import TrainS
 from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
 
 Device = Optional[Union[str, torch.device]]
-PARAM_KEYS = ("emb", "bot", "top", "lsq_emb", "lsq_mlp")
+PARAM_KEYS = ("emb", "bot", "top", "v_W", "lsq_emb", "lsq_mlp")
 
 
 def _tensor(a, dev: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, order="C")).to(dev)
+    a = np.array(a, order="C")
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:  # bfloat16, by its bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def params_from_numpy(np_params: Any, device: Device = None) -> Params:
     """The JAX package's params ({"emb": [..], "bot": [{"w","b"}], "top":
-    [..]} of plain tables, and LSQ's "lsq_emb" and "lsq_mlp" where present)
-    as the port's `Params` on `device`."""
+    [..]}, and "v_W", LSQ's "lsq_emb" and "lsq_mlp" where present) as the
+    port's `Params` on `device`."""
     dev = resolve_device(device)
-    if any(isinstance(t, dict) for t in np_params["emb"]) or "v_W" in np_params:
-        raise NotImplementedError("QR/MD tables and v_W: a later slice of the port")
+
     def port(tree):  # the port's layer order {"w", "b"}; jax.tree_util sorts keys
         if isinstance(tree, dict):
             return {k: port(tree[k]) for k in sorted(tree, key=lambda k: (k != "w", k))}
@@ -58,8 +70,7 @@ def params_from_numpy(np_params: Any, device: Device = None) -> Params:
 def params_to_numpy(params: Params) -> dict:
     """The port's params as numpy arrays in the same nest of dicts and lists,
     the keys in `PARAM_KEYS` order whatever order `params` holds them in."""
-    return {key: tree_map(lambda t: t.detach().cpu().numpy(), params[key])
-            for key in PARAM_KEYS if key in params}
+    return {key: tree_map(_numpy, params[key]) for key in PARAM_KEYS if key in params}
 
 
 def train_state_from_numpy(np_params: Any, np_qstate: Any, device: Device = None,
@@ -71,8 +82,6 @@ def train_state_from_numpy(np_params: Any, np_qstate: Any, device: Device = None
     qs = _quant_state_from_numpy(np_qstate, dev)
     opt = None
     if np_opt_state is not None:
-        if any(isinstance(t, dict) for t in np_opt_state.get("emb", [])) or "v_W" in np_opt_state:
-            raise NotImplementedError("QR/MD tables and v_W: a later slice of the port")
         opt = tree_map(lambda a: _tensor(a, dev), np_opt_state)
     return TrainState(params=params_from_numpy(np_params, dev), opt_state=opt, qstate=qs)
 
@@ -114,7 +123,7 @@ def replica_state_to_numpy(state: Union[DPState, PseudoState]) -> dict:
         "qstate": {"emb_scales": qs.emb_scales.cpu().numpy(), "act_min": qs.act_min.cpu().numpy(),
                    "act_max": qs.act_max.cpu().numpy(), "step": np.int32(qs.step),
                    "act_fixed": np.int32(qs.act_fixed)},
-        "ec": tree_map(lambda t: t.detach().cpu().numpy(), state.ec),
+        "ec": tree_map(_numpy, state.ec),
     }
 
 
@@ -123,26 +132,25 @@ def opt_state_to_numpy(opt_state: Any) -> Any:
     stays None)."""
     if opt_state is None:
         return None
-    return tree_map(lambda t: t.detach().cpu().numpy(), opt_state)
+    return tree_map(_numpy, opt_state)
 
 
 def serving_model_from_numpy(config: DLRMConfig, sm: Any, device: Device = None) -> ServingModel:
-    """A JAX `ServingModel` (plain PackedTable entries; QuantLinearWeights or
-    {"w","b"} MLP layers) as the port's `ServingModel` on `device`, under the
-    port's `config`."""
+    """A JAX `ServingModel` (PackedTable entries, QR {"q", "r"} and MD
+    {"table"[, "proj"]} dicts of them; QuantLinearWeights or {"w","b"} MLP
+    layers; `vw` where present) as the port's `ServingModel` on `device`,
+    under the port's `config`."""
     dev = resolve_device(device)
-    if getattr(sm, "vw", None) is not None or any(isinstance(e, dict) for e in sm.emb):
-        raise NotImplementedError("QR/MD tables and v_W: a later slice of the port")
-    emb = [
-        PackedTable(
-            data=_tensor(e.data, dev),
-            scale=_tensor(e.scale, dev),
-            bias=_tensor(e.bias, dev) if e.bias is not None else None,
-            bits=int(e.bits),
-            dim=int(e.dim),
-        )
-        for e in sm.emb
-    ]
+
+    def packed(e):
+        return PackedTable(data=_tensor(e.data, dev), scale=_tensor(e.scale, dev),
+                           bias=_tensor(e.bias, dev) if e.bias is not None else None,
+                           bits=int(e.bits), dim=int(e.dim))
+
+    def entry(e):
+        if isinstance(e, dict):
+            return {k: _tensor(v, dev) if k == "proj" else packed(v) for k, v in e.items()}
+        return packed(e)
 
     def layer(l):
         if isinstance(l, dict):
@@ -152,10 +160,12 @@ def serving_model_from_numpy(config: DLRMConfig, sm: Any, device: Device = None)
             bias=_tensor(l.bias, dev), bits=int(l.bits),
         )
 
+    vw = getattr(sm, "vw", None)
     return ServingModel(
         config=config,
-        emb=emb,
+        emb=[entry(e) for e in sm.emb],
         bot=[layer(l) for l in sm.bot],
         top=[layer(l) for l in sm.top],
         mlp_bits=int(sm.mlp_bits),
+        vw=None if vw is None else [_tensor(v, dev) for v in vw],
     )

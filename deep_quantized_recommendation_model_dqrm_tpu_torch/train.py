@@ -31,11 +31,14 @@ What this slice does not run exits with a message naming the later slice
 (item 6), `--data-generation=dataset` and trace replay from per-table
 distribution files (item 4), `--export-stablehlo` and
 `--plot-compute-graph` (item 5), `--investigating-inputs` (item 7), and
-the model options `models/dlrm.check_supported` refuses (item 5): QR/MD
-tables, weighted pooling and bf16 tables or compute. Every QAT scheme runs
+QR/MD tables, weighted pooling and bf16 tables or compute under
+`--parallelism=dp|dp-nosync|pseudo` (item 6). Every QAT scheme runs
 (`--quant-scheme=hawq|pact|lsq`, `--quantize_activation`,
 `--quantize_act_and_lin`, `--modify_feature_interaction`,
-`--act-percentile`), under every engine.
+`--act-percentile`), under every engine; `--qr-flag`, `--md-flag`,
+`--weighted-pooling`, `--table-dtype=bfloat16` and
+`--compute-dtype=bfloat16` under `--parallelism=none`, training and
+`--inference-only` PTQ alike.
 `--pin-table-layout` fixes a TPU memory layout and is accepted as a no-op.
 """
 
@@ -362,6 +365,15 @@ def unported(args) -> Optional[str]:
         return _later("--plot-compute-graph", 5)
     if args.investigating_inputs:
         return _later("--investigating-inputs", 7)
+    if args.parallelism != "none":
+        model = [flag for flag, on in (
+            ("--qr-flag", args.qr_flag), ("--md-flag", args.md_flag),
+            ("--weighted-pooling", args.weighted_pooling is not None),
+            ("--table-dtype=bfloat16", args.table_dtype != "float32"),
+            ("--compute-dtype=bfloat16", args.compute_dtype != "float32"),
+        ) if on]
+        if model:
+            return _later(f"{' '.join(model)} under --parallelism={args.parallelism}", 6)
     return None
 
 
@@ -571,7 +583,12 @@ def evaluate(cfg, state, test_loader, eval_fn, max_batches: Optional[int] = None
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """The tensor on the host; a bf16 tensor as numpy's 2-byte records, the
+    bytes the JAX package's npz files hold for bf16 arrays."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
 
 
 def pad_eval(fn, nproc: int):
@@ -641,7 +658,6 @@ def _run(args, device, rank: int, nproc: int) -> dict:
     """`run` after the process group (if any) exists: this process is rank
     `rank` of `nproc`."""
     from deep_quantized_recommendation_model_dqrm_tpu_torch.device import resolve_device
-    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import check_supported
     from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import (
         _on,
         batch_rows,
@@ -683,10 +699,6 @@ def _run(args, device, rank: int, nproc: int) -> dict:
             "none (use --data-generation=random/learnable)"
         )
     cfg.validate_top()
-    try:
-        check_supported(cfg)
-    except NotImplementedError as e:
-        raise SystemExit(f"{e} (ROADMAP.md queue 1 item 5)") from e
     if args.documenting_table_grads > 0 and nproc > 1:
         raise SystemExit("--documenting-table-grads is a single-process tool")
     logger = ScalarLogger((args.log_dir or None) if rank == 0 else None)
@@ -708,7 +720,9 @@ def _run(args, device, rank: int, nproc: int) -> dict:
                     f"{part}[{li}] w{w.shape} mean {w.mean():+.5f} std {w.std():.5f}",
                 )
         for k, t in enumerate(state.params["emb"]):
-            rank0_print(rank, f"emb[{k}] first rows:\n{_host(t[: min(4, t.shape[0])])}")
+            for name, leaf in (t.items() if isinstance(t, dict) else [(None, t)]):
+                label = f"emb[{k}]" if name is None else f"emb[{k}].{name}"
+                rank0_print(rank, f"{label} first rows:\n{_host(leaf[: min(4, leaf.shape[0])].float())}")
     ckpt = CheckpointManager(args.save_model) if args.save_model and rank == 0 else None
     start_epoch = start_batch = 0
     best_acc = 0.0
@@ -721,6 +735,11 @@ def _run(args, device, rank: int, nproc: int) -> dict:
         "mlp_top": [int(x) for x in cfg.mlp_top],
         "table_kinds": [cfg.table_kind(k) for k in range(cfg.num_tables)],
     }
+    if cfg.qr_flag:
+        arch_meta.update(qr_collisions=int(cfg.qr_collisions), qr_operation=cfg.qr_operation,
+                         qr_threshold=int(cfg.qr_threshold))
+    if cfg.md_flag:
+        arch_meta["md_threshold"] = int(cfg.md_threshold)
     if args.load_model:
         state, meta = CheckpointManager(args.load_model).restore(state)
         start_epoch = int(meta.get("epoch", 0))
@@ -862,7 +881,12 @@ def _run(args, device, rank: int, nproc: int) -> dict:
         dlrm_s_pytorch_comm_grad.py:1699, 2112)."""
         if not args.documenting_table_weight or rank != 0:
             return
-        arrs = {f"table_{k}": _host(t) for k, t in enumerate(state.params["emb"])}
+        arrs = {}
+        for k, t in enumerate(state.params["emb"]):
+            if isinstance(t, dict):
+                arrs.update((f"table_{k}_{name}", _host(leaf)) for name, leaf in t.items())
+            else:
+                arrs[f"table_{k}"] = _host(t)
         out = os.path.join(args.log_dir or ".", f"table_weights_{tag}.npz")
         np.savez(out, **arrs)
         rank0_print(rank, f"documented table weights -> {out}")

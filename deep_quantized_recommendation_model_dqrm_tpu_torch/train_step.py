@@ -34,11 +34,21 @@ against on the card.
 
 Every QAT scheme of the model runs through both steps: HAWQ, PACT and LSQ,
 with or without the integer-activation chain. The parameters other than the
-tables (the MLPs and LSQ's step sizes) take autograd's dense gradients and
-SGD, or classic Adagrad under both Adagrad optimizers.
+tables (the MLPs, LSQ's step sizes and the pooling weights `v_W`) take
+autograd's dense gradients and SGD, or classic Adagrad under both Adagrad
+optimizers.
 
-Not in this slice (each raises `NotImplementedError`): QR/MD tables, weighted
-pooling (`v_W`), bf16 tables (`dlrm.check_supported`).
+The rest of the single-device model runs through both steps too (JAX
+train_step.py:186-230, 280-290, 325-362, 499-560):
+- QR/MD tables take no route: the sparse step recomputes their pooled
+  lookups with their gradient (`dlrm.splice_trick_pooled`) and updates
+  each of their leaves densely;
+- under weighted pooling the dense tables' gradients are scaled by
+  `v_W[ids]` (the pooling weights stand in for K1's mask), and learned
+  `v_W` of the dense tables takes the per-occurrence scalar gradients
+  g_pooled . E[row] (PACT-transformed rows under PACT), coalesced across
+  the tables in one pass and applied to the touched entries;
+- a bf16 table takes its float32 update rounded to bf16 before the add.
 """
 
 from __future__ import annotations
@@ -64,9 +74,11 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.stream_update i
     stream_scatter_add_grouped,
     stream_scatter_grouped_plain,
 )
+from deep_quantized_recommendation_model_dqrm_tpu_torch.ops import quant as q
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import (
     clamp_ids,
     coalesce_sparse_grad,
+    coalesce_sparse_grads_batched,
     rows_grad_from_pooled,
     scatter_add_drop,
 )
@@ -95,8 +107,8 @@ class TrainState(NamedTuple):
     qstate: dlrm.QuantState
 
 
-def _check(config: DLRMConfig, tc: TrainConfig) -> None:
-    dlrm.check_supported(config)
+def _check(config: DLRMConfig, tc: TrainConfig, engine: Optional[str] = None) -> None:
+    dlrm.check_supported(config, engine)
     if tc.optimizer not in ("sgd", "adagrad", "rwsadagrad"):
         raise ValueError(f"unknown optimizer {tc.optimizer!r}")
 
@@ -222,15 +234,16 @@ def _build_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = False,
 def _dense_table_update(optimizer: str, table: torch.Tensor, acc: Optional[torch.Tensor],
                         dense: torch.Tensor, lr: float) -> None:
     """A table's update from its dense gradient, in place (rows the batch did
-    not touch see 0 and keep their values and accumulators)."""
+    not touch see 0 and keep their values and accumulators); the float32
+    update is rounded to the table's dtype before the add."""
     if optimizer == "sgd":
-        table.add_(-lr * dense)
+        table.add_((-lr * dense).to(table.dtype))
     elif optimizer == "adagrad":
         acc.add_(dense * dense)
-        table.add_(-lr * dense / (torch.sqrt(acc) + EPS))
+        table.add_((-lr * dense / (torch.sqrt(acc) + EPS)).to(table.dtype))
     else:  # rwsadagrad: one accumulator per row
         acc.add_(torch.mean(dense * dense, dim=1))
-        table.add_(-lr * dense / (torch.sqrt(acc)[:, None] + EPS))
+        table.add_((-lr * dense / (torch.sqrt(acc)[:, None] + EPS)).to(table.dtype))
 
 
 def _sparse_table_update(optimizer: str, table: torch.Tensor, acc: Optional[torch.Tensor],
@@ -263,22 +276,24 @@ class TableRoutes(NamedTuple):
     `groups` are the K1 groups of the tables with at most
     `onehot_update_max_rows` rows (one launch each per step), `stream` the
     tables above that with at most `stream_update_max_rows` rows (one sort
-    and one K5 launch per 32 of them), `scatter` the others."""
+    and one K5 launch per 32 of them), `scatter` the others. QR/MD tables
+    take none."""
 
     groups: Tuple[DenseGradGroup, ...]
     stream: Tuple[int, ...]
     scatter: Tuple[int, ...]
 
 
-def make_table_routes(table_sizes: Sequence[int], tc: TrainConfig) -> TableRoutes:
+def make_table_routes(table_sizes: Sequence[int], tc: TrainConfig,
+                      tricks: Sequence[int] = ()) -> TableRoutes:
     """The routes of tables with `table_sizes` rows under `tc`'s
-    `onehot_update_max_rows` and `stream_update_max_rows`; built once with
-    a step."""
-    small = [k for k, n in enumerate(table_sizes) if 0 < n <= tc.onehot_update_max_rows]
-    stream = tuple(k for k, n in enumerate(table_sizes)
-                   if tc.onehot_update_max_rows < n <= tc.stream_update_max_rows)
+    `onehot_update_max_rows` and `stream_update_max_rows`, the QR/MD slots
+    `tricks` left out; built once with a step."""
+    plain = [k for k in range(len(table_sizes)) if k not in tricks]
+    small = [k for k in plain if 0 < table_sizes[k] <= tc.onehot_update_max_rows]
+    stream = tuple(k for k in plain if tc.onehot_update_max_rows < table_sizes[k] <= tc.stream_update_max_rows)
     groups = tuple(make_dense_grad_group([table_sizes[k] for k in ks], ks) for ks in group_slots(small))
-    scatter = tuple(k for k in range(len(table_sizes)) if k not in small and k not in stream)
+    scatter = tuple(k for k in plain if k not in small and k not in stream)
     return TableRoutes(groups=groups, stream=stream, scatter=scatter)
 
 
@@ -302,8 +317,8 @@ def apply_table_updates(
 
     - `routes.groups`: dense gradients from one K1 launch per group, then
       the dense update; under SGD one multiply of the flat gradient rounds
-      the products -lr * grad before one batched add, as
-      `table.add_(-lr * dense)` rounds them;
+      the products -lr * grad (to each table's dtype) before one batched
+      add, as `_dense_table_update` rounds them;
     - `routes.stream`: every table's gradient sorted in one batched sort,
       then one K5 launch per group of at most 32 tables: straight into the
       tables under SGD (after one multiply by -lr), into zeroed dense
@@ -323,7 +338,8 @@ def apply_table_updates(
         flat, views = dense_grads(group, gc, indices, mask)
         group_tables = [tables[k] for k in group.slots]
         if optimizer == "sgd":
-            torch._foreach_add_(group_tables, (flat * -lr).split(group.rows))
+            deltas = (flat * -lr).split(group.rows)
+            torch._foreach_add_(group_tables, [d.to(t.dtype) for d, t in zip(deltas, group_tables)])
             continue
         for k, table, dense in zip(group.slots, group_tables, views):
             _dense_table_update(optimizer, table, accs[k], dense, lr)
@@ -359,9 +375,14 @@ def _grads(loss: torch.Tensor, leaves: List[torch.Tensor]) -> List[torch.Tensor]
 
 
 def dense_keys(params: dlrm.Params) -> List[str]:
-    """The parameter keys other than the tables: the MLPs and, under LSQ,
-    the step sizes (the JAX steps' `mlp_params`)."""
+    """The parameter keys other than the tables: the MLPs and, where the
+    model has them, the pooling weights and LSQ's step sizes (the JAX
+    steps' `mlp_params`)."""
     return [key for key in params if key != "emb"]
+
+
+def _requiring_grad(tree):
+    return tree_map(lambda t: t.detach().requires_grad_(), tree)
 
 
 def sparse_grads(config: DLRMConfig, params: dlrm.Params, qstate: dlrm.QuantState,
@@ -369,20 +390,60 @@ def sparse_grads(config: DLRMConfig, params: dlrm.Params, qstate: dlrm.QuantStat
     """Forward and backward with autograd cut at the raw pooled lookups (no
     table gradient is formed): (loss, the forward's QuantState, the
     gradients of every other parameter as a nest keyed like the params
-    ({"bot", "top"} and, under LSQ, "lsq_emb" and "lsq_mlp"), the gradient
-    [T, B, D] w.r.t. the pooled lookups). Under QAT the lookups take the
-    scheme's table transform (PACT's), whose gradient is the identity."""
+    ({"bot", "top"} and, where present, "v_W", "lsq_emb" and "lsq_mlp"),
+    and under QR/MD "emb_trick", {slot: the dict table's dense gradient},
+    the gradient [T, B, D] w.r.t. the pooled lookups). Under QAT the
+    lookups take the scheme's table transform (PACT's), whose gradient is
+    the identity. The QR/MD slots are recomputed from their tables with
+    their gradient (`dlrm.splice_trick_pooled`); their slots of the pooled
+    gradient are 0."""
     with torch.no_grad():
         raw_pooled = dlrm.lookup_all(config, params, batch.indices, batch.mask,
                                      not config.quant.enabled, plain=plain)
-    dense = {key: tree_map(lambda t: t.detach().requires_grad_(), params[key])
-             for key in dense_keys(params)}
+    dense = {key: _requiring_grad(params[key]) for key in dense_keys(params)}
     pooled = raw_pooled.requires_grad_()
+    ks = dlrm.trick_slots(config)
+    fwd_in, emb_trick = pooled, {}
+    if ks:
+        emb_trick = {k: _requiring_grad(params["emb"][k]) for k in ks}
+        emb = [emb_trick.get(k, t) for k, t in enumerate(params["emb"])]
+        weights = dlrm.pooling_weights(config, dense.get("v_W"), batch.indices, batch.mask)
+        fwd_in = dlrm.splice_trick_pooled(config, emb, weights, batch.indices, pooled)
     logits, new_qs = dlrm.forward(config, {**dense, "emb": params["emb"]}, batch, qstate,
-                                  train=True, raw_pooled=pooled, lsq_numel_scale=lsq_numel_scale)
+                                  train=True, raw_pooled=fwd_in, lsq_numel_scale=lsq_numel_scale)
     loss = dlrm.training_loss(config, logits, batch.labels)
-    *grads, g_pooled = _grads(loss, tree_leaves(dense) + [pooled])
-    return loss, new_qs, _unflatten(dense, grads), g_pooled
+    *grads, g_pooled = _grads(loss, tree_leaves(dense) + tree_leaves(emb_trick) + [pooled])
+    n = len(tree_leaves(dense))
+    out = _unflatten(dense, grads[:n])
+    if ks:
+        out["emb_trick"] = _unflatten(emb_trick, grads[n:])
+    return loss, new_qs, out, g_pooled
+
+
+def _learned_vw_grads(config: DLRMConfig, params: dlrm.Params, batch: dlrm.Batch,
+                      g_pooled: torch.Tensor, ks: Sequence[int]):
+    """The learned pooling weights' gradients of the dense tables `ks`:
+    lookup (b, p) of table k gives v_W[k][idx] the scalar g_pooled[k, b] .
+    E[idx] times the bag mask (E the PACT-transformed table under PACT),
+    coalesced in one batched pass (JAX train_step.py:499-547). Reads the
+    tables before their update. Returns ([T', K] ids, [T', K] values)."""
+    qc = config.quant
+    pact = qc.enabled and qc.quantize_emb and qc.quant_scheme == "pact"
+    rows = []
+    for k in ks:
+        table = params["emb"][k]
+        r = table[clamp_ids(batch.indices[k], table.shape[0])[0]]
+        if pact:
+            r = q.pact_apply(r, q.pact_normalizer(table), qc.embedding_bit)
+        rows.append(r.float())
+    sel = torch.tensor(list(ks), device=g_pooled.device)
+    contrib = torch.einsum("tbd,tbpd->tbp", g_pooled[sel].float(), torch.stack(rows))
+    if batch.mask is not None:
+        contrib = contrib * batch.mask[sel]
+    ids = batch.indices[sel].reshape(len(ks), -1)
+    nrv = [params["v_W"][k].shape[0] for k in ks]
+    uids, uvals = coalesce_sparse_grads_batched(ids, contrib.reshape(len(ks), -1, 1), nrv, ids.shape[1])
+    return uids, uvals[..., 0]
 
 
 def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = False,
@@ -390,12 +451,16 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
     """The train step with explicit sparse embedding updates (the reference's
     nn.EmbeddingBag(sparse=True) + manual optimizer, sgd_quantized_gradients_
     parallel_comm.py:601-685). Updates the embedding tables and their
-    accumulators in place."""
+    accumulators in place (the QR/MD tables, learned pooling weights and the
+    MLPs take new tensors)."""
     _check(config, tc)
     dev = resolve_device(device)
     qc = config.quant
     opt = tc.optimizer
-    routes = make_table_routes(config.table_sizes, tc)
+    ks = dlrm.trick_slots(config)
+    routes = make_table_routes(config.table_sizes, tc, ks)
+    vw_ks = [k for k in range(config.num_tables) if k not in ks] \
+        if config.weighted_pooling == "learned" else []
 
     def step_fn(state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
         _params_device(state.params, dev)
@@ -408,6 +473,7 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
             mlp_grads = tree_map(lambda g: g * tc.loss_scale, mlp_grads)
             g_pooled = g_pooled * tc.loss_scale
         lr = _lr(tc, qstate.step + 1)
+        trick_grads = mlp_grads.pop("emb_trick", {})
 
         with torch.no_grad():
             mlp_params = {key: params[key] for key in mlp_grads}
@@ -419,8 +485,33 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
                     mlp_params, mlp_grads, {key: opt_state[key] for key in mlp_params}, lr)
                 new_params = dict(params, **new_mlp)
                 opt_state = dict(opt_state, **new_acc)
+            if vw_ks:  # from the tables before their update
+                vw_ids, vw_vals = _learned_vw_grads(config, params, batch, g_pooled, vw_ks)
+            weights = dlrm.pooling_weights(config, params.get("v_W"), batch.indices, batch.mask)
             apply_table_updates(routes, opt, params["emb"], opt_state["emb"] if opt != "sgd" else None,
-                                g_pooled, batch.indices, batch.mask, lr, plain=plain)
+                                g_pooled, batch.indices, weights, lr, plain=plain)
+            if ks:
+                new_params["emb"] = list(params["emb"])
+                if opt != "sgd":
+                    opt_state = dict(opt_state, emb=list(opt_state["emb"]))
+                for k in ks:
+                    if opt == "sgd":
+                        new_params["emb"][k] = sgd_update(params["emb"][k], trick_grads[k], lr)
+                        continue
+                    update = adagrad_update if opt == "adagrad" else rwsadagrad_update
+                    one, acc = update({"emb": [params["emb"][k]]}, {"emb": [trick_grads[k]]},
+                                      {"emb": [opt_state["emb"][k]]}, lr)
+                    new_params["emb"][k], opt_state["emb"][k] = one["emb"][0], acc["emb"][0]
+            for i, k in enumerate(vw_ks):
+                vw = new_params["v_W"][k]
+                if opt == "sgd":
+                    scatter_add_drop(vw, vw_ids[i], -lr * vw_vals[i])
+                    continue
+                # v_W is a flat vector: element-wise Adagrad is row-wise Adagrad at D = 1
+                acc = opt_state["v_W"][k]
+                scatter_add_drop(acc, vw_ids[i], vw_vals[i] * vw_vals[i])
+                denom = torch.sqrt(acc[clamp_ids(vw_ids[i], acc.shape[0])[0]]) + EPS
+                scatter_add_drop(vw, vw_ids[i], -lr * vw_vals[i] / denom)
         new_qs = new_qs._replace(step=qstate.step + 1)
         return TrainState(new_params, opt_state, new_qs), loss.detach()
 
@@ -512,7 +603,6 @@ def concat_batches(batches: Sequence[dlrm.Batch]) -> dlrm.Batch:
 def make_eval_step(config: DLRMConfig, plain: bool = False, device: Device = None):
     """Inference step returning click probabilities (the reference's
     `inference()` per-batch body, dlrm_s_pytorch.py:762-860)."""
-    dlrm.check_supported(config)
     dev = resolve_device(device)
 
     @torch.no_grad()
@@ -530,9 +620,10 @@ def make_grad_probe(config: DLRMConfig, tc: TrainConfig, device: Device = None):
     Returns fn(params, qstate, batch) -> (out, loss), where `out` maps
     "table_<k>_ids" to the [B*P] row ids the batch touches and
     "table_<k>_rows" to the [B*P, D] per-occurrence row gradients
-    (duplicates not coalesced), taken w.r.t. the parameters before the
-    update, as the train step takes them. Plain tables only."""
-    dlrm.check_supported(config)
+    (duplicates not coalesced; scaled by the pooling weights where the
+    model has them), and for a QR/MD table "table_<k>_<leaf>" to the
+    leaf's dense gradient, taken w.r.t. the parameters before the update,
+    as the train step takes them."""
     dev = resolve_device(device)
 
     def probe(params: dlrm.Params, qstate: dlrm.QuantState,
@@ -541,18 +632,16 @@ def make_grad_probe(config: DLRMConfig, tc: TrainConfig, device: Device = None):
         batch = _on(batch, dev)
         if config.quant.enabled:
             qstate = dlrm.update_emb_scales(config, params, qstate)
-        with torch.no_grad():
-            pooled = dlrm.lookup_all(config, params, batch.indices, batch.mask,
-                                     not config.quant.enabled)
-        pooled.requires_grad_()
-        logits, _ = dlrm.forward(config, params, batch, qstate, train=True, raw_pooled=pooled)
-        loss = dlrm.training_loss(config, logits, batch.labels)
-        (g_pooled,) = torch.autograd.grad(loss, [pooled])
+        loss, _, grads, g_pooled = sparse_grads(config, params, qstate, batch)
+        weights = dlrm.pooling_weights(config, params.get("v_W"), batch.indices, batch.mask)
         out = {}
         for k in range(config.num_tables):
-            m = batch.mask[k] if batch.mask is not None else None
+            if k in grads.get("emb_trick", {}):
+                for leaf, g in sorted(grads["emb_trick"][k].items()):
+                    out[f"table_{k}_{leaf}"] = g
+                continue
             out[f"table_{k}_ids"], out[f"table_{k}_rows"] = rows_grad_from_pooled(
-                g_pooled[k], batch.indices[k], m)
+                g_pooled[k], batch.indices[k], None if weights is None else weights[k])
         return out, loss.detach()
 
     return probe

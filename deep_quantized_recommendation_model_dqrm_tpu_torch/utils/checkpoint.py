@@ -13,7 +13,9 @@ int32 scalars, and read back with `int()`. Alternating two-slot naming
 (comm_grad.py:2064-2072). The CLI saves the train state under every engine
 (its dp, dp-nosync and pseudo runs rebind the engine's params and
 QuantState into it, as the JAX CLI does), so those checkpoints carry the
-same keys.
+same keys. A bf16 leaf is stored as numpy's 2-byte record type (`V2`), the
+bytes the JAX package's `np.savez` writes for its bf16 arrays, and read back
+by its bits (JAX utils/checkpoint.py:71-76).
 """
 
 from __future__ import annotations
@@ -47,7 +49,10 @@ def _map_with_paths(fn, tree: Any, path: str = "") -> Any:
 
 def _to_numpy(leaf: Any) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view(np.dtype("V2"))
+        return leaf.numpy()
     return np.asarray(leaf, np.int32)  # the QuantState's host ints
 
 
@@ -101,6 +106,9 @@ def load_checkpoint(path: str, like: Any) -> Tuple[Any, Dict[str, Any]]:
                 raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs model {shape}")
             if not isinstance(leaf, torch.Tensor):
                 return int(arr)
+            if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:  # bf16 bits
+                return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(
+                    device=leaf.device, dtype=leaf.dtype)
             return torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
 
         return _map_with_paths(read, like), _read_metadata(data, path)

@@ -209,3 +209,82 @@ def test_error_messages_match_jax(tmp_path):
         with pytest.raises(exc) as got:
             tck.load_checkpoint(bad, tlike)
         assert str(got.value) == str(want.value)
+
+
+MODEL_OPTIONS = {
+    "qr": dict(qr_flag=True, qr_threshold=100),
+    "md": dict(md_flag=True, md_threshold=100),
+    "vw_learned": dict(weighted_pooling="learned"),
+    "bf16": dict(table_dtype="bfloat16"),
+}
+
+
+def option_configs(optimizer, kind):
+    quant = dict(enabled=True, embedding_bit=4, weight_bit=4, scale_update_period=2)
+    return [(m.DLRMConfig(table_sizes=SIZES, embedding_dim=4, mlp_bot=(13, 8, 4), mlp_top=(10, 4, 1),
+                          quant=m.QuantConfig(**quant), **MODEL_OPTIONS[kind]),
+             m.TrainConfig(batch_size=16, learning_rate=0.01, optimizer=optimizer, onehot_update_max_rows=100))
+            for m in (jcfg, tcfg)]
+
+
+def raw(a) -> np.ndarray:
+    """An array's bytes as a comparable array (bf16 records as int16)."""
+    a = np.asarray(a)
+    return a.view(np.int16) if a.dtype.itemsize == 2 and a.dtype.kind == "V" else a
+
+
+@pytest.mark.parametrize("kind,optimizer", [(k, o) for k in sorted(MODEL_OPTIONS)
+                                             for o in ("sgd", "adagrad", "rwsadagrad")
+                                             if (k, o) != ("bf16", "adagrad")])
+def test_model_options_round_trip_between_packages(tmp_path, kind, optimizer):
+    """QR {"q", "r"} and MD {"table", "proj"} tables (their RWSAdagrad row
+    state and the projection's classic state), the pooling weights and their
+    accumulators, bf16 tables (2-byte records in the file, as JAX's np.savez
+    writes them): the port loads JAX's file bit for bit, saves the same keys,
+    dtypes and bytes, and JAX loads the port's file bit for bit."""
+    (jc, jtc), (tc, ttc) = option_configs(optimizer, kind)
+    jstate = jts.init_train_state(jc, jtc, seed=0)
+    step = jax.jit(jts._build_sparse_step_fn(jc, jtc))
+    rng = np.random.RandomState(1)
+    for _ in range(3):
+        jstate, _ = step(jstate, jsyn.random_batch(jc, 16, rng))
+    jpath, tpath = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
+    jck.save_checkpoint(jpath, jstate, META)
+    got, meta = tck.load_checkpoint(jpath, tts.init_train_state(tc, ttc, seed=5, device="cpu"))
+    assert meta == META and got.qstate.step == 3
+    if kind == "bf16":
+        assert got.params["emb"][0].dtype == torch.bfloat16
+    tck.save_checkpoint(tpath, got, META)
+    with np.load(tpath) as a, np.load(jpath) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+            np.testing.assert_array_equal(raw(a[k]), raw(b[k]), err_msg=k)
+        want = {"qr": ".params['emb'][0]['q']", "md": ".params['emb'][0]['proj']",
+                "vw_learned": ".params['v_W'][2]", "bf16": ".params['emb'][1]"}[kind]
+        assert want in a.files
+    back, _ = jck.load_checkpoint(tpath, jts.init_train_state(jc, jtc, seed=5))
+    for x, y in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(jstate)):
+        assert np.asarray(x).dtype == np.asarray(y).dtype
+        np.testing.assert_array_equal(raw(x), raw(y))
+
+
+def test_bf16_adagrad_accumulators_keep_the_table_dtype(tmp_path):
+    """A documented departure (ROADMAP queue 3): Adagrad's accumulator of a
+    bf16 table is bf16 in both packages' initial states, and stays bf16 in
+    the port, while the JAX sparse step's dense (K1) branch promotes it to
+    float32 (`acc + dense * dense`). The port loads such a JAX file with
+    those accumulators rounded to bf16 and every other leaf bit for bit."""
+    (jc, jtc), (tc, ttc) = option_configs("adagrad", "bf16")
+    jstate = jts.init_train_state(jc, jtc, seed=0)
+    jstate, _ = jax.jit(jts._build_sparse_step_fn(jc, jtc))(jstate, jsyn.random_batch(jc, 16, np.random.RandomState(1)))
+    path = str(tmp_path / "j.npz")
+    jck.save_checkpoint(path, jstate, META)
+    like = tts.init_train_state(tc, ttc, seed=5, device="cpu")
+    assert all(a.dtype == torch.bfloat16 for a in like.opt_state["emb"])
+    got, _ = tck.load_checkpoint(path, like)
+    for j, t in zip(jstate.opt_state["emb"], got.opt_state["emb"]):
+        want = torch.from_numpy(np.asarray(j, np.float32)).to(torch.bfloat16)
+        assert t.dtype == torch.bfloat16 and torch.equal(t, want)
+    for j, t in zip(jstate.params["emb"], got.params["emb"]):
+        np.testing.assert_array_equal(t.view(torch.int16).numpy(), raw(np.asarray(j)))

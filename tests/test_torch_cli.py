@@ -291,12 +291,101 @@ def test_act_with_linear_channel_raises_as_jax():
     ("--parallelism=hybrid", 6), ("--parallelism=rowshard", 6), ("--ranking-range", 6),
     ("--data-generation=dataset", 4), ("--export-stablehlo=/nonexistent/x", 5),
     ("--plot-compute-graph", 5), ("--investigating-inputs", 7),
-    ("--qr-flag", 5), ("--md-flag", 5), ("--weighted-pooling=fixed", 5),
-    ("--table-dtype=bfloat16", 5), ("--compute-dtype=bfloat16", 5),
+    ("--parallelism=dp --qr-flag", 6), ("--parallelism=dp-nosync --md-flag", 6),
+    ("--parallelism=pseudo --weighted-pooling=fixed", 6),
+    ("--parallelism=dp --table-dtype=bfloat16", 6), ("--parallelism=pseudo --compute-dtype=bfloat16", 6),
 ])
 def test_unported_flags_exit_naming_their_slice(flag, item):
+    """Each flag this slice does not run exits naming its ROADMAP item; the
+    model options of the single-device model (QR/MD, v_W, bf16) do so under
+    the data-parallel and pseudo engines only."""
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1 item {item}"):
-        ttrain.run(COMMON + [flag, "--platform=cpu"])
+        ttrain.run(COMMON + flag.split() + ["--platform=cpu"])
+
+
+NO_QAT = [a for a in COMMON if a != "--quantization_flag"]
+TRICK_ARGV = {
+    "qr": COMMON + ["--qr-flag", "--qr-threshold=100", "--qr-operation=concat"],
+    "md": COMMON + ["--md-flag", "--md-threshold=100"],
+    "vw": COMMON + ["--weighted-pooling=learned", "--qr-flag", "--qr-threshold=1000"],
+    # fp32 training: JAX's compiled scale refresh divides by the reciprocal
+    # of 7, one ulp off, and bf16 table values often sit on a .5 boundary
+    # of the INT4 rounding (tests/test_torch_bf16.py)
+    "bf16": NO_QAT + ["--table-dtype=bfloat16", "--compute-dtype=bfloat16"],
+}
+TRICK_PTQ_BITS = {"qr": 4, "md": 8, "vw": 4, "bf16": 4}
+# a bf16 table element in the checkpoints: each of the 16 steps may round
+# its update the other way (the two backward passes sum in their own
+# orders, duplicate ids add in their own orders), one bf16 ulp a step (of
+# the element, or of 2^-12 where it crosses 0)
+BF16_STEPS = 16
+
+
+@pytest.fixture(scope="module")
+def trick_runs(tmp_path_factory):
+    tmp = str(tmp_path_factory.mktemp("cli_tricks"))
+    return {name: both(tmp, name, argv + ["--test-freq=8", "--steps-per-dispatch=2"])
+            for name, argv in TRICK_ARGV.items()}
+
+
+def bf16_as_f32(a: np.ndarray) -> np.ndarray:
+    return (a.view(np.uint16).astype(np.uint32) << 16).view(np.float32) if a.dtype.kind == "V" else a
+
+
+@pytest.mark.parametrize("name", sorted(TRICK_ARGV))
+def test_model_option_run_and_checkpoints_match_jax(trick_runs, name):
+    """`--qr-flag` (concat), `--md-flag`, `--weighted-pooling=learned` (with
+    QR tables) and `--table-dtype=bfloat16 --compute-dtype=bfloat16` through
+    both CLIs under `--parallelism=none`: logged losses within 1e-5
+    relative, metrics within 1e-4, both checkpoint slots under the same keys
+    and dtypes (QR and MD dicts, v_W, bf16 tables as 2-byte records, the QR
+    arch metadata) within 1e-6, bf16 tables within `BF16_STEPS` ulps."""
+    res = trick_runs[name]
+    assert_runs_agree(res)
+    dt, dj = res["torch"][1], res["jax"][1]
+    for slot in (0, 1):
+        pt, pj = (os.path.join(d, "ck", f"dqrm_{slot}.npz") for d in (dt, dj))
+        assert os.path.exists(pt) == os.path.exists(pj)
+        if not os.path.exists(pt):
+            continue
+        with np.load(pt) as a, np.load(pj) as b:
+            assert sorted(a.files) == sorted(b.files)
+            for k in a.files:
+                assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+                if k == "__metadata__":
+                    ma, mb = (json.loads(bytes(z[k]).decode()) for z in (a, b))
+                    assert set(ma) == set(mb) and ma.get("qr_operation") == mb.get("qr_operation")
+                    continue
+                if a[k].dtype.kind == "V":  # bf16: at most one ulp a step
+                    x, y = bf16_as_f32(a[k]), bf16_as_f32(b[k])
+                    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.maximum(np.abs(x), np.abs(y)), 2.0 ** -12))) - 7)
+                    assert (np.abs(x - y) <= BF16_STEPS * ulp).all(), k
+                else:
+                    np.testing.assert_allclose(a[k], b[k], rtol=0, atol=1e-6, err_msg=k)
+    with np.load(os.path.join(dt, "ck", "dqrm_0.npz")) as z:
+        want = {"qr": ".params['emb'][0]['r']", "md": ".params['emb'][1]['table']",
+                "vw": ".params['v_W'][3]", "bf16": ".params['emb'][2]"}[name]
+        assert want in z.files
+        if name == "bf16":
+            assert z[want].dtype.kind == "V"
+
+
+@pytest.mark.parametrize("name", sorted(TRICK_ARGV))
+def test_model_option_ptq_on_the_other_packages_checkpoint(trick_runs, name):
+    """`--inference-only` PTQ serving (QR, v_W and bf16 at INT4, MD at INT8:
+    its widths are odd) of each package's checkpoint by the other package's
+    CLI, against the saving package's own PTQ evaluation of it: metrics
+    within 1e-5."""
+    res = trick_runs[name]
+    ptq = ["--inference-only", f"--quantize-emb-with-bit={TRICK_PTQ_BITS[name]}",
+           "--quantize-mlp-with-bit=8", "--platform=cpu"]
+    argv = TRICK_ARGV[name] + ptq
+    for mine, other, mod in (("torch", "jax", ttrain), ("jax", "torch", jtrain)):
+        ck = os.path.join(res[other][1], "ck")
+        got = mod.run(argv + [f"--load-model={ck}"])
+        want = (jtrain if other == "jax" else ttrain).run(argv + [f"--load-model={ck}"])
+        for k in ("accuracy", "roc_auc"):
+            assert abs(got[k] - want[k]) <= PTQ_METRIC_ATOL, (name, mine, k, got[k], want[k])
 
 
 @pytest.mark.parametrize("flag", ["--coordinator-address=localhost:1234", "--num-processes=2",

@@ -174,10 +174,16 @@ def test_grads_wrt_mlp_and_raw_pooled_match_jax(name, B, quant):
     np.testing.assert_allclose(grads[-1].numpy(), np.asarray(jg_pooled), rtol=RTOL, atol=ATOL)
 
 
-def test_later_slices_raise():
-    tp = tparams("small")
-    for quant, kw in ((None, dict(compute_dtype="bfloat16")),):
-        _, tc = configs("small", quant, **kw)
-        tb = tsyn.random_batch(tc, 4, np.random.RandomState(0), device="cpu")
-        with pytest.raises(NotImplementedError):
-            tdlrm.forward(tc, tp, tb)
+@pytest.mark.parametrize("quant", [None, dict(enabled=True, embedding_bit=4, weight_bit=4)],
+                         ids=["fp32", "int4_qat"])
+def test_later_slices_raise(quant):
+    """What this test once saw refused, `compute_dtype="bfloat16"`, now runs:
+    the forward (MLPs and dot interaction on bf16 operands, float32 sums)
+    within 1e-5 relative of JAX's. The gradients: tests/test_torch_bf16.py."""
+    jp, tp = params("small")[0], tparams("small")
+    jc, tc = configs("small", quant, compute_dtype="bfloat16")
+    jb, tb = batches(jc, tc, 16, 3)
+    jq, tq = qstates(jc, tc, jp, tp)
+    want, _ = jdlrm.forward(jc, jp, jb, jq)
+    got, _ = tdlrm.forward(tc, tp, tb, tq)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)

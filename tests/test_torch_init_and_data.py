@@ -62,10 +62,22 @@ def test_init_params_bf16_tables_bit_identical():
     assert_same(jp["top"][0]["w"], tp["top"][0]["w"])
 
 
-def test_init_params_later_slices_raise():
-    for kw in (dict(qr_flag=True, qr_threshold=100), dict(weighted_pooling="fixed")):
-        with pytest.raises(NotImplementedError):
-            tdlrm.init_params(tcfg.DLRMConfig(**SMALL, **kw), device="cpu")
+@pytest.mark.parametrize("kw", [dict(qr_flag=True, qr_threshold=100), dict(md_flag=True, md_threshold=100),
+                                dict(weighted_pooling="fixed")], ids=["qr", "md", "v_w"])
+def test_init_params_later_slices_raise(kw):
+    """What this test once saw refused now initializes: QR tables (q then
+    r), MD tables (table then projection) and the pooling weights, bit for
+    bit as the JAX package draws them."""
+    jp = jdlrm.init_params(jcfg.DLRMConfig(**SMALL, **kw), seed=2)
+    tp = tdlrm.init_params(tcfg.DLRMConfig(**SMALL, **kw), seed=2, device="cpu")
+    assert sorted(tp) == sorted(jp)
+    for j, t in zip(jp["emb"] + jp.get("v_W", []), tp["emb"] + tp.get("v_W", [])):
+        if isinstance(j, dict):
+            assert sorted(t) == sorted(j)
+            for k in j:
+                assert_same(j[k], t[k])
+        else:
+            assert_same(j, t)
 
 
 @pytest.mark.parametrize(

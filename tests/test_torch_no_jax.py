@@ -124,3 +124,63 @@ def test_port_imports_without_jax():
     # config, device, models, data (synthetic, binary, prefetch), ops, kernels, optim,
     # train_step, train, serving, utils (checkpoint, logging, profiling, tfevents), ...
     assert n_modules >= 35
+
+
+MODEL_OPTIONS_SCRIPT = textwrap.dedent(
+    """
+    import sys
+    sys.modules["jax"] = None  # any import of jax now raises ImportError
+    import numpy as np, torch
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import DLRMConfig, QuantConfig, TrainConfig
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.data.synthetic import random_batch
+    from deep_quantized_recommendation_model_dqrm_tpu_torch import serving, train, train_step as ts
+    qc = QuantConfig(enabled=True, embedding_bit=4, weight_bit=4)
+    base = dict(table_sizes=(300, 20, 7), embedding_dim=4, mlp_bot=(13, 8, 4), mlp_top=(10, 4, 1), quant=qc)
+    tc = TrainConfig(onehot_update_max_rows=50)
+    for kw in (dict(qr_flag=True, qr_threshold=100), dict(md_flag=True, md_threshold=100),
+               dict(weighted_pooling="learned"), dict(table_dtype="bfloat16", compute_dtype="bfloat16")):
+        cfg = DLRMConfig(**base, **kw)
+        try:
+            ts.make_train_step(cfg, tc, sparse_emb_grad=True)
+        except RuntimeError as e:
+            assert "CUDA is not available" in str(e)
+        else:
+            raise AssertionError("an entry point fell back to the CPU")
+        for sparse in (True, False):
+            state = ts.init_train_state(cfg, tc, device="cpu")
+            step = ts.make_train_step(cfg, tc, sparse_emb_grad=sparse, device="cpu")
+            state, loss = step(state, random_batch(cfg, 8, np.random.RandomState(1), device="cpu"))
+            assert state.qstate.step == 1 and bool(torch.isfinite(loss))
+        if "weighted_pooling" in kw:
+            assert not bool((state.params["v_W"][0] == 1).all())  # learned v_W moved
+        if "table_dtype" in kw:
+            assert state.params["emb"][0].dtype == torch.bfloat16
+        sm = serving.ptq_export(cfg, state.params, emb_bits=8)
+        for impl in (None, "int8"):
+            p = serving.make_serving_fn(sm, mlp_impl=impl, onehot_lookup_max_rows=50)(
+                random_batch(cfg, 8, np.random.RandomState(2), device="cpu"))
+            assert p.shape == (8,) and bool(torch.isfinite(p).all())
+    argv = ["--num-batches=2", "--arch-mlp-bot=4-3-2", "--arch-sparse-feature-size=2",
+            "--arch-embedding-size=300-20-7", "--mini-batch-size=4", "--test-mini-batch-size=4",
+            "--print-freq=1", "--platform=cpu", "--quantization_flag"]
+    for extra in (["--qr-flag", "--qr-threshold=100"], ["--weighted-pooling=learned"],
+                  ["--table-dtype=bfloat16", "--compute-dtype=bfloat16"]):
+        m = train.run(argv + extra)
+        assert set(m) >= {"accuracy", "roc_auc"}
+    jax_pkg = "deep_quantized_recommendation_model_dqrm_tpu"
+    assert not [m for m in sys.modules if m == jax_pkg or m.startswith(jax_pkg + ".")]
+    print("OK")
+    """
+)
+
+
+def test_model_options_run_without_jax():
+    """A QR, an MD, a learned-v_W and a bf16 (tables and compute) step,
+    sparse and dense, PTQ serving of each through K3 and `mlp_impl="int8"`,
+    and CLI runs with those flags, with jax blocked; the entry points still
+    refuse to fall back to the CPU."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", MODEL_OPTIONS_SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "OK"

@@ -65,10 +65,37 @@ def test_sgd_keeps_dtype():
     assert tsgd.sgd_update(p, g, 0.1)["emb"][0].dtype == torch.bfloat16
 
 
-def test_rwsadagrad_refuses_qr_tables():
-    params = {"emb": [{"q": torch.zeros((3, 4)), "r": torch.zeros((2, 4))}],
-              "bot": [], "top": []}
-    with pytest.raises(NotImplementedError):
-        tsgd.rwsadagrad_init(params)
-    with pytest.raises(NotImplementedError):
-        tsgd.rwsadagrad_update(params, params, params, 0.1)
+@pytest.mark.parametrize("optimizer", ["adagrad", "rwsadagrad"])
+def test_rwsadagrad_refuses_qr_tables(optimizer):
+    """What this test once saw refused, QR/MD dict tables, now takes the
+    JAX package's state: RWSAdagrad one accumulator per row of q, r and an
+    MD table, classic Adagrad on the MD projection; Adagrad a full one.
+    Three updates against JAX's."""
+    rng = np.random.RandomState(3)
+    shapes = {"q": (3, 4), "r": (2, 4), "table": (5, 2), "proj": (4, 2), "plain": (6, 4)}
+
+    def nest(a, lib):
+        return {"emb": [{"q": lib(a["q"]), "r": lib(a["r"])},
+                        {"table": lib(a["table"]), "proj": lib(a["proj"])}, lib(a["plain"])],
+                "top": [{"w": lib(a["plain"][:2]), "b": lib(a["plain"][0])}]}
+
+    def draw():
+        a = {k: rng.randn(*v).astype(np.float32) for k, v in shapes.items()}
+        return nest(a, jnp.asarray), nest(a, lambda x: torch.from_numpy(x.copy()))
+
+    j_init, j_upd = (jsgd.rwsadagrad_init, jsgd.rwsadagrad_update) if optimizer == "rwsadagrad" else \
+        (jsgd.adagrad_init, jsgd.adagrad_update)
+    t_init, t_upd = (tsgd.rwsadagrad_init, tsgd.rwsadagrad_update) if optimizer == "rwsadagrad" else \
+        (tsgd.adagrad_init, tsgd.adagrad_update)
+    jp, tp = draw()
+    js, ts = j_init(jp), t_init(tp)
+    for _ in range(3):
+        jg, tg = draw()
+        jp, js = j_upd(jp, jg, js, 0.1)
+        tp, ts = t_upd(tp, tg, ts, 0.1)
+    for j, t in ((jp, tp), (js, ts)):
+        jl, tl = jax.tree_util.tree_leaves(j), jax.tree_util.tree_leaves(
+            jax.tree_util.tree_map(lambda x: x.numpy(), t))
+        assert [a.shape for a in tl] == [np.shape(a) for a in jl]
+        for a, b in zip(jl, tl):
+            np.testing.assert_allclose(b, np.asarray(a), rtol=1e-6, atol=1e-7)

@@ -105,8 +105,13 @@ def test_pack_table_rejects_what_it_does_not_take():
         tpe.pack_table(t, bits=2)
     with pytest.raises(ValueError):
         tpe.pack_table(torch.zeros((4, 5)), bits=4)
-    with pytest.raises(NotImplementedError):
-        tpe.pack_table(t.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        tpe.pack_table(t.to(torch.float16))
+    # bf16 tables pack as the JAX package packs them
+    # (tests/test_torch_bf16.py holds every format bit for bit)
+    tb = torch.arange(24, dtype=torch.float32).reshape(4, 6).div(10).to(torch.bfloat16)
+    want = jpe.pack_table(jnp.asarray(tb.float().numpy(), jnp.bfloat16))
+    np.testing.assert_array_equal(tpe.pack_table(tb).data.numpy(), np.asarray(want.data))
 
 
 # a mixed group: (rows, bits, rowwise), D = 16 throughout

@@ -17,6 +17,7 @@ from deep_quantized_recommendation_model_dqrm_tpu.models import dlrm as jdlrm
 from deep_quantized_recommendation_model_dqrm_tpu_torch import config as tcfg
 from deep_quantized_recommendation_model_dqrm_tpu_torch import serving as tserving
 from deep_quantized_recommendation_model_dqrm_tpu_torch.data import synthetic as tsyn
+from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_params as tdlrm_init_params
 from deep_quantized_recommendation_model_dqrm_tpu_torch.tools.jax_weights import (
     params_from_numpy,
     serving_model_from_numpy,
@@ -235,8 +236,105 @@ def test_pallas_keywords_match_jax_and_change_nothing(lookup, mlp):
 
 
 def test_later_slices_raise():
-    _, tc, _, tsm = exported("small", 4, 8, False)
-    with pytest.raises(NotImplementedError):
-        tserving.make_serving_fn(tsm, mlp_impl="int8")
+    """What this test once saw refused, `mlp_impl="int8"`, now serves: the
+    dynamic int8 activations and int8 product against JAX's within 1e-5;
+    an unknown mlp_impl and a bit width the packing does not take still
+    raise."""
+    jc, tc, jsm, tsm = exported("small", 4, 8, False)
+    jb = jsyn.random_batch(jc, 64, np.random.RandomState(22))
+    tb = tsyn.random_batch(tc, 64, np.random.RandomState(22), device="cpu")
+    want = np.asarray(jserving.make_serving_fn(jsm, mlp_impl="int8")(jb))
+    got = tserving.make_serving_fn(tsm, mlp_impl="int8")(tb).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    with pytest.raises(ValueError):
+        tserving.make_serving_fn(tsm, mlp_impl="fp16")
     with pytest.raises(ValueError):
         tserving.ptq_export(tc, {"emb": [], "bot": [], "top": []}, emb_bits=2)
+
+
+TRICKS = {
+    "qr_mult": dict(qr_flag=True, qr_threshold=100),
+    "qr_add": dict(qr_flag=True, qr_threshold=100, qr_operation="add"),
+    "qr_concat": dict(qr_flag=True, qr_threshold=100, qr_operation="concat"),
+    "md": dict(md_flag=True, md_threshold=100),
+    "vw": dict(weighted_pooling="learned"),
+    "qr_vw": dict(qr_flag=True, qr_threshold=100, weighted_pooling="fixed"),
+}
+
+
+@pytest.mark.parametrize("mlp_impl", [None, "int8"])
+@pytest.mark.parametrize("onehot", [0, 200])
+@pytest.mark.parametrize("kind", sorted(TRICKS))
+def test_serving_tricks_match_jax(kind, onehot, mlp_impl):
+    """QR, MD and v_W models: `ptq_export` (INT4; MD at INT8, two of its
+    widths being odd) and `serving_model_bytes` equal to JAX's, the served
+    probabilities within 1e-5 of JAX's `make_serving_fn`, with and without
+    `onehot_lookup_max_rows` (QR's q and r and MD's tables then members of
+    the K4 launch), through K3 or `mlp_impl="int8"`. Pooling weights drawn
+    from U(0.5, 1.5); P = 2 with the mask."""
+    sizes = (300, 20, 150, 7, 1000)  # MD widths 3, 8, 3, 8, 2
+    pair = [m.DLRMConfig(table_sizes=sizes, embedding_dim=8, mlp_bot=(4, 16, 8),
+                         mlp_top=(23, 8, 1), **TRICKS[kind]) for m in (jcfg, tcfg)]
+    jc, tc = pair
+    jp = jdlrm.init_params(jc, seed=1)
+    if jc.weighted_pooling:
+        rng = np.random.RandomState(2)
+        jp["v_W"] = [rng.uniform(0.5, 1.5, n).astype(np.float32) for n in jc.table_sizes]
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    bits = 8 if jc.md_flag else 4
+    jsm, tsm = jserving.ptq_export(jc, jp, emb_bits=bits), tserving.ptq_export(tc, tp, emb_bits=bits)
+    assert tserving.serving_model_bytes(tsm) == jserving.serving_model_bytes(jsm)
+    jb = jsyn.random_batch(dataclasses.replace(jc, pooling_size=2), 64, np.random.RandomState(3))
+    tb = tsyn.random_batch(dataclasses.replace(tc, pooling_size=2), 64, np.random.RandomState(3),
+                           device="cpu")
+    want = np.asarray(jserving.make_serving_fn(jsm, onehot_lookup_max_rows=onehot, mlp_impl=mlp_impl)(jb))
+    got = tserving.make_serving_fn(tsm, onehot_lookup_max_rows=onehot, mlp_impl=mlp_impl)(tb).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    carried = serving_model_from_numpy(tc, jax.tree_util.tree_map(np.asarray, jsm), device="cpu")
+    np.testing.assert_array_equal(tserving.make_serving_fn(carried, onehot_lookup_max_rows=onehot,
+                                                           mlp_impl=mlp_impl)(tb).numpy(), got)
+    eng = tserving.ServingEngine(tsm, buckets=(64,), mlp_impl=mlp_impl, onehot_lookup_max_rows=onehot)
+    no_mask = tserving.make_serving_fn(tsm, onehot_lookup_max_rows=onehot, mlp_impl=mlp_impl)(
+        tb._replace(mask=None)).numpy()  # the engine's requests carry no mask
+    np.testing.assert_array_equal(eng.predict(tb.dense.numpy(), tb.indices.numpy()), no_mask)
+
+
+def test_md_int4_refused_as_jax():
+    """INT4 packing needs even widths: an MD model with an odd width raises
+    at export, as JAX's assert does."""
+    tc = tcfg.DLRMConfig(table_sizes=(300, 20, 150, 7), embedding_dim=8, mlp_bot=(4, 16, 8),
+                         mlp_top=(18, 8, 1), md_flag=True, md_threshold=100)
+    assert any(d % 2 for d in tc.md_dims())
+    with pytest.raises(ValueError, match="even"):
+        tserving.ptq_export(tc, tdlrm_init_params(tc, device="cpu"), emb_bits=4)
+
+
+@pytest.mark.parametrize("B,K,N", [(1, 13, 512), (64, 13, 1), (1, 512, 1), (300, 415, 256)])
+def test_int8_linear_dynamic_matches_jax(B, K, N):
+    """`mlp_impl="int8"`'s layer against JAX's `int8_linear_dynamic` (one
+    request, Kaggle's 13-input first layer, a 1-output last layer): the int8
+    activations and the int32 products equal, the outputs within one float32
+    ulp; the plain version (the product in float64) equal to it."""
+    import jax.numpy as jnp
+
+    from deep_quantized_recommendation_model_dqrm_tpu.ops.pallas import quant_matmul as jqm
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda import quant_matmul as tqm
+
+    rng = np.random.RandomState(B + K + N)
+    x = (rng.randn(B, K) * rng.uniform(0.1, 3.0, (B, 1))).astype(np.float32)
+    w, b = (rng.randn(N, K) * 0.1).astype(np.float32), rng.randn(N).astype(np.float32)
+    jw = jqm.quantize_linear_weights(jnp.asarray(w), jnp.asarray(b))
+    tw = tqm.quantize_linear_weights(torch.from_numpy(w), torch.from_numpy(b))
+    s_x = jnp.maximum(jnp.max(jnp.abs(jnp.asarray(x)), axis=1), 1e-8) / 127.0
+    jx_int = jnp.clip(jnp.round(jnp.asarray(x) / s_x[:, None]), -127, 127).astype(jnp.int8)
+    jacc = jax.lax.dot_general(jx_int, jw.w_int, (((1,), (1,)), ((), ())), preferred_element_type=jnp.int32)
+    tx_int, ts_x = tqm._quantize_rows(torch.from_numpy(x))
+    np.testing.assert_array_equal(tx_int.numpy(), np.asarray(jx_int))
+    np.testing.assert_array_equal(ts_x.numpy(), np.asarray(s_x))
+    np.testing.assert_array_equal(torch._int_mm(tx_int, tw.w_int.T).numpy(), np.asarray(jacc))
+    want = np.asarray(jqm.int8_linear_dynamic(jnp.asarray(x), jw))
+    got = tqm.int8_linear_dynamic(torch.from_numpy(x), tw).numpy()
+    np.testing.assert_array_max_ulp(got, want, maxulp=1)
+    np.testing.assert_array_equal(tqm.int8_linear_dynamic_plain(torch.from_numpy(x), tw).numpy(), got)
+    np.testing.assert_array_equal(tqm.int8_linear_dynamic(torch.from_numpy(x), tw, relu=True).numpy(),
+                                  np.maximum(got, 0))
