@@ -95,11 +95,17 @@ launch counters of its kernels set to 0 just before and read just after:
    plain path, 32 timed with one K1 launch per step, then PTQ serving
    (QR and v_W at INT4, MD at INT8, v_W also through K4 with the pooling
    weights) against the plain path with its launches per batch;
+17a. dense_bf16: the dense-autograd step on the Kaggle tables rounded to
+   bf16 with onehot_lookup_max_rows=20000: one step of the kernel path
+   against the plain path, then 16 steps with one grouped K4 launch (on
+   bf16 tables) and one grouped K1 launch per step;
 18. tb_bf16: bench.py's Terabyte leg at its real cardinalities (49,126,297
    rows, d = 64) on bf16 tables: INT4 HAWQ, B = 2048, SGD at 0.1, K1 on
-   the 16 tables of at most 20000 rows; 16 steps of the kernel path
-   against the plain path (bf16 tables within one ulp per update), 32
-   timed, a profiled megastep, compute_dtype="bfloat16" beside float32;
+   the 16 tables of at most 20000 rows; K1's float32 gradient on the
+   first batch against its plain version, 16 steps of the kernel path
+   against the plain path (K1's tables within one bf16 ulp per step that
+   touched the row, the scatter tables within one per update of the row),
+   32 timed, a profiled megastep, compute_dtype="bfloat16" beside float32;
 19. tb_serve: PTQ export of that state (1,572,818,576 bytes), one batch of
    16384 through one grouped K2 and 7 K3 launches and with
    mlp_impl="int8", each against its plain path;
@@ -112,9 +118,9 @@ against its plain version on the 2,202,608-row table.
 
 Every check raises, so any failure exits non-zero. Phases in order: device,
 build, model, kernel (K2, K3, K3 at K = 1728, K1 with D = 512, K4 with
-D = 512, K5 with Zipf ids, K6), train, profile (train), train_stream with
+bf16 tables and D = 512, K5 with Zipf ids, K6), train, profile (train), train_stream with
 profile (SGD), schemes (pact, lsq, act, each with its profile), dp with
-profile, dp_stream, pseudo, dp_schemes, tricks (qr, md, vw), eval,
+profile, dp_stream, pseudo, dp_schemes, tricks (qr, md, vw), dense_bf16, eval,
 export, serve, profile (serve), serve_onehot with profile, serve_cat,
 tb_bf16 with profile, tb_serve, cli, cli_schemes, cli_tricks, cli_dp, dp2,
 kernels.
@@ -703,7 +709,11 @@ def phase_kernel_k4(cfg, params, flush):
     with the variable-pooling mask, against its plain version, the per-table
     entry (18 launches) and one `embedding_bag` over the tables laid end to
     end; the backward (d_tables through one grouped K1 launch, d_mask) at
-    B = 128 against autograd through the plain version."""
+    B = 128 against autograd through the plain version. The same tables
+    rounded to bf16: the forward at B = 16384, P = 1 (equal bits) and P = 4
+    (within one bf16 ulp: float32 sums in another order, rounded once), the
+    backward at B = 128, P = 4 (d_tables within the float32 order bound
+    plus one bf16 ulp)."""
     import torch.nn.functional as F
 
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
@@ -806,6 +816,7 @@ def phase_kernel_k4(cfg, params, flush):
               "kernel_ms": time_ms(kernel_bwd, flush), "plain_ms": time_ms(plain_bwd, flush),
               "kernel_device_ms": device_ms(kernel_bwd), "plain_device_ms": device_ms(plain_bwd)})
         rows[(B, P)]["max_abs_err"] = max(err, err_t, err_w)
+    bf16_err = k4_bf16_check(cfg, tables, ks, flush)
     # D = 512: lanes of 16 bytes, 128 to a bag
     wide = [torch.from_numpy(np.random.RandomState(31 + n).normal(size=(n, WIDE_D)).astype(np.float32)).to(DEVICE)
             for n in WIDE_ROWS]
@@ -824,7 +835,80 @@ def phase_kernel_k4(cfg, params, flush):
           "max_abs_err": werr, "tol": K4_TOL,
           "kernel_device_ms": device_ms(lambda: onehot_pooled_lookup_grouped_fwd(wgroup, ids, mask))})
     emit({"phase": "kernel", "kernel": "onehot_pooled_lookup", "phase_s": time.perf_counter() - t0})
-    return rows[(B_MAIN, 1)], max([werr] + [r["max_abs_err"] for r in rows.values()])
+    return rows[(B_MAIN, 1)], max([werr, bf16_err] + [r["max_abs_err"] for r in rows.values()])
+
+
+def k4_bf16_check(cfg, tables, ks, flush):
+    """K4 on the small tables rounded to bf16 against its plain version:
+    the forward at B = 16384, P = 1 and 4, and the backward at B = 128,
+    P = 4. Returns the largest difference."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        make_onehot_lookup_group,
+        onehot_pooled_lookup_grouped,
+        onehot_pooled_lookup_grouped_fwd,
+        onehot_pooled_lookup_grouped_plain,
+    )
+
+    d = cfg.embedding_dim
+    btables = [t.to(torch.bfloat16) for t in tables]
+    group = make_onehot_lookup_group(btables, ks)
+    row = {"phase": "kernel", "kernel": "onehot_pooled_lookup", "case": f"18_small_tables_bf16_b{B_MAIN}",
+           "table_dtype": "bfloat16"}
+    worst = 0.0
+    for P in (1, 4):
+        batch = random_batch(cfg, B_MAIN, np.random.RandomState(34 + P), num_indices_per_lookup=P,
+                             variable_pooling=P > 1)
+        idx, mask = batch.indices, batch.mask
+        # into [26, B, D] tensors allocated once, as the float32 rows time it
+        out_k, out_p = (torch.empty((cfg.num_tables, B_MAIN, d), device=DEVICE) for _ in range(2))
+
+        def kernel():
+            return onehot_pooled_lookup_grouped_fwd(group, idx, mask, out=out_k)
+
+        def plain():
+            return onehot_pooled_lookup_grouped_plain(group, idx, mask, out=out_p)
+
+        got, want = kernel()[ks], plain()[ks]
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        ok = diff == 0 if P == 1 else diff <= bf16_ulp(torch.maximum(got.abs(), want.abs()))
+        check(bool(torch.isfinite(got).all()) and bool(ok.all()),
+              f"K4 bf16 tables B={B_MAIN} P={P}: max_abs_err {diff.max().item()} "
+              f"(P = 1 equal bits, P = 4 one bf16 ulp)")
+        row[f"p{P}_max_abs_err"] = diff.max().item()
+        row[f"p{P}_bf16_elements_that_differ"] = int((diff > 0).sum())
+        row[f"p{P}_kernel_ms"] = time_ms(kernel, flush)
+        row[f"p{P}_plain_ms"] = time_ms(plain, flush)
+        row[f"p{P}_kernel_device_ms"] = device_ms(kernel)
+        worst = max(worst, diff.max().item())
+    batch = random_batch(cfg, B_TRAIN, np.random.RandomState(36), num_indices_per_lookup=4, variable_pooling=True)
+    idx, w = batch.indices, batch.mask
+    g = torch.from_numpy(np.random.RandomState(37).normal(size=(cfg.num_tables, B_TRAIN, d))
+                         .astype(np.float32)).to(DEVICE)
+    grads = []
+    for fn in (onehot_pooled_lookup_grouped, onehot_pooled_lookup_grouped_plain):
+        tt = [t.detach().clone().requires_grad_() for t in btables]
+        ww = w.detach().clone().requires_grad_()
+        out = fn(make_onehot_lookup_group(tt, ks), idx, ww)
+        grads.append(torch.autograd.grad(out, tt + [ww], g))
+    (*kt, kw), (*pt, pw) = grads
+    err_t = 0.0
+    gb = g.to(torch.bfloat16).float()  # the cotangent both round to the tables' type
+    for a, b, t, k in zip(kt, pt, btables, ks):
+        tol = atomic_order_bound(idx[k].reshape(-1), (gb[k][:, None, :] * w[k][..., None]).reshape(-1, d),
+                                 t.shape[0])
+        check(a.dtype == b.dtype == torch.bfloat16, f"K4 bf16 backward: d_table types {a.dtype}, {b.dtype}")
+        a, b = a.float(), b.float()
+        ok = (a - b).abs() <= tol + bf16_ulp(torch.maximum(a.abs(), b.abs()))
+        check(bool(ok.all()), f"K4 bf16 backward: d_table {t.shape[0]} rows")
+        err_t = max(err_t, (a - b).abs().max().item())
+    err_w = (kw - pw).abs().max().item()
+    torch.cuda.synchronize()
+    check(err_w <= K4_TOL, f"K4 bf16 backward: d_w {err_w} <= {K4_TOL}")
+    row.update({"backward_b128_p4": {"d_table_max_abs_err": err_t, "d_w_max_abs_err": err_w,
+                                     "tol": "d_table 2 (c-1) u sum|v| + one bf16 ulp, d_w 1e-5"}})
+    emit(row)
+    return max(worst, err_t, err_w)
 
 
 def row_update_bound(table, ids, vals):
@@ -2759,29 +2843,44 @@ def phase_tb_bf16(train_step_ms):
     """bench.py's Terabyte leg (bench.py:366-395): `terabyte_config` at its
     real cardinalities (26 tables, 49,126,297 rows, d = 64) on bf16 tables,
     INT4 HAWQ QAT with scale_update_period=1000, B = 2048, SGD at 0.1, K1 on
-    the 16 tables of at most 20000 rows, megasteps of 16. One megastep of
-    the kernel path against one of the plain path from one start: losses
-    within TRAIN_LOSS_RTOL, every bf16 table element within one bf16 ulp
-    (of the larger of its two values and of the table's init bound
-    1/sqrt(n)) per update its row took: K1's and `index_add_`'s atomics add
-    in a run-dependent order, and each add rounds to bf16. The MLP within
-    1e-5.
+    the 16 tables of at most 20000 rows, megasteps of 16. First K1's
+    float32 flat gradient of the first batch (the pooled gradient of the
+    plain path's first step) against its plain version, within K1's
+    summation-order bound: that holds K1 even where the bf16 rounding
+    absorbs its update. Then one megastep of the kernel path against one of
+    the plain path from one start: losses within TRAIN_LOSS_RTOL, the MLP
+    within 1e-5, and each bf16 table element within bf16 ulps (of the
+    larger of its two values and of the table's init bound 1/sqrt(n)): a
+    K1 table's rows take one add a step (their duplicates summed in
+    float32, then rounded once), so one ulp per step that touched the row;
+    a scatter table's rows take one `index_add_` per update, each rounding
+    to bf16 in a run-dependent order, so one ulp per update of the row.
     The scale refresh fires at step 0; its next, at step 1000, is not
     reached (the train phase covers the refresh). Then the main path with
     the counters from 0 (one K1 launch per step), timed by CUDA events, a
     profiled megastep, and 8 steps with compute_dtype="bfloat16" beside 8 in
-    float32 by the same clock, twice each after one untimed call of each.
-    Returns (config, the trained params, K1's launches)."""
+    float32 by the same clock, twice each after one untimed call of each,
+    and a profiled call of each. Returns (config, the trained params, K1's
+    launches)."""
     import dataclasses
 
     from deep_quantized_recommendation_model_dqrm_tpu_torch.config import QuantConfig, TrainConfig, terabyte_config
-    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_quant_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import (
+        Batch,
+        init_quant_state,
+        update_emb_scales,
+    )
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
         onehot_dense_grad as k1_one,
         onehot_dense_grad_grouped as k1,
         onehot_pooled_lookup_grouped_fwd as k4,
     )
-    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import TrainState, make_multi_train_step
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import (
+        TrainState,
+        make_multi_train_step,
+        make_table_routes,
+        sparse_grads,
+    )
     from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
 
     t0 = time.perf_counter()
@@ -2798,8 +2897,17 @@ def phase_tb_bf16(train_step_ms):
     small = [k for k, n in enumerate(cfg.table_sizes) if n <= SMALL_ROWS]
     batches = device_batches(cfg, TB_B, K_MEGA, 200)
 
-    # kernel path against plain path: the plain path from a copy, the kernel path in place
+    # K1 alone on the first step's pooled gradient, in float32
     t1 = time.perf_counter()
+    first = Batch(*(None if t is None else t[0] for t in batches))
+    _, _, _, g0 = sparse_grads(cfg, params, update_emb_scales(cfg, params, init_quant_state(cfg)), first,
+                               plain=True)
+    (k1_group,) = make_table_routes(cfg.table_sizes, tc).groups
+    check(k1_group.slots == tuple(small), f"tb_bf16: K1 group {k1_group.slots}")
+    k1_err = k1_check(k1_group, g0.contiguous(), first.indices, first.mask, "tb_bf16 first batch")
+    del g0
+
+    # kernel path against plain path: the plain path from a copy, the kernel path in place
     plain_st, plain_losses = run_chain(make_multi_train_step(cfg, tc, K_MEGA, sparse_emb_grad=True, plain=True),
                                        TrainState(tree_map(torch.clone, params), None, init_quant_state(cfg)),
                                        batches, TB_STEPS // K_MEGA)
@@ -2808,26 +2916,34 @@ def phase_tb_bf16(train_step_ms):
     check(bool(torch.isfinite(losses).all()), "tb_bf16: finite losses")
     loss_err = ((losses - plain_losses).abs() / plain_losses.abs()).max().item()
     check(loss_err <= TRAIN_LOSS_RTOL, f"tb_bf16: 16 steps, loss kernel vs plain {loss_err} <= {TRAIN_LOSS_RTOL}")
-    beyond, max_ulps, max_touch, differ, worst = 0, 0.0, 0, 0, []
+    beyond, max_ulps, max_touch, differ, worst = 0, {"k1": 0.0, "scatter": 0.0}, 0, 0, []
+    calls = TB_STEPS // K_MEGA
     for k, (a, b) in enumerate(zip(state.params["emb"], plain_st.params["emb"])):
-        touches = torch.bincount(batches.indices[:, k].reshape(-1).long(), minlength=a.shape[0])
+        ids = batches.indices[:, k].reshape(K_MEGA, -1).long()
+        if k in small:  # one add a step: the steps that touched the row
+            hit = torch.zeros((K_MEGA, a.shape[0]), device=a.device).scatter_(1, ids, 1.0)
+            allowed = hit.sum(0) * calls
+        else:  # one add an update
+            allowed = torch.bincount(ids.reshape(-1), minlength=a.shape[0]).float() * calls
         # ulps at the larger of the two values and the table's init bound
         # 1/sqrt(n): a value that an update cancelled to near 0 carries the
         # rounding of the operands, not of its own magnitude
         ulp = bf16_ulp(torch.maximum(torch.maximum(a.abs(), b.abs()),
                                      torch.tensor(float(np.sqrt(1.0 / a.shape[0])), device=a.device).to(a.dtype)))
         ulps = (a.float() - b.float()).abs() / ulp
-        out = ulps > touches[:, None]
+        out = ulps > allowed[:, None]
+        route = "k1" if k in small else "scatter"
         beyond += int(out.sum())
         differ += int((a != b).sum())
-        max_ulps = max(max_ulps, ulps.max().item())
-        max_touch = max(max_touch, int(touches.max()))
+        max_ulps[route] = max(max_ulps[route], ulps.max().item())
+        max_touch = max(max_touch, int(allowed.max()))
         for r, c in out.nonzero()[:4].tolist():
-            worst.append({"table": k, "row": r, "col": c, "kernel": a[r, c].item(), "plain": b[r, c].item(),
-                          "ulps": ulps[r, c].item(), "updates_of_the_row": int(touches[r])})
+            worst.append({"table": k, "route": route, "row": r, "col": c, "kernel": a[r, c].item(),
+                          "plain": b[r, c].item(), "ulps": ulps[r, c].item(), "allowed": allowed[r].item()})
     mlp_err = max((x - y).abs().max().item() for part in ("bot", "top")
                   for x, y in zip(leaves(state.params[part]), leaves(plain_st.params[part])))
-    check(beyond == 0, f"tb_bf16: {beyond} table elements beyond one bf16 ulp per update of their row: {worst}")
+    check(beyond == 0, f"tb_bf16: {beyond} table elements beyond their bf16 ulps (K1: per step that "
+                       f"touched the row; scatter: per update of the row): {worst}")
     check(mlp_err <= TRAIN_PARAM_ATOL, f"tb_bf16: MLP kernel vs plain {mlp_err} <= {TRAIN_PARAM_ATOL}")
     del plain_st
     compare_s = time.perf_counter() - t1
@@ -2858,19 +2974,23 @@ def phase_tb_bf16(train_step_ms):
         m, _, state = event_ms_per_step(steps8[name], state, half, TB_COMPUTE_STEPS, chains=1, calls=1)
         check(bool(torch.isfinite(steps8[name].losses).all()), f"tb_bf16: finite {name}-compute losses")
         compute_ms[name].append(m)
+    for name, step in steps8.items():  # the ops that take a step's device time, per compute dtype
+        state = profile_megastep(f"tb_bf16 compute_dtype={name}", step, state, half, TB_COMPUTE_STEPS, batch=TB_B)
     emit({"phase": "tb_bf16", "config": "terabyte", "source": "bench.py:366-395",
           "table_dtype": "bfloat16", "table_bytes": table_bytes, "rows": sum(cfg.table_sizes),
           "tables": cfg.num_tables, "embedding_dim": cfg.embedding_dim, "batch": TB_B, "k": K_MEGA,
           "k1_tables": len(small), "k1_rows": sum(cfg.table_sizes[k] for k in small),
           "scale_refresh": "at step 0 only: the next, at step 1000, is not reached (the train phase covers it)",
+          "k1_first_batch": {"max_abs_err": k1_err, "tol": "2 (c-1) u sum|v| per element"},
           "kernel_vs_plain_16_steps": {"loss_max_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL,
                                        "mlp_max_abs_err": mlp_err, "mlp_atol": TRAIN_PARAM_ATOL,
                                        "table_max_bf16_ulps": max_ulps,
                                        "table_elements_that_differ": differ,
                                        "table_elements_beyond_bound": beyond,
-                                       "bound": "one bf16 ulp (of the larger value, at least the "
-                                                "table's init bound) per update of the row",
-                                       "most_updates_of_a_row": max_touch},
+                                       "bound": "bf16 ulps (of the larger value, at least the table's "
+                                                "init bound): K1 tables one per step that touched the "
+                                                "row, scatter tables one per update of the row",
+                                       "largest_allowance_ulps": max_touch},
           "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
           "first_loss": losses[0].item(), "last_loss": multi.losses[-1].item(),
           "train_step_ms": ms, "samples_per_s": TB_B / ms * 1e3, "kaggle_train_step_ms": train_step_ms,
@@ -3079,6 +3199,86 @@ def phase_tricks(cfg, params0, train_step_ms):
     return total
 
 
+def phase_dense_bf16(cfg, params0):
+    """The dense-autograd step (`sparse_emb_grad=False`) at the Kaggle width
+    on the untrained tables rounded to bf16, INT4 QAT, B = 128, SGD at 0.1,
+    `onehot_lookup_max_rows=20000`: the 18 small tables' lookups through
+    one grouped K4 launch a step on bf16 tables, their gradients through
+    its backward's grouped K1 launch. One step of the kernel path against
+    one of the plain path from one state: equal losses (K4 at P = 1 sums
+    one term), the MLP within 1e-5, every table element within two bf16
+    ulps (of the larger value, at least the table's init bound): the small
+    tables' float32 gradients sum in another order, then their bf16
+    gradient and the update each round once. Then one megastep with the
+    counters from 0 (one K4 and one K1 launch per step) and a profiled
+    one. Returns the launches."""
+    import dataclasses
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import TrainConfig
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_quant_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_dense_grad as k1_one,
+        onehot_dense_grad_grouped as k1,
+        onehot_pooled_lookup_fwd as k4_one,
+        onehot_pooled_lookup_grouped_fwd as k4,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import (
+        TrainState,
+        make_multi_train_step,
+        make_train_step,
+    )
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    bcfg = dataclasses.replace(cfg, table_dtype="bfloat16", onehot_lookup_max_rows=SMALL_ROWS)
+    tc = TrainConfig(batch_size=B_TRAIN, learning_rate=0.1)
+    params = {**params0, "emb": [t.to(torch.bfloat16) for t in params0["emb"]]}
+    start = TrainState(params, None, init_quant_state(bcfg))
+    batches = device_batches(bcfg, B_TRAIN, K_MEGA, 320)
+    first = type(batches)(*(None if t is None else t[0] for t in batches))
+    # the dense step leaves its state as it was: both paths start from `start`
+    (sk, lk), (sp, lp) = (make_train_step(bcfg, tc, plain=plain)(start, first) for plain in (False, True))
+    loss_err = (lk - lp).abs().item()
+    check(bool(torch.isfinite(lk)) and loss_err == 0.0, f"dense_bf16: one step, loss kernel vs plain {loss_err}")
+    mlp_err = max((x - y).abs().max().item() for part in ("bot", "top")
+                  for x, y in zip(leaves(sk.params[part]), leaves(sp.params[part])))
+    check(mlp_err <= TRAIN_PARAM_ATOL, f"dense_bf16: one step, MLP kernel vs plain {mlp_err}")
+    max_ulps, differ = 0.0, 0
+    for k, (a, b) in enumerate(zip(sk.params["emb"], sp.params["emb"])):
+        check(a.dtype == b.dtype == torch.bfloat16, f"dense_bf16: table {k} stays bf16")
+        floor = torch.tensor(float(np.sqrt(1.0 / a.shape[0])), device=a.device).to(a.dtype)
+        ulps = (a.float() - b.float()).abs() / bf16_ulp(torch.maximum(torch.maximum(a.abs(), b.abs()), floor))
+        max_ulps = max(max_ulps, ulps.max().item())
+        differ += int((a != b).sum())
+    check(max_ulps <= 2.0, f"dense_bf16: one step, tables kernel vs plain {max_ulps} bf16 ulps <= 2")
+    del sk, sp
+
+    multi = make_multi_train_step(bcfg, tc, K_MEGA)
+    torch.cuda.synchronize()
+    k1.launches = k1_one.launches = k4.launches = k4_one.launches = 0
+    ms, _, state = event_ms_per_step(multi, start, batches, K_MEGA, chains=1, calls=1)
+    torch.cuda.synchronize()
+    launches = {"onehot_pooled_lookup": k4.launches, "onehot_pooled_lookup_per_table": k4_one.launches,
+                "onehot_dense_grad": k1.launches, "onehot_dense_grad_per_table": k1_one.launches}
+    check(launches == {"onehot_pooled_lookup": K_MEGA, "onehot_pooled_lookup_per_table": 0,
+                       "onehot_dense_grad": K_MEGA, "onehot_dense_grad_per_table": 0},
+          f"dense_bf16: launches {launches}: 1 grouped K4 and 1 grouped K1 launch per step x {K_MEGA}")
+    check(bool(torch.isfinite(multi.losses).all()), "dense_bf16: finite losses")
+    check(all(t.dtype == torch.bfloat16 for t in state.params["emb"]), "dense_bf16: bf16 tables")
+    state = profile_megastep("dense_bf16", multi, state, batches, K_MEGA, batch=B_TRAIN)
+    emit({"phase": "dense_bf16", "config": "kaggle", "table_dtype": "bfloat16", "batch": B_TRAIN, "k": K_MEGA,
+          "onehot_lookup_max_rows": SMALL_ROWS,
+          "kernel_vs_plain_one_step": {"loss_abs_err": loss_err, "mlp_max_abs_err": mlp_err,
+                                       "mlp_atol": TRAIN_PARAM_ATOL, "table_max_bf16_ulps": max_ulps,
+                                       "table_elements_that_differ": differ,
+                                       "bound": "two bf16 ulps (of the larger value, at least the "
+                                                "table's init bound)"},
+          "launches": launches, "launches_per_step": {k: v / K_MEGA for k, v in launches.items()},
+          "first_loss": multi.losses[0].item(), "last_loss": multi.losses[-1].item(), "step_ms": ms,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(), "phase_s": time.perf_counter() - t0})
+    return {"onehot_pooled_lookup": K_MEGA, "onehot_dense_grad": K_MEGA}
+
+
 def phase_cli_tricks(cfg):
     """`train.run` at the Kaggle width with `--qr-flag
     --weighted-pooling=learned` for 64 steps and a save, then
@@ -3245,6 +3445,7 @@ def main() -> int:
     dp_launches["onehot_dense_grad"] += phase_pseudo(cfg, params0)
     scheme_k1 += phase_dp_schemes(cfg, params0, train_step_ms)
     trick_launches = phase_tricks(cfg, params0, train_step_ms)
+    dense_bf16_launches = phase_dense_bf16(cfg, params0)
     del params0
     phase_eval(cfg, state)
     t2 = time.perf_counter()
@@ -3275,6 +3476,8 @@ def main() -> int:
         launches[name] += n
     for name, n in trick_launches.items():
         launches[name] += n
+    for name, n in dense_bf16_launches.items():
+        launches[name] += n
     launches["onehot_dense_grad"] += tb_k1
     for name, n in tb_launches.items():
         launches[name] += n
@@ -3297,14 +3500,16 @@ def main() -> int:
 
     emit({"phase": "kernels", "checked_by": {"onehot_dense_grad": ["kernel", "train", "train_stream", "schemes",
                                                                    "dp", "dp_stream", "pseudo", "dp_schemes",
-                                                                   "tricks", "tb_bf16", "cli", "cli_schemes",
+                                                                   "tricks", "dense_bf16", "tb_bf16", "cli",
+                                                                   "cli_schemes",
                                                                    "cli_tricks", "cli_dp", "dp2"],
                                              "packed_pooled_lookup": ["kernel", "serve", "serve_onehot", "tricks",
                                                                       "tb_serve", "cli", "cli_schemes",
                                                                       "cli_tricks"],
                                              "int8_linear": ["kernel", "serve", "serve_onehot", "tricks",
                                                              "tb_serve", "cli", "cli_schemes", "cli_tricks"],
-                                             "onehot_pooled_lookup": ["kernel", "serve_onehot", "tricks"],
+                                             "onehot_pooled_lookup": ["kernel", "serve_onehot", "tricks",
+                                                                      "dense_bf16"],
                                              "stream_scatter_add": ["kernel", "train_stream", "dp_stream"],
                                              "dma_row_update": ["kernel"]}})
     grouped = "one launch for a group of tables"
@@ -3316,7 +3521,8 @@ def main() -> int:
         entry("int8_linear", "quant_matmul.cu", "quant_matmul.py:68", k3_row,
               max(k3_row["max_abs_err"], k3_wide_err),
               "tensor cores: three bf16 wgmma passes, ReLU fused; K > 640 in chunks of 640"),
-        entry("onehot_pooled_lookup", "onehot_update.cu", "onehot_update.py:203", k4_row, k4_err, grouped),
+        entry("onehot_pooled_lookup", "onehot_update.cu", "onehot_update.py:203", k4_row, k4_err,
+              f"{grouped}; float32 or bf16 tables, blocks of any width"),
         entry("stream_scatter_add", "stream_update.cu", "stream_update.py:118", k5_row, k5_err,
               f"{grouped}; 128-position tiles, runs summed by warp-shuffle segmented scans, "
               "crossing runs by the table's last block"),

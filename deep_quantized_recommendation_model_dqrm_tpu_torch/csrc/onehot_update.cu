@@ -8,7 +8,7 @@
 //
 // Contracts, in float32, for each table i of a group (n_i rows, slot k_i in
 // the [T, B, P] ids, the [T, B, P] mask or weights and the [T, B, D] pooled
-// tensor):
+// tensor; K4's tables are float32 or, all of a group, bfloat16):
 //   K1: out_i[n_i, D] = zeros.at[idx[k_i, b, p]].add(g[k_i, b] * mask[k_i, b, p])
 //       over every (b, p): the pooled gradient g sent back to the rows the
 //       lookups read (`rows_grad_from_pooled` followed by the TPU kernel's
@@ -18,7 +18,10 @@
 //       where an id outside [0, n_i) adds nothing and a missing w means 1;
 //       out_i is the [B, D_i] block at float offset col_i * B of the output
 //       (col_i = k_i * D for a [T, B, D] output; the serving model's QR/MD
-//       members pass their own columns and widths D_i).
+//       members pass their own columns and widths D_i). A bfloat16 table's
+//       rows are read exactly as float32 and each sum is rounded once to
+//       bfloat16 (kept in the float32 output), as the TPU kernel casts its
+//       float32 result to the table's type.
 // The per-table entries of the wrapper are the same kernels with one table
 // (K1 with P = 1 and no mask).
 //
@@ -57,12 +60,13 @@
 //   Duplicate ids are summed in an order that changes from run to run: the
 //   result equals the sequential scatter up to float32 summation order.
 // - K4: blockIdx.y is the table; D_i/4 threads take one bag, each reading
-//   16 bytes of a row per id, summing the P terms in p order with the _rn
-//   intrinsics (no contraction into FMAs; exact for P = 1), and writing 16
-//   bytes straight into the table's block of the output. Where a D_i is
-//   not a multiple of 4, or an address is not 16-byte aligned, one thread
-//   takes one value instead.
+//   4 values of a row per id (16 bytes of float32, 8 of bfloat16), summing
+//   the P terms in p order with the _rn intrinsics (no contraction into
+//   FMAs; exact for P = 1), and writing 16 bytes straight into the table's
+//   block of the output. Where a D_i is not a multiple of 4, or an address
+//   is not aligned to its 4 values, one thread takes one value instead.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -101,7 +105,7 @@ struct GradGroup {
 };
 
 struct LookupTable {
-  const float* data;  // [rows, dim]
+  const void* data;  // [rows, dim], float32 or bfloat16 (the group's type)
   long long rows;
   long long slot;
   long long dim;
@@ -121,6 +125,24 @@ __device__ __forceinline__ void load_vec(const float* p, float (&v)[VEC]) {
   } else {
     v[0] = __ldg(p);
   }
+}
+
+// bfloat16 is the high half of a float32: widening is a shift, exact.
+template <int VEC>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = __uint_as_float(x.x << 16); v[1] = __uint_as_float(x.x & 0xffff0000u);
+    v[2] = __uint_as_float(x.y << 16); v[3] = __uint_as_float(x.y & 0xffff0000u);
+  } else {
+    v[0] = __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+  }
+}
+
+// A sum rounded to the table's type and back to float32.
+__device__ __forceinline__ float round_to(const float*, float v) { return v; }
+__device__ __forceinline__ float round_to(const __nv_bfloat16*, float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // Adds each in-range update u in [u0, u1) of one table into dst (shared or
@@ -181,7 +203,7 @@ __global__ void __launch_bounds__(kThreads) dense_grad_grouped_kernel(
   }
 }
 
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads) pooled_lookup_grouped_kernel(
     const __grid_constant__ LookupGroup group,
     const int32_t* __restrict__ idx,  // [T, B, P]
@@ -189,6 +211,7 @@ __global__ void __launch_bounds__(kThreads) pooled_lookup_grouped_kernel(
     float* __restrict__ out,          // the tables' [B, dim] blocks
     int B, int P) {
   const LookupTable& d = group.t[blockIdx.y];
+  const T* data = static_cast<const T*>(d.data);
   const int D = (int)d.dim;
   const int lanes = D / VEC;
   const int64_t item = (int64_t)blockIdx.x * kThreads + threadIdx.x;
@@ -204,10 +227,12 @@ __global__ void __launch_bounds__(kThreads) pooled_lookup_grouped_kernel(
     if (id < 0 || id >= d.rows) continue;
     const float m = w ? __ldg(w + bag + p) : 1.0f;
     float v[VEC];
-    load_vec<VEC>(d.data + id * D + lane * VEC, v);
+    load_vec<VEC>(data + id * D + lane * VEC, v);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(m, v[e]));
   }
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = round_to(data, acc[e]);
   float* o = out + d.col * B + b * (int64_t)D + lane * VEC;
   if constexpr (VEC == 4) {
     *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
@@ -217,6 +242,17 @@ __global__ void __launch_bounds__(kThreads) pooled_lookup_grouped_kernel(
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+bool aligned8(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 7) == 0; }
+
+template <typename T>
+void launch_lookup(const LookupGroup& group, bool vec4, dim3 grid, cudaStream_t s, const int32_t* ids,
+                   const float* w, float* out, int B, int P) {
+  if (vec4) {
+    pooled_lookup_grouped_kernel<T, 4><<<grid, kThreads, 0, s>>>(group, ids, w, out, B, P);
+  } else {
+    pooled_lookup_grouped_kernel<T, 1><<<grid, kThreads, 0, s>>>(group, ids, w, out, B, P);
+  }
+}
 
 }  // namespace
 
@@ -272,14 +308,15 @@ extern "C" int dqrm_dense_grad_grouped(
   return (int)cudaGetLastError();
 }
 
-// K4 for `count` float32 tables described by `tables` (host memory, 5 int64
-// each: data address, rows, slot, dim, col; checked by the caller): idx
-// [T, B, P], w [T, B, P] or null; table i writes the [B, dim_i] block at
-// out + col_i * B, and nothing else of `out` is written. `max_dim` is the
-// largest dim of the group.
+// K4 for `count` tables described by `tables` (host memory, 5 int64 each:
+// data address, rows, slot, dim, col; checked by the caller), float32, or
+// bfloat16 where `table_bf16` is 1: idx [T, B, P], w [T, B, P] or null;
+// table i writes the [B, dim_i] block at out + col_i * B (float32), and
+// nothing else of `out` is written. `max_dim` is the largest dim of the
+// group.
 extern "C" int dqrm_pooled_lookup_grouped(
-    const long long* tables, int count, const void* idx, const void* w, void* out, int B, int P,
-    int max_dim, void* stream) {
+    const long long* tables, int count, int table_bf16, const void* idx, const void* w, void* out,
+    int B, int P, int max_dim, void* stream) {
   if (tables == nullptr || count <= 0 || count > kMaxTables || B < 0 || P < 0 || max_dim <= 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -288,7 +325,7 @@ extern "C" int dqrm_pooled_lookup_grouped(
   bool vec4 = aligned16(out);
   for (int i = 0; i < count; ++i) {
     LookupTable& t = group.t[i];
-    t.data = reinterpret_cast<const float*>(tables[5 * i]);
+    t.data = reinterpret_cast<const void*>(tables[5 * i]);
     t.rows = tables[5 * i + 1];
     t.slot = tables[5 * i + 2];
     t.dim = tables[5 * i + 3];
@@ -297,7 +334,8 @@ extern "C" int dqrm_pooled_lookup_grouped(
         t.col < 0) {
       return (int)cudaErrorInvalidValue;
     }
-    vec4 = vec4 && t.dim % 4 == 0 && (t.col * B) % 4 == 0 && aligned16(t.data);
+    vec4 = vec4 && t.dim % 4 == 0 && (t.col * B) % 4 == 0 &&
+           (table_bf16 ? aligned8(t.data) : aligned16(t.data));
   }
   if (B == 0) return (int)cudaGetLastError();
   const int lanes = vec4 ? max_dim / 4 : max_dim;
@@ -308,10 +346,10 @@ extern "C" int dqrm_pooled_lookup_grouped(
   const int32_t* ids = static_cast<const int32_t*>(idx);
   const float* wf = static_cast<const float*>(w);
   float* of = static_cast<float*>(out);
-  if (vec4) {
-    pooled_lookup_grouped_kernel<4><<<grid, kThreads, 0, s>>>(group, ids, wf, of, B, P);
+  if (table_bf16) {
+    launch_lookup<__nv_bfloat16>(group, vec4, grid, s, ids, wf, of, B, P);
   } else {
-    pooled_lookup_grouped_kernel<1><<<grid, kThreads, 0, s>>>(group, ids, wf, of, B, P);
+    launch_lookup<float>(group, vec4, grid, s, ids, wf, of, B, P);
   }
   return (int)cudaGetLastError();
 }

@@ -435,10 +435,10 @@ def lookup_all(
 ) -> torch.Tensor:  # [T, B, D]
     """Raw pooled lookups of every table, differentiable through the tables
     (and learned pooling weights), float32. The mask is composed with the
-    pooling weights first (`pooling_weights`). The float32 tables with at
-    most `onehot_lookup_max_rows` rows go through one launch of kernel K4
-    (its plain version with `plain=True`) per group of up to 32
-    (`group_slots`), the weights as K4's; the other tables through
+    pooling weights first (`pooling_weights`). The tables with at most
+    `onehot_lookup_max_rows` rows, float32 or bfloat16, go through one
+    launch of kernel K4 (its plain version with `plain=True`) per group of
+    up to 32 (`group_slots`), the weights as K4's; the other tables through
     `pooled_lookup`, QR/MD tables through `trick_pooled_lookup`.
 
     PACT (unless `full_precision`) pools DoReFa-transformed rows
@@ -452,8 +452,8 @@ def lookup_all(
     emb = params["emb"]
     weights = pooling_weights(config, params.get("v_W"), indices, mask)
     lookup = onehot_pooled_lookup_grouped_plain if plain else onehot_pooled_lookup_grouped
-    small = [k for k, t in enumerate(emb) if not isinstance(t, dict) and t.dtype == torch.float32
-             and 0 < t.shape[0] <= config.onehot_lookup_max_rows]
+    small = [k for k, t in enumerate(emb)
+             if not isinstance(t, dict) and 0 < t.shape[0] <= config.onehot_lookup_max_rows]
     outs = {}
     for ks in group_slots(small):
         tables = [q.fake_quant_pact(emb[k], qc.embedding_bit) if pact else emb[k] for k in ks]

@@ -24,10 +24,12 @@ K4:
   out-of-range ids adding nothing, the reference for one table;
 - `onehot_pooled_lookup_fwd` — K4's forward for one table, dispatching the
   same way;
-- `OnehotLookupGroup` / `make_onehot_lookup_group` — float32 tables looked
-  up together, each into its slot of a [T, B, D] output, or (given
-  `cols`) tables of any widths, each into its [B, D_i] block of a flat
-  output (the serving model's QR and MD members);
+- `OnehotLookupGroup` / `make_onehot_lookup_group` — float32 or bfloat16
+  tables looked up together, each into its [B, D_i] block of one float32
+  output (by default slot k of a [T, B, D] output; given columns, tables
+  of any widths: the serving model's QR and MD members); a bfloat16
+  table's sums are rounded to bfloat16, as the JAX kernel casts its
+  result to the table's type;
 - `onehot_pooled_lookup_grouped_plain` / `onehot_pooled_lookup_grouped_fwd`
   — the lookups of a group: a loop of `pooled_lookup_weighted_plain`, and
   the wrapper that launches the kernel once for the group;
@@ -67,7 +69,7 @@ MAX_GROUP_TABLES = 32  # tables in one kernel descriptor (csrc/onehot_update.cu)
 _SIGNATURES = {
     "dqrm_dense_grad_grouped": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "dqrm_pooled_lookup_grouped": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+    "dqrm_pooled_lookup_grouped": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
     + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 
@@ -106,7 +108,16 @@ def _check_types(indices: torch.Tensor, *floats: Optional[torch.Tensor]) -> None
     if indices.dtype != torch.int32:
         raise TypeError("ids must be int32")
     if any(t is not None and t.dtype != torch.float32 for t in floats):
-        raise TypeError("values, tables and masks must be float32")
+        raise TypeError("values and masks must be float32")
+
+
+def _table_bf16(tables: Sequence[torch.Tensor]) -> bool:
+    """Whether K4's group of `tables` is bfloat16 (else float32): one
+    type for the group."""
+    dtypes = {t.dtype for t in tables}
+    if len(dtypes) != 1 or not dtypes <= {torch.float32, torch.bfloat16}:
+        raise TypeError(f"a group's tables must be all float32 or all bfloat16, got {sorted(map(str, dtypes))}")
+    return torch.bfloat16 in dtypes
 
 
 def _stream(dev: torch.device) -> int:
@@ -252,31 +263,35 @@ def pooled_lookup_weighted_plain(
     weights: torch.Tensor,  # [B, P] float32
 ) -> torch.Tensor:  # [B, d], the table's dtype
     """Plain version of K4 for one table: a clamped gather times
-    `w * in_range`, summed over P. Differentiable w.r.t. the table and the
-    weights."""
+    `w * in_range`, summed over P in float32 and rounded once to the
+    table's dtype. Differentiable w.r.t. the table and the weights; the
+    rows are gathered from the table in float32 (a copy for a bfloat16
+    table), so that a bfloat16 table's gradient, too, sums its duplicates
+    in float32 and rounds once."""
     cids, keep = clamp_ids(indices, table.shape[0])
     w = weights.float() * keep.float()
-    rows = table[cids].float()  # [B, P, d]
+    rows = table.float()[cids]  # [B, P, d]
     return (rows * w[..., None]).sum(dim=1).to(table.dtype)
 
 
 class OnehotLookupGroup(NamedTuple):
-    """Tables looked up together: table `tables[i]` reads ids and mask
-    `slots[i]` of a [T, B, P] batch and writes the [B, D_i] block at float
-    offset `cols[i] * B` of the output: slot `slots[i]` of a [T, B, D]
-    output (the tables share D, `dim`), or for a group made with `cols` a
-    block of the caller's flat output of `width * B` floats (`width` is
-    None otherwise; `dim` is None where the widths differ). `descs` is the
-    kernel's descriptor (one row of 5 int64 per table: address, rows, slot,
-    D_i, column) in host memory; it holds raw addresses, so the group keeps
-    the tables, which must outlive it. `grad` is the K1 group of the
-    tables' gradients (one D only)."""
+    """Tables (all float32 or all bfloat16) looked up together, float32
+    sums (a bfloat16 table's rounded to bfloat16): table `tables[i]` reads
+    ids and mask `slots[i]` of a [T, B, P] batch and writes the [B, D_i]
+    block at float offset `cols[i] * B` of the output, whose first
+    `width * B` floats the group writes (slot k of a [T, B, D] output is
+    column k * D). `dim` is the tables' common D, None where the widths
+    differ. `descs` is the kernel's descriptor (one row of 5 int64 per
+    table: address, rows, slot, D_i, column) in host memory; it holds raw
+    addresses, so the group keeps the tables, which must outlive it. `grad`
+    is the K1 group of the tables' gradients where they write their slots
+    of a [T, B, D] output, else None."""
 
     tables: Tuple[torch.Tensor, ...]
     slots: Tuple[int, ...]
     dim: Optional[int]
     cols: Tuple[int, ...]
-    width: Optional[int]
+    width: int
     descs: torch.Tensor
     grad: Optional[DenseGradGroup]
 
@@ -285,9 +300,9 @@ def make_onehot_lookup_group(tables: Sequence[torch.Tensor],
                              slots: Optional[Sequence[int]] = None,
                              cols: Optional[Sequence[int]] = None) -> OnehotLookupGroup:
     """Group `tables` (slot i for table i unless `slots` is given), on one
-    device. Without `cols` the tables are [rows, D] with one D and write
-    their slots of a [T, B, D] output; with `cols` they may differ in D and
-    write [B, D_i] blocks at `cols[i] * B` of a flat output."""
+    device, all float32 or all bfloat16. Table i writes its [B, D_i] block
+    at column `cols[i]`, by default `slots[i] * D` (the tables then share
+    D)."""
     tables = tuple(tables)
     slots = tuple(int(k) for k in (range(len(tables)) if slots is None else slots))
     _check_slots(slots, len(tables))
@@ -298,30 +313,32 @@ def make_onehot_lookup_group(tables: Sequence[torch.Tensor],
         raise ValueError(f"grouped tables must share D, got {sorted(set(dims))}")
     if len({t.device for t in tables}) != 1:
         raise ValueError("grouped tables must lie on one device")
-    flat = cols is not None
-    cols = tuple(int(c) for c in cols) if flat else tuple(k * dims[0] for k in slots)
+    _table_bf16(tables)
+    dim = dims[0] if len(set(dims)) == 1 else None
+    by_slot = tuple(k * dims[0] for k in slots)
+    cols = by_slot if cols is None else tuple(int(c) for c in cols)
     if len(cols) != len(tables) or min(cols) < 0:
         raise ValueError(f"each table needs a column >= 0, got {cols}")
     rows = [t.shape[0] for t in tables]
     descs = torch.tensor([[t.data_ptr(), n, k, d, c]
                           for t, n, k, d, c in zip(tables, rows, slots, dims, cols)], dtype=torch.int64)
-    dim = dims[0] if len(set(dims)) == 1 else None
     return OnehotLookupGroup(tables=tables, slots=slots, dim=dim, cols=cols,
-                             width=max(c + d for c, d in zip(cols, dims)) if flat else None, descs=descs,
-                             grad=make_dense_grad_group(rows, slots) if dim is not None else None)
+                             width=max(c + d for c, d in zip(cols, dims)), descs=descs,
+                             grad=make_dense_grad_group(rows, slots) if dim is not None and cols == by_slot
+                             else None)
 
 
 def onehot_pooled_lookup_grouped_plain(
     group: OnehotLookupGroup,
     indices: torch.Tensor,  # [T, B, P] int32
     mask: Optional[torch.Tensor] = None,  # [T, B, P]; None means weights of one
-    out: Optional[torch.Tensor] = None,  # [T, B, D] float32, or flat (see the group)
+    out: Optional[torch.Tensor] = None,  # float32, at least width * B values
 ) -> torch.Tensor:
     """Plain version of the grouped K4: `pooled_lookup_weighted_plain` of each
     table into its block of `out` (a new [T, B, D] tensor unless given;
     slots outside the group are then 0). Differentiable."""
     _check_mask(mask, indices)
-    out = grouped_lookup_out(group.slots, group.dim, indices, out, group.width)
+    out = grouped_lookup_out(group.slots, group.width, group.dim, indices, out)
     B = indices.shape[1]
     for t, k, c in zip(group.tables, group.slots, group.cols):
         w = torch.ones(indices.shape[1:], dtype=torch.float32, device=indices.device) \
@@ -334,7 +351,7 @@ def _launch_lookup(group: OnehotLookupGroup, indices, mask, out, dev: torch.devi
     _, B, P = indices.shape
     lib = _build.load("onehot_update", _SIGNATURES)
     err = lib.dqrm_pooled_lookup_grouped(
-        group.descs.data_ptr(), len(group.tables), indices.data_ptr(),
+        group.descs.data_ptr(), len(group.tables), int(_table_bf16(group.tables)), indices.data_ptr(),
         mask.data_ptr() if mask is not None else None, out.data_ptr(), B, P,
         max(t.shape[1] for t in group.tables), _stream(dev),
     )
@@ -343,7 +360,8 @@ def _launch_lookup(group: OnehotLookupGroup, indices, mask, out, dev: torch.devi
 
 def _check_lookup_args(group: OnehotLookupGroup, indices, mask) -> torch.device:
     dev = _cuda_device(indices, mask, *group.tables)
-    _check_types(indices, mask, *group.tables)
+    _check_types(indices, mask)
+    _table_bf16(group.tables)
     _check_mask(mask, indices)
     return dev
 
@@ -352,7 +370,7 @@ def onehot_pooled_lookup_grouped_fwd(
     group: OnehotLookupGroup,
     indices: torch.Tensor,  # [T, B, P] int32
     mask: Optional[torch.Tensor] = None,  # [T, B, P] float32
-    out: Optional[torch.Tensor] = None,  # [T, B, D] float32, or flat (see the group)
+    out: Optional[torch.Tensor] = None,  # float32, at least width * B values
 ) -> torch.Tensor:
     """K4 for every table of `group` in one launch, into its block of `out`
     (a new [T, B, D] tensor unless given; slots outside the group are then
@@ -364,7 +382,7 @@ def onehot_pooled_lookup_grouped_fwd(
         with torch.no_grad():
             return onehot_pooled_lookup_grouped_plain(group, indices, mask, out)
     dev = _check_lookup_args(group, indices, mask)
-    out = grouped_lookup_out(group.slots, group.dim, indices, out, group.width)
+    out = grouped_lookup_out(group.slots, group.width, group.dim, indices, out)
     _launch_lookup(group, indices, mask, out, dev)
     onehot_pooled_lookup_grouped_fwd.launches += 1
     return out
@@ -376,7 +394,10 @@ onehot_pooled_lookup_grouped_fwd.launches = 0
 class _OnehotPooledLookupGrouped(torch.autograd.Function):
     """The grouped K4 forward; backward: the tables' gradients through one
     grouped K1 launch, the weights' gradient in plain PyTorch (the JAX
-    package's custom_vjp, onehot_update.py:253-301, for each table)."""
+    package's custom_vjp, onehot_update.py:253-301, for each table). For
+    bfloat16 tables the incoming gradient is first rounded to bfloat16, as
+    the VJP of the JAX kernel's cast of its result to the table's type
+    rounds it (and as autograd through the plain version's cast does)."""
 
     @staticmethod
     def forward(ctx, group, indices, mask, *tables):
@@ -388,9 +409,10 @@ class _OnehotPooledLookupGrouped(torch.autograd.Function):
     def backward(ctx, g):
         indices, mask, *tables = ctx.saved_tensors
         group = ctx.group
+        g = g.to(tables[0].dtype).float()
         d_tables = [None] * len(tables)
         if any(ctx.needs_input_grad[3:]):
-            _, views = onehot_dense_grad_grouped(group.grad, g.float().contiguous(), indices, mask)
+            _, views = onehot_dense_grad_grouped(group.grad, g.contiguous(), indices, mask)
             d_tables = [v.to(t.dtype) for v, t in zip(views, tables)]
         d_mask = None
         if ctx.needs_input_grad[2]:
@@ -398,7 +420,7 @@ class _OnehotPooledLookupGrouped(torch.autograd.Function):
             for t, k in zip(tables, group.slots):
                 cids, keep = clamp_ids(indices[k], t.shape[0])
                 rows = t[cids].float() * keep[..., None].float()  # [B, P, d]
-                d_mask[k] = torch.einsum("bd,bpd->bp", g[k].float(), rows).to(mask.dtype)
+                d_mask[k] = torch.einsum("bd,bpd->bp", g[k], rows).to(mask.dtype)
         return (None, None, d_mask, *d_tables)
 
 
@@ -417,7 +439,7 @@ def onehot_pooled_lookup_grouped(
         return onehot_pooled_lookup_grouped_fwd(group, indices, mask, out)
     if out is not None:
         raise ValueError("out= takes no gradient")
-    if group.width is not None or group.grad is None:
+    if group.grad is None:
         raise ValueError("a gradient needs a group of one D writing its slots")
     return _OnehotPooledLookupGrouped.apply(group, indices, mask, *group.tables)
 
@@ -441,7 +463,7 @@ def onehot_pooled_lookup_fwd(
     out = torch.empty((1, indices.shape[0], table.shape[1]), dtype=torch.float32, device=dev)
     _launch_lookup(group, idx, w, out, dev)
     onehot_pooled_lookup_fwd.launches += 1
-    return out[0]
+    return out[0].to(table.dtype)
 
 
 onehot_pooled_lookup_fwd.launches = 0

@@ -20,12 +20,11 @@ on the card the hand-written kernel (csrc/packed_embedding.cu) is the lookup.
 - `PackedGroup` / `make_packed_group` — tables looked up together, with the
   kernel's descriptor array built once;
 - `packed_pooled_lookup_grouped_plain` / `packed_pooled_lookup_grouped` —
-  every table of a group over [T, B, P] ids into its slot of one [T, B, D]
-  output (the caller's, or a new one), or, for a group made with `cols`,
-  into its [B, D_i] block of a flat output, so that tables of different D
-  (MD's widths, QR's halves) share one launch: a loop of
-  `packed_pooled_lookup`, and the wrapper that launches the same kernel
-  once for the whole group.
+  every table of a group over [T, B, P] ids into its [B, D_i] block of one
+  float32 output (by default slot k of a [T, B, D] output; given columns,
+  tables of different D, MD's widths and QR's halves, share one launch): a
+  loop of `packed_pooled_lookup`, and the wrapper that launches the same
+  kernel once for the whole group.
 
 Out-of-range ids are clamped to [0, rows - 1] by both, as the JAX package's
 fused serving path does; the JAX per-table path returns filler rows for them.
@@ -234,10 +233,9 @@ packed_pooled_lookup_kernel.launches = 0
 class PackedGroup(NamedTuple):
     """Packed tables looked up together: table `tables[i]` reads ids and mask
     `slots[i]` of a [T, B, P] batch and writes the [B, D_i] block at float
-    offset `cols[i] * B` of the output: slot `slots[i]` of a [T, B, D]
-    output (the tables share D, `dim`), or for a group made with `cols` a
-    block of the caller's flat output of `width * B` floats (`width` is
-    None otherwise; `dim` is None where the widths differ). `descs` is the
+    offset `cols[i] * B` of the output, whose first `width * B` floats the
+    group writes (slot k of a [T, B, D] output is column k * D). `dim` is
+    the tables' common D, None where the widths differ. `descs` is the
     kernel's descriptor array (one row of 8 int64 per table: data, scale and
     bias addresses, rows, bits, D_i, slot, column), on the tables' device;
     it holds raw addresses, so the group keeps the tables, which must
@@ -247,7 +245,7 @@ class PackedGroup(NamedTuple):
     slots: tuple
     dim: Optional[int]
     cols: tuple
-    width: Optional[int]
+    width: int
     descs: torch.Tensor
     max_items_per_bag: int  # 8-byte row chunks (or bytes) per bag, the largest
 
@@ -261,18 +259,16 @@ def _vector_rows(pt: PackedTable) -> bool:
 def make_packed_group(tables: Sequence[PackedTable], slots: Optional[Sequence[int]] = None,
                       cols: Optional[Sequence[int]] = None) -> PackedGroup:
     """Group `tables` (slot i for table i unless `slots` is given) and build
-    the kernel's descriptor array once. Without `cols` the tables share D
-    and write their slots of a [T, B, D] output; with `cols` they may
-    differ in D and write [B, D_i] blocks at `cols[i] * B` of a flat
-    output (a table with 8-byte row chunks needs a column that is a
-    multiple of 4: its block takes 16-byte stores)."""
+    the kernel's descriptor array once. Table i writes its [B, D_i] block at
+    column `cols[i]`, by default `slots[i] * D` (the tables then share D);
+    a table with 8-byte row chunks needs a column that is a multiple of 4:
+    its block takes 16-byte stores."""
     tables = tuple(tables)
     slots = tuple(range(len(tables)) if slots is None else slots)
     if not tables or len(slots) != len(tables) or len(set(slots)) != len(slots) or min(slots) < 0:
         raise ValueError("a group needs tables, each with its own slot >= 0")
     dims = {pt.dim for pt in tables}
-    flat = cols is not None
-    if not flat:
+    if cols is None:
         if len(dims) != 1:
             raise ValueError(f"grouped tables must share D, got {sorted(dims)}")
         cols = tuple(k * pt.dim for k, pt in zip(slots, tables))
@@ -292,7 +288,7 @@ def make_packed_group(tables: Sequence[PackedTable], slots: Optional[Sequence[in
                      pt.rows, pt.bits, pt.dim, slot, col])
     descs = torch.tensor(rows, dtype=torch.int64).to(dev)
     return PackedGroup(tables=tables, slots=slots, dim=dims.pop() if len(dims) == 1 else None,
-                       cols=cols, width=max(c + pt.dim for c, pt in zip(cols, tables)) if flat else None,
+                       cols=cols, width=max(c + pt.dim for c, pt in zip(cols, tables)),
                        descs=descs, max_items_per_bag=max(items))
 
 
@@ -300,12 +296,12 @@ def packed_pooled_lookup_grouped_plain(
     group: PackedGroup,
     indices: torch.Tensor,  # [T, B, P] int32
     mask: Optional[torch.Tensor] = None,  # [T, B, P]
-    out: Optional[torch.Tensor] = None,  # [T, B, D] float32, or flat (see the group)
+    out: Optional[torch.Tensor] = None,  # float32, at least width * B values
 ) -> torch.Tensor:
     """Plain version of the grouped lookup: `packed_pooled_lookup` of each
     table of the group into its block of `out` (a new [T, B, D] tensor
     unless given; its slots outside the group are then 0)."""
-    out = grouped_lookup_out(group.slots, group.dim, indices, out, group.width)
+    out = grouped_lookup_out(group.slots, group.width, group.dim, indices, out)
     B = indices.shape[1]
     for pt, k, c in zip(group.tables, group.slots, group.cols):
         block_view(out, c, B, pt.dim).copy_(
@@ -317,7 +313,7 @@ def packed_pooled_lookup_grouped(
     group: PackedGroup,
     indices: torch.Tensor,  # [T, B, P] int32
     mask: Optional[torch.Tensor] = None,  # [T, B, P] float32
-    out: Optional[torch.Tensor] = None,  # [T, B, D] float32, or flat (see the group)
+    out: Optional[torch.Tensor] = None,  # float32, at least width * B values
 ) -> torch.Tensor:
     """Every table of `group` in one launch, into its block of `out` (a new
     [T, B, D] tensor unless given; its slots outside the group are then 0):
@@ -330,7 +326,7 @@ def packed_pooled_lookup_grouped(
     dev = indices.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    out = grouped_lookup_out(group.slots, group.dim, indices, out, group.width)
+    out = grouped_lookup_out(group.slots, group.width, group.dim, indices, out)
     if group.descs.device != dev:
         raise ValueError("packed tables, indices and mask must be on one device")
     _check_ids(indices, mask, dev)

@@ -86,29 +86,28 @@ def check_slots_fit(slots: Tuple[int, ...], indices: torch.Tensor) -> None:
 
 def grouped_lookup_out(
     slots: Tuple[int, ...],
+    width: int,
     dim: Optional[int],
     indices: torch.Tensor,  # [T, B, P]
     out: Optional[torch.Tensor] = None,
-    width: Optional[int] = None,
 ) -> torch.Tensor:
-    """The output of a grouped lookup whose tables write `slots`: without
-    `width`, float32 [T, B, dim] (`out` once checked, else a new tensor whose
-    other slots read 0); with `width` (a group writing [B, D_i] blocks at
-    columns of a flat output), the caller's contiguous float32 `out` of at
-    least width * B values."""
+    """The output of a grouped lookup whose tables read id rows `slots` and
+    write [B, D_i] blocks at columns below `width` (float offset col * B;
+    slot k of a [T, B, D] output is the block at column k * D): `out` once
+    checked, a contiguous float32 tensor of at least width * B values; else
+    a new float32 [T, B, dim] tensor for tables that share D = `dim`, whose
+    blocks outside the group read 0."""
     check_slots_fit(slots, indices)
     T, B, _ = indices.shape
-    if width is not None:
-        if out is None or out.dtype != torch.float32 or out.numel() < width * B \
-                or not out.is_contiguous() or out.device != indices.device:
-            raise ValueError(f"a group of columns writes a contiguous float32 out= of at least "
-                             f"{width} x {B}")
-        return out
     if out is None:
+        if dim is None or width > T * dim:
+            raise ValueError("tables of different widths, or columns past [T, B, D], need out=")
         alloc = torch.empty if len(slots) == T else torch.zeros
         return alloc((T, B, dim), dtype=torch.float32, device=indices.device)
-    if out.shape != (T, B, dim) or out.dtype != torch.float32 or out.device != indices.device:
-        raise ValueError(f"out must be float32 [{T}, {B}, {dim}] on {indices.device}")
+    if out.dtype != torch.float32 or not out.is_contiguous() or out.numel() < width * B \
+            or out.device != indices.device:
+        raise ValueError(f"out must be a contiguous float32 tensor of at least {width} x {B} values "
+                         f"on {indices.device}")
     return out
 
 

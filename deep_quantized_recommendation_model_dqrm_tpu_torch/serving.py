@@ -235,11 +235,6 @@ def make_serving_fn(
     else:
         linear8 = int8_linear_xla if plain else int8_linear
     members, qr, width = _members(sm)
-    flat = width != T * D or any(m.pt.dim != D for m in members)
-
-    def cols(ms):  # the flat layout's columns, else each table's slot of [T, B, D]
-        return [m.col for m in ms] if flat else None
-
     by_slot = {m.slot: m for m in members}
     post = []  # (slot, entry, its members): the QR tables to compose, the MD tables to project
     for k, e in enumerate(sm.emb):
@@ -250,12 +245,12 @@ def make_serving_fn(
             post.append((k, e, [by_slot[k]]))
     small = [m for m in members if 0 < m.pt.rows <= onehot_lookup_max_rows]
     big = [m for m in members if not 0 < m.pt.rows <= onehot_lookup_max_rows]
-    group = make_packed_group([m.pt for m in big], [m.slot for m in big], cols(big)) if big else None
+    group = make_packed_group([m.pt for m in big], [m.slot for m in big], [m.col for m in big]) if big else None
     onehot_groups = []
     for part in group_slots(range(len(small))):
         ms = [small[i] for i in part]
         onehot_groups.append(make_onehot_lookup_group(
-            [unpack_table(m.pt) for m in ms], [m.slot for m in ms], cols(ms)))
+            [unpack_table(m.pt) for m in ms], [m.slot for m in ms], [m.col for m in ms]))
     vw_flat = vw_off = vw_max = None
     if sm.vw is not None:
         dev = sm.vw[0].device
@@ -278,13 +273,12 @@ def make_serving_fn(
             indices = torch.cat([indices, qi // c, qi % c])
             if w is not None:
                 w = torch.cat([w, w[qsel], w[qsel]])
-        out = torch.empty(((width if flat else T * D) * B,), device=indices.device)
-        ly = out[:T * D * B].view(T, B, D)
-        kernel_out = out if flat else ly
+        out = torch.empty((width * B,), device=indices.device)
+        ly = out[:T * D * B].view(T, B, D)  # the slots of the plain tables, then QR's and MD's blocks
         if group is not None:
-            grouped(group, indices, w, out=kernel_out)
+            grouped(group, indices, w, out=out)
         for og in onehot_groups:
-            onehot(og, indices, w, out=kernel_out)
+            onehot(og, indices, w, out=out)
         for k, e, ms in post:
             blocks = [block_view(out, m.col, B, m.pt.dim) for m in ms]
             ly[k] = tricks.qr_compose(*blocks, cfg.qr_operation) if "q" in e else tricks.md_project(e, blocks[0])

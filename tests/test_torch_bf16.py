@@ -113,7 +113,70 @@ def test_bf16_tables_one_step(optimizer, sparse, batch):
     rounding boundary, where that ulp flips the rounding (the float32-table
     tests meet no such tie). Steps 1-5 take no refresh and the port runs on
     JAX's scales."""
-    jc, tc = configs(dict(INT4, scale_update_period=1000), table_dtype="bfloat16")
+    one_steps_from_jax(optimizer, sparse, batch)
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "rwsadagrad"])
+def test_bf16_dense_step_through_k4(optimizer, monkeypatch):
+    """The dense step with `onehot_lookup_max_rows=50` on bf16 tables: the 40-
+    and 7-row tables' lookups take K4's autograd function (its plain
+    version here; the JAX step runs its Pallas kernels interpreted), whose
+    bf16 sums and table gradients are rounded once to bf16. Five steps from
+    JAX's state, as `test_bf16_tables_one_step`."""
+    monkeypatch.setenv("DQRM_ONEHOT_INTERPRET", "1")
+    one_steps_from_jax(optimizer, False, 16, onehot_lookup_max_rows=50)
+
+
+@pytest.mark.parametrize("P,masked", [(1, False), (4, True)])
+def test_k4_grouped_bf16_tables_match_jax(P, masked):
+    """The grouped K4 on bf16 tables (autograd function, plain forward on the
+    CPU) against JAX's `onehot_pooled_lookup` (interpret) table by table:
+    the float32 sums rounded once to bf16, equal bits at P = 1 and within
+    one bf16 ulp where P > 1 sums in another order; the bf16 table
+    gradients within one bf16 ulp (float32 sums of duplicates in another
+    order, then one rounding), the weights' gradients within 1e-5. The
+    incoming gradient is float32 on the port's side; JAX's VJP takes it
+    as bf16, since its kernel casts the sums to the table's type, and the
+    port rounds it the same."""
+    from deep_quantized_recommendation_model_dqrm_tpu.ops.pallas import onehot_update as joh
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda import onehot_update as toh
+
+    rows, slots, d, B = (583, 3, 24), (2, 0, 1), 16, 24
+    rng = np.random.RandomState(50 + P)
+    ids = np.stack([rng.randint(-1, n + 1, size=(B, P)) for n in rows])[np.argsort(slots)].astype(np.int32)
+    g = rng.normal(size=(3, B, d)).astype(np.float32)
+    mask = (rng.rand(3, B, P) > 0.3).astype(np.float32) * rng.uniform(0.5, 2.0, (3, B, P)).astype(np.float32)
+    w = mask if masked else np.ones((3, B, P), np.float32)
+    tables = [jnp.asarray(rng.normal(size=(n, d)).astype(np.float32), jnp.bfloat16) for n in rows]
+    tt = [torch.from_numpy(np.asarray(t).view(np.int16).copy()).view(torch.bfloat16).requires_grad_()
+          for t in tables]
+    tm = torch.from_numpy(mask).requires_grad_() if masked else None
+    group = toh.make_onehot_lookup_group(tt, slots)
+    out = toh.onehot_pooled_lookup_grouped(group, torch.from_numpy(ids), tm)
+    assert out.dtype == torch.float32
+    grads = torch.autograd.grad(out, tt + ([tm] if masked else []), torch.from_numpy(g))
+    for i, (t, k) in enumerate(zip(tables, slots)):
+        want, vjp = jax.vjp(lambda tab, ww: joh.onehot_pooled_lookup(tab, jnp.asarray(ids[k]), ww, True),
+                            t, jnp.asarray(w[k]))
+        assert want.dtype == jnp.bfloat16 and grads[i].dtype == torch.bfloat16
+        got = out[k].detach().numpy()
+        assert ulps_apart(got, f32(want)).max() <= (0 if P == 1 else 1), (k, P)
+        jt, jwg = vjp(jnp.asarray(g[k], jnp.bfloat16))
+        assert ulps_apart(grads[i].float().numpy(), f32(jt)).max() <= 1, k
+        if masked:  # JAX reads jnp.take's fill at out-of-range ids, the port 0
+            ok = (ids[k] >= 0) & (ids[k] < t.shape[0])
+            np.testing.assert_allclose(grads[-1][k].numpy()[ok], f32(jwg)[ok], rtol=1e-5, atol=1e-6)
+            assert np.all(grads[-1][k].numpy()[~ok] == 0)
+    with pytest.raises(TypeError, match="all float32 or all bfloat16"):
+        toh.make_onehot_lookup_group([tt[0].detach(), tt[1].detach().float()], (0, 1))
+    with pytest.raises(TypeError, match="all float32 or all bfloat16"):
+        toh.make_onehot_lookup_group([tt[0].detach().half()])
+
+
+def one_steps_from_jax(optimizer, sparse, batch, **kw):
+    """Five batches, each one step of the port from JAX's state before it
+    (see `test_bf16_tables_one_step`), the configs' bf16 tables and `kw`."""
+    jc, tc = configs(dict(INT4, scale_update_period=1000), table_dtype="bfloat16", **kw)
     jtc, ttc = (m.TrainConfig(learning_rate=0.1 if optimizer == "sgd" else 0.01, optimizer=optimizer,
                               onehot_update_max_rows=50) for m in (jcfg, tcfg))
     js = jts.init_train_state(jc, jtc, seed=0)

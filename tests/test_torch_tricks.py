@@ -172,6 +172,15 @@ def test_trajectory_20_steps(kind, optimizer, sparse):
     jstep = jax.jit(jts._build_sparse_step_fn(jc, jtc) if sparse else jts._build_step_fn(jc, jtc))
     tstep = tts.make_train_step(tc, ttc, sparse_emb_grad=sparse, device="cpu")
     rng = np.random.RandomState(1)
+
+    def accumulators():
+        if optimizer == "sgd":
+            return [], []
+        return (jax.tree_util.tree_leaves(np_tree(js.opt_state)),
+                jax.tree_util.tree_leaves(jax.tree_util.tree_map(lambda t: t.numpy().copy(), ts.opt_state)))
+
+    jo, to = accumulators()
+    residue_steps = [np.zeros(a.shape, np.int64) for a in jo]
     for i in range(20):
         b = jsyn.random_batch(jc, 16, rng)
         if i == 0:
@@ -180,27 +189,32 @@ def test_trajectory_20_steps(kind, optimizer, sparse):
         js, jl = jstep(js, b)
         ts, tl = tstep(ts, to_torch(b))
         np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5, err_msg=f"step {i}")
+        jo1, to1 = accumulators()
+        for n, a0, a1, b0, b1 in zip(residue_steps, jo, jo1, to, to1):
+            n += ((a1 < 1e-12) & (a1 != a0)) | ((b1 < 1e-12) & (b1 != b0))
+        jo, to = jo1, to1
     if optimizer == "sgd":
         assert_params_close(js.params, ts.params, atol=PARAM_ATOL[optimizer])
         return
-    jo = jax.tree_util.tree_leaves(np_tree(js.opt_state))
-    to = jax.tree_util.tree_leaves(jax.tree_util.tree_map(lambda t: t.numpy(), ts.opt_state))
     assert [a.shape for a in jo] == [a.shape for a in to]
     for a, b_ in zip(jo, to):
         np.testing.assert_allclose(b_, a, rtol=1e-5, atol=1e-6)
     # Adagrad's step lr g / sqrt(acc) is a full step of lr even for a
     # gradient that is a rounding residue: where JAX's sum of products is 0
     # and the port's another order's 1e-10 (or the other way round), the
-    # accumulator stays below 1e-12 and the element moves by up to lr per
-    # step. Those elements are held to 20 lr, the others to 1e-5.
+    # accumulator stays below 1e-12 and the element moves by up to lr in
+    # that step. So an element is held to 1e-5 plus lr for each step in
+    # which its accumulator took such a residue in either package (0 for
+    # most), and at most 2 elements of the model may use that allowance.
     jp = jax.tree_util.tree_leaves(np_tree(js.params))
     tp = jax.tree_util.tree_leaves(params_to_numpy(ts.params))
-    for a, b_, acc in zip(jp, tp, jo):
-        acc = acc.reshape(acc.shape + (1,) * (a.ndim - acc.ndim))  # RWSAdagrad's row state
-        residue = np.broadcast_to(acc < 1e-12, a.shape)
+    beyond_atol = 0
+    for a, b_, n in zip(jp, tp, residue_steps):
+        n = np.broadcast_to(n.reshape(n.shape + (1,) * (a.ndim - n.ndim)), a.shape)  # RWSAdagrad's row state
         d = np.abs(a - b_)
-        assert d[~residue].max(initial=0.0) <= PARAM_ATOL[optimizer]
-        assert d[residue].max(initial=0.0) <= 20 * LR[optimizer]
+        assert (d <= PARAM_ATOL[optimizer] + LR[optimizer] * n).all(), float((d - LR[optimizer] * n).max())
+        beyond_atol += int((d > PARAM_ATOL[optimizer]).sum())
+    assert beyond_atol <= 2, beyond_atol
 
 
 @pytest.mark.parametrize("sparse", [True, False], ids=["sparse", "dense"])
