@@ -8,8 +8,9 @@ the card, pseudo) directly and through the CLI, and the paper's other QAT
 configurations (PACT, LSQ, the integer-activation chain with the INT16
 interaction) through the sparse step, the dp engine and the CLI, the
 reference's QR/MD tables and weighted pooling through the sparse step,
-serving and the CLI, and the Terabyte model at its full 49M rows on bf16
-tables, trained and served.
+serving and the CLI, the Terabyte model at its full 49M rows on bf16
+tables, trained and served, and the Criteo data pipeline from raw text
+through training and serving, directly and through the CLI.
 
     python3 chip_smoke.py
 
@@ -111,7 +112,23 @@ launch counters of its kernels set to 0 just before and read just after:
    mlp_impl="int8", each against its plain path;
 20. cli_tricks: `train.run --qr-flag --weighted-pooling=learned` (64 steps,
    a save, then PTQ from the checkpoint) and `--table-dtype=bfloat16
-   --compute-dtype=bfloat16` (64 steps) at the Kaggle width.
+   --compute-dtype=bfloat16` (64 steps) at the Kaggle width;
+21. criteo: the Criteo data pipeline at Kaggle's widths: 2,000,000 lines
+   of Kaggle-format text written from seed 0, `preprocess_criteo` (7
+   days) through the native parser the port builds into build/native/
+   (checked against the numpy parser on a 20000-line prefix),
+   `CriteoDataset` batches through the INT4 QAT sparse step (B = 128,
+   k = 16: 32 steps of the kernel path against the plain path, then 256
+   with one grouped K1 launch each, 224 of them timed), and PTQ serving
+   of the test split through K2 + K3 against the plain serving path;
+22. cli_criteo: scripts/run_kaggle_qat.sh's argv through `train.run` on a
+   200,000-line raw file (preprocessed on the way in, one K1 launch per
+   step) and `--inference-only` PTQ of its checkpoint on the existing
+   processed directory (1 K2 + 7 K3 per batch, AUC against the plain
+   path), `--raw-data-files` over 3 day files through 2 workers with
+   `--data-randomize=total`, scripts/run_kaggle_dp_comm_grad.sh's argv
+   under one-rank dp for 64 steps, `--investigating-inputs` (clean), and
+   trace replay of dist files profiled from processed day-0 ids.
 
 Kernel K6 (`dma_row_update`) is on no path; its kernel phase holds it
 against its plain version on the 2,202,608-row table.
@@ -122,8 +139,8 @@ bf16 tables and D = 512, K5 with Zipf ids, K6), train, profile (train), train_st
 profile (SGD), schemes (pact, lsq, act, each with its profile), dp with
 profile, dp_stream, pseudo, dp_schemes, tricks (qr, md, vw), dense_bf16, eval,
 export, serve, profile (serve), serve_onehot with profile, serve_cat,
-tb_bf16 with profile, tb_serve, cli, cli_schemes, cli_tricks, cli_dp, dp2,
-kernels.
+tb_bf16 with profile, tb_serve, criteo, cli, cli_schemes, cli_tricks, cli_dp,
+cli_criteo, dp2, kernels.
 
 Output: one JSON line per phase; then the {"kernels": [...]} summary; then
 the card's name and power limit as nvidia-smi gives them; and last
@@ -1745,6 +1762,30 @@ CLI_PRINT = 64
 CLI_AUC_ATOL = 1e-4  # the CLI's PTQ AUC against this script's own on the same state
 
 
+def cli_run(train, argv):
+    """`train.run(argv)` with its stdout captured: (result, stdout, wall s,
+    the ms/it of its prints)."""
+    import contextlib
+    import io
+    import re
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = train.run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    ms = [float(m) for m in re.findall(r"([0-9.]+) ms/it", out.getvalue())]
+    return result, out.getvalue(), wall, ms
+
+
+def steady_ms(ms):
+    """The median ms/it of a run's prints after the first (which holds the
+    warm-up), else its one print."""
+    return statistics.median(ms[1:]) if len(ms) > 1 else (ms[-1] if ms else "not measured")
+
+
 def phase_cli(cfg, train_step_ms):
     """The user's entry point, `train.run` (python -m ..._torch.train), at
     the Kaggle arch's full width: A trains 256 steps (INT4 QAT, SGD at 0.1,
@@ -1758,9 +1799,6 @@ def phase_cli(cfg, train_step_ms):
     step time (`train_step_ms`, the same step without the CLI's loader and
     loop). The checkpoints (2.16 GB each) live in a temporary directory,
     removed at the end."""
-    import contextlib
-    import io
-    import re
     import shutil
     import tempfile
 
@@ -1802,21 +1840,14 @@ def phase_cli(cfg, train_step_ms):
                          "--quantize-mlp-with-bit=8"]
 
         # A: train, counters from 0
-        torch.cuda.synchronize()
         k1.launches = k1_one.launches = k2.launches = k2_one.launches = k3.launches = 0
-        out = io.StringIO()
-        t1 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            result_a = train.run(argv_a)
-        torch.cuda.synchronize()
-        wall_a = time.perf_counter() - t1
+        result_a, _, wall_a, ms_per_it = cli_run(train, argv_a)
         launches_a = {"onehot_dense_grad": k1.launches, "packed_pooled_lookup": k2.launches,
                       "int8_linear": k3.launches}
         check(launches_a["onehot_dense_grad"] == CLI_BATCHES and k1_one.launches == 0,
               f"cli A: K1 launches {launches_a}, per-table {k1_one.launches}: one grouped launch "
               f"per step x {CLI_BATCHES}")
         check(k2.launches == k3.launches == 0, f"cli A: no serving kernel in training {launches_a}")
-        ms_per_it = [float(m) for m in re.findall(r"([0-9.]+) ms/it", out.getvalue())]
         with open(os.path.join(log, "run.scalars.jsonl")) as f:
             losses = [json.loads(line)["value"] for line in f
                       if json.loads(line)["tag"] == "Train/Loss"]
@@ -1845,13 +1876,8 @@ def phase_cli(cfg, train_step_ms):
         ckpt_bytes = os.path.getsize(last)
 
         # B: serve the saved state, counters from 0
-        torch.cuda.synchronize()
         k1.launches = k2.launches = k2_one.launches = k3.launches = 0
-        t2 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            result_b = train.run(argv_b)
-        torch.cuda.synchronize()
-        wall_b = time.perf_counter() - t2
+        result_b, _, wall_b, _ = cli_run(train, argv_b)
         launches_b = {"onehot_dense_grad": k1.launches, "packed_pooled_lookup": k2.launches,
                       "int8_linear": k3.launches}
         n_test = max(1, CLI_BATCHES // 8)
@@ -1885,11 +1911,10 @@ def phase_cli(cfg, train_step_ms):
                                        f"{want['roc_auc']}: {auc_err} <= {CLI_AUC_ATOL}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    steady = ms_per_it[1:]
     emit({"phase": "cli", "entry": f"python -m {PKG}.train", "config": "kaggle_int4_qat",
           "batch": 128, "k": CLI_K, "steps": CLI_BATCHES,
           "train": {"wall_s": wall_a, "ms_per_it_at_prints": ms_per_it,
-                    "ms_per_it": statistics.median(steady) if steady else ms_per_it[-1],
+                    "ms_per_it": steady_ms(ms_per_it),
                     "train_phase_step_ms": train_step_ms,
                     "losses": losses, "launches": launches_a,
                     "launches_per_step": launches_a["onehot_dense_grad"] / CLI_BATCHES,
@@ -1902,7 +1927,7 @@ def phase_cli(cfg, train_step_ms):
           "phase_s": time.perf_counter() - t0})
     return {"onehot_dense_grad": launches_a["onehot_dense_grad"],
             "packed_pooled_lookup": launches_b["packed_pooled_lookup"],
-            "int8_linear": launches_b["int8_linear"]}, (statistics.median(steady) if steady else ms_per_it[-1])
+            "int8_linear": launches_b["int8_linear"]}, steady_ms(ms_per_it)
 
 
 # the data-parallel engines: dp and dp_stream on a one-rank
@@ -2398,9 +2423,6 @@ def phase_cli_dp(cfg, cli_ms):
     slot (the JAX key names, `.qstate.step` 64), in a temporary directory
     removed at the end. One grouped K1 launch per step under dp and pseudo; ms/it
     beside the cli phase's."""
-    import contextlib
-    import io
-    import re
     import shutil
     import tempfile
 
@@ -2429,18 +2451,11 @@ def phase_cli_dp(cfg, cli_ms):
         tmp = tempfile.mkdtemp(prefix=f"dqrm_cli_{mode}_")
         try:
             ck, log = os.path.join(tmp, "ck"), os.path.join(tmp, "log")
-            out = io.StringIO()
-            torch.cuda.synchronize()
             k1.launches = k1_one.launches = 0
-            t1 = time.perf_counter()
-            with contextlib.redirect_stdout(out):
-                result = train.run(arch + extra + [f"--save-model={ck}", f"--log-dir={log}"])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t1
+            result, _, wall, ms_per_it = cli_run(train, arch + extra + [f"--save-model={ck}", f"--log-dir={log}"])
             launches = k1.launches
             check(launches == want_k1 and k1_one.launches == 0,
                   f"cli_dp {mode}: K1 launches {launches} == {want_k1}")
-            ms_per_it = [float(m) for m in re.findall(r"([0-9.]+) ms/it", out.getvalue())]
             with open(os.path.join(log, "run.scalars.jsonl")) as f:
                 losses = [json.loads(line)["value"] for line in f if json.loads(line)["tag"] == "Train/Loss"]
             check(len(losses) == CLI_DP_BATCHES // 16 and all(np.isfinite(losses)), f"cli_dp {mode}: {losses}")
@@ -2453,9 +2468,7 @@ def phase_cli_dp(cfg, cli_ms):
                           and int(z[".qstate.step"]) == CLI_DP_BATCHES, f"cli_dp {mode}: JAX key names in {p}")
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
-        steady = ms_per_it[1:]
-        rows[mode] = {"wall_s": wall, "ms_per_it_at_prints": ms_per_it,
-                      "ms_per_it": statistics.median(steady) if steady else ms_per_it[-1],
+        rows[mode] = {"wall_s": wall, "ms_per_it_at_prints": ms_per_it, "ms_per_it": steady_ms(ms_per_it),
                       "losses": losses, "launches": {"onehot_dense_grad": launches},
                       "final_eval": result}
         total += launches
@@ -2605,9 +2618,6 @@ def phase_cli_schemes(cfg, tf32_default):
     K3 launches per batch of 16384), its AUC against this script's own on
     the plain path. The integer chain runs under PyTorch's float32 matmul
     defaults (TF32 off) and refuses TF32. Returns the launches."""
-    import contextlib
-    import io
-    import re
     import shutil
     import tempfile
 
@@ -2662,16 +2672,10 @@ def phase_cli_schemes(cfg, tf32_default):
                          f"--steps-per-dispatch={CLI_K}", f"--print-freq={CLI_SCHEME_BATCHES // 2}"]
         runs = {"lsq": ["--quant-scheme=lsq"],
                 "act": ["--quantize_act_and_lin", "--modify_feature_interaction"]}
-        out = io.StringIO()
         for name, flags in runs.items():
             ck, log = os.path.join(tmp, name, "ck"), os.path.join(tmp, name, "log")
-            torch.cuda.synchronize()
             k1.launches = k1_one.launches = k2.launches = k3.launches = 0
-            t1 = time.perf_counter()
-            with contextlib.redirect_stdout(out):
-                result = train.run(common + flags + [f"--save-model={ck}", f"--log-dir={log}"])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t1
+            result, _, wall, ms_per_it = cli_run(train, common + flags + [f"--save-model={ck}", f"--log-dir={log}"])
             launches = {"onehot_dense_grad": k1.launches, "packed_pooled_lookup": k2.launches,
                         "int8_linear": k3.launches}
             check(launches == {"onehot_dense_grad": CLI_SCHEME_BATCHES, "packed_pooled_lookup": 0,
@@ -2690,25 +2694,17 @@ def phase_cli_schemes(cfg, tf32_default):
                     check(float(z[".qstate.act_max"][1]) > float(z[".qstate.act_min"][1]),
                           "cli_schemes act: both QuantAct ranges saved")
                     ranges = {"act_min": z[".qstate.act_min"].tolist(), "act_max": z[".qstate.act_max"].tolist()}
-            ms_per_it = [float(m) for m in re.findall(r"([0-9.]+) ms/it", out.getvalue())][-2:]
             rows[name] = {"wall_s": wall, "ms_per_it_at_prints": ms_per_it, "losses": losses,
                           "launches": launches, "final_eval": result, "checkpoint_bytes": os.path.getsize(last)}
             if name == "act":
                 rows[name].update(ranges)
-            out.seek(0)
-            out.truncate()
 
         # PTQ serving of the LSQ checkpoint, counters from 0
         ck = os.path.join(tmp, "lsq", "ck")
         argv_b = arch + [f"--load-model={ck}", "--inference-only", "--quantize-emb-with-bit=4",
                          "--quantize-mlp-with-bit=8", "--quant-scheme=lsq", "--quantization_flag"]
-        torch.cuda.synchronize()
         k1.launches = k2.launches = k2_one.launches = k3.launches = 0
-        t2 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            result_b = train.run(argv_b)
-        torch.cuda.synchronize()
-        wall_b = time.perf_counter() - t2
+        result_b, _, wall_b, _ = cli_run(train, argv_b)
         n_test = max(1, CLI_SCHEME_BATCHES // 8)
         launches_b = {"onehot_dense_grad": k1.launches, "packed_pooled_lookup": k2.launches,
                       "int8_linear": k3.launches}
@@ -3287,8 +3283,6 @@ def phase_cli_tricks(cfg):
     the plain path; and with `--table-dtype=bfloat16
     --compute-dtype=bfloat16` for 64 steps. INT4 QAT, B = 128, megasteps
     of 16, one grouped K1 launch per step. Returns the launches."""
-    import contextlib
-    import io
     import shutil
     import tempfile
 
@@ -3321,15 +3315,10 @@ def phase_cli_tricks(cfg):
                       f"--print-freq={CLI_TRICK_BATCHES // 2}"]
         runs = {"qr_vw": ["--qr-flag", "--weighted-pooling=learned"],
                 "bf16": ["--table-dtype=bfloat16", "--compute-dtype=bfloat16"]}
-        out = io.StringIO()
         for name, flags in runs.items():
             ck, log = os.path.join(tmp, name, "ck"), os.path.join(tmp, name, "log")
-            torch.cuda.synchronize()
             k1.launches = k1_one.launches = k2.launches = k3.launches = 0
-            t1 = time.perf_counter()
-            with contextlib.redirect_stdout(out):
-                result = train.run(arch + train_args + flags + [f"--save-model={ck}", f"--log-dir={log}"])
-            torch.cuda.synchronize()
+            result, _, wall, _ = cli_run(train, arch + train_args + flags + [f"--save-model={ck}", f"--log-dir={log}"])
             launches = {"onehot_dense_grad": k1.launches, "packed_pooled_lookup": k2.launches,
                         "int8_linear": k3.launches}
             check(launches == {"onehot_dense_grad": CLI_TRICK_BATCHES, "packed_pooled_lookup": 0,
@@ -3344,19 +3333,14 @@ def phase_cli_tricks(cfg):
                 key = ".params['emb'][2]['q']" if name == "qr_vw" else ".params['emb'][2]"
                 check(key in z.files and (name != "bf16" or z[key].dtype.kind == "V"),
                       f"cli_tricks {name}: {key} in the checkpoint")
-            rows[name] = {"wall_s": time.perf_counter() - t1, "losses": losses, "launches": launches,
+            rows[name] = {"wall_s": wall, "losses": losses, "launches": launches,
                           "final_eval": result, "checkpoint_bytes": os.path.getsize(last)}
 
         ck = os.path.join(tmp, "qr_vw", "ck")
         argv_b = arch + runs["qr_vw"] + [f"--load-model={ck}", "--inference-only", "--quantize-emb-with-bit=4",
                                          "--quantize-mlp-with-bit=8"]
-        torch.cuda.synchronize()
         k1.launches = k2.launches = k3.launches = 0
-        t2 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            result_b = train.run(argv_b)
-        torch.cuda.synchronize()
-        wall_b = time.perf_counter() - t2
+        result_b, _, wall_b, _ = cli_run(train, argv_b)
         n_test = max(1, CLI_TRICK_BATCHES // 8)
         launches_b = {"onehot_dense_grad": k1.launches, "packed_pooled_lookup": k2.launches,
                       "int8_linear": k3.launches}
@@ -3383,6 +3367,439 @@ def phase_cli_tricks(cfg):
           "phase_s": time.perf_counter() - t0})
     return {"onehot_dense_grad": 2 * CLI_TRICK_BATCHES, "packed_pooled_lookup": launches_b["packed_pooled_lookup"],
             "int8_linear": launches_b["int8_linear"]}
+
+
+# the Criteo data pipeline (criteo, cli_criteo): raw Kaggle-format text
+# written from a seed, preprocessed by the native parser, trained and served
+CRITEO_LINES = 2_000_000  # Kaggle's train.txt has 45,840,617
+CRITEO_PREFIX = 20000  # the native parser against numpy on this prefix
+CRITEO_COMPARE_STEPS = 32  # kernel path against plain path
+CRITEO_TIMED_STEPS = 224
+CLI_CRITEO_LINES = 200_000
+CLI_CRITEO_TEST_B = 4096  # the test split of 200,000 lines holds 14,286 rows
+CLI_CRITEO_DAY_LINES = 10000  # each of the 3 raw day files
+CLI_CRITEO_DP_LINES = 38234  # 7 days of 5462: 64 train batches of 512
+CLI_CRITEO_TRACE_ROWS = 1024  # day-0 ids profiled per table
+CLI_CRITEO_TRACE_STEPS = 64
+HEX = np.frombuffer(b"0123456789abcdef", np.uint8)
+DIGITS = np.frombuffer(b"0123456789", np.uint8)
+
+
+def write_criteo_tsv(path, n, table_sizes, seed=0, chunk=250_000) -> None:
+    """`n` lines of Criteo Kaggle text, built as byte arrays: a 0/1 label,
+    13 decimal ints in [-3, 500) (10% blank) and 26 8-digit hex categories
+    (5% blank). Column j draws uniformly from table_sizes[j] values, mapped
+    to 32-bit hex by r * 2654435761 + j + 1 mod 2^32, a bijection, so
+    distinct draws stay distinct. Each line is assembled at fixed width
+    (301 bytes), and the bytes of blank fields and leading zeros dropped."""
+    rng = np.random.RandomState(seed)
+    with open(path, "wb") as f:
+        for lo in range(0, n, chunk):
+            m = min(chunk, n - lo)
+            label = DIGITS[rng.randint(0, 2, size=(m, 1))]
+            dense = rng.randint(-3, 500, size=(m, 13))
+            dense_kept = rng.rand(m, 13) >= 0.1
+            a = np.abs(dense)
+            d_chars = np.empty((m, 13, 5), np.uint8)
+            d_chars[..., 0] = ord("\t")
+            d_chars[..., 1] = ord("-")
+            d_chars[..., 2:] = DIGITS[np.stack([a // 100, a // 10 % 10, a % 10], -1)]
+            d_keep = np.stack([np.ones_like(dense_kept), (dense < 0) & dense_kept, (a >= 100) & dense_kept,
+                               (a >= 10) & dense_kept, dense_kept], -1)
+            cat_kept = rng.rand(m, 26) >= 0.05
+            r = np.stack([rng.randint(0, rows, size=m) for rows in table_sizes], 1).astype(np.uint32)
+            v = r * np.uint32(2654435761) + np.arange(1, 27, dtype=np.uint32)  # wraps mod 2^32
+            b = v.astype(">u4").view(np.uint8).reshape(m, 26, 4)  # big-endian bytes: the hex digits' order
+            c_chars = np.empty((m, 26, 9), np.uint8)
+            c_chars[..., 0] = ord("\t")
+            c_chars[..., 1:] = HEX[np.stack([b >> 4, b & 15], -1).reshape(m, 26, 8)]
+            c_keep = np.concatenate([np.ones((m, 26, 1), bool), np.repeat(cat_kept[..., None], 8, -1)], -1)
+            newline = np.full((m, 1), ord("\n"), np.uint8)
+            line = np.concatenate([label, d_chars.reshape(m, -1), c_chars.reshape(m, -1), newline], 1)
+            keep = np.concatenate([np.ones((m, 1), bool), d_keep.reshape(m, -1), c_keep.reshape(m, -1),
+                                   np.ones((m, 1), bool)], 1)
+            f.write(line[keep].tobytes())
+
+
+def phase_criteo(cfg, train_step_ms):
+    """The paper's Kaggle run on raw text at Kaggle's widths: 2,000,000
+    lines written from seed 0 (each table's vocabulary is its Kaggle size:
+    the 18 tables of at most 20000 rows reach it, the others are cut by the
+    line count), `preprocess_criteo(num_days=7)` through the port's native
+    parser (built into build/native/), checked against the numpy parser on
+    a 20000-line prefix; `CriteoDataset` train batches through the Kaggle
+    INT4 QAT sparse step (scripts/run_kaggle_qat.sh: period 200, SGD 0.1,
+    B = 128, k = 16): 32 steps of the kernel path against the plain path,
+    then the main path, counters from 0, 256 steps with one grouped K1
+    launch each, the last 224 timed by CUDA events; PTQ export of the
+    trained state and the test split scored through K2 + K3 against the
+    plain serving path. One more megastep is profiled."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import TrainConfig
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.data import criteo, native_ext
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_params, init_quant_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_dense_grad as k1_one,
+        onehot_dense_grad_grouped as k1,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
+        packed_pooled_lookup_grouped as k2,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import int8_linear as k3
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import make_serving_fn, ptq_export
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import (
+        TrainState,
+        _on,
+        clone_state,
+        make_multi_train_step,
+        stack_batches,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.metrics import binary_metrics
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dqrm_criteo_")
+    try:
+        raw, out = os.path.join(tmp, "train.txt"), os.path.join(tmp, "processed")
+        write_criteo_tsv(raw, CRITEO_LINES, cfg.table_sizes, seed=0)
+        gen_s = time.perf_counter() - t0
+        raw_bytes = os.path.getsize(raw)
+        t1 = time.perf_counter()
+        check(native_ext.available(), "the native parser builds")
+        build_s = time.perf_counter() - t1
+        lib = native_ext.lib_path()
+        check(lib.parent == native_ext.BUILD_DIR and lib.exists(), f"the parser lives in build/native: {lib}")
+        # the native parse and dictionary map alone, over the whole file
+        t2 = time.perf_counter()
+        y, xi, xc = native_ext.parse_file(raw, CRITEO_LINES)
+        parse_s = time.perf_counter() - t2
+        check(len(y) == CRITEO_LINES, f"parsed {len(y)} lines")
+        t3 = time.perf_counter()
+        native_ext.NativeCatDicts(26).map(xc)
+        map_s = time.perf_counter() - t3
+        del y, xi, xc
+        # the numpy path against the native one on a prefix
+        for native in (True, False):
+            criteo.preprocess_criteo(raw, os.path.join(tmp, f"prefix_{native}"), num_days=7,
+                                     use_native=native, max_rows=CRITEO_PREFIX)
+        for name in sorted(os.listdir(os.path.join(tmp, "prefix_True"))):
+            with np.load(os.path.join(tmp, "prefix_True", name)) as a, \
+                    np.load(os.path.join(tmp, "prefix_False", name)) as b:
+                check(sorted(a.files) == sorted(b.files)
+                      and all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a.files),
+                      f"native and numpy preprocessing agree on {name} of a {CRITEO_PREFIX}-line prefix")
+        t4 = time.perf_counter()
+        paths = criteo.preprocess_criteo(raw, out, num_days=7)
+        preprocess_s = time.perf_counter() - t4
+        check(len(paths) == 7, f"7 day files: {paths}")
+
+        train_ds = criteo.CriteoDataset(out, "train")
+        test_ds = criteo.CriteoDataset(out, "test")
+        sizes = train_ds.table_sizes
+        small = [k for k, n in enumerate(cfg.table_sizes) if n <= SMALL_ROWS]
+        check(len(small) == 18 and all(sizes[k] == cfg.table_sizes[k] + 1 for k in small),
+              f"the 18 small tables at their Kaggle sizes plus the blank value: {sizes}")
+        big = [k for k, n in enumerate(cfg.table_sizes) if n > 1_000_000]
+        check(all(1_000_000 < sizes[k] < cfg.table_sizes[k] for k in big), f"the big tables cut: {sizes}")
+        ccfg = dataclasses.replace(cfg, table_sizes=sizes)
+        tc = TrainConfig(batch_size=B_TRAIN, learning_rate=0.1, onehot_update_max_rows=SMALL_ROWS)
+        n_steps = CRITEO_COMPARE_STEPS + CRITEO_TIMED_STEPS
+        host = []
+        for i, b in enumerate(train_ds.iter_batches(B_TRAIN)):
+            if i == n_steps:
+                break
+            host.append(b)
+        check(len(host) == n_steps and host[0].dense.device.type == "cpu", "CriteoDataset host batches")
+        dev = torch.device(DEVICE)
+        megas = [_on(stack_batches(host[i:i + K_MEGA]), dev) for i in range(0, n_steps, K_MEGA)]
+        params = init_params(ccfg, seed=0)
+        state = TrainState(params=params, opt_state=None, qstate=init_quant_state(ccfg))
+
+        # kernel path against plain path: 32 steps each from one start
+        paths_ = {}
+        for plain in (False, True):
+            st = clone_state(state)
+            run = make_multi_train_step(ccfg, tc, K_MEGA, sparse_emb_grad=True, plain=plain)
+            losses = []
+            for mb in megas[:CRITEO_COMPARE_STEPS // K_MEGA]:
+                st, _ = run(st, mb)
+                losses.append(run.losses)
+            paths_[plain] = (st, torch.cat(losses))
+        (sk, lk), (sp, lp) = paths_[False], paths_[True]
+        loss_err = ((lk - lp).abs() / lp.abs()).max().item()
+        param_err = tree_max_diff(sk.params, sp.params)
+        check(bool(torch.isfinite(lk).all()), "criteo: kernel-path losses finite")
+        check(loss_err <= TRAIN_LOSS_RTOL, f"criteo: loss kernel vs plain {loss_err} <= {TRAIN_LOSS_RTOL}")
+        check(param_err <= TRAIN_PARAM_ATOL, f"criteo: params kernel vs plain {param_err} <= {TRAIN_PARAM_ATOL}")
+        del sk, sp, paths_
+
+        # the main path, counters from 0: 256 steps, the last 224 timed
+        multi = make_multi_train_step(ccfg, tc, K_MEGA, sparse_emb_grad=True)
+        torch.cuda.synchronize()
+        k1.launches = k1_one.launches = 0
+        losses = []
+        lead = CRITEO_COMPARE_STEPS // K_MEGA
+        for mb in megas[:lead]:
+            state, _ = multi(state, mb)
+            losses.append(multi.losses)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        start.record()
+        for mb in megas[lead:]:
+            state, _ = multi(state, mb)
+            losses.append(multi.losses)
+        end.record()
+        end.synchronize()
+        host_ms = (time.perf_counter() - h0) * 1e3 / CRITEO_TIMED_STEPS
+        ms = start.elapsed_time(end) / CRITEO_TIMED_STEPS
+        losses = torch.cat(losses)
+        check(k1.launches == n_steps and k1_one.launches == 0,
+              f"criteo: K1 launches {k1.launches} == 1 grouped launch per step x {n_steps}")
+        check(losses.numel() == n_steps and bool(torch.isfinite(losses).all()), "criteo: every loss finite")
+        train_launches = k1.launches
+        holder = [state]
+
+        def megastep():
+            holder[0], _ = multi(holder[0], megas[-1])
+
+        ops, wall_ms = device_ops(megastep, 1)
+        state = holder[0]
+        busy = sum(o["ms_per_call"] for o in ops)
+        emit({"phase": "profile", "of": "criteo", "megasteps": 1, "steps": K_MEGA,
+              "wall_ms_per_step": wall_ms / K_MEGA,
+              "device_busy_ms_per_step": busy / K_MEGA if ops else "not measured",
+              "device_idle_share": 1.0 - busy / wall_ms if ops else "not measured",
+              "device_launches_per_step": sum(o["launches_per_call"] for o in ops) / K_MEGA
+              if ops else "not measured",
+              "top_device_ops": [{"name": o["name"], "ms_per_step": o["ms_per_call"] / K_MEGA,
+                                  "launches_per_step": o["launches_per_call"] / K_MEGA} for o in ops[:10]]})
+        del megas
+
+        # serve the test split through K2 + K3, against the plain serving path
+        sm = ptq_export(ccfg, state.params, emb_bits=4, mlp_bits=8)
+        del state, params
+        fn, plain_fn = make_serving_fn(sm), make_serving_fn(sm, plain=True)
+        tests = [_on(b, dev) for b in test_ds.iter_batches(B_MAIN)]
+        check(len(tests) == len(test_ds) // B_MAIN > 0, f"criteo: {len(tests)} test batches")
+        fn(tests[0])
+        torch.cuda.synchronize()
+        k2.launches = k3.launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        scores = [fn(b) for b in tests]
+        end.record()
+        end.synchronize()
+        serve_ms = start.elapsed_time(end) / len(tests)
+        serve_launches = {"packed_pooled_lookup": k2.launches, "int8_linear": k3.launches}
+        check(serve_launches == {"packed_pooled_lookup": len(tests), "int8_linear": 7 * len(tests)},
+              f"criteo: serving launches {serve_launches}: 1 K2 + 7 K3 per batch")
+        serve_err = max((a - plain_fn(b)).abs().max().item() for a, b in zip(scores, tests))
+        check(serve_err <= SERVE_ATOL, f"criteo: serving vs plain {serve_err} <= {SERVE_ATOL}")
+        m = binary_metrics(torch.cat(scores).cpu().numpy(), torch.cat([b.labels for b in tests]).cpu().numpy())
+        check(np.isfinite(m["roc_auc"]), f"criteo: AUC {m}")
+        del sm, fn, plain_fn, tests, scores
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "criteo", "config": "kaggle_int4_qat", "lines": CRITEO_LINES, "raw_bytes": raw_bytes,
+          "generate_s": gen_s, "parser": "native", "parser_build_s": build_s,
+          "parse_rows_per_s": CRITEO_LINES / parse_s, "map_rows_per_s": CRITEO_LINES / map_s,
+          "preprocess_s": preprocess_s, "preprocess_rows_per_s": CRITEO_LINES / preprocess_s,
+          "native_vs_numpy_prefix_rows": CRITEO_PREFIX, "table_sizes": list(sizes), "rows": sum(sizes),
+          "table_bytes": sum(sizes) * cfg.embedding_dim * 4, "train_rows": len(train_ds), "test_rows": len(test_ds),
+          "batch": B_TRAIN, "k": K_MEGA, "steps": n_steps,
+          "kernel_vs_plain_32_steps": {"loss_max_rel_err": loss_err, "param_max_abs_err": param_err,
+                                       "loss_rtol": TRAIN_LOSS_RTOL, "param_atol": TRAIN_PARAM_ATOL},
+          "first_loss": losses[0].item(), "last_loss": losses[-1].item(),
+          "launches": {"onehot_dense_grad": train_launches, **serve_launches},
+          "train_step_ms": ms, "host_ms_per_step": host_ms, "samples_per_s": B_TRAIN / ms * 1e3,
+          "train_phase_step_ms": train_step_ms, "train_phase_samples_per_s": B_TRAIN / train_step_ms * 1e3,
+          "serve": {"batch": B_MAIN, "batches": serve_launches["packed_pooled_lookup"], "ms_per_batch": serve_ms,
+                    "max_abs_err_vs_plain": serve_err, "tol": SERVE_ATOL, "roc_auc": m["roc_auc"],
+                    "note": "random labels: the AUC checks the pipeline, not the model"},
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(), "phase_s": time.perf_counter() - t0})
+    return {"onehot_dense_grad": train_launches, **serve_launches}
+
+
+def phase_cli_criteo(cfg):
+    """The two Kaggle recipes on raw text through the user's entry point,
+    `train.run`, at Kaggle's widths, on 200,000 lines written as in
+    `criteo` (seed 1):
+    1. scripts/run_kaggle_qat.sh's argv with --raw-data-file (preprocessed
+       on the way in, native parser; 1 epoch, test eval at step 1024 that
+       saves; one grouped K1 launch per step), then `--inference-only`
+       PTQ of the checkpoint (1 K2 + 7 K3 per batch), its AUC against this
+       script's own on the plain path, on the now-existing processed
+       directory: nothing is preprocessed again;
+    2. --raw-data-files over 3 day files (10,000 lines each) with
+       --preprocess-workers=2 and --data-randomize=total;
+    3. scripts/run_kaggle_dp_comm_grad.sh's argv under one-rank
+       `--parallelism=dp` (the NCCL group that exists), B = 512, on a
+       38,234-line head of the file: 64 steps;
+    4. --investigating-inputs on the processed directory: the audit clean;
+    5. trace replay: per-table dist files profiled from the first 1024
+       ids of processed day 0, replayed through --data-trace-file for 64
+       steps at the processed tables' sizes."""
+    import shutil
+    import tempfile
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch import train
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.data import trace
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.data.criteo import CriteoDataset
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_dense_grad as k1_one,
+        onehot_dense_grad_grouped as k1,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
+        packed_pooled_lookup_grouped as k2,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import int8_linear as k3
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import make_serving_fn, ptq_export
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import _on, init_train_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        load_checkpoint,
+    )
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    arch = ["--arch-sparse-feature-size=16", "--arch-mlp-bot=13-512-256-64-16", "--arch-mlp-top=512-256-1",
+            "--quantization_flag", "--embedding_bit=4", "--weight_bit=4", "--scale-update-period=200",
+            "--learning-rate=0.1"]
+    rows, launches = {}, {"onehot_dense_grad": 0, "packed_pooled_lookup": 0, "int8_linear": 0}
+    tmp = tempfile.mkdtemp(prefix="dqrm_cli_criteo_")
+    cwd = os.getcwd()
+    try:
+        raw, out = os.path.join(tmp, "train.txt"), os.path.join(tmp, "processed")
+        write_criteo_tsv(raw, CLI_CRITEO_LINES, cfg.table_sizes, seed=1)
+        data = ["--data-generation=dataset", f"--raw-data-file={raw}", f"--processed-data-dir={out}",
+                f"--test-mini-batch-size={CLI_CRITEO_TEST_B}"]
+        ck = os.path.join(tmp, "ck")
+
+        # 1: the QAT recipe, then PTQ of its checkpoint
+        qat = arch + data + ["--mini-batch-size=128", "--nepochs=1", "--steps-per-dispatch=16",
+                             "--print-freq=256", "--test-freq=1024", f"--save-model={ck}"]
+        k1.launches = k1_one.launches = k2.launches = k3.launches = 0
+        result, stdout, wall, ms = cli_run(train, qat)
+        steps = len(CriteoDataset(out, "train")) // 128
+        check("(native parser)" in stdout, "cli_criteo qat: the native parser ran")
+        check(k1.launches == steps and k1_one.launches == 0 and k2.launches == k3.launches == 0,
+              f"cli_criteo qat: K1 launches {k1.launches} == 1 grouped launch per step x {steps}")
+        check(np.isfinite(result["roc_auc"]), f"cli_criteo qat: test eval {result}")
+        rows["qat"] = {"wall_s": wall, "steps": steps, "ms_per_it_at_prints": ms,
+                       "ms_per_it": steady_ms(ms),
+                       "launches": {"onehot_dense_grad": k1.launches}, "test_eval": result}
+        launches["onehot_dense_grad"] += k1.launches
+        mtimes = {f: os.stat(os.path.join(out, f)).st_mtime_ns for f in os.listdir(out)}
+        ptq = arch + data + [f"--load-model={ck}", "--inference-only", "--quantize-emb-with-bit=4",
+                             "--quantize-mlp-with-bit=8"]
+        k1.launches = k2.launches = k3.launches = 0
+        result, stdout, wall, _ = cli_run(train, ptq)
+        n_test = len(CriteoDataset(out, "test")) // CLI_CRITEO_TEST_B
+        check("preprocessing" not in stdout and mtimes == {
+            f: os.stat(os.path.join(out, f)).st_mtime_ns for f in os.listdir(out)},
+            "cli_criteo ptq: the processed directory reused, nothing preprocessed")
+        ptq_launches = {"onehot_dense_grad": k1.launches, "packed_pooled_lookup": k2.launches,
+                        "int8_linear": k3.launches}
+        check(ptq_launches == {"onehot_dense_grad": 0, "packed_pooled_lookup": n_test, "int8_linear": 7 * n_test},
+              f"cli_criteo ptq: launches {ptq_launches}: 1 K2 + 7 K3 per batch x {n_test}")
+        args = train.build_parser().parse_args(ptq)
+        args.onehot_update_max_rows, args.stream_update_max_rows = SMALL_ROWS, 0
+        ccfg, tc = train.make_configs(args)
+        ccfg, _, test_loader, _ = train.make_loaders(args, ccfg, tc)
+        state, _ = load_checkpoint(CheckpointManager(ck).latest(), init_train_state(ccfg, tc))
+        plain = make_serving_fn(ptq_export(ccfg, state.params, emb_bits=4, mlp_bits=8), plain=True)
+        dev = torch.device(DEVICE)
+        want = train.evaluate(ccfg, state, test_loader, lambda s, b: plain(_on(b, dev)))
+        del state, plain
+        auc_err = abs(result["roc_auc"] - want["roc_auc"])
+        check(auc_err <= CLI_AUC_ATOL, f"cli_criteo ptq: AUC {result['roc_auc']} vs plain {want['roc_auc']}")
+        rows["ptq"] = {"wall_s": wall, "batches": n_test, "batch": CLI_CRITEO_TEST_B, "launches": ptq_launches,
+                       "roc_auc": result["roc_auc"], "roc_auc_plain": want["roc_auc"], "auc_abs_err": auc_err,
+                       "tol": CLI_AUC_ATOL, "preprocessed_again": False}
+        launches["packed_pooled_lookup"] += k2.launches
+        launches["int8_linear"] += k3.launches
+
+        # 2: one raw file per day through 2 workers, the train days shuffled
+        days = os.path.join(tmp, "days")
+        os.makedirs(days)
+        for d in range(3):
+            write_criteo_tsv(os.path.join(days, f"day_{d}.txt"), CLI_CRITEO_DAY_LINES, cfg.table_sizes, seed=2 + d)
+        out_days = os.path.join(tmp, "processed_days")
+        argv = arch + ["--data-generation=dataset", f"--raw-data-files={days}/day_*.txt",
+                       "--preprocess-workers=2", "--data-randomize=total", f"--processed-data-dir={out_days}",
+                       f"--test-mini-batch-size={CLI_CRITEO_TEST_B}", "--mini-batch-size=128",
+                       "--steps-per-dispatch=16", "--print-freq=64"]
+        k1.launches = 0
+        result, stdout, wall, ms = cli_run(train, argv)
+        steps = len(CriteoDataset(out_days, "train")) // 128
+        check("preprocessing 3 day files" in stdout and "global shuffle of 2 train day files" in stdout,
+              "cli_criteo days: preprocessed and shuffled")
+        check(k1.launches == steps and np.isfinite(result["roc_auc"]), f"cli_criteo days: {k1.launches} {result}")
+        rows["days"] = {"wall_s": wall, "steps": steps, "ms_per_it_at_prints": ms,
+                        "ms_per_it": steady_ms(ms),
+                        "launches": {"onehot_dense_grad": k1.launches}, "final_eval": result}
+        launches["onehot_dense_grad"] += k1.launches
+
+        # 3: the dp recipe on a head of the file: 64 steps of B = 512
+        head = os.path.join(tmp, "head.txt")
+        with open(raw, "rb") as src, open(head, "wb") as dst:
+            for _ in range(CLI_CRITEO_DP_LINES):
+                dst.write(src.readline())
+        argv = arch + ["--data-generation=dataset", f"--raw-data-file={head}",
+                       f"--processed-data-dir={tmp}/processed_head", "--test-mini-batch-size=1024",
+                       "--parallelism=dp", "--grad-quant-bits=8", "--weight-sync-period=200",
+                       "--mini-batch-size=512", "--print-freq=16", "--test-freq=30000"]
+        k1.launches = 0
+        result, stdout, wall, ms = cli_run(train, argv)
+        check(k1.launches == 64 and np.isfinite(result["roc_auc"]),
+              f"cli_criteo dp: K1 launches {k1.launches} == 64, {result}")
+        rows["dp"] = {"wall_s": wall, "steps": 64, "batch": 512, "ms_per_it_at_prints": ms,
+                      "ms_per_it": steady_ms(ms),
+                      "launches": {"onehot_dense_grad": k1.launches}, "final_eval": result}
+        launches["onehot_dense_grad"] += k1.launches
+
+        # 4: the input audit
+        result, stdout, wall, _ = cli_run(train, arch + data + ["--investigating-inputs", "--inference-only"])
+        audit = [line for line in stdout.splitlines() if line.startswith("input audit")]
+        check(len(audit) == 2 and all("'clean': True" in line for line in audit), f"cli_criteo audit: {audit}")
+        rows["audit"] = {"wall_s": wall, "lines": audit}
+
+        # 5: trace replay of dist files profiled from processed day-0 ids
+        with np.load(os.path.join(out, "day_0.npz")) as z:
+            ids = z["X_cat"][:CLI_CRITEO_TRACE_ROWS]
+        with np.load(os.path.join(out, "counts.npz")) as z:
+            sizes = z["counts"]
+        dists = os.path.join(tmp, "dists")
+        os.makedirs(dists)
+        os.chdir(dists)  # a relative --data-trace-file: every 'j' in it names the table
+        t1 = time.perf_counter()
+        for k in range(26):
+            trace.write_trace_to_file(f"trace_{k}.txt", ids[:, k].tolist())
+            trace.profile_trace_to_dist(f"trace_{k}.txt", f"dist_{k}.log")
+        profile_s = time.perf_counter() - t1
+        argv = arch + ["--data-generation=random", "--data-trace-file=dist_j.log",
+                       f"--num-batches={CLI_CRITEO_TRACE_STEPS}", "--mini-batch-size=128",
+                       "--test-mini-batch-size=128", "--print-freq=16", "--steps-per-dispatch=16",
+                       "--arch-embedding-size=" + "-".join(str(n) for n in sizes)]
+        k1.launches = 0
+        result, stdout, wall, ms = cli_run(train, argv)
+        os.chdir(cwd)
+        check(k1.launches == CLI_CRITEO_TRACE_STEPS and np.isfinite(result["roc_auc"]),
+              f"cli_criteo trace: K1 launches {k1.launches}, {result}")
+        rows["trace"] = {"wall_s": wall, "profile_s": profile_s, "steps": CLI_CRITEO_TRACE_STEPS,
+                         "ms_per_it_at_prints": ms, "ms_per_it": steady_ms(ms),
+                         "launches": {"onehot_dense_grad": k1.launches}, "final_eval": result}
+        launches["onehot_dense_grad"] += k1.launches
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "cli_criteo", "entry": f"python -m {PKG}.train", "config": "kaggle_int4_qat",
+          "lines": CLI_CRITEO_LINES, **rows, "launches": launches, "phase_s": time.perf_counter() - t0})
+    return launches
 
 
 def main() -> int:
@@ -3467,6 +3884,7 @@ def main() -> int:
     # give the Terabyte phases' cached blocks (some 45 GB) back to the card:
     # dp2's two processes each need their own Kaggle model on it
     torch.cuda.empty_cache()
+    criteo_launches = phase_criteo(cfg, train_step_ms)
     cli_launches, cli_ms = phase_cli(cfg, train_step_ms)
     for name, n in cli_launches.items():
         launches[name] += n
@@ -3482,7 +3900,12 @@ def main() -> int:
     for name, n in tb_launches.items():
         launches[name] += n
     launches["onehot_dense_grad"] += scheme_k1
-    launches["onehot_dense_grad"] += phase_cli_dp(cfg, cli_ms) + phase_dp2(cfg)
+    launches["onehot_dense_grad"] += phase_cli_dp(cfg, cli_ms)
+    for name, n in phase_cli_criteo(cfg).items():
+        launches[name] += n
+    for name, n in criteo_launches.items():
+        launches[name] += n
+    launches["onehot_dense_grad"] += phase_dp2(cfg)
     multihost.shutdown()
     launches["onehot_dense_grad"] += dp_launches["onehot_dense_grad"]
     launches["stream_scatter_add"] = stream_launches["stream_scatter_add"] + dp_launches["stream_scatter_add"]
@@ -3502,12 +3925,14 @@ def main() -> int:
                                                                    "dp", "dp_stream", "pseudo", "dp_schemes",
                                                                    "tricks", "dense_bf16", "tb_bf16", "cli",
                                                                    "cli_schemes",
-                                                                   "cli_tricks", "cli_dp", "dp2"],
+                                                                   "cli_tricks", "cli_dp", "criteo",
+                                                                   "cli_criteo", "dp2"],
                                              "packed_pooled_lookup": ["kernel", "serve", "serve_onehot", "tricks",
                                                                       "tb_serve", "cli", "cli_schemes",
-                                                                      "cli_tricks"],
+                                                                      "cli_tricks", "criteo", "cli_criteo"],
                                              "int8_linear": ["kernel", "serve", "serve_onehot", "tricks",
-                                                             "tb_serve", "cli", "cli_schemes", "cli_tricks"],
+                                                             "tb_serve", "cli", "cli_schemes", "cli_tricks",
+                                                             "criteo", "cli_criteo"],
                                              "onehot_pooled_lookup": ["kernel", "serve_onehot", "tricks",
                                                                       "dense_bf16"],
                                              "stream_scatter_add": ["kernel", "train_stream", "dp_stream"],

@@ -124,7 +124,7 @@ def check_supported(config: DLRMConfig, engine: Optional[str] = None) -> None:
     if what:
         raise NotImplementedError(
             f"{', '.join(what)} under the {engine} engine: a later slice of the port "
-            "(ROADMAP.md queue 1 item 6)")
+            "(ROADMAP.md queue 1 item 2)")
 
 
 def trick_slots(config: DLRMConfig) -> Tuple[int, ...]:

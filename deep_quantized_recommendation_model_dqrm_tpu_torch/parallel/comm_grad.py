@@ -269,7 +269,7 @@ def make_dp_train_step(
     K4 and K5. `group` and `backend`: see `world_size`."""
     _check(config, tc, "data-parallel")
     if tc.ranking_range:
-        raise NotImplementedError("ranking_range: a later slice of the port (ROADMAP.md queue 1 item 6)")
+        raise NotImplementedError("ranking_range: a later slice of the port (ROADMAP.md queue 1 item 5)")
     dev = resolve_device(device)
     n = world_size(dev, backend, group)
     qc = config.quant

@@ -26,13 +26,18 @@ format (utils/checkpoint.py) for every engine, so either package resumes or
 serves what the other saved. The loss is read from the device only at
 print boundaries and evaluation scores once per pass.
 
+Every data mode of the JAX package runs: random, learnable, the mlperf
+binary file, trace replay from per-table distribution files, and the Criteo
+dataset (`--data-generation=dataset`: a raw TSV, or one raw file per day,
+preprocessed into `--processed-data-dir` by data/criteo.py with the native
+parser this package builds into `build/native/`, then the train, val and
+test splits), with the `--investigating-inputs` audit.
 What this slice does not run exits with a message naming the later slice
-(ROADMAP.md queue 1): `--parallelism=hybrid|rowshard` and `--ranking-range`
-(item 6), `--data-generation=dataset` and trace replay from per-table
-distribution files (item 4), `--export-stablehlo` and
-`--plot-compute-graph` (item 5), `--investigating-inputs` (item 7), and
-QR/MD tables, weighted pooling and bf16 tables or compute under
-`--parallelism=dp|dp-nosync|pseudo` (item 6). Every QAT scheme runs
+(ROADMAP.md queue 1): QR/MD tables, weighted pooling and bf16 tables or
+compute under `--parallelism=dp|dp-nosync|pseudo` (item 2),
+`--export-stablehlo` and `--plot-compute-graph` (item 3), `--ranking-range`
+(item 5), `--parallelism=hybrid` (item 6) and `--parallelism=rowshard`
+(item 7). Every QAT scheme runs
 (`--quant-scheme=hawq|pact|lsq`, `--quantize_activation`,
 `--quantize_act_and_lin`, `--modify_feature_interaction`,
 `--act-percentile`), under every engine; `--qr-flag`, `--md-flag`,
@@ -98,8 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="embedding master-table dtype (bfloat16 halves HBM)")
     p.add_argument("--compute-dtype", type=str, default="float32",
                    choices=("float32", "bfloat16"),
-                   help="MLP/interaction matmul dtype (bfloat16: a later "
-                        "slice of the port)")
+                   help="MLP/interaction matmul dtype")
     p.add_argument("--weighted-pooling", type=str, default=None,
                    choices=[None, "fixed", "learned"])
     p.add_argument("--qr-flag", action="store_true")
@@ -336,35 +340,25 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _table_dist_path(trace_file: str, table_idx: int) -> str:
-    """Per-table dist file naming of the JAX package's data/trace.py: the
-    literal 'j' in --data-trace-file is replaced by the table index
-    (dlrm_data_pytorch.py:1193-1195)."""
-    return trace_file.replace("j", str(table_idx))
-
-
 def _trace_replay(args) -> bool:
-    return bool(args.data_trace_file) and os.path.exists(
-        _table_dist_path(args.data_trace_file, 0)
-    )
+    """--data-trace-file names per-table distribution files that exist."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.data.trace import table_dist_path
+
+    return bool(args.data_trace_file) and os.path.exists(table_dist_path(args.data_trace_file, 0))
 
 
 def unported(args) -> Optional[str]:
     """The message for the first flag this slice does not run, else None."""
-    if args.parallelism in ("hybrid", "rowshard"):
-        return _later(f"--parallelism={args.parallelism}", 6)
+    if args.parallelism == "hybrid":
+        return _later("--parallelism=hybrid", 6)
+    if args.parallelism == "rowshard":
+        return _later("--parallelism=rowshard", 7)
     if args.ranking_range:
-        return _later("--ranking-range", 6)
-    if args.data_generation == "dataset":
-        return _later("--data-generation=dataset (Criteo preprocessing)", 4)
-    if args.data_generation == "random" and _trace_replay(args):
-        return _later("--data-trace-file replay of per-table distribution files", 4)
+        return _later("--ranking-range", 5)
     if args.export_stablehlo:
-        return _later("--export-stablehlo", 5)
+        return _later("--export-stablehlo", 3)
     if args.plot_compute_graph:
-        return _later("--plot-compute-graph", 5)
-    if args.investigating_inputs:
-        return _later("--investigating-inputs", 7)
+        return _later("--plot-compute-graph", 3)
     if args.parallelism != "none":
         model = [flag for flag, on in (
             ("--qr-flag", args.qr_flag), ("--md-flag", args.md_flag),
@@ -373,8 +367,121 @@ def unported(args) -> Optional[str]:
             ("--compute-dtype=bfloat16", args.compute_dtype != "float32"),
         ) if on]
         if model:
-            return _later(f"{' '.join(model)} under --parallelism={args.parallelism}", 6)
+            return _later(f"{' '.join(model)} under --parallelism={args.parallelism}", 2)
     return None
+
+
+def _day_sort_key(path: str):
+    """Numeric-aware raw-day ordering (the JAX package's train.py:330-338):
+    lexicographic sorting would put day_10 before day_2 and misassign raw
+    days to npz day indices (Terabyte day_0..day_23)."""
+    import re
+
+    nums = re.findall(r"\d+", os.path.basename(path))
+    return (int(nums[-1]) if nums else -1, path)
+
+
+def _maybe_global_shuffle(args, day_paths) -> None:
+    """--data-randomize=total at preprocessing time: a true global reorder
+    of the training rows across the day files (data/criteo.global_shuffle_days,
+    a memory-bounded external shuffle standing in for the reference's
+    transformCriteoAdData, data_utils.py:756-840). The last day, the val/test
+    split, keeps its temporal identity."""
+    if args.data_randomize != "total" or len(day_paths) < 2:
+        return
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.data.criteo import global_shuffle_days
+
+    print(f"global shuffle of {len(day_paths) - 1} train day files")
+    global_shuffle_days(day_paths[:-1], seed=args.numpy_rand_seed)
+
+
+def _preprocess(args) -> None:
+    """Preprocess the raw Criteo text into --processed-data-dir unless its
+    day files exist (CriteoDataset.__init__'s preprocess-if-needed,
+    dlrm_data_pytorch.py:50-120): one raw TSV split into 7 days (kaggle) or
+    24 (terabyte), or one raw file per day through the worker pool."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.data import criteo, native_ext
+
+    if os.path.exists(os.path.join(args.processed_data_dir, "day_0.npz")):
+        return
+    parser = "native" if native_ext.available() else "numpy"
+    if args.raw_data_files:
+        import glob
+
+        if "," in args.raw_data_files:
+            day_files = args.raw_data_files.split(",")
+        else:
+            day_files = sorted(glob.glob(args.raw_data_files), key=_day_sort_key)
+        if not day_files:
+            raise FileNotFoundError(f"no raw day files match {args.raw_data_files!r}")
+        print(f"preprocessing {len(day_files)} day files -> {args.processed_data_dir} "
+              f"({args.preprocess_workers} workers, {parser} parser)")
+        day_paths = criteo.preprocess_criteo_days_parallel(
+            day_files, args.processed_data_dir, sub_sample_rate=args.data_sub_sample_rate,
+            workers=args.preprocess_workers)
+    elif args.raw_data_file:
+        days = 7 if args.data_set == "kaggle" else 24
+        print(f"preprocessing {args.raw_data_file} -> {args.processed_data_dir} ({parser} parser)")
+        day_paths = criteo.preprocess_criteo(
+            args.raw_data_file, args.processed_data_dir, num_days=days,
+            sub_sample_rate=args.data_sub_sample_rate)
+    else:
+        return
+    _maybe_global_shuffle(args, day_paths)
+
+
+# the wait of the other ranks while rank 0 preprocesses: Terabyte's 24 days
+# take hours, far past the default group's timeout (parallel/multihost.py)
+PREPROCESS_TIMEOUT_S = 48 * 3600.0
+
+
+def _preprocess_on_rank0(args, timeout_s: float = PREPROCESS_TIMEOUT_S) -> None:
+    """`_preprocess` on rank 0 of the process group while the other ranks wait
+    for it on a gloo group of their own, whose timeout is `timeout_s`: the
+    default group's timeout bounds the training collectives and is far
+    shorter than preprocessing. Rank 0 sends its error, if it has one, so
+    that every rank raises instead of waiting out the timeout."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    group = dist.new_group(backend="gloo", timeout=timedelta(seconds=timeout_s))
+    err = None
+    if dist.get_rank() == 0:
+        try:
+            _preprocess(args)
+        except Exception as e:
+            err = e
+    msg = [None if err is None else f"{type(err).__name__}: {err}"]
+    try:
+        dist.broadcast_object_list(msg, src=0, group=group)
+    finally:
+        dist.destroy_process_group(group)
+    if err is not None:
+        raise err
+    if msg[0] is not None:
+        raise RuntimeError(f"rank 0 failed to preprocess {args.processed_data_dir}: {msg[0]}")
+
+
+class DatasetLoader:
+    """Host batches of one split of a preprocessed Criteo dataset; each
+    pass reshuffles as --data-randomize asks (day: rows within each day;
+    total: also the day order)."""
+
+    def __init__(self, ds, batch_size: int, randomize: str = "none", seed: int = 0):
+        self.ds, self.batch_size = ds, batch_size
+        self.randomize, self.seed = randomize, seed
+
+    def __len__(self) -> int:
+        return len(self.ds) // self.batch_size
+
+    def __iter__(self):
+        return self.ds.iter_batches(
+            self.batch_size,
+            shuffle_days=self.randomize == "total",
+            shuffle_rows=self.randomize in ("total", "day"),
+            seed=self.seed,
+        )
 
 
 def _device(platform: str) -> Optional[str]:
@@ -469,10 +576,12 @@ def make_configs(args) -> tuple:
     return cfg, tc
 
 
-def make_loaders(args, cfg, tc):
-    """Dataset dispatch for the random, learnable and binary modes
-    (make_random_data_and_loader, dlrm_data_pytorch.py:897): (cfg, train,
-    test, val or None). Every loader yields host batches."""
+def make_loaders(args, cfg, tc, rank: int = 0, nproc: int = 1):
+    """Dataset dispatch (make_criteo_data_and_loaders /
+    make_random_data_and_loader, dlrm_data_pytorch.py:423, 897): (cfg,
+    train, test, val or None). Every loader yields host batches. Under a
+    process group rank 0 alone preprocesses raw Criteo text, and the other
+    ranks wait for it."""
     from deep_quantized_recommendation_model_dqrm_tpu_torch.data import synthetic
 
     nb = args.num_batches or (
@@ -492,8 +601,22 @@ def make_loaders(args, cfg, tc):
                     "--no-round-targets/--no-num-indices-per-lookup-fixed "
                     "(the trace generator defines its own index distribution)"
                 )
-            # no per-table dist files (their replay is rejected by
-            # `unported`): the generated LRU locality model
+            if _trace_replay(args):
+                # per-table stack-distance profile files on disk: replay
+                # them (generate_synthetic_input_batch,
+                # dlrm_data_pytorch.py:1161-1233)
+                from deep_quantized_recommendation_model_dqrm_tpu_torch.data.trace import (
+                    TraceFileLoader,
+                )
+
+                trace = dict(num_indices_per_lookup=args.num_indices_per_lookup,
+                             enable_padding=args.data_trace_enable_padding)
+                train = TraceFileLoader(cfg, tc.batch_size, nb, args.data_trace_file,
+                                        seed=tc.seed, **trace)
+                test = TraceFileLoader(cfg, tc.test_batch_size, max(1, nb // 8),
+                                       args.data_trace_file, seed=tc.seed + 1, **trace)
+                return cfg, train, test, None
+            # no such file: the generated LRU locality model
             train = synthetic.TraceSyntheticLoader(cfg, tc.batch_size, nb, seed=tc.seed)
             test = synthetic.TraceSyntheticLoader(
                 cfg, tc.test_batch_size, max(1, nb // 8), seed=tc.seed + 1
@@ -535,6 +658,24 @@ def make_loaders(args, cfg, tc):
             else None
         )
         return cfg, train, test, val
+    if args.data_generation == "dataset":
+        from deep_quantized_recommendation_model_dqrm_tpu_torch.data.criteo import CriteoDataset
+
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            _preprocess_on_rank0(args)
+        else:
+            _preprocess(args)
+        train_ds = CriteoDataset(args.processed_data_dir, "train", args.max_ind_range)
+        test_ds = CriteoDataset(args.processed_data_dir, "test", args.max_ind_range)
+        # val = the second half of the last day (dlrm_data_pytorch.py:144-145)
+        val_ds = CriteoDataset(args.processed_data_dir, "val", args.max_ind_range)
+        cfg = dataclasses.replace(cfg, table_sizes=train_ds.table_sizes)
+        if cfg.mlp_top[0] != cfg.top_input_dim:
+            cfg = dataclasses.replace(cfg, mlp_top=(cfg.top_input_dim,) + cfg.mlp_top[1:])
+        return (cfg, DatasetLoader(train_ds, tc.batch_size, args.data_randomize, args.numpy_rand_seed),
+                DatasetLoader(test_ds, tc.test_batch_size), DatasetLoader(val_ds, tc.test_batch_size))
     # binary (mlperf format). The reference ships train/test as separate bin
     # files (dlrm_data_pytorch.py:441-461); with a single file we carve a
     # disjoint 7/8-1/8 record split so eval never sees training data.
@@ -692,7 +833,7 @@ def _run(args, device, rank: int, nproc: int) -> dict:
             "autograd; only --onehot-lookup-max-rows applies there"
         )
     cfg, tc = make_configs(args)
-    cfg, train_loader, test_loader, val_loader = make_loaders(args, cfg, tc)
+    cfg, train_loader, test_loader, val_loader = make_loaders(args, cfg, tc, rank, nproc)
     if args.val_freq > 0 and val_loader is None:
         raise SystemExit(
             "--val-freq needs a validation split; this data mode builds "
@@ -746,6 +887,14 @@ def _run(args, device, rank: int, nproc: int) -> dict:
         start_batch = int(meta.get("batch", 0))
         best_acc = float(meta.get("test_acc", 0.0))
         rank0_print(rank, f"resumed from {args.load_model} @ epoch {start_epoch} batch {start_batch}")
+
+    if args.investigating_inputs and rank == 0:
+        # data-integrity audit (comm_grad.py:1790-1830)
+        from deep_quantized_recommendation_model_dqrm_tpu_torch.tools.analysis import audit_batches
+
+        for name, loader in (("train", train_loader), ("test", test_loader)):
+            rep = audit_batches(loader, cfg.table_sizes, cfg.num_dense, max_batches=64)
+            rank0_print(rank, f"input audit [{name}]: {rep}")
 
     eval_fn = make_eval_step(cfg, device=device)
     if args.inference_only:

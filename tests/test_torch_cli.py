@@ -3,8 +3,9 @@ flags, the same argv through both CLIs under SGD and Adagrad (QAT, save,
 test-freq, megasteps), a resume from the saved slot with grad-accum `sum`,
 PTQ inference on the other package's checkpoint, the paper's PACT, LSQ and
 integer-activation configurations with checkpoints either package reads,
-and the loud rejection of what this slice does not run (the parallel engines' runs:
-tests/test_torch_parallel_cli.py).
+trace replay, and the loud rejection of what this slice does not run (the
+parallel engines' runs: tests/test_torch_parallel_cli.py; the Criteo
+dataset modes: tests/test_torch_cli_dataset.py).
 
 Tables 30000-500-20-7: the 30000-row table takes the scatter branch of the
 sparse step, the others K1's branch (its plain version here). Losses are
@@ -31,6 +32,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch import train as ttrain
 from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import make_serving_fn, ptq_export
 from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import _on, init_train_state
 from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.checkpoint import CheckpointManager
+from test_torch_criteo import write_raw
 
 torch.set_num_threads(1)
 
@@ -288,12 +290,11 @@ def test_act_with_linear_channel_raises_as_jax():
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--parallelism=hybrid", 6), ("--parallelism=rowshard", 6), ("--ranking-range", 6),
-    ("--data-generation=dataset", 4), ("--export-stablehlo=/nonexistent/x", 5),
-    ("--plot-compute-graph", 5), ("--investigating-inputs", 7),
-    ("--parallelism=dp --qr-flag", 6), ("--parallelism=dp-nosync --md-flag", 6),
-    ("--parallelism=pseudo --weighted-pooling=fixed", 6),
-    ("--parallelism=dp --table-dtype=bfloat16", 6), ("--parallelism=pseudo --compute-dtype=bfloat16", 6),
+    ("--parallelism=hybrid", 6), ("--parallelism=rowshard", 7), ("--ranking-range", 5),
+    ("--export-stablehlo=/nonexistent/x", 3), ("--plot-compute-graph", 3),
+    ("--parallelism=dp --qr-flag", 2), ("--parallelism=dp-nosync --md-flag", 2),
+    ("--parallelism=pseudo --weighted-pooling=fixed", 2),
+    ("--parallelism=dp --table-dtype=bfloat16", 2), ("--parallelism=pseudo --compute-dtype=bfloat16", 2),
 ])
 def test_unported_flags_exit_naming_their_slice(flag, item):
     """Each flag this slice does not run exits naming its ROADMAP item; the
@@ -301,6 +302,26 @@ def test_unported_flags_exit_naming_their_slice(flag, item):
     the data-parallel and pseudo engines only."""
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1 item {item}"):
         ttrain.run(COMMON + flag.split() + ["--platform=cpu"])
+
+
+@pytest.mark.parametrize("flag", ["--data-generation=dataset", "--investigating-inputs"])
+def test_formerly_unported_flags_run(tmp_path, capsys, flag):
+    """`--data-generation=dataset` (a raw TSV preprocessed on the way in)
+    and `--investigating-inputs` (the audit on the train and test loaders)
+    no longer exit as later slices: each runs to its final eval."""
+    argv = [a for a in COMMON if a != "--data-generation=random"] + ["--platform=cpu"]
+    if flag == "--data-generation=dataset":
+        argv += [flag, f"--raw-data-file={write_raw(tmp_path / 'train.txt', 700)}",
+                 f"--processed-data-dir={tmp_path / 'processed'}", "--test-mini-batch-size=16"]
+    else:
+        argv += ["--data-generation=random", flag]
+    m = ttrain.run(argv)
+    assert set(m) >= {"accuracy", "roc_auc"}
+    out = capsys.readouterr().out
+    if flag == "--investigating-inputs":
+        assert "input audit [train]" in out and "input audit [test]" in out and "'clean': True" in out
+    else:
+        assert os.path.exists(tmp_path / "processed" / "day_6.npz") and "parser)" in out
 
 
 NO_QAT = [a for a in COMMON if a != "--quantization_flag"]
@@ -396,10 +417,17 @@ def test_multi_process_flags_need_a_dp_engine(flag, mode):
         ttrain.run(COMMON + [flag, f"--parallelism={mode}", "--platform=cpu"])
 
 
-def test_trace_replay_exits_naming_its_slice(tmp_path):
-    (tmp_path / "dist_0.log").write_text("1\n")
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 4"):
-        ttrain.run(COMMON + [f"--data-trace-file={tmp_path}/dist_j.log", "--platform=cpu"])
+def test_trace_replay_runs(tmp_path, monkeypatch):
+    """Trace replay from per-table distribution files (`--data-trace-file`
+    whose table-0 file exists) no longer exits as a later slice: both CLIs
+    replay the same files and log the same losses."""
+    for k in range(4):
+        (tmp_path / f"dist_{k}.log").write_text("0, 1, 2, 3, 5\n0, 1, 2\n0.5, 0.8, 1.0\n")
+    monkeypatch.chdir(tmp_path)  # a relative path: every 'j' in it names the table
+    argv = [a for a in COMMON if a != "--num-batches=16"]
+    res = both(str(tmp_path), "trace", argv + ["--data-trace-file=dist_j.log", "--num-indices-per-lookup=2",
+                                               "--num-batches=6"])
+    assert_runs_agree(res)
 
 
 def test_bad_platform_exits():

@@ -369,7 +369,7 @@ def test_ranking_range_names_its_slice():
     """The mixed-bit policy waits for a later slice and says so, before any
     group is needed."""
     (_, _), (tc_cfg, ttc) = configs(ranking_range=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
         tcg.make_dp_train_step(tc_cfg, ttc, device="cpu")
 
 

@@ -108,6 +108,7 @@ SCRIPT = textwrap.dedent(
         assert set(m) >= {"accuracy", "roc_auc"} and not dist.is_initialized()
     loaded = [m for m in sys.modules if m == jax_pkg or m.startswith(jax_pkg + ".")]
     assert not loaded and "jax" not in sys.modules or sys.modules["jax"] is None
+    print(" ".join(names))
     print("OK", len(names))
     """
 )
@@ -121,6 +122,8 @@ def test_port_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     n_modules = int(res.stdout.split()[-1])
+    for name in ("data.criteo", "data.native_ext", "data.trace", "tools.analysis"):
+        assert f"deep_quantized_recommendation_model_dqrm_tpu_torch.{name}" in res.stdout
     # config, device, models, data (synthetic, binary, prefetch), ops, kernels, optim,
     # train_step, train, serving, utils (checkpoint, logging, profiling, tfevents), ...
     assert n_modules >= 35
@@ -184,3 +187,52 @@ def test_model_options_run_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split()[-1] == "OK"
+
+
+DATA_SCRIPT = textwrap.dedent(
+    """
+    import os, sys, tempfile
+    sys.modules["jax"] = None  # any import of jax now raises ImportError
+    import numpy as np
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.data import criteo, native_ext, trace
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.tools import analysis
+    from deep_quantized_recommendation_model_dqrm_tpu_torch import train
+    assert native_ext.available()
+    tmp = tempfile.mkdtemp()
+    rng = np.random.RandomState(0)
+    raw = os.path.join(tmp, "train.txt")
+    with open(raw, "w") as f:
+        for _ in range(350):
+            f.write("\\t".join([str(rng.randint(0, 2))] + [str(rng.randint(0, 9)) for _ in range(13)]
+                              + [format(rng.randint(0, 30), "08x") for _ in range(26)]) + "\\n")
+    argv = ["--arch-mlp-bot=13-4-2", "--arch-sparse-feature-size=2", "--mini-batch-size=10",
+            "--test-mini-batch-size=10", "--print-freq=5", "--platform=cpu", "--investigating-inputs"]
+    m = train.run(argv + ["--data-generation=dataset", f"--raw-data-file={raw}",
+                          f"--processed-data-dir={tmp}/processed"])
+    assert set(m) >= {"accuracy", "roc_auc"}
+    ids = np.load(os.path.join(tmp, "processed", "day_0.npz"))["X_cat"]
+    os.chdir(tmp)
+    for k in range(26):
+        trace.write_trace_to_file(f"t_{k}.txt", ids[:, k].tolist())
+        trace.profile_trace_to_dist(f"t_{k}.txt", f"dist_{k}.log")
+    sizes = np.load(os.path.join(tmp, "processed", "counts.npz"))["counts"]
+    m = train.run(argv + ["--data-trace-file=dist_j.log", "--num-batches=3", "--num-indices-per-lookup=2",
+                          "--arch-embedding-size=" + "-".join(str(n) for n in sizes)])
+    assert set(m) >= {"accuracy", "roc_auc"}
+    jax_pkg = "deep_quantized_recommendation_model_dqrm_tpu"
+    assert not [m for m in sys.modules if m == jax_pkg or m.startswith(jax_pkg + ".")]
+    print("OK")
+    """
+)
+
+
+def test_data_pipeline_runs_without_jax():
+    """The Criteo modules (data/criteo.py, data/native_ext.py, data/trace.py)
+    and tools/analysis.py import and run with jax blocked: the CLI
+    preprocesses a raw TSV, trains on it with the input audit, and replays
+    dist files profiled from its ids."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", DATA_SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "OK" and "'clean': True" in res.stdout

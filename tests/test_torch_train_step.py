@@ -445,7 +445,7 @@ def test_grad_probe_matches_jax():
 def test_later_slices_raise():
     """What the port does not run yet: QR/MD tables, weighted pooling
     (`v_W`) and bf16 tables under the data-parallel and pseudo engines
-    (ROADMAP queue 1 item 6). The single-device steps and the probe take
+    (ROADMAP queue 1 item 2). The single-device steps and the probe take
     them (their parity with JAX: tests/test_torch_tricks.py and
     tests/test_torch_bf16.py)."""
     from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import comm_grad, pseudo
@@ -456,9 +456,9 @@ def test_later_slices_raise():
         for sparse in (False, True):
             tts.make_train_step(cfg, tcfg.TrainConfig(), sparse_emb_grad=sparse, device="cpu")
         tts.make_grad_probe(cfg, tcfg.TrainConfig(), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(NotImplementedError, match="item 2"):
             comm_grad.make_dp_train_step(cfg, tcfg.TrainConfig(), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(NotImplementedError, match="item 2"):
             pseudo.make_pseudo_train_step(cfg, tcfg.TrainConfig(), 2, device="cpu")
     with pytest.raises(ValueError):
         tts.make_train_step(configs((30, 20), INT4)[1], tcfg.TrainConfig(optimizer="adam"), device="cpu")

@@ -278,9 +278,9 @@ def test_grad_probe_matches_jax(kind):
 
 
 @pytest.mark.parametrize("kind", ["qr_mult", "md", "vw_learned", "bf16_tables", "bf16_compute"])
-def test_engines_refuse_naming_item_6(kind):
+def test_engines_refuse_naming_their_item(kind):
     """The dp, dp-nosync and pseudo engines raise for QR/MD tables, v_W and
-    bf16, naming ROADMAP queue 1 item 6; the single-device step takes them."""
+    bf16, naming ROADMAP queue 1 item 2; the single-device step takes them."""
     kw = {"bf16_tables": dict(table_dtype="bfloat16"),
           "bf16_compute": dict(compute_dtype="bfloat16")}.get(kind, KINDS.get(kind))
     _, tc = configs(INT4, **kw)
@@ -289,6 +289,6 @@ def test_engines_refuse_naming_item_6(kind):
                  lambda: comm_grad.make_dp_nosync_train_step(tc, ttc, device="cpu"),
                  lambda: comm_grad.make_dp_eval_step(tc, device="cpu"),
                  lambda: pseudo.make_pseudo_train_step(tc, ttc, 2, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 2"):
             make()
     tts.make_train_step(tc, ttc, sparse_emb_grad=True, device="cpu")
