@@ -9,8 +9,10 @@ configurations (PACT, LSQ, the integer-activation chain with the INT16
 interaction) through the sparse step, the dp engine and the CLI, the
 reference's QR/MD tables and weighted pooling through the sparse step,
 serving and the CLI, the Terabyte model at its full 49M rows on bf16
-tables, trained and served, and the Criteo data pipeline from raw text
-through training and serving, directly and through the CLI.
+tables, trained and served, the Criteo data pipeline from raw text
+through training and serving, directly and through the CLI, the engines
+under the model options and the ranking-range policy, and the JAX
+package's Terabyte rehearsal recipe through the CLI.
 
     python3 chip_smoke.py
 
@@ -68,12 +70,15 @@ launch counters of its kernels set to 0 just before and read just after:
    with error compensation, kernel path against plain path over 32 steps;
    one grouped K1 launch per step;
 12. cli_dp: `train.run --parallelism=dp` (world 1), `--parallelism=pseudo`
-   and `--parallelism=dp-nosync`, 64 steps each at the Kaggle width with a
-   validation eval and a save;
+   and `--parallelism=dp-nosync`, 32 steps each at the Kaggle width with a
+   validation eval and a save; then the six argvs the engines once
+   refused (QR, MD, fixed v_W, bf16 tables, bf16 compute, ranking-range),
+   16 steps each;
 13. dp2: the dp engine at world 2 on the one card, two processes on a
    gloo group, B = 128 global, 32 steps of the kernel path against the
    plain path; both ranks' losses equal, the replicas compared before and
-   after `make_weight_sync`;
+   after `make_weight_sync`; then 16 steps each of QR + learned v_W and of
+   ranking-range, the replicas equal after the sync;
 14. schemes: the `train` cell's sparse step under PACT (INT4 tables and
    MLP), LSQ (INT4, learned steps) and HAWQ with the integer-activation
    chain, the INT16 interaction and a 99.9 percentile (`act`), each from
@@ -128,7 +133,28 @@ launch counters of its kernels set to 0 just before and read just after:
    path), `--raw-data-files` over 3 day files through 2 workers with
    `--data-randomize=total`, scripts/run_kaggle_dp_comm_grad.sh's argv
    under one-rank dp for 64 steps, `--investigating-inputs` (clean), and
-   trace replay of dist files profiled from processed day-0 ids.
+   trace replay of dist files profiled from processed day-0 ids;
+23. dp_tricks: the dp engine (one NCCL rank, B = 128, bits 8 + EC) under
+   QR, MD, fixed and learned v_W, learned v_W under PACT and bf16
+   compute, 32 steps of the kernel path against the plain path each, a
+   timed megastep beside the tricks phase's step; the pseudo engine (4
+   workers) on fixed v_W and bf16 tables, 32 steps kernel against plain,
+   the tables held by bf16 ulps;
+24. dp_ranking: the dp engine with ranking_range (0.2 / 0.3) at the Kaggle
+   width, on the 26 plain tables and with QR: 32 steps kernel against
+   plain, the modes of every step (5 HI, 8 INT8, 13 SKIP of 26), the
+   skipped tables untouched on 4 single steps, wire bytes at 2 B a value;
+25. tb_dp: Terabyte at 49,126,297 rows on bf16 tables under one-rank dp
+   (B = 2048, bits 8, megasteps of 8, scale_update_period 4): one megastep
+   of the kernel path against the plain path with the refreshes at steps
+   0 and 4 inside it, tb_bf16's bounds, then 16 timed steps with one K1
+   launch each beside tb_bf16's step, and a profiled megastep;
+26. cli_tb_rehearsal: scripts/terabyte_rehearsal.sh:25-55 through
+   `train.run` at full Terabyte width under `--parallelism=dp`: learnable
+   data, bf16 tables, the 4-epoch QAT schedule, grad bits 8, the weight
+   sync at 200, megasteps of 8, B = 2048, a save (6.29 GB), then
+   `--inference-only` PTQ from it through K2 and K3 (cut: 56 batches an
+   epoch).
 
 Kernel K6 (`dma_row_update`) is on no path; its kernel phase holds it
 against its plain version on the 2,202,608-row table.
@@ -137,10 +163,11 @@ Every check raises, so any failure exits non-zero. Phases in order: device,
 build, model, kernel (K2, K3, K3 at K = 1728, K1 with D = 512, K4 with
 bf16 tables and D = 512, K5 with Zipf ids, K6), train, profile (train), train_stream with
 profile (SGD), schemes (pact, lsq, act, each with its profile), dp with
-profile, dp_stream, pseudo, dp_schemes, tricks (qr, md, vw), dense_bf16, eval,
-export, serve, profile (serve), serve_onehot with profile, serve_cat,
-tb_bf16 with profile, tb_serve, criteo, cli, cli_schemes, cli_tricks, cli_dp,
-cli_criteo, dp2, kernels.
+profile, dp_stream, pseudo, dp_schemes, tricks (qr, md, vw), dp_tricks,
+dp_ranking, dense_bf16, eval, export, serve, profile (serve), serve_onehot
+with profile, serve_cat, tb_bf16 with profile, tb_dp with profile,
+tb_serve, criteo, cli, cli_schemes, cli_tricks, cli_dp, cli_criteo,
+cli_tb_rehearsal, dp2, kernels.
 
 Output: one JSON line per phase; then the {"kernels": [...]} summary; then
 the card's name and power limit as nvidia-smi gives them; and last
@@ -1072,10 +1099,14 @@ def phase_kernel_k5(cfg, params, flush):
     sorted updates each, values N(0, 1e-4) as
     scripts/bench_stream_update.py:80-84 draws them, with uniform ids and
     with Zipf ids (a = 1.05 and 1.2); 8192 updates into the 3-row table
-    (heavy duplicates); a bf16 copy of the 3 tables; and the per-table entry
-    (the grouped kernel with one table) on the 3-row table."""
+    (heavy duplicates); a bf16 copy of the 3 tables; ids equal to the row
+    count (a table skipped by the ranking-range policy, and half of
+    another's updates) dropped; and the per-table entry (the grouped kernel
+    with one table) on the 3-row table."""
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.stream_update import (
         stream_scatter_add,
+        stream_scatter_add_grouped,
+        stream_scatter_grouped_plain,
         stream_scatter_plain,
     )
 
@@ -1089,6 +1120,20 @@ def phase_kernel_k5(cfg, params, flush):
     rows.append(k5_case("heavy_duplicates_8192_into_3", [params["emb"][k3]], flush, seed=42, scale=1.0))
     rows.append(k5_case("3_mid_tables_b8192_bf16", [t.to(torch.bfloat16) for t in mid], flush, seed=43,
                         scale=1e-4))
+    # ids equal to the row count, as the ranking-range policy sends a skipped
+    # table's: the grouped kernel drops them as its plain version does
+    skip = [k5_updates(t.shape[0], 45 + i, 1e-4, cfg.embedding_dim) for i, t in enumerate(mid)]
+    sids = torch.stack([i for i, _ in skip]).contiguous()
+    svals = torch.stack([v for _, v in skip]).contiguous()
+    sids[0] = mid[0].shape[0]  # a skipped table: every id equals its row count
+    sids[1, B_STREAM // 2:] = mid[1].shape[0]  # half the updates out of range, the ids still sorted
+    got = stream_scatter_add_grouped([t.clone() for t in mid], sids, svals)
+    want = stream_scatter_grouped_plain([t.clone() for t in mid], sids, svals)
+    check(bool(torch.equal(got[0], mid[0])), "K5: a table whose ids all equal its row count keeps its bits")
+    for t, g, w, i, v in zip(mid, got, want, sids, svals):
+        check(bool(((g - w).abs() <= row_update_bound(t, i, v)).all()),
+              f"K5 ids = rows: rows={t.shape[0]}: kernel within the bound of its plain version")
+    del got, want, skip
     ids, vals = k5_updates(3, 44, 1.0, cfg.embedding_dim)
     one = row_update_check(stream_scatter_add, stream_scatter_plain, params["emb"][k3], ids, vals,
                            "K5 per-table entry, 8192 into 3 rows")
@@ -1890,7 +1935,7 @@ def phase_cli(cfg, train_step_ms):
         args.onehot_update_max_rows, args.stream_update_max_rows = 20000, 0
         ccfg, tc = train.make_configs(args)
         ccfg, _, test_loader, _ = train.make_loaders(args, ccfg, tc)
-        like = init_train_state(ccfg, tc)
+        like = init_train_state(ccfg, tc, draw=False)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         state, _ = load_checkpoint(last, like)
@@ -1941,8 +1986,9 @@ PSEUDO_WORKERS = 4
 PSEUDO_STEPS = 32
 DP2_RANKS = 2
 DP2_STEPS = 32
+DP2_OPTION_STEPS = 16  # QR + learned v_W, and ranking_range
 DP2_TIMEOUT_S = 600
-CLI_DP_BATCHES = 64
+CLI_DP_BATCHES = 32
 
 
 def dp_tc(batch=B_TRAIN, **kw):
@@ -2164,7 +2210,7 @@ def phase_dp(cfg, params0, train_step_ms):
           "wire_per_step_bits4": dp_wire_bytes(cfg, B_TRAIN, 4),
           "compare_s": compare_s, "main_run_s": run_s, "phase_s": time.perf_counter() - t0})
     del state
-    return launches["onehot_dense_grad"]
+    return launches["onehot_dense_grad"], ms
 
 
 def phase_dp_stream(cfg, params0, stream_step_ms):
@@ -2305,7 +2351,10 @@ def dp2_rank(rank: int, store: str, out) -> None:
     """One rank of the dp2 phase, in its own process: a gloo group of two on
     the one card; 32 steps of the kernel path and 32 of the plain path on
     this rank's half of B = 128, then the replicas compared before and
-    after `make_weight_sync`. Puts (rank, results) on `out`."""
+    after `make_weight_sync`; then 16 steps each of QR + learned v_W and
+    of ranking_range, and the replicas after the sync. Puts (rank,
+    results) on `out`."""
+    import dataclasses
     import traceback
 
     from deep_quantized_recommendation_model_dqrm_tpu_torch.config import QuantConfig, kaggle_config
@@ -2347,6 +2396,25 @@ def dp2_rank(rank: int, store: str, out) -> None:
         res["replica_diff_before_sync"] = replica_diff(sk.params)
         sk = comm_grad.make_weight_sync(backend="gloo")(sk)
         res["replica_diff_after_sync"] = replica_diff(sk.params)
+        del sk
+        # the model options and the policy: QR + learned v_W, ranking_range
+        for name, ocfg, otc in (
+                ("qr_vw", dataclasses.replace(cfg, weighted_pooling="learned", **TRICK_OPTIONS["qr"]), tc),
+                ("ranking", cfg, tc.replace(ranking_range=True))):
+            step = comm_grad.make_dp_train_step(ocfg, otc, steps_per_dispatch=K_MEGA, backend="gloo")
+            params = init_params(ocfg, seed=0) if ocfg.qr_flag else params0
+            if ocfg.weighted_pooling is not None:
+                params = {**params, "v_W": [torch.ones((n,), device=DEVICE) for n in ocfg.table_sizes]}
+            torch.cuda.synchronize()
+            k1.launches = 0
+            st, losses = run_chain(step, fresh_state(ocfg, params, comm_grad.dp_state_from), local,
+                                   DP2_OPTION_STEPS // K_MEGA)
+            torch.cuda.synchronize()
+            del params
+            st = comm_grad.make_weight_sync(backend="gloo")(st)
+            res[name] = {"losses": losses.tolist(), "launches": k1.launches,
+                         "replica_diff_after_sync": replica_diff(st.params)}
+            del st
         res["world"] = multihost.world()
         out.put((rank, res))
     except Exception:  # reported to the parent, which fails the phase
@@ -2400,29 +2468,42 @@ def phase_dp2(cfg):
           f"dp2: replicas before the sync {r0['replica_diff_before_sync']}")
     check(r0["replica_diff_after_sync"] == 0.0, f"dp2: replicas after the sync {r0['replica_diff_after_sync']}")
     check(all(np.isfinite(r0["losses"])), "dp2: finite losses")
+    options = {}
+    for name in ("qr_vw", "ranking"):
+        a, b = r0[name], r1[name]
+        check(a["losses"] == b["losses"] and all(np.isfinite(a["losses"])),
+              f"dp2 {name}: both ranks report the same finite losses")
+        check(a["launches"] == b["launches"] == DP2_OPTION_STEPS,
+              f"dp2 {name}: K1 launches {a['launches']}, {b['launches']} == {DP2_OPTION_STEPS}")
+        check(a["replica_diff_after_sync"] == 0.0, f"dp2 {name}: replicas after the sync {a}")
+        options[name] = {"steps": DP2_OPTION_STEPS, "first_loss": a["losses"][0], "last_loss": a["losses"][-1],
+                         "replica_diff_after_sync": a["replica_diff_after_sync"],
+                         "launches": a["launches"] + b["launches"]}
     emit({"phase": "dp2", "world": DP2_RANKS, "backend": "gloo", "devices": torch.cuda.device_count(),
           "batch": B_TRAIN, "local_batch": B_TRAIN // DP2_RANKS, "k": K_MEGA, "steps": DP2_STEPS,
           "first_loss": r0["losses"][0], "last_loss": r0["losses"][-1],
           "kernel_vs_plain_32_steps": {r: results[r]["kernel_vs_plain"] for r in results},
           "launches": {"onehot_dense_grad": r0["launches"] + r1["launches"]},
           "replica_diff_before_sync": r0["replica_diff_before_sync"],
-          "replica_diff_after_sync": r0["replica_diff_after_sync"],
+          "replica_diff_after_sync": r0["replica_diff_after_sync"], "options": options,
           "host_ms_per_step": {r: results[r]["ms_per_step"] for r in results},
           "wire_per_step_per_rank": dp_wire_bytes(cfg, B_TRAIN // DP2_RANKS, 8),
           "phase_s": time.perf_counter() - t0})
-    return r0["launches"] + r1["launches"]
+    return r0["launches"] + r1["launches"] + sum(o["launches"] for o in options.values())
 
 
 def phase_cli_dp(cfg, cli_ms):
     """The user's entry point under `--parallelism=dp` (world 1: the
     one-rank NCCL group that exists already), `--parallelism=pseudo` (4
     workers) and `--parallelism=dp-nosync` (dense gradients, no K1), each
-    64 steps of INT4 QAT at the Kaggle width (B = 128, grad bits 8 with
+    32 steps of INT4 QAT at the Kaggle width (B = 128, grad bits 8 with
     error compensation; dp in megasteps of 16 with the weight sync at step
-    64), a validation eval at step 64 and the final eval, each saving a
-    slot (the JAX key names, `.qstate.step` 64), in a temporary directory
+    32), a validation eval at step 32 and the final eval, each saving a
+    slot (the JAX key names, `.qstate.step` 32), in a temporary directory
     removed at the end. One grouped K1 launch per step under dp and pseudo; ms/it
-    beside the cli phase's."""
+    beside the cli phase's. Then the six argvs once refused (QR under dp,
+    MD under dp-nosync, fixed v_W and bf16 compute under pseudo, bf16
+    tables and --ranking-range under dp), 16 steps each."""
     import shutil
     import tempfile
 
@@ -2472,6 +2553,27 @@ def phase_cli_dp(cfg, cli_ms):
                       "losses": losses, "launches": {"onehot_dense_grad": launches},
                       "final_eval": result}
         total += launches
+    # the six argvs the engines refused before they took the model options
+    # and the ranking-range policy: 16 steps each, no save
+    short = [a for a in arch if not a.startswith(("--num-batches", "--val-freq", "--print-freq"))]
+    short += [f"--num-batches={CLI_REFUSED_BATCHES}", "--print-freq=8"]
+    refused = {"dp --qr-flag": (["--parallelism=dp", "--qr-flag", "--qr-threshold=200"], CLI_REFUSED_BATCHES),
+               "dp-nosync --md-flag": (["--parallelism=dp-nosync", "--md-flag"], 0),
+               "pseudo --weighted-pooling=fixed": (["--parallelism=pseudo", "--weighted-pooling=fixed",
+                                                    f"--num-pseudo-workers={PSEUDO_WORKERS}"], CLI_REFUSED_BATCHES),
+               "dp --table-dtype=bfloat16": (["--parallelism=dp", "--table-dtype=bfloat16"], CLI_REFUSED_BATCHES),
+               "pseudo --compute-dtype=bfloat16": (["--parallelism=pseudo", "--compute-dtype=bfloat16",
+                                                    f"--num-pseudo-workers={PSEUDO_WORKERS}"], CLI_REFUSED_BATCHES),
+               "dp --ranking-range": (["--parallelism=dp", "--ranking-range"], CLI_REFUSED_BATCHES)}
+    for name, (extra, want_k1) in refused.items():
+        k1.launches = k1_one.launches = 0
+        result, _, wall, ms_per_it = cli_run(train, short + extra)
+        check(k1.launches == want_k1 and k1_one.launches == 0,
+              f"cli_dp {name}: K1 launches {k1.launches} == {want_k1}")
+        check(np.isfinite(result["roc_auc"]), f"cli_dp {name}: final eval {result}")
+        rows[name] = {"wall_s": wall, "ms_per_it_at_prints": ms_per_it,
+                      "launches": {"onehot_dense_grad": k1.launches}, "final_eval": result}
+        total += k1.launches
     emit({"phase": "cli_dp", "entry": f"python -m {PKG}.train", "config": "kaggle_int4_qat", "batch": 128,
           "steps": CLI_DP_BATCHES, **rows, "cli_phase_ms_per_it": cli_ms,
           "phase_s": time.perf_counter() - t0})
@@ -2715,7 +2817,7 @@ def phase_cli_schemes(cfg, tf32_default):
         args.onehot_update_max_rows, args.stream_update_max_rows = 20000, 0
         ccfg, tc = train.make_configs(args)
         ccfg, _, test_loader, _ = train.make_loaders(args, ccfg, tc)
-        state, _ = load_checkpoint(CheckpointManager(ck).latest(), init_train_state(ccfg, tc))
+        state, _ = load_checkpoint(CheckpointManager(ck).latest(), init_train_state(ccfg, tc, draw=False))
         plain = make_serving_fn(ptq_export(ccfg, state.params, emb_bits=4, mlp_bits=8), plain=True)
         want = train.evaluate(ccfg, state, test_loader, lambda s, b: plain(_on(b, torch.device(DEVICE))))
         del state, plain
@@ -2809,6 +2911,51 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(x.abs().float().clamp_min(2.0 ** -126))) - 7)
 
 
+def bf16_tables_check(pa, pb, indices, small, calls, label):
+    """Two runs' bf16 tables (`pa`'s and `pb`'s "emb", the runs' k-step
+    `indices` [k, T, B, P] taken `calls` times) held element by element to
+    bf16 ulps (of the larger of the two values and of the table's init
+    bound 1/sqrt(n): a value that an update cancelled to near 0 carries the
+    rounding of the operands, not of its own magnitude): a K1 table (slot
+    in `small`) takes one add a step, its duplicates summed in float32 and
+    rounded once, so one ulp per step that touched the row; a scatter
+    table one `index_add_` per update, each rounding to bf16 in a
+    run-dependent order, so one per update of the row. The MLPs within
+    TRAIN_PARAM_ATOL. Returns the stats."""
+    beyond, max_ulps, max_touch, differ, worst = 0, {"k1": 0.0, "scatter": 0.0}, 0, 0, []
+    k_steps = indices.shape[0]
+    for k, (a, b) in enumerate(zip(pa["emb"], pb["emb"])):
+        ids = indices[:, k].reshape(k_steps, -1).long()
+        if k in small:  # one add a step: the steps that touched the row
+            hit = torch.zeros((k_steps, a.shape[0]), device=a.device).scatter_(1, ids, 1.0)
+            allowed = hit.sum(0) * calls
+        else:  # one add an update
+            allowed = torch.bincount(ids.reshape(-1), minlength=a.shape[0]).float() * calls
+        ulp = bf16_ulp(torch.maximum(torch.maximum(a.abs(), b.abs()),
+                                     torch.tensor(float(np.sqrt(1.0 / a.shape[0])), device=a.device).to(a.dtype)))
+        ulps = (a.float() - b.float()).abs() / ulp
+        out = ulps > allowed[:, None]
+        route = "k1" if k in small else "scatter"
+        beyond += int(out.sum())
+        differ += int((a != b).sum())
+        max_ulps[route] = max(max_ulps[route], ulps.max().item())
+        max_touch = max(max_touch, int(allowed.max()))
+        for r, c in out.nonzero()[:4].tolist():
+            worst.append({"table": k, "route": route, "row": r, "col": c, "kernel": a[r, c].item(),
+                          "plain": b[r, c].item(), "ulps": ulps[r, c].item(), "allowed": allowed[r].item()})
+        del ulps, out, ulp, allowed
+    mlp_err = max((x - y).abs().max().item() for part in ("bot", "top")
+                  for x, y in zip(leaves(pa[part]), leaves(pb[part])))
+    check(beyond == 0, f"{label}: {beyond} table elements beyond their bf16 ulps (K1: per step that "
+                       f"touched the row; scatter: per update of the row): {worst}")
+    check(mlp_err <= TRAIN_PARAM_ATOL, f"{label}: MLP kernel vs plain {mlp_err} <= {TRAIN_PARAM_ATOL}")
+    return {"mlp_max_abs_err": mlp_err, "mlp_atol": TRAIN_PARAM_ATOL, "table_max_bf16_ulps": max_ulps,
+            "table_elements_that_differ": differ, "table_elements_beyond_bound": beyond,
+            "bound": "bf16 ulps (of the larger value, at least the table's init bound): K1 tables "
+                     "one per step that touched the row, scatter tables one per update of the row",
+            "largest_allowance_ulps": max_touch}
+
+
 def terabyte_params(cfg, seed):
     """Terabyte params on the card: the MLPs from `init_params` (drawn with
     tables of one row), each table U(-1/sqrt(n), 1/sqrt(n)) from a
@@ -2857,7 +3004,7 @@ def phase_tb_bf16(train_step_ms):
     profiled megastep, and 8 steps with compute_dtype="bfloat16" beside 8 in
     float32 by the same clock, twice each after one untimed call of each,
     and a profiled call of each. Returns (config, the trained params, K1's
-    launches)."""
+    launches, the step's ms)."""
     import dataclasses
 
     from deep_quantized_recommendation_model_dqrm_tpu_torch.config import QuantConfig, TrainConfig, terabyte_config
@@ -2912,35 +3059,8 @@ def phase_tb_bf16(train_step_ms):
     check(bool(torch.isfinite(losses).all()), "tb_bf16: finite losses")
     loss_err = ((losses - plain_losses).abs() / plain_losses.abs()).max().item()
     check(loss_err <= TRAIN_LOSS_RTOL, f"tb_bf16: 16 steps, loss kernel vs plain {loss_err} <= {TRAIN_LOSS_RTOL}")
-    beyond, max_ulps, max_touch, differ, worst = 0, {"k1": 0.0, "scatter": 0.0}, 0, 0, []
-    calls = TB_STEPS // K_MEGA
-    for k, (a, b) in enumerate(zip(state.params["emb"], plain_st.params["emb"])):
-        ids = batches.indices[:, k].reshape(K_MEGA, -1).long()
-        if k in small:  # one add a step: the steps that touched the row
-            hit = torch.zeros((K_MEGA, a.shape[0]), device=a.device).scatter_(1, ids, 1.0)
-            allowed = hit.sum(0) * calls
-        else:  # one add an update
-            allowed = torch.bincount(ids.reshape(-1), minlength=a.shape[0]).float() * calls
-        # ulps at the larger of the two values and the table's init bound
-        # 1/sqrt(n): a value that an update cancelled to near 0 carries the
-        # rounding of the operands, not of its own magnitude
-        ulp = bf16_ulp(torch.maximum(torch.maximum(a.abs(), b.abs()),
-                                     torch.tensor(float(np.sqrt(1.0 / a.shape[0])), device=a.device).to(a.dtype)))
-        ulps = (a.float() - b.float()).abs() / ulp
-        out = ulps > allowed[:, None]
-        route = "k1" if k in small else "scatter"
-        beyond += int(out.sum())
-        differ += int((a != b).sum())
-        max_ulps[route] = max(max_ulps[route], ulps.max().item())
-        max_touch = max(max_touch, int(allowed.max()))
-        for r, c in out.nonzero()[:4].tolist():
-            worst.append({"table": k, "route": route, "row": r, "col": c, "kernel": a[r, c].item(),
-                          "plain": b[r, c].item(), "ulps": ulps[r, c].item(), "allowed": allowed[r].item()})
-    mlp_err = max((x - y).abs().max().item() for part in ("bot", "top")
-                  for x, y in zip(leaves(state.params[part]), leaves(plain_st.params[part])))
-    check(beyond == 0, f"tb_bf16: {beyond} table elements beyond their bf16 ulps (K1: per step that "
-                       f"touched the row; scatter: per update of the row): {worst}")
-    check(mlp_err <= TRAIN_PARAM_ATOL, f"tb_bf16: MLP kernel vs plain {mlp_err} <= {TRAIN_PARAM_ATOL}")
+    ulp_check = bf16_tables_check(state.params, plain_st.params, batches.indices, small,
+                                  TB_STEPS // K_MEGA, "tb_bf16")
     del plain_st
     compare_s = time.perf_counter() - t1
     check(state.qstate.step == TB_STEPS, "tb_bf16: qstate.step")
@@ -2979,21 +3099,14 @@ def phase_tb_bf16(train_step_ms):
           "scale_refresh": "at step 0 only: the next, at step 1000, is not reached (the train phase covers it)",
           "k1_first_batch": {"max_abs_err": k1_err, "tol": "2 (c-1) u sum|v| per element"},
           "kernel_vs_plain_16_steps": {"loss_max_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL,
-                                       "mlp_max_abs_err": mlp_err, "mlp_atol": TRAIN_PARAM_ATOL,
-                                       "table_max_bf16_ulps": max_ulps,
-                                       "table_elements_that_differ": differ,
-                                       "table_elements_beyond_bound": beyond,
-                                       "bound": "bf16 ulps (of the larger value, at least the table's "
-                                                "init bound): K1 tables one per step that touched the "
-                                                "row, scatter tables one per update of the row",
-                                       "largest_allowance_ulps": max_touch},
+                                       **ulp_check},
           "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
           "first_loss": losses[0].item(), "last_loss": multi.losses[-1].item(),
           "train_step_ms": ms, "samples_per_s": TB_B / ms * 1e3, "kaggle_train_step_ms": train_step_ms,
           "compute_dtype_step_ms": compute_ms,
           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
           "init_s": init_s, "compare_s": compare_s, "phase_s": time.perf_counter() - t0})
-    return cfg, state.params, launches["onehot_dense_grad"]
+    return cfg, state.params, launches["onehot_dense_grad"], ms
 
 
 def serve_layers_ms(sm, batch, flush):
@@ -3102,7 +3215,7 @@ def phase_tricks(cfg, params0, train_step_ms):
     train phase's step, then PTQ serving of the trained state (QR and v_W
     at INT4, MD at INT8; v_W also with onehot_lookup_max_rows=20000, K4
     with the pooling weights) against its plain path with K2's, K3's and
-    K4's launches per batch. Returns the launches."""
+    K4's launches per batch. Returns the launches and the step times."""
     import dataclasses
 
     from deep_quantized_recommendation_model_dqrm_tpu_torch.config import TrainConfig
@@ -3125,6 +3238,7 @@ def phase_tricks(cfg, params0, train_step_ms):
     from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
 
     total = {"onehot_dense_grad": 0, "packed_pooled_lookup": 0, "int8_linear": 0, "onehot_pooled_lookup": 0}
+    step_ms = {}
     tc = TrainConfig(batch_size=B_TRAIN, learning_rate=0.1, onehot_update_max_rows=SMALL_ROWS)
     for i, (name, opts) in enumerate(TRICK_OPTIONS.items()):
         t0 = time.perf_counter()
@@ -3146,6 +3260,7 @@ def phase_tricks(cfg, params0, train_step_ms):
         k1.launches = k1_one.launches = k4.launches = 0
         ms, _, state = event_ms_per_step(multi, state, batches, K_MEGA, chains=1, calls=TRICK_CHAIN_MEGASTEPS)
         torch.cuda.synchronize()
+        step_ms[name] = ms
         steps = TRICK_CHAIN_MEGASTEPS * K_MEGA
         launches = {"onehot_dense_grad": k1.launches, "onehot_dense_grad_per_table": k1_one.launches,
                     "onehot_pooled_lookup": k4.launches}
@@ -3192,7 +3307,7 @@ def phase_tricks(cfg, params0, train_step_ms):
                         **serve},
               "peak_memory_bytes": torch.cuda.max_memory_allocated(), "phase_s": time.perf_counter() - t0})
         del state, sm
-    return total
+    return total, step_ms
 
 
 def phase_dense_bf16(cfg, params0):
@@ -3350,7 +3465,7 @@ def phase_cli_tricks(cfg):
         args.onehot_update_max_rows, args.stream_update_max_rows = 20000, 0
         ccfg, tc = train.make_configs(args)
         ccfg, _, test_loader, _ = train.make_loaders(args, ccfg, tc)
-        state, _ = load_checkpoint(CheckpointManager(ck).latest(), init_train_state(ccfg, tc))
+        state, _ = load_checkpoint(CheckpointManager(ck).latest(), init_train_state(ccfg, tc, draw=False))
         plain = make_serving_fn(ptq_export(ccfg, state.params, emb_bits=4, mlp_bits=8), plain=True)
         want = train.evaluate(ccfg, state, test_loader, lambda s, b: plain(_on(b, torch.device(DEVICE))))
         del state, plain
@@ -3367,6 +3482,430 @@ def phase_cli_tricks(cfg):
           "phase_s": time.perf_counter() - t0})
     return {"onehot_dense_grad": 2 * CLI_TRICK_BATCHES, "packed_pooled_lookup": launches_b["packed_pooled_lookup"],
             "int8_linear": launches_b["int8_linear"]}
+
+
+# The engines at parity with JAX's (tb_dp, dp_tricks, dp_ranking, the dp2
+# jobs, cli_tb_rehearsal): the model options and the ranking-range policy
+# under dp, dp-nosync and pseudo, and the Terabyte rehearsal recipe
+TB_DP_K = 8  # the rehearsal's --steps-per-dispatch
+TB_DP_PERIOD = 4  # scale refreshes at steps 0 and 4, both inside the compared megastep
+DP_TRICK_OPTIONS = {  # the tricks phase's options, and the other pooling and compute options
+    **TRICK_OPTIONS,
+    "vw_fixed": dict(weighted_pooling="fixed"),
+    "vw_pact": dict(weighted_pooling="learned"),  # with quant_scheme="pact"
+    "bf16_compute": dict(compute_dtype="bfloat16"),
+}
+DP_TRICK_STEPS = 32  # kernel path against plain path
+RANKING_STEPS = 32
+RANKING_STEP_CHECKS = 4  # single steps whose skipped tables are checked untouched
+CLI_REFUSED_BATCHES = 16
+CLI_TB_BATCHES = 56  # batches per epoch: 4 epochs of 7 megasteps of 8, a print and a sync at it 200
+CLI_TB_ARCH = ["--arch-embedding-size=9980333-36084-17217-7378-20134-3-7112-1442-61-9758201-1333352-313829-"
+               "10-2208-11156-122-4-970-14-9994222-7267859-9946608-415421-12420-101-36",
+               "--arch-sparse-feature-size=64", "--arch-mlp-bot=13-512-256-64", "--arch-mlp-top=512-512-256-1",
+               "--max-ind-range=10000000", "--table-dtype=bfloat16"]
+
+
+def k1_counters():
+    """The K1 and K4 wrappers whose counts the dp phases read."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_dense_grad as k1_one,
+        onehot_dense_grad_grouped as k1,
+        onehot_pooled_lookup_grouped_fwd as k4,
+    )
+
+    return k1, k1_one, k4
+
+
+def k1_launches_from_zero(run):
+    """`run()` with the K1 and K4 counters from 0: (its result, {name:
+    launches})."""
+    k1, k1_one, k4 = k1_counters()
+    torch.cuda.synchronize()
+    k1.launches = k1_one.launches = k4.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {"onehot_dense_grad": k1.launches, "onehot_dense_grad_per_table": k1_one.launches,
+                 "onehot_pooled_lookup": k4.launches}
+
+
+def ranking_wire_bytes(cfg, local_batch, dense_tables, bits):
+    """Bytes one rank sends a dp step under ranking_range: the MLP (and
+    QR/MD leaves') exchange as `dp_wire_bytes` counts it, the per-table
+    ranges (float32, MAX-reduced), and each dense table's coalesced rows on
+    the two int8 channels (2 B a value) with their ids."""
+    base = dp_wire_bytes(cfg, local_batch, bits)
+    d = cfg.embedding_dim
+    out = {k: v for k, v in base.items() if k.startswith("mlp") or k == "loss_bytes"}
+    out.update(range_bytes=4 * dense_tables, row_bytes=dense_tables * local_batch * 2 * d,
+               id_bytes=4 * dense_tables * local_batch)
+    out["total_bytes"] = sum(v for k, v in out.items() if k.endswith("_bytes"))
+    return out
+
+
+def phase_tb_dp(cfg, params, tb_step_ms):
+    """The dp engine at Terabyte's full width: `terabyte_config` at its real
+    49,126,297 rows on bf16 tables (the params the tb_bf16 phase trained),
+    INT4 HAWQ QAT, one-rank NCCL dp, B = 2048, grad bits 8, megasteps of 8,
+    K1 on the 16 tables of at most 20000 rows. scale_update_period=4: the
+    refreshes at steps 0 and 4 both fall in the compared megastep. One
+    megastep of the kernel path against one of the plain path from one
+    start, under tb_bf16's bounds (losses rtol 1e-4, the MLP 1e-5, K1
+    tables one bf16 ulp per step that touched the row, scatter tables one
+    per update). Then the main path, 2 megasteps with the counters from 0
+    (one K1 launch a step), timed by CUDA events beside tb_bf16's step, and
+    a profiled megastep. Returns K1's launches."""
+    import dataclasses
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import TrainConfig
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models import dlrm
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_quant_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import comm_grad
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(cfg, quant=dataclasses.replace(cfg.quant, scale_update_period=TB_DP_PERIOD))
+    tc = TrainConfig(batch_size=TB_B, learning_rate=0.1, onehot_update_max_rows=SMALL_ROWS, grad_quant_bits=8)
+    small = [k for k, n in enumerate(cfg.table_sizes) if n <= SMALL_ROWS]
+    batches = device_batches(cfg, TB_B, TB_DP_K, 210)
+    plain_st, plain_losses = run_chain(comm_grad.make_dp_train_step(cfg, tc, steps_per_dispatch=TB_DP_K, plain=True),
+                                       comm_grad.dp_state_from(tree_map(torch.clone, params), init_quant_state(cfg)),
+                                       batches, 1)
+    refreshes = []  # the kernel path's scale refreshes, read where update_emb_scales computes them
+    compute = dlrm.compute_emb_scales
+    dlrm.compute_emb_scales = lambda c, p: refreshes.append(compute(c, p)) or refreshes[-1]
+    try:
+        state, losses = run_chain(comm_grad.make_dp_train_step(cfg, tc, steps_per_dispatch=TB_DP_K),
+                                  comm_grad.dp_state_from(params, init_quant_state(cfg)), batches, 1)
+    finally:
+        dlrm.compute_emb_scales = compute
+    check(len(refreshes) == TB_DP_K // TB_DP_PERIOD and torch.equal(state.qstate.emb_scales, refreshes[-1]),
+          f"tb_dp: the scales refreshed at steps 0 and 4 of the compared megastep ({len(refreshes)})")
+    check(bool(torch.isfinite(losses).all()), "tb_dp: finite losses")
+    loss_err = ((losses - plain_losses).abs() / plain_losses.abs()).max().item()
+    check(loss_err <= TRAIN_LOSS_RTOL, f"tb_dp: 8 steps, loss kernel vs plain {loss_err} <= {TRAIN_LOSS_RTOL}")
+    ulp_check = bf16_tables_check(state.params, plain_st.params, batches.indices, small, 1, "tb_dp")
+    del plain_st
+    compare_s = time.perf_counter() - t0
+
+    multi = comm_grad.make_dp_train_step(cfg, tc, steps_per_dispatch=TB_DP_K)
+    (ms, chains, state), launches = k1_launches_from_zero(
+        lambda: event_ms_per_step(multi, state, batches, TB_DP_K, chains=1, calls=2))
+    steps = 2 * TB_DP_K
+    check(launches == {"onehot_dense_grad": steps, "onehot_dense_grad_per_table": 0, "onehot_pooled_lookup": 0},
+          f"tb_dp: launches {launches}: 1 grouped K1 launch per step x {steps}")
+    check(bool(torch.isfinite(multi.losses).all()), "tb_dp: finite main-path losses")
+    state = profile_megastep("tb_dp", multi, state, batches, TB_DP_K, batch=TB_B, world=1)
+    emit({"phase": "tb_dp", "config": "terabyte", "source": "scripts/terabyte_rehearsal.sh:25-39",
+          "table_dtype": "bfloat16", "rows": sum(cfg.table_sizes), "batch": TB_B, "k": TB_DP_K, "world": 1,
+          "grad_quant_bits": 8, "scale_update_period": TB_DP_PERIOD, "refreshes_compared": [0, 4],
+          "kernel_vs_plain_8_steps": {"loss_max_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL, **ulp_check},
+          "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
+          "first_loss": losses[0].item(), "last_loss": multi.losses[-1].item(),
+          "dp_step_ms": ms, "tb_bf16_step_ms": tb_step_ms, "samples_per_s": TB_B / ms * 1e3,
+          "wire_per_step": dp_wire_bytes(cfg, TB_B, 8),
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(), "compare_s": compare_s,
+          "phase_s": time.perf_counter() - t0})
+    return launches["onehot_dense_grad"]
+
+
+def dp_trick_config(cfg, name):
+    import dataclasses
+
+    tcfg = dataclasses.replace(cfg, **DP_TRICK_OPTIONS[name])
+    if name == "vw_pact":
+        tcfg = dataclasses.replace(tcfg, quant=dataclasses.replace(cfg.quant, quant_scheme="pact"))
+    return tcfg
+
+
+def trick_params(tcfg, params0):
+    """The train phase's untrained params, with v_W at ones where the
+    config pools by weights; a QR or MD config's own from init_params."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_params
+
+    if tcfg.qr_flag or tcfg.md_flag:
+        return init_params(tcfg, seed=0)
+    params = {**params0, "emb": [t.to(tcfg.table_dtype == "bfloat16" and torch.bfloat16 or t.dtype)
+                                 for t in params0["emb"]]}
+    if tcfg.weighted_pooling is not None:
+        params["v_W"] = [torch.ones((n,), device=DEVICE) for n in tcfg.table_sizes]
+    return params
+
+
+def phase_dp_tricks(cfg, params0, trick_ms):
+    """The dp engine (one-rank NCCL, B = 128, megasteps of 16, grad bits 8
+    with error compensation, K1 on the 18 small tables) under the tricks
+    phase's options (QR mult c = 4, MD temperature 0.3, learned v_W), fixed
+    v_W, learned v_W under PACT and compute_dtype="bfloat16": 32 steps of
+    the kernel path against 32 of the plain path under the tricks phase's
+    gates (PACT's parameters scaled by max(1, |value|)), then one timed
+    megastep with the counters from 0 (one K1 launch a step) beside the
+    single-device step of the tricks phase. Then the pseudo engine (4
+    workers) on fixed v_W and bf16 tables: 32 steps kernel against plain,
+    the bf16 tables by ulps as tb_bf16 holds them. Returns K1's launches."""
+    import dataclasses
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_quant_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import comm_grad, pseudo
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import repeat_step
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    tc = dp_tc(weight_sync_period=0)
+    rows, total = {}, 0
+    for i, name in enumerate(DP_TRICK_OPTIONS):
+        t1 = time.perf_counter()
+        tcfg = dp_trick_config(cfg, name)
+        params = trick_params(tcfg, params0)
+        batches = device_batches(tcfg, B_TRAIN, K_MEGA, 400 + i)
+        start = lambda: comm_grad.dp_state_from(tree_map(torch.clone, params), init_quant_state(tcfg))  # noqa: E731
+        runs = {plain: run_chain(comm_grad.make_dp_train_step(tcfg, tc, steps_per_dispatch=K_MEGA, plain=plain),
+                                 start(), batches, DP_TRICK_STEPS // K_MEGA) for plain in (False, True)}
+        vs_plain = path_diff(*runs[False], *runs[True], f"dp_tricks {name}: 32 steps kernel vs plain",
+                             scaled=name == "vw_pact")
+        state = runs[False][0]
+        del runs, params
+        multi = comm_grad.make_dp_train_step(tcfg, tc, steps_per_dispatch=K_MEGA)
+        (ms, _, state), launches = k1_launches_from_zero(
+            lambda: event_ms_per_step(multi, state, batches, K_MEGA, chains=1, calls=1))
+        check(launches == {"onehot_dense_grad": K_MEGA, "onehot_dense_grad_per_table": 0, "onehot_pooled_lookup": 0},
+              f"dp_tricks {name}: launches {launches}: 1 grouped K1 launch per step x {K_MEGA}")
+        check(bool(torch.isfinite(multi.losses).all()), f"dp_tricks {name}: finite losses")
+        if tcfg.weighted_pooling == "learned":
+            check(sum(int((v != 1).sum()) for v in state.params["v_W"]) > 0, f"dp_tricks {name}: v_W moved")
+        total += launches["onehot_dense_grad"]
+        rows[name] = {"flags": DP_TRICK_OPTIONS[name], "kernel_vs_plain_32_steps": vs_plain, "launches": launches,
+                      "dp_step_ms": ms, "single_device_step_ms": trick_ms.get(name),
+                      "phase_s": time.perf_counter() - t1}
+        del state
+
+    # pseudo: fixed v_W and bf16 tables, 4 workers
+    t1 = time.perf_counter()
+    pcfg = dataclasses.replace(cfg, weighted_pooling="fixed", table_dtype="bfloat16")
+    params = trick_params(pcfg, params0)
+    batches = device_batches(pcfg, B_TRAIN, K_MEGA, 420)
+    small = [k for k, n in enumerate(pcfg.table_sizes) if n <= SMALL_ROWS]
+
+    def run(plain):
+        step = repeat_step(pseudo.make_pseudo_train_step(pcfg, tc, PSEUDO_WORKERS, plain=plain), K_MEGA)
+        return run_chain(step, pseudo.pseudo_state_from(tree_map(torch.clone, params), init_quant_state(pcfg)),
+                         batches, PSEUDO_STEPS // K_MEGA)
+
+    (sk, lk), launches = k1_launches_from_zero(lambda: run(False))
+    check(launches == {"onehot_dense_grad": PSEUDO_STEPS, "onehot_dense_grad_per_table": 0,
+                       "onehot_pooled_lookup": 0},
+          f"dp_tricks pseudo: launches {launches}: 1 grouped K1 launch per step x {PSEUDO_STEPS}")
+    sp, lp = run(True)
+    loss_err = ((lk - lp).abs() / lp.abs()).max().item()
+    check(bool(torch.isfinite(lk).all()) and loss_err <= TRAIN_LOSS_RTOL,
+          f"dp_tricks pseudo: 32 steps, loss kernel vs plain {loss_err}")
+    ulp_check = bf16_tables_check(sk.params, sp.params, batches.indices, small, PSEUDO_STEPS // K_MEGA,
+                                  "dp_tricks pseudo")
+    check(all(t.dtype == torch.bfloat16 for t in sk.params["emb"]), "dp_tricks pseudo: bf16 tables")
+    del sk, sp, params
+    total += launches["onehot_dense_grad"]
+    rows["pseudo_vw_fixed_bf16_tables"] = {
+        "workers": PSEUDO_WORKERS, "kernel_vs_plain_32_steps": {"loss_max_rel_err": loss_err, **ulp_check},
+        "launches": launches, "phase_s": time.perf_counter() - t1}
+    emit({"phase": "dp_tricks", "config": "kaggle_int4_qat", "world": 1, "batch": B_TRAIN, "k": K_MEGA,
+          "grad_quant_bits": 8, "error_compensation": True, **rows, "phase_s": time.perf_counter() - t0})
+    return total
+
+
+def phase_dp_ranking(cfg, params0, dp_step_ms):
+    """The dp engine with `ranking_range` (frac_hi 0.2, frac_int8 0.3) at the
+    Kaggle width, one-rank NCCL, B = 128, megasteps of 16, the MLP at grad
+    bits 8 with error compensation, K1 on the small tables; on the 26
+    plain tables and with QR (c = 4, threshold 200: 8 plain tables). 32
+    steps of the kernel path against the plain path (the train phase's
+    bounds); every step's modes counted (26 tables: 5 HI, 8 INT8, 13 SKIP);
+    then 4 single steps, each checking that the rows its batch touched
+    kept their bits on the skipped tables and moved on the others; and a
+    timed megastep with the counters from 0 (one K1 launch a step) beside
+    the dp phase's. Wire bytes at 2 B a value. Returns K1's launches."""
+    import dataclasses
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import Batch, init_quant_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import comm_grad, ranking_range
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    tc = dp_tc(weight_sync_period=0, ranking_range=True)
+    rows, total = {}, 0
+    seen = []
+    orig = ranking_range.assign_bit_widths
+
+    def record(*args):
+        seen.append(orig(*args))
+        return seen[-1]
+
+    ranking_range.assign_bit_widths = record
+    try:
+        for i, (name, opts) in enumerate((("ranking", {}), ("ranking_qr", TRICK_OPTIONS["qr"]))):
+            t1 = time.perf_counter()
+            rcfg = dataclasses.replace(cfg, **opts)
+            params = trick_params(rcfg, params0)
+            dense = [k for k in range(rcfg.num_tables) if rcfg.table_kind(k) == "dense"]
+            td = len(dense)
+            want = {"hi": round(0.2 * td), "int8": round(0.3 * td)}
+            want["skip"] = td - want["hi"] - want["int8"]
+            batches = device_batches(rcfg, B_TRAIN, K_MEGA, 430 + i)
+            start = lambda: comm_grad.dp_state_from(tree_map(torch.clone, params), init_quant_state(rcfg))  # noqa: E731
+            runs = {}
+            for plain in (False, True):
+                seen.clear()
+                runs[plain] = run_chain(comm_grad.make_dp_train_step(rcfg, tc, steps_per_dispatch=K_MEGA,
+                                                                     plain=plain),
+                                        start(), batches, RANKING_STEPS // K_MEGA)
+                modes = torch.stack(seen)
+                check(modes.shape == (RANKING_STEPS, td), f"dp_ranking {name}: modes {tuple(modes.shape)}")
+                counts = {m: (modes == v).sum(1) for m, v in (("hi", ranking_range.HI), ("int8", ranking_range.INT8),
+                                                              ("skip", ranking_range.SKIP))}
+                check(all(bool((counts[m] == want[m]).all()) for m in want),
+                      f"dp_ranking {name}: modes per step {want} of {td}")
+                if not plain:
+                    kernel_modes = modes
+            same_modes = bool(torch.equal(kernel_modes, modes))
+            vs_plain = path_diff(*runs[False], *runs[True], f"dp_ranking {name}: 32 steps kernel vs plain")
+            state = runs[False][0]
+            del runs
+
+            # single steps: the skipped tables' touched rows keep their bits
+            single = comm_grad.make_dp_train_step(rcfg, tc)
+            untouched = moved = 0
+            for j in range(RANKING_STEP_CHECKS):
+                b = Batch(*(None if t is None else t[j] for t in batches))
+                rows_before = [state.params["emb"][k][b.indices[k].reshape(-1).long()].clone() for k in dense]
+                seen.clear()
+                state, _ = single(state, b)
+                m = seen[-1]
+                for d, k in enumerate(dense):
+                    after = state.params["emb"][k][b.indices[k].reshape(-1).long()]
+                    if int(m[d]) == ranking_range.SKIP:
+                        check(bool(torch.equal(after, rows_before[d])), f"dp_ranking {name}: skipped table {k} moved")
+                        untouched += 1
+                    else:
+                        moved += int(not torch.equal(after, rows_before[d]))
+            check(moved > 0, f"dp_ranking {name}: the ranked tables moved")
+            multi = comm_grad.make_dp_train_step(rcfg, tc, steps_per_dispatch=K_MEGA)
+            (ms, _, state), launches = k1_launches_from_zero(
+                lambda: event_ms_per_step(multi, state, batches, K_MEGA, chains=1, calls=1))
+            check(launches["onehot_dense_grad"] == K_MEGA and launches["onehot_dense_grad_per_table"] == 0,
+                  f"dp_ranking {name}: launches {launches}: 1 grouped K1 launch per step x {K_MEGA}")
+            total += launches["onehot_dense_grad"]
+            rows[name] = {"dense_tables": td, "modes_per_step": want, "same_modes_kernel_and_plain": same_modes,
+                          "kernel_vs_plain_32_steps": vs_plain, "skipped_tables_checked_untouched": untouched,
+                          "ranked_tables_moved": moved, "launches": launches, "dp_step_ms": ms,
+                          "dp_phase_step_ms": dp_step_ms,
+                          "wire_per_step": ranking_wire_bytes(rcfg, B_TRAIN, td, 8),
+                          "phase_s": time.perf_counter() - t1}
+            del state, params
+    finally:
+        ranking_range.assign_bit_widths = orig
+    emit({"phase": "dp_ranking", "config": "kaggle_int4_qat", "world": 1, "batch": B_TRAIN, "k": K_MEGA,
+          "frac_hi": tc.ranking_frac_hi, "frac_int8": tc.ranking_frac_int8, **rows,
+          "phase_s": time.perf_counter() - t0})
+    return total
+
+
+def phase_cli_tb_rehearsal():
+    """The JAX package's Terabyte rehearsal recipe (scripts/
+    terabyte_rehearsal.sh:25-55) through the port's `train.run` at full
+    Terabyte width under `--parallelism=dp` (the one-rank NCCL group):
+    learnable data, bf16 tables, the 4-epoch QAT schedule (FP32 pretrain,
+    INT4 tables, INT4 MLP, the bit-width shift) with scale_update_period
+    1000, grad bits 8, the weight sync every 200 steps, megasteps of 8,
+    B = 2048, test B = 8192, a save; then `--inference-only --load-model`
+    PTQ (INT4 tables, INT8 MLP) through one grouped K2 and 7 K3 launches a
+    batch. Cut: the batches per epoch (56: one print and one sync at it
+    200, the test eval at 300 not reached, the final eval saving). In a
+    temporary directory removed at the end. Returns the launches."""
+    import shutil
+    import tempfile
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch import train
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
+        packed_pooled_lookup_grouped as k2,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import int8_linear as k3
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    k1, k1_one, _ = k1_counters()
+    tmp = tempfile.mkdtemp(prefix="dqrm_cli_tb_")
+    io_s = {"save": [], "restore": []}
+    methods = {name: getattr(CheckpointManager, name) for name in io_s}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = methods[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            io_s[name].append(time.perf_counter() - t)
+            return out
+        return call
+
+    for name in io_s:  # the checkpoint's save and load times, as the CLI calls them
+        setattr(CheckpointManager, name, timed(name))
+    try:
+        ck, log = os.path.join(tmp, "ckpt"), os.path.join(tmp, "log")
+        data = ["--data-generation=learnable", f"--num-batches={CLI_TB_BATCHES}"]
+        train_argv = data + CLI_TB_ARCH + [
+            "--pin-table-layout", "--quantization_flag", "--embedding_bit=4", "--weight_bit=4",
+            "--scale-update-period=1000", "--pretrain_and_quantize", "--pretrain_and_quantize_lin",
+            "--linear_shift_down_bit_width", "--shift-bit-width-to=4", "--parallelism=dp",
+            "--grad-quant-bits=8", "--weight-sync-period=200", "--steps-per-dispatch=8",
+            "--mini-batch-size=2048", "--test-mini-batch-size=8192", "--learning-rate=0.1", "--nepochs=4",
+            "--print-freq=200", "--test-freq=300", f"--save-model={ck}", f"--log-dir={log}"]
+        k1.launches = k1_one.launches = k2.launches = k3.launches = 0
+        result, out, wall, ms_per_it = cli_run(train, train_argv)
+        launches = {"onehot_dense_grad": k1.launches, "packed_pooled_lookup": k2.launches,
+                    "int8_linear": k3.launches}
+        steps = 4 * CLI_TB_BATCHES
+        check(launches == {"onehot_dense_grad": steps, "packed_pooled_lookup": 0, "int8_linear": 0}
+              and k1_one.launches == 0, f"cli_tb_rehearsal: launches {launches}: 1 grouped K1 launch per step")
+        check("Finished training it 200/" in out and np.isfinite(result["roc_auc"]),
+              f"cli_tb_rehearsal: the print at it 200 and the final eval {result}")
+        for epoch in (0, 1):  # FP32 pretrain, then INT4 tables with the MLP in float32
+            check(f"epoch {epoch}: QAT schedule config" in out, f"cli_tb_rehearsal: the schedule at epoch {epoch}")
+        with open(os.path.join(log, "run.scalars.jsonl")) as f:
+            losses = [json.loads(line)["value"] for line in f if json.loads(line)["tag"] == "Train/Loss"]
+        check(len(losses) == 1 and all(np.isfinite(losses)), f"cli_tb_rehearsal: losses {losses}")
+        last = CheckpointManager(ck).latest()
+        ck_bytes = os.path.getsize(last)
+        sizes = [int(n) for n in CLI_TB_ARCH[0].split("=")[1].split("-")]
+        with np.load(last) as z:
+            check(z[".params['emb'][0]"].dtype.kind == "V" and z[".params['emb'][0]"].shape == (sizes[0], 64),
+                  "cli_tb_rehearsal: the bf16 table in the checkpoint")
+
+        ptq_argv = data + CLI_TB_ARCH + ["--mini-batch-size=2048", "--test-mini-batch-size=8192",
+                                         "--inference-only", f"--load-model={ck}", "--quantize-emb-with-bit=4",
+                                         "--quantize-mlp-with-bit=8"]
+        k1.launches = k2.launches = k3.launches = 0
+        result_ptq, out_ptq, wall_ptq, _ = cli_run(train, ptq_argv)
+        n_test = max(1, CLI_TB_BATCHES // 8)
+        launches_ptq = {"onehot_dense_grad": k1.launches, "packed_pooled_lookup": k2.launches,
+                        "int8_linear": k3.launches}
+        check(launches_ptq == {"onehot_dense_grad": 0, "packed_pooled_lookup": n_test, "int8_linear": 7 * n_test},
+              f"cli_tb_rehearsal PTQ: launches {launches_ptq}: 1 grouped K2 and 7 K3 per batch x {n_test}")
+        check(np.isfinite(result_ptq["roc_auc"]) and f"PTQ model: {TB_SERVE_BYTES / 1e6:.2f} MB" in out_ptq,
+              f"cli_tb_rehearsal PTQ: {result_ptq}")
+        check(len(io_s["save"]) == 1 and len(io_s["restore"]) == 1, f"cli_tb_rehearsal: one save, one load {io_s}")
+    finally:
+        for name, method in methods.items():
+            setattr(CheckpointManager, name, method)
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "cli_tb_rehearsal", "entry": f"python -m {PKG}.train", "source": "scripts/terabyte_rehearsal.sh:25-55",
+          "config": "terabyte", "rows": sum(sizes), "table_dtype": "bfloat16", "batch": 2048, "test_batch": 8192,
+          "k": 8, "epochs": 4, "batches_per_epoch": CLI_TB_BATCHES, "steps": steps,
+          "train": {"wall_s": wall, "ms_per_it_at_prints": ms_per_it, "losses": losses, "launches": launches,
+                    "final_eval": result, "checkpoint_bytes": ck_bytes, "save_s": io_s["save"][0]},
+          "ptq": {"wall_s": wall_ptq, "load_s": io_s["restore"][0], "launches": launches_ptq, "eval": result_ptq,
+                  "serving_model_bytes": TB_SERVE_BYTES},
+          "phase_s": time.perf_counter() - t0})
+    return {"onehot_dense_grad": steps, "packed_pooled_lookup": n_test, "int8_linear": 7 * n_test}
 
 
 # the Criteo data pipeline (criteo, cli_criteo): raw Kaggle-format text
@@ -3710,7 +4249,7 @@ def phase_cli_criteo(cfg):
         args.onehot_update_max_rows, args.stream_update_max_rows = SMALL_ROWS, 0
         ccfg, tc = train.make_configs(args)
         ccfg, _, test_loader, _ = train.make_loaders(args, ccfg, tc)
-        state, _ = load_checkpoint(CheckpointManager(ck).latest(), init_train_state(ccfg, tc))
+        state, _ = load_checkpoint(CheckpointManager(ck).latest(), init_train_state(ccfg, tc, draw=False))
         plain = make_serving_fn(ptq_export(ccfg, state.params, emb_bits=4, mlp_bits=8), plain=True)
         dev = torch.device(DEVICE)
         want = train.evaluate(ccfg, state, test_loader, lambda s, b: plain(_on(b, dev)))
@@ -3856,12 +4395,15 @@ def main() -> int:
     stream_launches, stream_step_ms = phase_train_stream(cfg, params0)
     scheme_k1 = phase_schemes(cfg, params0, train_step_ms, flush)
     multihost.init_distributed()  # one rank, NCCL: the dp phases and cli_dp
-    dp_launches = {"onehot_dense_grad": phase_dp(cfg, params0, train_step_ms)}
+    dp_k1, dp_step_ms = phase_dp(cfg, params0, train_step_ms)
+    dp_launches = {"onehot_dense_grad": dp_k1}
     for name, n in phase_dp_stream(cfg, params0, stream_step_ms["sgd"]).items():
         dp_launches[name] = dp_launches.get(name, 0) + n
     dp_launches["onehot_dense_grad"] += phase_pseudo(cfg, params0)
     scheme_k1 += phase_dp_schemes(cfg, params0, train_step_ms)
-    trick_launches = phase_tricks(cfg, params0, train_step_ms)
+    trick_launches, trick_ms = phase_tricks(cfg, params0, train_step_ms)
+    dp_launches["onehot_dense_grad"] += phase_dp_tricks(cfg, params0, trick_ms)
+    dp_launches["onehot_dense_grad"] += phase_dp_ranking(cfg, params0, dp_step_ms)
     dense_bf16_launches = phase_dense_bf16(cfg, params0)
     del params0
     phase_eval(cfg, state)
@@ -3878,7 +4420,8 @@ def main() -> int:
     launches["onehot_pooled_lookup"] = onehot_launches["onehot_pooled_lookup"]
     del sm
     phase_serve_cat(flush)
-    tb_cfg, tb_params, tb_k1 = phase_tb_bf16(train_step_ms)
+    tb_cfg, tb_params, tb_k1, tb_step_ms = phase_tb_bf16(train_step_ms)
+    tb_k1 += phase_tb_dp(tb_cfg, tb_params, tb_step_ms)
     tb_launches = phase_tb_serve(tb_cfg, tb_params, flush)
     del tb_params
     # give the Terabyte phases' cached blocks (some 45 GB) back to the card:
@@ -3905,6 +4448,9 @@ def main() -> int:
         launches[name] += n
     for name, n in criteo_launches.items():
         launches[name] += n
+    for name, n in phase_cli_tb_rehearsal().items():
+        launches[name] += n
+    torch.cuda.empty_cache()  # dp2's two processes each need their own Kaggle model on the card
     launches["onehot_dense_grad"] += phase_dp2(cfg)
     multihost.shutdown()
     launches["onehot_dense_grad"] += dp_launches["onehot_dense_grad"]
@@ -3923,16 +4469,18 @@ def main() -> int:
 
     emit({"phase": "kernels", "checked_by": {"onehot_dense_grad": ["kernel", "train", "train_stream", "schemes",
                                                                    "dp", "dp_stream", "pseudo", "dp_schemes",
-                                                                   "tricks", "dense_bf16", "tb_bf16", "cli",
+                                                                   "tricks", "dp_tricks", "dp_ranking",
+                                                                   "dense_bf16", "tb_bf16", "tb_dp", "cli",
                                                                    "cli_schemes",
                                                                    "cli_tricks", "cli_dp", "criteo",
-                                                                   "cli_criteo", "dp2"],
+                                                                   "cli_criteo", "cli_tb_rehearsal", "dp2"],
                                              "packed_pooled_lookup": ["kernel", "serve", "serve_onehot", "tricks",
                                                                       "tb_serve", "cli", "cli_schemes",
-                                                                      "cli_tricks", "criteo", "cli_criteo"],
+                                                                      "cli_tricks", "criteo", "cli_criteo",
+                                                                      "cli_tb_rehearsal"],
                                              "int8_linear": ["kernel", "serve", "serve_onehot", "tricks",
                                                              "tb_serve", "cli", "cli_schemes", "cli_tricks",
-                                                             "criteo", "cli_criteo"],
+                                                             "criteo", "cli_criteo", "cli_tb_rehearsal"],
                                              "onehot_pooled_lookup": ["kernel", "serve_onehot", "tricks",
                                                                       "dense_bf16"],
                                              "stream_scatter_add": ["kernel", "train_stream", "dp_stream"],

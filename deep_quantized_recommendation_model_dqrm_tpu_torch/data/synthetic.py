@@ -11,6 +11,7 @@ JAX package's `jax.random` version, not the same values.
 
 from __future__ import annotations
 
+import functools
 from typing import Iterator, Optional, Union
 
 import numpy as np
@@ -220,6 +221,22 @@ class TraceSyntheticLoader:
             yield _host_batch(dense, idx, labels)
 
 
+@functools.lru_cache(maxsize=1)
+def _hidden_model(table_sizes, num_dense: int, hidden_dim: int, model_seed: int):
+    """The ground-truth model of `LearnableSyntheticLoader`: per-table
+    embeddings, the embedding readout and the dense weights, drawn once per
+    process for the loaders that share them (a run's train, test and val
+    loaders; at Terabyte's 49M rows, 1.57 GB and seconds of draws), read
+    only."""
+    rng = np.random.RandomState(model_seed)
+    emb = tuple(rng.normal(0, 1.0, size=(n, hidden_dim)).astype(np.float32) for n in table_sizes)
+    v = rng.normal(0, 1.0 / np.sqrt(hidden_dim), size=hidden_dim).astype(np.float32)
+    w = rng.normal(0, 1.0, size=num_dense).astype(np.float32)
+    for a in emb + (v, w):
+        a.flags.writeable = False
+    return emb, v, w
+
+
 class LearnableSyntheticLoader:
     """Synthetic CTR host batches WITH signal: labels come from a hidden
     ground-truth factorization model, so a correctly-implemented DLRM can
@@ -247,13 +264,8 @@ class LearnableSyntheticLoader:
         self.noise = noise
         # `model_seed` fixes the hidden ground-truth model independently of
         # the batch stream seed, so train/test loaders share one concept.
-        rng = np.random.RandomState(model_seed)
-        self._emb = [
-            rng.normal(0, 1.0, size=(n, hidden_dim)).astype(np.float32)
-            for n in config.table_sizes
-        ]
-        self._v = rng.normal(0, 1.0 / np.sqrt(hidden_dim), size=hidden_dim).astype(np.float32)
-        self._w = rng.normal(0, 1.0, size=config.num_dense).astype(np.float32)
+        self._emb, self._v, self._w = _hidden_model(tuple(config.table_sizes), config.num_dense,
+                                                    hidden_dim, model_seed)
 
     def __len__(self):
         return self.num_batches

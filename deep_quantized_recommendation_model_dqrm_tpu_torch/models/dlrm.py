@@ -108,25 +108,6 @@ def unfreeze_ranges(qstate: QuantState) -> QuantState:
     return qstate._replace(act_fixed=0)
 
 
-def check_supported(config: DLRMConfig, engine: Optional[str] = None) -> None:
-    """Raise `NotImplementedError` for what the port does not run yet: QR/MD
-    tables, weighted pooling and bf16 tables or compute under the
-    data-parallel and pseudo engines (`engine` names the caller). The
-    single-device steps, evaluation and serving run them all."""
-    if engine is None:
-        return
-    what = [name for name, on in (
-        ("QR/MD tables", any(config.table_kind(k) != "dense" for k in range(config.num_tables))),
-        ("weighted pooling (v_W)", config.weighted_pooling is not None),
-        ("bf16 tables", config.table_dtype != "float32"),
-        ("compute_dtype='bfloat16'", config.compute_dtype != "float32"),
-    ) if on]
-    if what:
-        raise NotImplementedError(
-            f"{', '.join(what)} under the {engine} engine: a later slice of the port "
-            "(ROADMAP.md queue 1 item 2)")
-
-
 def trick_slots(config: DLRMConfig) -> Tuple[int, ...]:
     """The tables that are QR or MD dicts."""
     return tuple(k for k in range(config.num_tables) if config.table_kind(k) != "dense")
@@ -136,6 +117,7 @@ def init_params(
     config: DLRMConfig,
     seed: int = 0,
     device: Optional[Union[str, torch.device]] = None,
+    draw: bool = True,
 ) -> Params:
     """Initialize {"emb": [table], "bot": [{"w","b"}], "top": [{"w","b"}]},
     with `weighted_pooling` also "v_W" (ones, one [rows] float32 vector per
@@ -152,6 +134,10 @@ def init_params(
     LSQ does not quantize), and with `quantize_mlp` a per-out-channel weight
     step and a 0-d bias step per layer at `weight_bit` (QuantLinearLSQ,
     quant_learned_step_size_quan.py:32-57).
+
+    `draw=False` gives the same structure, shapes and dtypes with nothing
+    drawn (uninitialized values): a template for a checkpoint that
+    replaces every leaf.
     """
     dev = resolve_device(device)
     rng = np.random.RandomState(seed)
@@ -160,12 +146,17 @@ def init_params(
     def mlp(ln):
         layers = []
         for n, m in zip(ln[:-1], ln[1:]):
+            if not draw:
+                layers.append({"w": torch.empty((m, n), device=dev), "b": torch.empty((m,), device=dev)})
+                continue
             w = rng.normal(0.0, np.sqrt(2.0 / (m + n)), size=(m, n)).astype(np.float32)
             b = rng.normal(0.0, np.sqrt(1.0 / m), size=(m,)).astype(np.float32)
             layers.append({"w": torch.from_numpy(w).to(dev), "b": torch.from_numpy(b).to(dev)})
         return layers
 
     def uniform(bound, shape, dtype=t_dtype):
+        if not draw:
+            return torch.empty(shape, dtype=dtype, device=dev)
         return torch.from_numpy(rng.uniform(-bound, bound, size=shape).astype(np.float32)).to(dev, dtype)
 
     emb = []

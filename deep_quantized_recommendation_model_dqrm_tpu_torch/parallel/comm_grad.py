@@ -32,7 +32,11 @@ card, gloo on the CPU), where JAX runs them inside one `shard_map`:
   K1 launch for the small tables, one sort and one grouped K5 launch for
   the mid tables, a scatter-add for the rest;
 - `make_weight_sync` is the periodic full-weight mean (`weight_syncc`,
-  comm_grad.py:1977-1991) the caller runs every `weight_sync_period` steps.
+  comm_grad.py:1977-1991) the caller runs every `weight_sync_period` steps;
+- every model option runs as in the JAX engines: QR/MD tables through the
+  MLP's exchange, pooling weights, bf16 tables and compute, and the
+  ranking-range policy over the plain tables' exchange
+  (`parallel/ranking_range.py`).
 
 The steps run eagerly and update the embedding tables in place, as the
 single-device sparse step does. A step built for the card refuses to run
@@ -55,12 +59,15 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops import quant as q
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import (
     coalesce_sparse_grads_batched,
     rows_grads_from_pooled,
+    scatter_add_drop,
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.optim.sgd import sgd_update
+from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import ranking_range
 from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import (
     TrainState,
     _build_step_fn,
     _check,
+    _learned_vw_grads,
     _lr,
     _on,
     _params_device,
@@ -266,15 +273,44 @@ def make_dp_train_step(
     tables are updated in place. `steps_per_dispatch` > 1 runs that many
     steps per call over a list of batches or one stacked Batch
     (`train_step.repeat_step`). `plain=True` takes the plain versions of K1,
-    K4 and K5. `group` and `backend`: see `world_size`."""
-    _check(config, tc, "data-parallel")
-    if tc.ranking_range:
-        raise NotImplementedError("ranking_range: a later slice of the port (ROADMAP.md queue 1 item 5)")
+    K4 and K5. `group` and `backend`: see `world_size`.
+
+    Every model option of the single-device step runs (JAX comm_grad.py:
+    289-307, 453-497, 510-527, 563-673):
+    - QR/MD tables take dense gradients through their recomputed lookups;
+      the leaves ride the MLP's compressed exchange (per channel when 2-D),
+      with no error-feedback residual, then manual SGD;
+    - under weighted pooling each occurrence's row gradient is scaled by
+      mask * v_W[idx]; learned `v_W` of the dense tables takes the scalar
+      gradients g_pooled . E[idx] (PACT-transformed rows under PACT),
+      coalesced in one pass and exchanged uncompressed in one pair of
+      all-gathers; the QR/MD tables' `v_W`, fixed `v_W` and LSQ's steps
+      take one plain mean all-reduce;
+    - a bf16 table takes its float32 update rounded after the scaling by
+      lr / N: K1's add and K5 round once, the scatter each update;
+    - `ranking_range` draws each step's modes (`parallel/ranking_range.py`)
+      from the ranges max|coalesced rows| (MAX over the ranks) over the
+      tables' weight scales, and exchanges the rows on the int16 two-byte
+      channels in one pair of all-gathers; a skipped table's ids become its
+      row count, which every route drops."""
+    _check(tc)
+    qc = config.quant
+    trick_ks = dlrm.trick_slots(config)
+    dense_ks = [k for k in range(config.num_tables) if k not in trick_ks]
+    if tc.ranking_range and not dense_ks:
+        raise ValueError(
+            "ranking_range is a policy over the SPARSE embedding-gradient "
+            "exchange; this model has no dense tables (all QR/MD) — "
+            "nothing for the policy to govern")
     dev = resolve_device(device)
     n = world_size(dev, backend, group)
-    qc = config.quant
     bits = tc.grad_quant_bits
-    routes = make_table_routes(config.table_sizes, tc)
+    learned_vw = config.weighted_pooling == "learned"
+    dense_rows = [config.table_sizes[k] for k in dense_ks]
+    # the dense tables' routes, by their ordinal among the dense tables
+    routes = make_table_routes(dense_rows, tc)
+    dense_sel = torch.tensor(dense_ks, device=dev)
+    dense_rows_t = torch.tensor(dense_rows, dtype=torch.int32, device=dev)[:, None]
     keys = [(part, li, key) for part in ("bot", "top")
             for li in range(len(config.mlp_bot if part == "bot" else config.mlp_top) - 1)
             for key in MLP_KEYS]
@@ -288,55 +324,100 @@ def make_dp_train_step(
             qstate = dlrm.update_emb_scales(config, params, qstate)
         loss, new_qs, grads, g_pooled = sparse_grads(config, params, qstate, batch, plain,
                                                      lsq_numel_scale=float(n))
+        trick_grads = grads.pop("emb_trick", {})
         lr = _lr(tc, qstate.step + 1)
+        lr_n = _over(lr, n)
 
         with torch.no_grad():
             mean_loss = _mean_scale(loss, group)
             gs = [grads[p][li][k] + state.ec[p][li][k] if tc.error_compensation else grads[p][li][k]
                   for p, li, k in keys]
+            trick_leaves = [(k, leaf) for k in trick_ks for leaf in sorted(trick_grads[k])]
+            tg = [trick_grads[k][leaf] for k, leaf in trick_leaves]
             new_ec = state.ec  # never read while error compensation is off
             if bits >= 32:
-                means = _mean_tensors(gs, group)  # one all-reduce for the 2 L tensors
+                means = _mean_tensors(gs + tg, group)  # one all-reduce for the MLP and QR/MD leaves
                 if tc.error_compensation:
                     new_ec = zero_ec(params)
             else:
                 local = [_local_scale(g, bits, pc) for g, pc in zip(gs, per_channel)]
-                means = _compressed_sum(gs, local, bits, group)
+                means = _compressed_sum(gs + tg, local + [_local_scale(g, bits, g.dim() == 2) for g in tg],
+                                        bits, group)
                 if tc.error_compensation:
                     # the residual is what the LOCAL scale's quantization
-                    # lost (sgd_quantized_gradients.py:596-598)
+                    # lost (sgd_quantized_gradients.py:596-598); none for
+                    # the QR/MD leaves
                     new_ec = _nest(keys, [g - q.dequantize(q.quantize(g, s, bits), s)
                                           for g, s in zip(gs, local)])
             mlp_params = {part: params[part] for part in ("bot", "top")}
-            new_params = dict(params, **sgd_update(mlp_params, _nest(keys, means), lr))
-            others = [key for key in dense_keys(params) if key not in ("bot", "top")]
-            if others:  # LSQ's steps: one plain mean all-reduce, then SGD
-                rest = {key: grads[key] for key in others}
+            new_params = dict(params, **sgd_update(mlp_params, _nest(keys, means[:len(keys)]), lr))
+            if trick_ks:
+                new_params["emb"] = list(params["emb"])
+                for (k, leaf), g in zip(trick_leaves, means[len(keys):]):
+                    new_params["emb"][k] = dict(new_params["emb"][k], **sgd_update(
+                        {leaf: params["emb"][k][leaf]}, {leaf: g}, lr))
+            # LSQ's steps and the QR/MD tables' learned v_W: one plain mean
+            # all-reduce, then SGD. Fixed v_W takes no gradient: p - lr * 0
+            # leaves it as it is, so it is not sent.
+            rest = {key: grads[key] for key in dense_keys(params) if key not in ("bot", "top", "v_W")}
+            if learned_vw and trick_ks:
+                rest["v_W"] = {k: grads["v_W"][k] for k in trick_ks}
+            if rest:
                 mean_rest = _unflatten(rest, _mean_tensors(tree_leaves(rest), group))
-                new_params.update(sgd_update({key: params[key] for key in others}, mean_rest, lr))
-
-            # embedding rows: coalesce every table in one pass, then one scale
-            # all-reduce and two all-gathers for all of them
-            ids, vals = rows_grads_from_pooled(g_pooled, batch.indices, batch.mask)
-            uniq_ids, uniq_vals = coalesce_sparse_grads_batched(ids, vals, config.table_sizes,
-                                                                ids.shape[1])
-            all_ids = gather_tables(uniq_ids, group)
-            if bits >= 32:
-                deltas = gather_tables(uniq_vals, group)
-            else:
-                s_vec = _mean_scale(q.symmetric_quantization_params(
-                    bits, uniq_vals.amin(dim=(1, 2)), uniq_vals.amax(dim=(1, 2))), group)[:, None, None]
-                v_int = q.quantize(uniq_vals, s_vec, bits)
-                if bits <= 4 and uniq_vals.shape[-1] % 2 == 0:
-                    all_int = _unpack_nibbles(gather_tables(_pack_nibbles(v_int), group))
-                else:
-                    all_int = gather_tables(v_int, group)
-                deltas = q.dequantize(all_int, s_vec)
-            # every rank applies the N K gathered rows of each table at lr / N
-            apply_table_updates(routes, "sgd", params["emb"], None, deltas, all_ids[..., None], None,
-                                _over(lr, n), plain=plain)
+                for key, g in mean_rest.items():
+                    if key == "v_W":
+                        new_params["v_W"] = [sgd_update(v, g[k], lr) if k in g else v
+                                             for k, v in enumerate(params["v_W"])]
+                    else:
+                        new_params[key] = sgd_update(params[key], g, lr)
+            if dense_ks:
+                apply_dense_tables(params, qstate, batch, g_pooled, lr_n)
         new_qs = new_qs._replace(step=qstate.step + 1)
         return DPState(new_params, new_qs, new_ec), mean_loss
+
+    def apply_dense_tables(params, qstate, batch, g_pooled, lr_n) -> None:
+        """The dense tables' rows (and learned v_W's), in place: coalesce
+        every table in one pass, then one scale all-reduce and two
+        all-gathers for all of them (ranking_range: a MAX all-reduce of the
+        ranges and two all-gathers)."""
+        pick = (lambda t: t) if not trick_ks else (lambda t: t.index_select(0, dense_sel))  # noqa: E731
+        weights = dlrm.pooling_weights(config, params.get("v_W"), batch.indices, batch.mask)
+        ids, vals = rows_grads_from_pooled(pick(g_pooled), pick(batch.indices),
+                                           None if weights is None else pick(weights))
+        uniq_ids, uniq_vals = coalesce_sparse_grads_batched(ids, vals, dense_rows, ids.shape[1])
+        if learned_vw:  # from the tables before their update
+            vw_ids, vw_vals = _learned_vw_grads(config, params, batch, g_pooled, dense_ks)
+        all_ids = gather_tables(uniq_ids, group)
+        if tc.ranking_range:
+            ranges = uniq_vals.abs().amax(dim=(1, 2))
+            dist.all_reduce(ranges, op=dist.ReduceOp.MAX, group=group)
+            w_scales = qstate.emb_scales.index_select(0, dense_sel) if qc.enabled else torch.ones_like(ranges)
+            modes = ranking_range.assign_bit_widths(ranges, w_scales, qstate.step,
+                                                    tc.ranking_frac_hi, tc.ranking_frac_int8)
+            s = ranking_range.grad_scale_int16(ranges)[:, None, None]
+            m = modes[:, None, None]
+            enc = ranking_range.encode_two_channel(uniq_vals, s, m)
+            deltas = ranking_range.decode_two_channel(gather_tables(enc, group), s, m)
+            all_ids = torch.where(modes[:, None] == ranking_range.SKIP, dense_rows_t.to(all_ids.dtype), all_ids)
+        elif bits >= 32:
+            deltas = gather_tables(uniq_vals, group)
+        else:
+            s_vec = _mean_scale(q.symmetric_quantization_params(
+                bits, uniq_vals.amin(dim=(1, 2)), uniq_vals.amax(dim=(1, 2))), group)[:, None, None]
+            v_int = q.quantize(uniq_vals, s_vec, bits)
+            if bits <= 4 and uniq_vals.shape[-1] % 2 == 0:
+                all_int = _unpack_nibbles(gather_tables(_pack_nibbles(v_int), group))
+            else:
+                all_int = gather_tables(v_int, group)
+            deltas = q.dequantize(all_int, s_vec)
+        # every rank applies the N K gathered rows of each table at lr / N
+        apply_table_updates(routes, "sgd", [params["emb"][k] for k in dense_ks], None, deltas,
+                            all_ids[..., None], None, lr_n, plain=plain, presum=False)
+        if learned_vw:  # in place, as the tables
+            vw_all_ids = gather_tables(vw_ids, group)
+            vw_all_vals = gather_tables(vw_vals, group)
+            for d, k in enumerate(dense_ks):
+                scatter_add_drop(params["v_W"][k], vw_all_ids[d], -lr_n * vw_all_vals[d])
 
     if steps_per_dispatch > 1:
         return repeat_step(step_fn, steps_per_dispatch)
@@ -365,8 +446,8 @@ def make_dp_nosync_train_step(config: DLRMConfig, tc: TrainConfig, group=None,
     1902-1905): each rank steps its own replica on its batch slice with
     dense autograd and manual SGD, and the replicas drift until
     `make_weight_sync` averages them. Returns (DPState, the loss averaged
-    over the ranks)."""
-    dlrm.check_supported(config, "dp-nosync")
+    over the ranks). The dense step runs every model option; a bf16 table
+    takes p - lr * g in float32, then rounds (JAX comm_grad.py:797-799)."""
     world_size(device, backend, group)
     local = _build_step_fn(config, tc.replace(optimizer="sgd"), plain=plain, device=device)
 
@@ -383,7 +464,6 @@ def make_dp_eval_step(config: DLRMConfig, group=None, plain: bool = False, devic
     dlrm_s_pytorch_comm_grad.py:1170-1305): each rank scores its batch slice
     and the probabilities are all-gathered, so every rank sees the global
     batch's [N B] scores in rank order."""
-    dlrm.check_supported(config, "data-parallel")
     dev = resolve_device(device)
     world_size(dev, backend, group)
 

@@ -25,8 +25,8 @@ dequantized and applied by manual SGD (`weights_update_added_quantization`,
 JAX runs the N micro-steps as one `lax.scan`; here they are a Python loop.
 Every QAT scheme reaches the micro-steps through the sparse step's
 `sparse_grads` (PACT's table transform included); the other parameters
-(LSQ's steps) and the activation ranges pass through unchanged, as in JAX's
-engine (pseudo.py:305-309).
+(LSQ's steps, fixed pooling weights) and the activation ranges pass
+through unchanged, as in JAX's engine (pseudo.py:305-309).
 """
 
 from __future__ import annotations
@@ -81,8 +81,30 @@ def make_pseudo_train_step(config: DLRMConfig, tc: TrainConfig, num_workers: int
                            plain: bool = False, device: Device = None):
     """The simulated N-worker step: takes (PseudoState, a Batch of B rows,
     B % num_workers == 0) and returns (new state, mean loss of the N
-    micro-steps). `plain=True` takes the plain versions of K1, K4 and K5."""
-    _check(config, tc, "pseudo")
+    micro-steps). `plain=True` takes the plain versions of K1, K4 and K5.
+
+    Fixed pooling weights scale each occurrence's row gradient (mask *
+    v_W[idx]); learned ones and QR/MD tables raise, as in JAX's engine (the
+    reference's buffer algorithm updates only the tables and the MLPs, and
+    expects EmbeddingBag tables). A bf16 table takes its float32 update
+    rounded once per route launch on the K1 and K5 tables (JAX rounds each
+    update), and per update on the scatter tables."""
+    if config.weighted_pooling == "learned":
+        # The buffer algorithm only updates emb/bot/top
+        # (weights_update_added_quantization, sgd_quantized_gradients.py:
+        # 349-421): learned pooling weights would silently never train.
+        raise NotImplementedError(
+            "weighted_pooling='learned' is not supported by the pseudo "
+            "step; use weighted_pooling='fixed' or parallelism=none"
+        )
+    if dlrm.trick_slots(config):
+        # the reference's grad_buffer functions expect .embedding_bag
+        # tables (sgd_quantized_gradients.py:75-95)
+        raise NotImplementedError(
+            "QR/MD embeddings are not supported by the pseudo step "
+            "(nor by the reference's); use parallelism=none"
+        )
+    _check(tc)
     dev = resolve_device(device)
     qc = config.quant
     gb = tc.grad_quant_bits
@@ -130,7 +152,8 @@ def make_pseudo_train_step(config: DLRMConfig, tc: TrainConfig, num_workers: int
 
                 # embeddings: coalesce every table's rows in one pass, the
                 # scale of each table from the first micro-step, quantize
-                ids, vals = rows_grads_from_pooled(g_pooled, micro.indices, micro.mask)
+                weights = dlrm.pooling_weights(config, params.get("v_W"), micro.indices, micro.mask)
+                ids, vals = rows_grads_from_pooled(g_pooled, micro.indices, weights)
                 uids, uvals = coalesce_sparse_grads_batched(ids, vals, config.table_sizes, ids.shape[1])
                 if gb < 32:
                     if i == 0:
@@ -155,7 +178,7 @@ def make_pseudo_train_step(config: DLRMConfig, tc: TrainConfig, num_workers: int
             vals = torch.stack(emb_vals, dim=1).reshape(config.num_tables, ids.shape[1], -1)
             vals = vals * (emb_scale / n) if gb < 32 else vals / n
             apply_table_updates(routes, "sgd", params["emb"], None, vals, ids[..., None], None, lr,
-                                plain=plain)
+                                plain=plain, presum=False)
         new_params = dict(params, **new_mlp)
         return PseudoState(new_params, qstate._replace(step=qstate.step + 1), ec), torch.stack(losses).mean()
 

@@ -33,17 +33,18 @@ preprocessed into `--processed-data-dir` by data/criteo.py with the native
 parser this package builds into `build/native/`, then the train, val and
 test splits), with the `--investigating-inputs` audit.
 What this slice does not run exits with a message naming the later slice
-(ROADMAP.md queue 1): QR/MD tables, weighted pooling and bf16 tables or
-compute under `--parallelism=dp|dp-nosync|pseudo` (item 2),
-`--export-stablehlo` and `--plot-compute-graph` (item 3), `--ranking-range`
-(item 5), `--parallelism=hybrid` (item 6) and `--parallelism=rowshard`
+(ROADMAP.md queue 1): `--export-stablehlo` and `--plot-compute-graph`
+(item 3), `--parallelism=hybrid` (item 6) and `--parallelism=rowshard`
 (item 7). Every QAT scheme runs
 (`--quant-scheme=hawq|pact|lsq`, `--quantize_activation`,
 `--quantize_act_and_lin`, `--modify_feature_interaction`,
-`--act-percentile`), under every engine; `--qr-flag`, `--md-flag`,
-`--weighted-pooling`, `--table-dtype=bfloat16` and
-`--compute-dtype=bfloat16` under `--parallelism=none`, training and
-`--inference-only` PTQ alike.
+`--act-percentile`), and every model option (`--qr-flag`, `--md-flag`,
+`--weighted-pooling`, `--table-dtype=bfloat16`,
+`--compute-dtype=bfloat16`), under every engine the JAX package runs them
+under (the pseudo engine refuses learned pooling weights and QR/MD tables,
+as JAX's does), training and `--inference-only` PTQ alike.
+`--ranking-range` runs under `--parallelism=dp`; the other engines accept
+it and do not use it, as the JAX CLI does.
 `--pin-table-layout` fixes a TPU memory layout and is accepted as a no-op.
 """
 
@@ -353,21 +354,10 @@ def unported(args) -> Optional[str]:
         return _later("--parallelism=hybrid", 6)
     if args.parallelism == "rowshard":
         return _later("--parallelism=rowshard", 7)
-    if args.ranking_range:
-        return _later("--ranking-range", 5)
     if args.export_stablehlo:
         return _later("--export-stablehlo", 3)
     if args.plot_compute_graph:
         return _later("--plot-compute-graph", 3)
-    if args.parallelism != "none":
-        model = [flag for flag, on in (
-            ("--qr-flag", args.qr_flag), ("--md-flag", args.md_flag),
-            ("--weighted-pooling", args.weighted_pooling is not None),
-            ("--table-dtype=bfloat16", args.table_dtype != "float32"),
-            ("--compute-dtype=bfloat16", args.compute_dtype != "float32"),
-        ) if on]
-        if model:
-            return _later(f"{' '.join(model)} under --parallelism={args.parallelism}", 2)
     return None
 
 
@@ -849,7 +839,9 @@ def _run(args, device, rank: int, nproc: int) -> dict:
     )
     mll.start("init")
 
-    state = init_train_state(cfg, tc, device=device)
+    # a checkpoint to load replaces every leaf (load_checkpoint raises on a
+    # missing one): its template is not drawn, unless --debug-mode prints it
+    state = init_train_state(cfg, tc, device=device, draw=not args.load_model or args.debug_mode)
     if args.debug_mode:
         # arch + initial parameter printout (dlrm_s_pytorch.py:1210-1263)
         rank0_print(rank, f"model config: {cfg}")

@@ -107,8 +107,7 @@ class TrainState(NamedTuple):
     qstate: dlrm.QuantState
 
 
-def _check(config: DLRMConfig, tc: TrainConfig, engine: Optional[str] = None) -> None:
-    dlrm.check_supported(config, engine)
+def _check(tc: TrainConfig) -> None:
     if tc.optimizer not in ("sgd", "adagrad", "rwsadagrad"):
         raise ValueError(f"unknown optimizer {tc.optimizer!r}")
 
@@ -167,14 +166,16 @@ def _init_opt_state(tc: TrainConfig, params: dlrm.Params) -> Any:
 
 
 def init_train_state(
-    config: DLRMConfig, tc: TrainConfig, seed: Optional[int] = None, device: Device = None
+    config: DLRMConfig, tc: TrainConfig, seed: Optional[int] = None, device: Device = None,
+    draw: bool = True,
 ) -> TrainState:
-    """Params from `init_params` (bit-identical to the JAX package's), the
-    optimizer's zeroed state (None for SGD), a fresh QuantState; on the card
-    unless `device` says otherwise."""
-    _check(config, tc)
+    """Params from `init_params` (bit-identical to the JAX package's;
+    `draw=False`: undrawn, a template for a checkpoint), the optimizer's
+    zeroed state (None for SGD), a fresh QuantState; on the card unless
+    `device` says otherwise."""
+    _check(tc)
     dev = resolve_device(device)
-    params = dlrm.init_params(config, seed if seed is not None else tc.seed, device=dev)
+    params = dlrm.init_params(config, seed if seed is not None else tc.seed, device=dev, draw=draw)
     return TrainState(params=params, opt_state=_init_opt_state(tc, params),
                       qstate=dlrm.init_quant_state(config, dev))
 
@@ -200,7 +201,7 @@ def _build_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = False,
                    device: Device = None) -> Step:
     """The dense-autograd train step (every parameter, tables included, gets
     a dense gradient). Returns new parameters; the state is not modified."""
-    _check(config, tc)
+    _check(tc)
     dev = resolve_device(device)
 
     def step_fn(state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
@@ -247,14 +248,16 @@ def _dense_table_update(optimizer: str, table: torch.Tensor, acc: Optional[torch
 
 
 def _sparse_table_update(optimizer: str, table: torch.Tensor, acc: Optional[torch.Tensor],
-                         ids: torch.Tensor, vals: torch.Tensor, lr: float) -> None:
+                         ids: torch.Tensor, vals: torch.Tensor, lr: float, presum: bool = True) -> None:
     """A table's update from its (ids, rows) gradient by scatter-adds, in
     place. Adagrad and RWSAdagrad coalesce duplicates first (torch sparse
     `.coalesce()` semantics) and touch only those rows; the padding ids of
-    the coalesce read a clamped row and their updates are dropped."""
+    the coalesce read a clamped row and their updates are dropped. SGD
+    coalesces first on the tables and step sizes where the JAX sparse step
+    does, when `presum`."""
     n_rows = table.shape[0]
     if optimizer == "sgd":
-        if n_rows <= _SORTED_SCATTER_MAX_ROWS and ids.shape[0] >= _SORTED_SCATTER_MIN_UPDATES:
+        if presum and n_rows <= _SORTED_SCATTER_MAX_ROWS and ids.shape[0] >= _SORTED_SCATTER_MIN_UPDATES:
             uids, uvals = coalesce_sparse_grad(ids, vals, n_rows, max_unique=ids.shape[0])
             scatter_add_drop(table, uids, -lr * uvals)
         else:
@@ -307,6 +310,7 @@ def apply_table_updates(
     mask: Optional[torch.Tensor],  # [T, B, P] or None
     lr: float,
     plain: bool = False,
+    presum: bool = True,
 ) -> None:
     """Every table's update, in place, from the gradient of its pooled
     lookups: lookup (b, p) of table k adds g[k, b] * mask[k, b, p] to row
@@ -324,7 +328,8 @@ def apply_table_updates(
       tables under SGD (after one multiply by -lr), into zeroed dense
       gradients (one buffer) under Adagrad and RWSAdagrad, which then take
       the dense update;
-    - `routes.scatter`: `_sparse_table_update`."""
+    - `routes.scatter`: `_sparse_table_update` (`presum=False`: SGD's
+      scatter never coalesces first, as in the JAX dp and pseudo steps)."""
     dense_grads = dense_grad_grouped_plain if plain else onehot_dense_grad_grouped
     stream_scatter = stream_scatter_grouped_plain if plain else stream_scatter_add_grouped
     accs = accs if accs is not None else [None] * len(tables)
@@ -363,7 +368,7 @@ def apply_table_updates(
                 _dense_table_update(optimizer, tables[k], accs[k], summed, lr)
 
     for k in routes.scatter:
-        _sparse_table_update(optimizer, tables[k], accs[k], *grad(k), lr)
+        _sparse_table_update(optimizer, tables[k], accs[k], *grad(k), lr, presum)
 
 
 def _grads(loss: torch.Tensor, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -453,7 +458,7 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
     parallel_comm.py:601-685). Updates the embedding tables and their
     accumulators in place (the QR/MD tables, learned pooling weights and the
     MLPs take new tensors)."""
-    _check(config, tc)
+    _check(tc)
     dev = resolve_device(device)
     qc = config.quant
     opt = tc.optimizer

@@ -288,3 +288,28 @@ def test_bf16_adagrad_accumulators_keep_the_table_dtype(tmp_path):
         assert t.dtype == torch.bfloat16 and torch.equal(t, want)
     for j, t in zip(jstate.params["emb"], got.params["emb"]):
         np.testing.assert_array_equal(t.view(torch.int16).numpy(), raw(np.asarray(j)))
+
+
+@pytest.mark.parametrize("opts", [dict(qr_flag=True, qr_threshold=100, weighted_pooling="learned"),
+                                  dict(md_flag=True, md_threshold=100, table_dtype="bfloat16")],
+                         ids=["qr_vw", "md_bf16"])
+@pytest.mark.parametrize("scheme", ["hawq", "lsq"])
+def test_undrawn_template_loads_like_a_drawn_one(tmp_path, opts, scheme):
+    """`init_train_state(draw=False)`, the template the CLI restores a
+    checkpoint into, has every leaf of the drawn state in the same shape and
+    dtype, and a checkpoint loaded into it equals the one loaded into the
+    drawn state, bit for bit (dict tables, v_W, bf16 records, LSQ steps)."""
+    quant = tcfg.QuantConfig(enabled=True, embedding_bit=4, weight_bit=4, **SCHEMES[scheme])
+    cfg = tcfg.DLRMConfig(table_sizes=SIZES, embedding_dim=8, mlp_bot=(4, 16, 8), mlp_top=(14, 8, 1),
+                          quant=quant, **opts)
+    tc = tcfg.TrainConfig()
+    drawn = tts.init_train_state(cfg, tc, seed=3, device="cpu")
+    empty = tts.init_train_state(cfg, tc, seed=3, device="cpu", draw=False)
+    a, b = tree_leaves(drawn.params), tree_leaves(empty.params)
+    assert [(t.shape, t.dtype) for t in a] == [(t.shape, t.dtype) for t in b]
+    path = str(tmp_path / "ck.npz")
+    tck.save_checkpoint(path, drawn, META)
+    got, _ = tck.load_checkpoint(path, empty)
+    want, _ = tck.load_checkpoint(path, tts.init_train_state(cfg, tc, seed=4, device="cpu"))
+    for x, y in zip(tree_leaves(got.params), tree_leaves(want.params)):
+        assert x.dtype == y.dtype and torch.equal(x, y)

@@ -228,12 +228,13 @@ WORKER = textwrap.dedent(
 )
 
 
-def run_world2(tmp, jobs):
-    """Run `jobs` on two gloo ranks; returns [rank 0's results, rank 1's]."""
+def run_world2(tmp, jobs, worker=WORKER):
+    """Run `jobs` on two gloo ranks (the `worker` script); returns [rank 0's
+    results, rank 1's]."""
     with open(os.path.join(tmp, "jobs.pkl"), "wb") as f:
         pickle.dump(jobs, f)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, "-c", WORKER, str(r), tmp], cwd=REPO, env=env,
+    procs = [subprocess.Popen([sys.executable, "-c", worker, str(r), tmp], cwd=REPO, env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for r in range(2)]
     errs = []
@@ -365,12 +366,35 @@ def test_no_group_raises():
     assert multihost.local_batch_slice(32) == (0, 32) and multihost.world() == (0, 1)
 
 
-def test_ranking_range_names_its_slice():
-    """The mixed-bit policy waits for a later slice and says so, before any
-    group is needed."""
-    (_, _), (tc_cfg, ttc) = configs(ranking_range=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
-        tcg.make_dp_train_step(tc_cfg, ttc, device="cpu")
+def test_ranking_range_names_its_slice(world1):
+    """The mixed-bit policy, once refused as a later slice, runs: 4 steps at
+    world 1 under QAT with the K1 and K5 routes give finite losses, and at
+    every step the tables the policy skipped (round(0.5 T) of them) keep
+    their bits, the others move where the batch touched them."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import ranking_range
+
+    (jc, _), (tc_cfg, ttc) = configs(QAT, ranking_range=True, grad_quant_bits=8, **ROUTES)
+    step = tcg.make_dp_train_step(tc_cfg, ttc, device="cpu")
+    ds = tcg.init_dp_state(tc_cfg, ttc, seed=0, device="cpu")
+    seen = []
+    orig = ranking_range.assign_bit_widths
+
+    def record(*args):
+        seen.append(orig(*args))
+        return seen[-1]
+
+    ranking_range.assign_bit_widths = record
+    try:
+        for b in batches(jc, 12):
+            before = [t.clone() for t in ds.params["emb"]]
+            ds, loss = step(ds, to_torch(b))
+            assert np.isfinite(float(loss))
+            modes = seen[-1]
+            assert int((modes == ranking_range.SKIP).sum()) == 2  # 5 - round(1.0) - round(1.5)
+            for k, (old, new) in enumerate(zip(before, ds.params["emb"])):
+                assert torch.equal(old, new) == (int(modes[k]) == ranking_range.SKIP), k
+    finally:
+        ranking_range.assign_bit_widths = orig
 
 
 def test_group_backend_is_checked(world1):

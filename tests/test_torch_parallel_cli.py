@@ -18,10 +18,12 @@ atol 1e-5 (pseudo: 2e-5); metrics 1e-4."""
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 from deep_quantized_recommendation_model_dqrm_tpu import train as jtrain
@@ -60,7 +62,13 @@ def assert_logs_agree(dt, dj):
         np.testing.assert_allclose([v for _, v in mt], [v for _, v in mj], rtol=0, atol=METRIC_ATOL)
 
 
-def assert_checkpoints_agree(dt, dj, atol):
+def bf16_ulps_apart(a, b) -> np.ndarray:
+    """How many bf16 values lie between two arrays of bf16 records."""
+    a, b = (np.where(x < 0, -(x & 0x7FFF), x).astype(np.int64) for x in (a.view(np.int16), b.view(np.int16)))
+    return np.abs(a - b)
+
+
+def assert_checkpoints_agree(dt, dj, atol, bf16_ulps=0):
     for slot in (0, 1):
         pt, pj = (os.path.join(d, "ck", f"dqrm_{slot}.npz") for d in (dt, dj))
         assert os.path.exists(pt) == os.path.exists(pj)
@@ -80,6 +88,8 @@ def assert_checkpoints_agree(dt, dj, atol):
                             assert ma[mk] == mb[mk], mk
                 elif a[k].dtype.kind == "i":
                     np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+                elif a[k].dtype.kind == "V":  # bf16 tables
+                    assert bf16_ulps_apart(a[k], b[k]).max() <= bf16_ulps, k
                 else:
                     np.testing.assert_allclose(a[k], b[k], rtol=0, atol=atol, err_msg=k)
 
@@ -105,13 +115,16 @@ def test_pseudo_cli_matches_jax(tmp_path):
     assert_each_serves_the_other(out["torch"], out["jax"])
 
 
-def test_dp_cli_two_ranks_matches_jax(tmp_path):
+def run_dp_both(tmp_path, argv):
+    """`argv` through the JAX CLI on a 2-device CPU mesh and the port's as
+    two gloo ranks, all three processes at once; returns (port dir, JAX
+    dir, JAX stdout, rank 0's stdout, rank 1's stdout)."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=2")
     dt, dj = str(tmp_path / "torch"), str(tmp_path / "jax")
     out_args = lambda d: [f"--log-dir={d}/log", f"--save-model={d}/ck", "--platform=cpu"]  # noqa: E731
-    cmds = [[sys.executable, "-m", "deep_quantized_recommendation_model_dqrm_tpu.train"] + DP + out_args(dj)]
-    cmds += [[sys.executable, "-m", "deep_quantized_recommendation_model_dqrm_tpu_torch.train"] + DP
+    cmds = [[sys.executable, "-m", "deep_quantized_recommendation_model_dqrm_tpu.train"] + argv + out_args(dj)]
+    cmds += [[sys.executable, "-m", "deep_quantized_recommendation_model_dqrm_tpu_torch.train"] + argv
              + out_args(dt) + [f"--coordinator-address=file://{tmp_path}/store", "--num-processes=2",
                                f"--process-id={r}"] for r in range(2)]
     procs = [subprocess.Popen(c, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -126,9 +139,62 @@ def test_dp_cli_two_ranks_matches_jax(tmp_path):
                 p.kill()
     for p, (o, e) in zip(procs, outs):
         assert p.returncode == 0, e[-3000:]
-    jax_out, rank0, rank1 = (o for o, _ in outs)
+    return (dt, dj) + tuple(o for o, _ in outs)
+
+
+def test_dp_cli_two_ranks_matches_jax(tmp_path):
+    dt, dj, jax_out, rank0, rank1 = run_dp_both(tmp_path, DP)
     assert "steps-per-dispatch 3 -> 2" in rank0 and "steps-per-dispatch 3 -> 2" in jax_out
     assert "Finished training it" in rank0 and not rank1.strip()  # rank 0 alone prints
     assert_logs_agree(dt, dj)
     assert_checkpoints_agree(dt, dj, atol=1e-5)
     assert_each_serves_the_other(dt, dj)
+
+
+@pytest.mark.parametrize("flags", [["--qr-flag", "--qr-threshold=100", "--weighted-pooling=learned"],
+                                   ["--table-dtype=bfloat16", "--ranking-range"]], ids=["qr_vw", "bf16_ranking"])
+def test_dp_cli_options_two_ranks_match_jax(tmp_path, flags):
+    """The dp argv with QR tables and learned pooling weights, and with bf16
+    tables and the ranking-range policy: the port's two gloo ranks against
+    the JAX CLI on two devices, compared as the plain dp run is (the bf16
+    tables' leaves in bf16 ulps: within max(c, 1) of JAX's, c the updates
+    of the row, counted as at most one per step); then each CLI serves the
+    other's checkpoint. The bf16 case trains without QAT: JAX's compiled
+    scale refresh divides by the reciprocal of 7, which on bf16 tables flips
+    INT4 roundings at .5 ties (ROADMAP queue 3), so the two trajectories
+    part at the first refresh."""
+    argv = DP + flags
+    if "--table-dtype=bfloat16" in flags:
+        argv = [a for a in argv if a != "--quantization_flag"]
+    dt, dj, _, rank0, rank1 = run_dp_both(tmp_path, argv)
+    assert "Finished training it" in rank0 and not rank1.strip()
+    assert_logs_agree(dt, dj)
+    assert_checkpoints_agree(dt, dj, atol=1e-5, bf16_ulps=16)
+    infer = [a for a in INFER if a in argv or a == "--inference-only" or a == "--platform=cpu"]
+    infer += [f for f in flags if f != "--ranking-range"]
+    got = ttrain.run(infer + [f"--load-model={dj}/ck"])
+    want = jtrain.run(infer + [f"--load-model={dt}/ck"])
+    for k in ("accuracy", "roc_auc"):
+        assert abs(got[k] - want[k]) <= METRIC_ATOL, (k, got[k], want[k])
+
+
+@pytest.mark.parametrize("flags", [["--qr-flag", "--qr-threshold=100", "--weighted-pooling=learned"],
+                                   ["--table-dtype=bfloat16", "--ranking-range"]], ids=["qr_vw", "bf16_ranking"])
+def test_dp_cli_resume_with_options(tmp_path, flags):
+    """The port's CLI under dp (one rank) with QR tables and learned `v_W`,
+    and with bf16 tables and ranking-range: a run of 16 steps saves its
+    state at the test eval of step 8; a second run resumes from that slot
+    (dict tables, `v_W` and bf16 records read back, the batches fast-
+    forwarded, the step count and so the ranking draw restored) and logs
+    the same losses after step 8 as the run that never stopped, bit for
+    bit. Without error compensation: its residuals live in the engine's
+    state, not in the checkpoint, as in the JAX CLI."""
+    argv = [a for a in DP if a != "--error-compensation"] + flags + ["--platform=cpu"]
+    full, part = str(tmp_path / "full"), str(tmp_path / "part")
+    ttrain.run(argv + [f"--log-dir={full}/log", f"--save-model={full}/ck"])
+    os.makedirs(f"{part}/ck")  # the slot of step 8 alone (step 16's may be newer)
+    shutil.copy(f"{full}/ck/dqrm_0.npz", f"{part}/ck/dqrm_0.npz")
+    ttrain.run(argv + [f"--log-dir={part}/log", f"--load-model={part}/ck"])
+    want = [v for s, v in scalars(full, "Train/Loss") if s > 8]
+    got = [v for _, v in scalars(part, "Train/Loss")]  # counted from the resume
+    assert len(want) == 4 and got == want

@@ -443,23 +443,43 @@ def test_grad_probe_matches_jax():
 
 
 def test_later_slices_raise():
-    """What the port does not run yet: QR/MD tables, weighted pooling
-    (`v_W`) and bf16 tables under the data-parallel and pseudo engines
-    (ROADMAP queue 1 item 2). The single-device steps and the probe take
-    them (their parity with JAX: tests/test_torch_tricks.py and
-    tests/test_torch_bf16.py)."""
-    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import comm_grad, pseudo
+    """QR/MD tables, weighted pooling (`v_W`) and bf16 tables, once refused
+    by the data-parallel and pseudo engines as a later slice, now run: on a
+    one-rank gloo group the dp step and the pseudo step (2 workers) each
+    take two steps with finite losses, the tables keep their dtype, and the
+    pseudo step refuses QR tables with the JAX engine's message. The
+    single-device steps and the probe take them all; an unknown optimizer
+    still raises. (Parity with JAX: tests/test_torch_dp_tricks.py.)"""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import comm_grad, multihost, pseudo
 
-    for kw in (dict(qr_flag=True, qr_threshold=100), dict(weighted_pooling="fixed"),
-               dict(table_dtype="bfloat16")):
-        _, cfg = configs((300, 20), INT4, **kw)
-        for sparse in (False, True):
-            tts.make_train_step(cfg, tcfg.TrainConfig(), sparse_emb_grad=sparse, device="cpu")
-        tts.make_grad_probe(cfg, tcfg.TrainConfig(), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 2"):
-            comm_grad.make_dp_train_step(cfg, tcfg.TrainConfig(), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 2"):
-            pseudo.make_pseudo_train_step(cfg, tcfg.TrainConfig(), 2, device="cpu")
+    multihost.init_distributed(device="cpu", timeout_s=60)
+    try:
+        for kw in (dict(qr_flag=True, qr_threshold=100), dict(weighted_pooling="fixed"),
+                   dict(table_dtype="bfloat16")):
+            jc, cfg = configs((300, 20), INT4, **kw)
+            tc = tcfg.TrainConfig(batch_size=16, onehot_update_max_rows=50)
+            for sparse in (False, True):
+                tts.make_train_step(cfg, tc, sparse_emb_grad=sparse, device="cpu")
+            tts.make_grad_probe(cfg, tc, device="cpu")
+            engines = [(comm_grad.make_dp_train_step(cfg, tc, device="cpu"), comm_grad.dp_state_from)]
+            if "qr_flag" in kw:
+                with pytest.raises(NotImplementedError, match="QR/MD embeddings are not supported"):
+                    pseudo.make_pseudo_train_step(cfg, tc, 2, device="cpu")
+            else:
+                engines.append((pseudo.make_pseudo_train_step(cfg, tc, 2, device="cpu"),
+                                pseudo.pseudo_state_from))
+            rng = np.random.RandomState(3)
+            batches = [to_torch(jsyn.random_batch(jc, 16, rng)) for _ in range(2)]
+            for step, wrap in engines:
+                st = tts.init_train_state(cfg, tc, seed=0, device="cpu")
+                state = wrap(st.params, st.qstate)
+                for b in batches:
+                    state, loss = step(state, b)
+                    assert np.isfinite(float(loss))
+                dtype = torch.bfloat16 if "table_dtype" in kw else torch.float32
+                assert all(t.dtype == dtype for t in state.params["emb"] if not isinstance(t, dict))
+    finally:
+        multihost.shutdown()
     with pytest.raises(ValueError):
         tts.make_train_step(configs((30, 20), INT4)[1], tcfg.TrainConfig(optimizer="adam"), device="cpu")
 

@@ -279,16 +279,32 @@ def test_grad_probe_matches_jax(kind):
 
 @pytest.mark.parametrize("kind", ["qr_mult", "md", "vw_learned", "bf16_tables", "bf16_compute"])
 def test_engines_refuse_naming_their_item(kind):
-    """The dp, dp-nosync and pseudo engines raise for QR/MD tables, v_W and
-    bf16, naming ROADMAP queue 1 item 2; the single-device step takes them."""
+    """Once refused by the dp, dp-nosync and pseudo engines as a later
+    slice, these options now build under every engine that JAX's take them
+    under, on a one-rank gloo group: the dp, dp-nosync and eval steps; the
+    pseudo step takes bf16 tables and compute, and refuses learned `v_W`
+    and QR/MD tables with the JAX engine's own message. The single-device
+    step takes them all."""
+    from deep_quantized_recommendation_model_dqrm_tpu.parallel import pseudo as jpseudo
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import multihost
+
     kw = {"bf16_tables": dict(table_dtype="bfloat16"),
           "bf16_compute": dict(compute_dtype="bfloat16")}.get(kind, KINDS.get(kind))
-    _, tc = configs(INT4, **kw)
+    jc, tc = configs(INT4, **kw)
     ttc = tcfg.TrainConfig()
-    for make in (lambda: comm_grad.make_dp_train_step(tc, ttc, device="cpu"),
-                 lambda: comm_grad.make_dp_nosync_train_step(tc, ttc, device="cpu"),
-                 lambda: comm_grad.make_dp_eval_step(tc, device="cpu"),
-                 lambda: pseudo.make_pseudo_train_step(tc, ttc, 2, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 2"):
-            make()
+    multihost.init_distributed(device="cpu", timeout_s=60)
+    try:
+        comm_grad.make_dp_train_step(tc, ttc, device="cpu")
+        comm_grad.make_dp_nosync_train_step(tc, ttc, device="cpu")
+        comm_grad.make_dp_eval_step(tc, device="cpu")
+    finally:
+        multihost.shutdown()
+    if kind.startswith("bf16"):
+        pseudo.make_pseudo_train_step(tc, ttc, 2, device="cpu")
+    else:
+        with pytest.raises(NotImplementedError) as want:
+            jpseudo.make_pseudo_train_step(jc, jcfg.TrainConfig(), 2)
+        with pytest.raises(NotImplementedError) as got:
+            pseudo.make_pseudo_train_step(tc, ttc, 2, device="cpu")
+        assert str(got.value) == str(want.value)
     tts.make_train_step(tc, ttc, sparse_emb_grad=True, device="cpu")
