@@ -11,8 +11,10 @@ reference's QR/MD tables and weighted pooling through the sparse step,
 serving and the CLI, the Terabyte model at its full 49M rows on bf16
 tables, trained and served, the Criteo data pipeline from raw text
 through training and serving, directly and through the CLI, the engines
-under the model options and the ranking-range policy, and the JAX
-package's Terabyte rehearsal recipe through the CLI.
+under the model options and the ranking-range policy, the JAX
+package's Terabyte rehearsal recipe through the CLI, the serving artifact
+(`torch.export`), the Module API and the import of a reference
+checkpoint.
 
     python3 chip_smoke.py
 
@@ -154,7 +156,32 @@ launch counters of its kernels set to 0 just before and read just after:
    data, bf16 tables, the 4-epoch QAT schedule, grad bits 8, the weight
    sync at 200, megasteps of 8, B = 2048, a save (6.29 GB), then
    `--inference-only` PTQ from it through K2 and K3 (cut: 56 batches an
-   epoch).
+   epoch);
+27. module_graph: the Module API (`models/flax_module.DLRM`) on the
+   untrained Kaggle params with onehot_lookup_max_rows=20000 (B = 4096):
+   its forward equal to `dlrm.forward`'s (one grouped K4 launch each),
+   the scale refresh at step 0 of a training call, `export_forward_loss`
+   (what --plot-compute-graph writes) run on the card, equal to the eager
+   forward and loss with one K4 launch, and a backward through the op
+   `dqrm::onehot_pooled_lookup_grouped` on the 18 small tables at P = 4:
+   one grouped K1 launch, within K1's atomic-order bound of the eager
+   autograd function's gradient;
+28. export_artifact: `export_stablehlo` of the trained Kaggle PTQ model at
+   B = 16384 (`torch.export`, K2 and K3 as registered ops), saved, loaded
+   and called on 3 batches: bit-equal to the eager serving function, one
+   K2 and 7 K3 launches per call; the tricks phase's QR and learned-v_W
+   PTQ models round-trip the same way; the export, save and load seconds,
+   the artifact's bytes, the loaded program's ms a batch against the eager
+   function's, and `serve` at B = 128 and 16384 through the ops called
+   eagerly against the direct launches;
+29. cli_import: a `.pt` in the reference's state_dict layout at the Kaggle
+   widths (tables cut to 100,000 rows) through the port's import tool,
+   then `train.run --load-model --inference-only` INT4/INT8 PTQ (one K2
+   and 7 K3 launches per batch) with --export-stablehlo and
+   --plot-compute-graph: its AUC against the same weights through
+   `make_serving_fn` and the artifact, within 1e-4; then 8 training
+   steps from the import with --plot-compute-graph, the graph holding
+   every layer and K4's op.
 
 Kernel K6 (`dma_row_update`) is on no path; its kernel phase holds it
 against its plain version on the 2,202,608-row table.
@@ -164,10 +191,11 @@ build, model, kernel (K2, K3, K3 at K = 1728, K1 with D = 512, K4 with
 bf16 tables and D = 512, K5 with Zipf ids, K6), train, profile (train), train_stream with
 profile (SGD), schemes (pact, lsq, act, each with its profile), dp with
 profile, dp_stream, pseudo, dp_schemes, tricks (qr, md, vw), dp_tricks,
-dp_ranking, dense_bf16, eval, export, serve, profile (serve), serve_onehot
-with profile, serve_cat, tb_bf16 with profile, tb_dp with profile,
-tb_serve, criteo, cli, cli_schemes, cli_tricks, cli_dp, cli_criteo,
-cli_tb_rehearsal, dp2, kernels.
+dp_ranking, dense_bf16, module_graph, eval, export, serve, profile (serve),
+serve_onehot with profile, export_artifact, serve_cat, tb_bf16 with
+profile, tb_dp with profile, tb_serve, criteo, cli, cli_schemes,
+cli_tricks, cli_import, cli_dp, cli_criteo, cli_tb_rehearsal, dp2,
+kernels.
 
 Output: one JSON line per phase; then the {"kernels": [...]} summary; then
 the card's name and power limit as nvidia-smi gives them; and last
@@ -3215,7 +3243,8 @@ def phase_tricks(cfg, params0, train_step_ms):
     train phase's step, then PTQ serving of the trained state (QR and v_W
     at INT4, MD at INT8; v_W also with onehot_lookup_max_rows=20000, K4
     with the pooling weights) against its plain path with K2's, K3's and
-    K4's launches per batch. Returns the launches and the step times."""
+    K4's launches per batch. Returns the launches, the step times and the QR
+    and learned-v_W PTQ models (for export_artifact)."""
     import dataclasses
 
     from deep_quantized_recommendation_model_dqrm_tpu_torch.config import TrainConfig
@@ -3238,7 +3267,7 @@ def phase_tricks(cfg, params0, train_step_ms):
     from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
 
     total = {"onehot_dense_grad": 0, "packed_pooled_lookup": 0, "int8_linear": 0, "onehot_pooled_lookup": 0}
-    step_ms = {}
+    step_ms, kept = {}, {}
     tc = TrainConfig(batch_size=B_TRAIN, learning_rate=0.1, onehot_update_max_rows=SMALL_ROWS)
     for i, (name, opts) in enumerate(TRICK_OPTIONS.items()):
         t0 = time.perf_counter()
@@ -3306,8 +3335,10 @@ def phase_tricks(cfg, params0, train_step_ms):
               "serve": {"emb_bits": bits, "batch": B_MAIN, "serving_model_bytes": serving_model_bytes(sm),
                         **serve},
               "peak_memory_bytes": torch.cuda.max_memory_allocated(), "phase_s": time.perf_counter() - t0})
+        if name in ("qr", "vw"):
+            kept[name] = sm
         del state, sm
-    return total, step_ms
+    return total, step_ms, kept
 
 
 def phase_dense_bf16(cfg, params0):
@@ -4341,6 +4372,356 @@ def phase_cli_criteo(cfg):
     return launches
 
 
+# the single-device package's last surface: the serving artifact, the
+# Module API and its exported forward + loss, the reference-checkpoint import
+B_GRAPH = 4096  # the Module API's batch in module_graph
+SERVE_OVERHEAD_B = (128, 16384)  # serve through the ops against the direct launches
+SERVE_OVERHEAD_CALLS = 50
+CLI_IMPORT_CAP = 100_000  # rows per table of the imported reference checkpoint
+CLI_IMPORT_BATCHES = 32  # 4 test batches of 16384 in the PTQ run; 8 training batches in the graph run
+
+
+def serve_wall_ms(fn, batch, calls=SERVE_OVERHEAD_CALLS) -> float:
+    """Median host wall ms of one serving call that ends in a synchronize:
+    what a caller of the eager function waits for."""
+    fn(batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        fn(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def op_serving_fn(sm):
+    """The serving function's body with K2 and K3 called through their
+    registered ops eagerly, the op arguments built per call as the wrappers
+    build them under tracing: the path the eager serving function would
+    take if its wrappers called the ops."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch import serving
+
+    parts = serving._parts(sm)
+
+    def k2(group, indices, mask):
+        t = group.tables
+        return torch.ops.dqrm.packed_pooled_lookup_grouped(
+            [pt.data for pt in t], [pt.scale for pt in t], [pt.bias for pt in t], [pt.bits for pt in t],
+            [pt.dim for pt in t], list(group.slots), list(group.cols), group.width, indices, mask)
+
+    def k3(x, qw, relu):
+        return torch.ops.dqrm.int8_linear(x, qw.w_int, qw.scale, qw.bias, relu)
+
+    @torch.inference_mode()
+    def fn(batch):
+        return serving._serve(parts, batch.dense, batch.indices, batch.mask, k2, None, k3)
+
+    return fn
+
+
+def round_trip(sm, label, batches, flush=None):
+    """`export_stablehlo` -> `load_stablehlo` of `sm` at B_MAIN in a
+    temporary directory, then each batch through the loaded program and
+    the eager serving function: bit-equal probabilities, one K2 and 7 K3
+    launches per call of the program. Returns the record and the program's
+    K2 and K3 launches; with `flush`, the CUDA-event ms per batch of both."""
+    import tempfile
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
+        packed_pooled_lookup_grouped as k2,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import int8_linear as k3
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import (
+        export_program,
+        load_stablehlo,
+        make_serving_fn,
+    )
+
+    with tempfile.TemporaryDirectory(prefix="dqrm_export_") as tmp:
+        path = os.path.join(tmp, "serving.pt2")
+        t0 = time.perf_counter()
+        program = export_program(sm, B_MAIN)
+        t1 = time.perf_counter()
+        torch.export.save(program, path)
+        t2 = time.perf_counter()
+        nbytes = os.path.getsize(path)
+        del program
+        fn = load_stablehlo(path)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    eager = make_serving_fn(sm)
+    launches = {"packed_pooled_lookup": 0, "int8_linear": 0}
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        k2.launches = k3.launches = 0
+        got = fn(batch.dense, batch.indices)
+        torch.cuda.synchronize()
+        per_call = {"packed_pooled_lookup": k2.launches, "int8_linear": k3.launches}
+        check(per_call == {"packed_pooled_lookup": 1, "int8_linear": 7},
+              f"export_artifact {label} batch {i}: the loaded program's launches {per_call} == 1 K2 + 7 K3")
+        for k, v in per_call.items():
+            launches[k] += v
+        want = eager(batch)
+        check(got.shape == (B_MAIN,) and bool(torch.isfinite(got).all()), f"export_artifact {label}: finite")
+        check(torch.equal(got, want), f"export_artifact {label} batch {i}: bit-equal to the eager function")
+    rec = {"model": label, "export_s": t1 - t0, "save_s": t2 - t1, "load_s": t3 - t2, "artifact_bytes": nbytes,
+           "batches": len(batches), "launches": dict(launches), "bit_equal_to_eager": True}
+    if flush is not None:
+        b = batches[0]
+        rec["loaded_ms_per_batch"] = time_ms(lambda: fn(b.dense, b.indices), flush)
+        rec["eager_ms_per_batch"] = time_ms(lambda: eager(b), flush)
+        rec["loaded_device_ms_per_batch"] = device_ms(lambda: fn(b.dense, b.indices))
+        rec["eager_device_ms_per_batch"] = device_ms(lambda: eager(b))
+    return rec, launches
+
+
+def phase_export_artifact(cfg, sm, trick_sms, flush):
+    """The serving artifact: `torch.export` of the trained Kaggle PTQ model
+    (INT4 tables, INT8 MLP; 270,588,024 bytes) at B = 16384, saved, loaded
+    and called on 3 batches: its probabilities bit-equal to the eager
+    serving function's, one K2 and 7 K3 launches per call (the ops'
+    launches); export, save and load seconds, the artifact's bytes, and
+    the loaded program's CUDA-event ms per batch against the eager
+    function's. The tricks phase's QR and learned-v_W PTQ models round-trip
+    the same way. Then `serve` at B = 128 and 16384 through the ops called
+    eagerly against the direct launches, host wall per call, in turns
+    (direct, ops, ops, direct). Returns the ops' launches."""
+    t0 = time.perf_counter()
+    batches = [random_batch(cfg, B_MAIN, np.random.RandomState(410 + i))._replace(mask=None) for i in range(3)]
+    rec, launches = round_trip(sm, "kaggle_int4_mlp8", batches, flush)
+    tricks = []
+    for name, tsm in trick_sms.items():
+        tb = [random_batch(tsm.config, B_MAIN, np.random.RandomState(420))._replace(mask=None)]
+        trec, tl = round_trip(tsm, name, tb)
+        tricks.append(trec)
+        for k, v in tl.items():
+            launches[k] += v
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import make_serving_fn
+
+    direct, via_ops = make_serving_fn(sm), op_serving_fn(sm)
+    overhead = {}
+    for B in SERVE_OVERHEAD_B:
+        batch = random_batch(cfg, B, np.random.RandomState(430))._replace(mask=None)
+        check(torch.equal(direct(batch), via_ops(batch)), f"export_artifact: ops path bit-equal at B = {B}")
+        runs = [serve_wall_ms(f, batch) for f in (direct, via_ops, via_ops, direct)]
+        d, o = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+        overhead[str(B)] = {"direct_ms": d, "ops_ms": o, "ops_over_direct": o / d - 1.0, "turns_ms": runs}
+    emit({"phase": "export_artifact", **rec, "tricks": tricks, "serve_wall_ms": overhead,
+          "eager_path": "direct launches; the ops where torch.export traces",
+          "phase_s": time.perf_counter() - t0})
+    return launches
+
+
+def phase_module_graph(cfg, params0):
+    """The Module API at the Kaggle width with onehot_lookup_max_rows=20000
+    on the untrained params (shared, not copied): its forward (eval and one
+    training call, the scale refresh at step 0) equal to `dlrm.forward`'s,
+    one grouped K4 launch each; `export_forward_loss` (what
+    --plot-compute-graph writes) run on the card: (loss, logits) equal to
+    the eager forward and loss, one K4 launch and no other kernel; then a
+    backward through the op `dqrm::onehot_pooled_lookup_grouped` on the 18
+    small tables at P = 4 with the mask: one grouped K1 launch, the tables'
+    gradient within K1's atomic-order bound of the eager autograd
+    function's. Returns the launches (K4 through the op, K1)."""
+    import dataclasses
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models import dlrm
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.flax_module import DLRM, export_forward_loss
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        make_onehot_lookup_group,
+        onehot_dense_grad_grouped as k1,
+        onehot_pooled_lookup_grouped,
+        onehot_pooled_lookup_grouped_fwd as k4,
+    )
+
+    t0 = time.perf_counter()
+    kcfg = dataclasses.replace(cfg, onehot_lookup_max_rows=SMALL_ROWS)
+    model = DLRM(kcfg, params=params0)
+    batch = random_batch(kcfg, B_GRAPH, np.random.RandomState(440))
+    torch.cuda.synchronize()
+    k4.launches = k1.launches = 0
+    got = model(batch, train=False)
+    want, _ = dlrm.forward(kcfg, params0, batch, model.quant_state(), train=False)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "module_graph: the Module API's eval forward equals dlrm.forward's")
+    check(k4.launches == 2 and k1.launches == 0, f"module_graph: K4 {k4.launches} == 2, K1 {k1.launches}")
+    qs = model.quant_state()
+    logits = model(batch, train=True)
+    refreshed = dlrm.update_emb_scales(kcfg, params0, qs)
+    want_train, _ = dlrm.forward(kcfg, params0, batch, refreshed, train=True)
+    check(torch.equal(logits, want_train) and model.step == 1
+          and torch.equal(model.emb_scales, refreshed.emb_scales),
+          "module_graph: the training call refreshes the scales at step 0 and steps the counter")
+
+    t1 = time.perf_counter()
+    program = export_forward_loss(model, batch)
+    export_s = time.perf_counter() - t1
+    graph_ops = [str(n.target) for n in program.graph.nodes if str(n.target).startswith("dqrm.")]
+    check(graph_ops == ["dqrm.onehot_pooled_lookup_grouped.default"], f"module_graph: kernel ops {graph_ops}")
+    run = program.module()
+    torch.cuda.synchronize()
+    k4.launches = k1.launches = 0
+    loss, plogits = run(batch.dense, batch.indices, batch.labels)
+    torch.cuda.synchronize()
+    prog_launches = {"onehot_pooled_lookup": k4.launches, "onehot_dense_grad": k1.launches}
+    check(prog_launches == {"onehot_pooled_lookup": 1, "onehot_dense_grad": 0},
+          f"module_graph: the exported program's launches {prog_launches}")
+    want_logits, _ = dlrm.forward(kcfg, model.params(), batch, model.quant_state(), train=True)
+    want_loss = dlrm.training_loss(kcfg, want_logits, batch.labels)
+    check(torch.equal(plogits, want_logits) and torch.equal(loss, want_loss),
+          "module_graph: the exported forward + loss equals the eager one")
+    del run, program
+
+    ks = small_tables(cfg)
+    T, D = cfg.num_tables, cfg.embedding_dim
+    tables = [params0["emb"][k].detach().clone().requires_grad_() for k in ks]
+    pbatch = random_batch(cfg, B_GRAPH, np.random.RandomState(441), num_indices_per_lookup=4,
+                          variable_pooling=True)
+    g = torch.from_numpy(np.random.RandomState(442).normal(size=(T, B_GRAPH, D)).astype(np.float32)).to(DEVICE)
+    k4.launches = k1.launches = 0
+    out_op = torch.ops.dqrm.onehot_pooled_lookup_grouped(tables, ks, [k * D for k in ks], T * D,
+                                                        pbatch.indices, pbatch.mask).view(T, B_GRAPH, D)
+    grads_op = torch.autograd.grad(out_op, tables, g)
+    torch.cuda.synchronize()
+    op_launches = {"onehot_pooled_lookup": k4.launches, "onehot_dense_grad": k1.launches}
+    check(op_launches == {"onehot_pooled_lookup": 1, "onehot_dense_grad": 1},
+          f"module_graph: the op's forward and backward launches {op_launches}")
+    group = make_onehot_lookup_group(tables, ks)
+    out_fn = onehot_pooled_lookup_grouped(group, pbatch.indices, pbatch.mask)
+    grads_fn = torch.autograd.grad(out_fn, tables, g)
+    check(torch.equal(out_op, out_fn), "module_graph: the op's forward equals the autograd function's")
+    got, want = torch.cat(grads_op), torch.cat(grads_fn)
+    tol = atomic_order_bound(*k1_updates(group.grad, g, pbatch.indices, pbatch.mask), group.grad.total_rows)
+    err = (got - want).abs()
+    check(bool((err <= tol).all()), "module_graph: the op's table gradient within K1's atomic-order bound")
+    emit({"phase": "module_graph", "config": "kaggle_int4_qat", "onehot_lookup_max_rows": SMALL_ROWS,
+          "batch": B_GRAPH, "forward_equal": True, "export_s": export_s, "graph_kernel_ops": graph_ops,
+          "program_launches": prog_launches, "op_backward_launches": op_launches,
+          "grad_max_abs_err": err.max().item(), "grad_bound_max": tol.max().item(),
+          "phase_s": time.perf_counter() - t0})
+    return {"onehot_pooled_lookup": prog_launches["onehot_pooled_lookup"] + op_launches["onehot_pooled_lookup"],
+            "onehot_dense_grad": op_launches["onehot_dense_grad"]}
+
+
+def reference_state_dict(params):
+    """The port's params keyed as the reference's DLRM_Net.state_dict() keys
+    them (dlrm_s_pytorch.py:863-869): `emb_l.{k}.weight`, the MLPs'
+    Linear layers at the even slots of their Sequential."""
+    sd = {f"emb_l.{k}.weight": t.detach().cpu() for k, t in enumerate(params["emb"])}
+    for part in ("bot", "top"):
+        for j, l in enumerate(params[part]):
+            sd[f"{part}_l.{2 * j}.weight"] = l["w"].detach().cpu()
+            sd[f"{part}_l.{2 * j}.bias"] = l["b"].detach().cpu()
+    return sd
+
+
+def phase_cli_import(cfg):
+    """A reference checkpoint through the user's commands: a `.pt` in the
+    reference's state_dict layout at the Kaggle widths (tables cut to
+    100,000 rows), imported by `python -m ..._torch.tools.torch_import`
+    (`main`), then `train.run --load-model=... --inference-only` with INT4
+    tables and the INT8 MLP (one K2 and 7 K3 launches per batch of 16384),
+    `--export-stablehlo` and `--plot-compute-graph` (which an inference-only
+    run accepts and skips, as the JAX CLI does): its AUC against the same
+    weights through `make_serving_fn` and through the exported artifact,
+    within the cli phase's 1e-4; then 8 training steps from the imported
+    checkpoint with `--plot-compute-graph` and onehot_lookup_max_rows=20000,
+    whose graph holds K4's op and every layer. Returns the launches."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch import train
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_params
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        onehot_dense_grad_grouped as k1,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
+        packed_pooled_lookup_grouped as k2,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import int8_linear as k3
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import load_stablehlo, make_serving_fn, ptq_export
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.tools import torch_import
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import _on, init_train_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.checkpoint import CheckpointManager, load_checkpoint
+
+    t0 = time.perf_counter()
+    icfg = dataclasses.replace(cfg, table_sizes=tuple(min(n, CLI_IMPORT_CAP) for n in cfg.table_sizes))
+    tmp = tempfile.mkdtemp(prefix="dqrm_import_")
+    try:
+        pt, ck, log = os.path.join(tmp, "ref.pt"), os.path.join(tmp, "ck"), os.path.join(tmp, "log")
+        os.makedirs(ck)
+        params = init_params(icfg, seed=5)
+        torch.save({"state_dict": reference_state_dict(params), "epoch": 0, "iter": 0}, pt)
+        del params
+        t1 = time.perf_counter()
+        import contextlib
+        import io
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            torch_import.main([pt, CheckpointManager(ck).slot_path(0), "--quantized"])
+        import_s = time.perf_counter() - t1
+        arch = ["--data-generation=random", f"--num-batches={CLI_IMPORT_BATCHES}",
+                "--arch-embedding-size=" + "-".join(str(n) for n in icfg.table_sizes),
+                "--arch-sparse-feature-size=16", "--arch-mlp-bot=13-512-256-64-16",
+                "--arch-mlp-top=512-256-1"]
+        artifact = os.path.join(tmp, "serving.pt2")
+        argv = arch + [f"--load-model={ck}", "--inference-only", "--quantize-emb-with-bit=4",
+                       "--quantize-mlp-with-bit=8", f"--export-stablehlo={artifact}", "--plot-compute-graph",
+                       f"--log-dir={log}"]
+        k1.launches = k2.launches = k3.launches = 0
+        result, out, wall, _ = cli_run(train, argv)
+        launches = {"packed_pooled_lookup": k2.launches, "int8_linear": k3.launches}
+        n_test = max(1, CLI_IMPORT_BATCHES // 8)
+        check(launches == {"packed_pooled_lookup": n_test, "int8_linear": 7 * n_test} and k1.launches == 0,
+              f"cli_import: PTQ launches {launches}: 1 K2 and 7 K3 per batch x {n_test}")
+        check("exported the torch.export program" in out and os.path.getsize(artifact) > 0,
+              "cli_import: --export-stablehlo wrote the artifact")
+        check(not os.path.exists(os.path.join(log, "compute_graph.stablehlo.txt")),
+              "cli_import: an inference-only run writes no training graph, as the JAX CLI")
+
+        args = train.build_parser().parse_args(argv)
+        ccfg, tc = train.make_configs(args)
+        ccfg, _, test_loader, _ = train.make_loaders(args, ccfg, tc)
+        state, _ = load_checkpoint(CheckpointManager(ck).latest(), init_train_state(ccfg, tc, draw=False))
+        sm = ptq_export(ccfg, state.params, emb_bits=4, mlp_bits=8)
+        dev = torch.device(DEVICE)
+        fn = make_serving_fn(sm)
+        want = train.evaluate(ccfg, state, test_loader, lambda s, b: fn(_on(b, dev)))
+        loaded = load_stablehlo(artifact)
+        from_artifact = train.evaluate(ccfg, state, test_loader,
+                                       lambda s, b: loaded(*(t.to(dev) for t in (b.dense, b.indices))))
+        del state, sm, fn, loaded
+        auc_err = abs(result["roc_auc"] - want["roc_auc"])
+        check(auc_err <= CLI_AUC_ATOL, f"cli_import: AUC {result['roc_auc']} vs make_serving_fn "
+                                       f"{want['roc_auc']}: {auc_err} <= {CLI_AUC_ATOL}")
+        check(from_artifact["roc_auc"] == want["roc_auc"], "cli_import: the artifact's AUC equals the eager one")
+
+        argv_g = arch[:1] + ["--num-batches=8"] + arch[2:] + [
+            f"--load-model={ck}", "--plot-compute-graph", f"--onehot-lookup-max-rows={SMALL_ROWS}",
+            "--mini-batch-size=128", "--test-mini-batch-size=4096", f"--log-dir={log}"]
+        k1.launches = 0
+        result_g, _, wall_g, _ = cli_run(train, argv_g)
+        check(k1.launches == 8, f"cli_import: 8 training steps, K1 launches {k1.launches}")
+        with open(os.path.join(log, "compute_graph.stablehlo.txt")) as f:
+            graph = f.read()
+        layers = all(f"p_model_{part}_{i}_w" in graph for part, n in (("bot", 4), ("top", 3)) for i in range(n))
+        check(layers and graph.count("torch.ops.dqrm.onehot_pooled_lookup_grouped.default(") == 1,
+              "cli_import: the graph holds every layer and K4's op once")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "cli_import", "entry": f"python -m {PKG}.tools.torch_import", "table_rows_cap": CLI_IMPORT_CAP,
+          "rows": sum(icfg.table_sizes), "import_s": import_s,
+          "inference": {"wall_s": wall, "batches": n_test, "launches": launches, "roc_auc": result["roc_auc"],
+                        "roc_auc_make_serving_fn": want["roc_auc"], "roc_auc_artifact": from_artifact["roc_auc"],
+                        "auc_abs_err": auc_err, "tol": CLI_AUC_ATOL},
+          "graph_run": {"wall_s": wall_g, "steps": 8, "graph_bytes": len(graph), "final_eval": result_g},
+          "phase_s": time.perf_counter() - t0})
+    return {**launches, "onehot_dense_grad": 8}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no usable CUDA card (torch.cuda.is_available() is false)",
@@ -4401,10 +4782,11 @@ def main() -> int:
         dp_launches[name] = dp_launches.get(name, 0) + n
     dp_launches["onehot_dense_grad"] += phase_pseudo(cfg, params0)
     scheme_k1 += phase_dp_schemes(cfg, params0, train_step_ms)
-    trick_launches, trick_ms = phase_tricks(cfg, params0, train_step_ms)
+    trick_launches, trick_ms, trick_sms = phase_tricks(cfg, params0, train_step_ms)
     dp_launches["onehot_dense_grad"] += phase_dp_tricks(cfg, params0, trick_ms)
     dp_launches["onehot_dense_grad"] += phase_dp_ranking(cfg, params0, dp_step_ms)
     dense_bf16_launches = phase_dense_bf16(cfg, params0)
+    graph_launches = phase_module_graph(cfg, params0)
     del params0
     phase_eval(cfg, state)
     t2 = time.perf_counter()
@@ -4418,7 +4800,9 @@ def main() -> int:
     launches.update(train_launches)
     onehot_launches = phase_serve_onehot(cfg, sm, reqs, outs, flush)
     launches["onehot_pooled_lookup"] = onehot_launches["onehot_pooled_lookup"]
-    del sm
+    op_launches = phase_export_artifact(cfg, sm, trick_sms, flush)
+    op_launches["onehot_pooled_lookup"] = graph_launches["onehot_pooled_lookup"]
+    del sm, trick_sms
     phase_serve_cat(flush)
     tb_cfg, tb_params, tb_k1, tb_step_ms = phase_tb_bf16(train_step_ms)
     tb_k1 += phase_tb_dp(tb_cfg, tb_params, tb_step_ms)
@@ -4434,6 +4818,10 @@ def main() -> int:
     for name, n in phase_cli_schemes(cfg, tf32_default).items():
         launches[name] += n
     for name, n in phase_cli_tricks(cfg).items():
+        launches[name] += n
+    for name, n in phase_cli_import(cfg).items():
+        launches[name] += n
+    for name, n in list(op_launches.items()) + [("onehot_dense_grad", graph_launches["onehot_dense_grad"])]:
         launches[name] += n
     for name, n in trick_launches.items():
         launches[name] += n
@@ -4460,29 +4848,36 @@ def main() -> int:
                  "stream_scatter_add"):
         check(launches[name] > 0, f"{name} launched on the main path")
 
+    ops = {"packed_pooled_lookup": "dqrm::packed_pooled_lookup_grouped", "int8_linear": "dqrm::int8_linear",
+           "onehot_pooled_lookup": "dqrm::onehot_pooled_lookup_grouped"}
+
     def entry(name, src, replaces, row, err, design):
         return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{src}",
                 "replaces": f"{JAX_PKG}/ops/pallas/{replaces}", "launches": launches[name],
                 "max_abs_err": err, "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"], "design": design}
+                "library_ms": row["library_ms"], "op": ops.get(name), "op_launches": op_launches.get(name, 0),
+                "design": design}
 
     emit({"phase": "kernels", "checked_by": {"onehot_dense_grad": ["kernel", "train", "train_stream", "schemes",
                                                                    "dp", "dp_stream", "pseudo", "dp_schemes",
                                                                    "tricks", "dp_tricks", "dp_ranking",
-                                                                   "dense_bf16", "tb_bf16", "tb_dp", "cli",
+                                                                   "dense_bf16", "module_graph", "tb_bf16",
+                                                                   "tb_dp", "cli", "cli_import",
                                                                    "cli_schemes",
                                                                    "cli_tricks", "cli_dp", "criteo",
                                                                    "cli_criteo", "cli_tb_rehearsal", "dp2"],
                                              "packed_pooled_lookup": ["kernel", "serve", "serve_onehot", "tricks",
-                                                                      "tb_serve", "cli", "cli_schemes",
+                                                                      "export_artifact", "tb_serve", "cli",
+                                                                      "cli_schemes", "cli_import",
                                                                       "cli_tricks", "criteo", "cli_criteo",
                                                                       "cli_tb_rehearsal"],
                                              "int8_linear": ["kernel", "serve", "serve_onehot", "tricks",
-                                                             "tb_serve", "cli", "cli_schemes", "cli_tricks",
+                                                             "export_artifact", "tb_serve", "cli", "cli_schemes",
+                                                             "cli_import", "cli_tricks",
                                                              "criteo", "cli_criteo", "cli_tb_rehearsal"],
                                              "onehot_pooled_lookup": ["kernel", "serve_onehot", "tricks",
-                                                                      "dense_bf16"],
+                                                                      "dense_bf16", "module_graph"],
                                              "stream_scatter_add": ["kernel", "train_stream", "dp_stream"],
                                              "dma_row_update": ["kernel"]}})
     grouped = "one launch for a group of tables"

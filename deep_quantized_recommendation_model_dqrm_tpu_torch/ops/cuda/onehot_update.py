@@ -38,7 +38,10 @@ K4:
   mask), the weights' gradient g . table[idx] in plain PyTorch (0 at
   out-of-range ids, where the JAX package reads `jnp.take`'s fill);
 - `onehot_pooled_lookup` — that for one table, the JAX function's
-  signature.
+  signature;
+- `onehot_pooled_lookup_grouped_op` — the grouped K4 registered as the op
+  `dqrm::onehot_pooled_lookup_grouped`, with its gradient, which
+  `torch.export` traces and the wrappers call under tracing.
 
 A group's kernel descriptor is a small host array, passed to the kernel by
 value at each launch. Duplicate ids are summed by atomics on the card, in an
@@ -60,8 +63,10 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import (
     check_slots_fit,
     clamp_ids,
     grouped_lookup_out,
+    output_width,
     rows_grad_from_pooled,
     scatter_add_drop,
+    traced_lookup_out,
 )
 
 MAX_GROUP_TABLES = 32  # tables in one kernel descriptor (csrc/onehot_update.cu)
@@ -279,21 +284,27 @@ class OnehotLookupGroup(NamedTuple):
     sums (a bfloat16 table's rounded to bfloat16): table `tables[i]` reads
     ids and mask `slots[i]` of a [T, B, P] batch and writes the [B, D_i]
     block at float offset `cols[i] * B` of the output, whose first
-    `width * B` floats the group writes (slot k of a [T, B, D] output is
+    `width * B` floats the group owns (slot k of a [T, B, D] output is
     column k * D). `dim` is the tables' common D, None where the widths
     differ. `descs` is the kernel's descriptor (one row of 5 int64 per
     table: address, rows, slot, D_i, column) in host memory; it holds raw
-    addresses, so the group keeps the tables, which must outlive it. `grad`
-    is the K1 group of the tables' gradients where they write their slots
-    of a [T, B, D] output, else None."""
+    addresses, so the group keeps the tables, which must outlive it (None
+    under tracing, where tables have no address: the registered op builds
+    it at run time). `grad` is the K1 group of the tables' gradients where
+    they write their slots of a [T, B, D] output, else None."""
 
     tables: Tuple[torch.Tensor, ...]
     slots: Tuple[int, ...]
     dim: Optional[int]
     cols: Tuple[int, ...]
     width: int
-    descs: torch.Tensor
+    descs: Optional[torch.Tensor]
     grad: Optional[DenseGradGroup]
+
+
+def _lookup_descs(tables: Sequence[torch.Tensor], slots: Sequence[int], cols: Sequence[int]) -> torch.Tensor:
+    return torch.tensor([[t.data_ptr(), t.shape[0], k, t.shape[1], c]
+                         for t, k, c in zip(tables, slots, cols)], dtype=torch.int64)
 
 
 def make_onehot_lookup_group(tables: Sequence[torch.Tensor],
@@ -320,12 +331,16 @@ def make_onehot_lookup_group(tables: Sequence[torch.Tensor],
     if len(cols) != len(tables) or min(cols) < 0:
         raise ValueError(f"each table needs a column >= 0, got {cols}")
     rows = [t.shape[0] for t in tables]
-    descs = torch.tensor([[t.data_ptr(), n, k, d, c]
-                          for t, n, k, d, c in zip(tables, rows, slots, dims, cols)], dtype=torch.int64)
+    descs = None if torch.compiler.is_compiling() else _lookup_descs(tables, slots, cols)
     return OnehotLookupGroup(tables=tables, slots=slots, dim=dim, cols=cols,
                              width=max(c + d for c, d in zip(cols, dims)), descs=descs,
                              grad=make_dense_grad_group(rows, slots) if dim is not None and cols == by_slot
                              else None)
+
+
+def _out_args(group: OnehotLookupGroup, indices: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
+    return grouped_lookup_out(group.slots, group.width, group.dim, indices, out, group.cols,
+                              [t.shape[1] for t in group.tables])
 
 
 def onehot_pooled_lookup_grouped_plain(
@@ -335,10 +350,11 @@ def onehot_pooled_lookup_grouped_plain(
     out: Optional[torch.Tensor] = None,  # float32, at least width * B values
 ) -> torch.Tensor:
     """Plain version of the grouped K4: `pooled_lookup_weighted_plain` of each
-    table into its block of `out` (a new [T, B, D] tensor unless given;
-    slots outside the group are then 0). Differentiable."""
+    table into its block of `out` (a new tensor unless given, [T, B, D] for
+    tables that share D and fit, else flat [width * B]; values outside the
+    group are then 0). Differentiable."""
     _check_mask(mask, indices)
-    out = grouped_lookup_out(group.slots, group.width, group.dim, indices, out)
+    out = _out_args(group, indices, out)
     B = indices.shape[1]
     for t, k, c in zip(group.tables, group.slots, group.cols):
         w = torch.ones(indices.shape[1:], dtype=torch.float32, device=indices.device) \
@@ -347,23 +363,35 @@ def onehot_pooled_lookup_grouped_plain(
     return out
 
 
-def _launch_lookup(group: OnehotLookupGroup, indices, mask, out, dev: torch.device) -> None:
+def _launch_lookup(tables, descs: torch.Tensor, indices, mask, out, dev: torch.device) -> None:
+    """One launch of K4 for the group of `tables` (host descriptor `descs`)
+    into `out`."""
     _, B, P = indices.shape
     lib = _build.load("onehot_update", _SIGNATURES)
     err = lib.dqrm_pooled_lookup_grouped(
-        group.descs.data_ptr(), len(group.tables), int(_table_bf16(group.tables)), indices.data_ptr(),
+        descs.data_ptr(), len(tables), int(_table_bf16(tables)), indices.data_ptr(),
         mask.data_ptr() if mask is not None else None, out.data_ptr(), B, P,
-        max(t.shape[1] for t in group.tables), _stream(dev),
+        max(t.shape[1] for t in tables), _stream(dev),
     )
     _build.check(err, "pooled_lookup_grouped")
 
 
-def _check_lookup_args(group: OnehotLookupGroup, indices, mask) -> torch.device:
-    dev = _cuda_device(indices, mask, *group.tables)
+def _check_lookup_args(tables, indices, mask) -> torch.device:
+    dev = _cuda_device(indices, mask, *tables)
     _check_types(indices, mask)
-    _table_bf16(group.tables)
+    _table_bf16(tables)
     _check_mask(mask, indices)
     return dev
+
+
+def _traced_lookup(group: OnehotLookupGroup, indices, mask, out) -> torch.Tensor:
+    """The registered op `dqrm::onehot_pooled_lookup_grouped` in the shape
+    the eager wrappers return (a new tensor where `out` is given)."""
+    dims = [t.shape[1] for t in group.tables]
+    res = torch.ops.dqrm.onehot_pooled_lookup_grouped(
+        list(group.tables), list(group.slots), list(group.cols),
+        output_width(group.dim, group.width, indices, out), indices, mask)
+    return traced_lookup_out(res, group.cols, dims, indices.shape[1], out, group.dim, indices.shape[0])
 
 
 def onehot_pooled_lookup_grouped_fwd(
@@ -373,17 +401,23 @@ def onehot_pooled_lookup_grouped_fwd(
     out: Optional[torch.Tensor] = None,  # float32, at least width * B values
 ) -> torch.Tensor:
     """K4 for every table of `group` in one launch, into its block of `out`
-    (a new [T, B, D] tensor unless given; slots outside the group are then
-    0): the plain version for a CPU tensor, the CUDA kernel for a CUDA
-    tensor. No gradient.
+    (a new tensor unless given, [T, B, D] for tables that share D and fit,
+    else flat [width * B]; values outside the group are then 0): the plain
+    version for a CPU tensor, the CUDA kernel for a CUDA tensor. No
+    gradient. Under tracing (`torch.export`) the registered op
+    `dqrm::onehot_pooled_lookup_grouped`, which returns a new tensor where
+    `out` is given (callers use the value returned).
 
-    Counts its kernel launches in `onehot_pooled_lookup_grouped_fwd.launches`."""
+    Counts its kernel launches in `onehot_pooled_lookup_grouped_fwd.launches`,
+    the op's included."""
+    if torch.compiler.is_compiling():
+        return _traced_lookup(group, indices, mask, out)
     if indices.device.type == "cpu":
         with torch.no_grad():
             return onehot_pooled_lookup_grouped_plain(group, indices, mask, out)
-    dev = _check_lookup_args(group, indices, mask)
-    out = grouped_lookup_out(group.slots, group.width, group.dim, indices, out)
-    _launch_lookup(group, indices, mask, out, dev)
+    dev = _check_lookup_args(group.tables, indices, mask)
+    out = _out_args(group, indices, out)
+    _launch_lookup(group.tables, group.descs, indices, mask, out, dev)
     onehot_pooled_lookup_grouped_fwd.launches += 1
     return out
 
@@ -391,37 +425,103 @@ def onehot_pooled_lookup_grouped_fwd(
 onehot_pooled_lookup_grouped_fwd.launches = 0
 
 
+def _lookup_backward(tables: Sequence[torch.Tensor], slots: Sequence[int], indices: torch.Tensor,
+                     mask: Optional[torch.Tensor], g: torch.Tensor, tables_grad: bool,
+                     mask_grad: bool) -> Tuple[Optional[List[torch.Tensor]], Optional[torch.Tensor]]:
+    """The grouped K4's VJP (the JAX package's custom_vjp, onehot_update.py:
+    253-301, for each table): the tables' gradients through one grouped K1
+    launch, the weights' gradient g . table[idx] in plain PyTorch (0 at
+    out-of-range ids). `g` is [T, B, D]; for bfloat16 tables it is first
+    rounded to bfloat16, as the VJP of the JAX kernel's cast of its result
+    to the table's type rounds it (and as autograd through the plain
+    version's cast does)."""
+    g = g.to(tables[0].dtype).float()
+    d_tables = d_mask = None
+    if tables_grad:
+        group = make_dense_grad_group([t.shape[0] for t in tables], slots)
+        _, views = onehot_dense_grad_grouped(group, g.contiguous(), indices, mask)
+        d_tables = [v.to(t.dtype) for v, t in zip(views, tables)]
+    if mask_grad:
+        d_mask = torch.zeros_like(mask)
+        for t, k in zip(tables, slots):
+            cids, keep = clamp_ids(indices[k], t.shape[0])
+            rows = t[cids].float() * keep[..., None].float()  # [B, P, d]
+            d_mask[k] = torch.einsum("bd,bpd->bp", g[k], rows).to(mask.dtype)
+    return d_tables, d_mask
+
+
 class _OnehotPooledLookupGrouped(torch.autograd.Function):
-    """The grouped K4 forward; backward: the tables' gradients through one
-    grouped K1 launch, the weights' gradient in plain PyTorch (the JAX
-    package's custom_vjp, onehot_update.py:253-301, for each table). For
-    bfloat16 tables the incoming gradient is first rounded to bfloat16, as
-    the VJP of the JAX kernel's cast of its result to the table's type
-    rounds it (and as autograd through the plain version's cast does)."""
+    """The grouped K4 forward, launched directly; backward `_lookup_backward`:
+    one grouped K1 launch for the tables, plain PyTorch for the weights."""
 
     @staticmethod
     def forward(ctx, group, indices, mask, *tables):
-        ctx.group = group
+        ctx.slots = group.slots
         ctx.save_for_backward(indices, mask, *tables)
         return onehot_pooled_lookup_grouped_fwd(group, indices, mask)
 
     @staticmethod
     def backward(ctx, g):
         indices, mask, *tables = ctx.saved_tensors
-        group = ctx.group
-        g = g.to(tables[0].dtype).float()
-        d_tables = [None] * len(tables)
-        if any(ctx.needs_input_grad[3:]):
-            _, views = onehot_dense_grad_grouped(group.grad, g.contiguous(), indices, mask)
-            d_tables = [v.to(t.dtype) for v, t in zip(views, tables)]
-        d_mask = None
-        if ctx.needs_input_grad[2]:
-            d_mask = torch.zeros_like(mask)
-            for t, k in zip(tables, group.slots):
-                cids, keep = clamp_ids(indices[k], t.shape[0])
-                rows = t[cids].float() * keep[..., None].float()  # [B, P, d]
-                d_mask[k] = torch.einsum("bd,bpd->bp", g[k], rows).to(mask.dtype)
-        return (None, None, d_mask, *d_tables)
+        d_tables, d_mask = _lookup_backward(tables, ctx.slots, indices, mask, g,
+                                            any(ctx.needs_input_grad[3:]), ctx.needs_input_grad[2])
+        return (None, None, d_mask, *(d_tables or [None] * len(tables)))
+
+
+@torch.library.custom_op("dqrm::onehot_pooled_lookup_grouped", mutates_args=(), device_types="cpu")
+def onehot_pooled_lookup_grouped_op(
+    tables: List[torch.Tensor], slots: List[int], cols: List[int], width: int, indices: torch.Tensor,
+    mask: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """K4 for a group of tables as a registered op, the form `torch.export`
+    traces: table i reads id row `slots[i]` and writes its [B, D_i] block
+    at column `cols[i]` of a new flat float32 [width * B] output, 0 outside
+    the blocks. The plain version on the CPU, the kernel on the card (its
+    host descriptor built here from the tables' addresses). Its gradient
+    (`register_autograd`) is `_lookup_backward`, for tables that share D
+    and write their slots of a [T, B, D] output."""
+    group = OnehotLookupGroup(tables=tuple(tables), slots=tuple(slots), dim=None, cols=tuple(cols),
+                              width=width, descs=None, grad=None)
+    return onehot_pooled_lookup_grouped_plain(group, indices, mask)
+
+
+@onehot_pooled_lookup_grouped_op.register_kernel("cuda")
+def _(tables, slots, cols, width, indices, mask):
+    dev = _check_lookup_args(tables, indices, mask)
+    _check_slots(tuple(slots), len(tables))
+    out = grouped_lookup_out(tuple(slots), width, None, indices, None, cols, [t.shape[1] for t in tables])
+    _launch_lookup(tables, _lookup_descs(tables, slots, cols), indices, mask, out, dev)
+    onehot_pooled_lookup_grouped_fwd.launches += 1
+    return out
+
+
+@onehot_pooled_lookup_grouped_op.register_fake
+def _(tables, slots, cols, width, indices, mask):
+    return indices.new_empty((width * indices.shape[1],), dtype=torch.float32)
+
+
+def _setup_context(ctx, inputs, output):
+    tables, slots, cols, width, indices, mask = inputs
+    ctx.slots = tuple(slots)
+    D = tables[0].shape[1]
+    ctx.slot_layout = all(t.shape[1] == D and c == k * D for t, k, c in zip(tables, slots, cols)) \
+        and width == indices.shape[0] * D
+    ctx.save_for_backward(indices, mask, *tables)
+
+
+def _backward(ctx, g):
+    indices, mask, *tables = ctx.saved_tensors
+    tables_grad = any(t.requires_grad for t in tables)
+    mask_grad = mask is not None and mask.requires_grad
+    if (tables_grad or mask_grad) and not ctx.slot_layout:
+        raise ValueError("a gradient needs a group of one D writing its slots")
+    T, B, _ = indices.shape
+    d_tables, d_mask = _lookup_backward(tables, ctx.slots, indices, mask, g.reshape(T, B, -1),
+                                        tables_grad, mask_grad)
+    return d_tables, None, None, None, None, d_mask
+
+
+onehot_pooled_lookup_grouped_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def onehot_pooled_lookup_grouped(
@@ -432,7 +532,10 @@ def onehot_pooled_lookup_grouped(
 ) -> torch.Tensor:  # [T, B, D] float32
     """The grouped K4 with its gradient: `onehot_pooled_lookup_grouped_fwd`
     where no table (nor the mask) needs one, else through an autograd
-    function whose backward is one grouped K1 launch."""
+    function whose backward is one grouped K1 launch. Under tracing
+    (`torch.export`) the registered op, with its registered gradient."""
+    if torch.compiler.is_compiling():
+        return _traced_lookup(group, indices, mask, out)
     needs = torch.is_grad_enabled() and (
         any(t.requires_grad for t in group.tables) or (mask is not None and mask.requires_grad))
     if not needs:
@@ -459,9 +562,9 @@ def onehot_pooled_lookup_fwd(
         return pooled_lookup_weighted_plain(table, indices, weights)
     group = make_onehot_lookup_group([table])
     idx, w = indices[None], weights[None]
-    dev = _check_lookup_args(group, idx, w)
+    dev = _check_lookup_args(group.tables, idx, w)
     out = torch.empty((1, indices.shape[0], table.shape[1]), dtype=torch.float32, device=dev)
-    _launch_lookup(group, idx, w, out, dev)
+    _launch_lookup(group.tables, group.descs, idx, w, out, dev)
     onehot_pooled_lookup_fwd.launches += 1
     return out[0].to(table.dtype)
 

@@ -19,6 +19,9 @@ on the card the hand-written kernel (csrc/packed_embedding.cu) is the lookup.
   takes the plain version, a CUDA tensor launches the kernel (or raises);
 - `PackedGroup` / `make_packed_group` — tables looked up together, with the
   kernel's descriptor array built once;
+- `packed_pooled_lookup_grouped_op` — the grouped lookup registered as the
+  op `dqrm::packed_pooled_lookup_grouped` (tensors and static ints: no
+  addresses), which `torch.export` traces and a loaded program calls;
 - `packed_pooled_lookup_grouped_plain` / `packed_pooled_lookup_grouped` —
   every table of a group over [T, B, P] ids into its [B, D_i] block of one
   float32 output (by default slot k of a [T, B, D] output; given columns,
@@ -33,7 +36,7 @@ fused serving path does; the JAX per-table path returns filler rows for them.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,6 +45,8 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda import _build
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import (
     block_view,
     grouped_lookup_out,
+    output_width,
+    traced_lookup_out,
 )
 
 
@@ -158,8 +163,9 @@ _SIGNATURES = {
 }
 
 
-def _check_table(pt: PackedTable, dev: torch.device) -> None:
-    """Raise on a packed table that the kernel does not take."""
+def _check_table(pt: PackedTable, dev: torch.device, addresses: bool = True) -> None:
+    """Raise on a packed table that the kernel does not take (its alignment
+    only where it has an address: not under tracing)."""
     floats = [t for t in (pt.scale, pt.bias) if t is not None]
     if any(t.device != dev for t in [pt.data] + floats):
         raise ValueError("packed tables, indices and mask must be on one device")
@@ -175,7 +181,7 @@ def _check_table(pt: PackedTable, dev: torch.device) -> None:
         raise ValueError("packed table shape does not match its bits/dim/format")
     if not all(t.is_contiguous() for t in [pt.data] + floats):
         raise ValueError("packed tables must be contiguous")
-    if dp % 8 == 0 and pt.data.data_ptr() % 8:
+    if addresses and dp % 8 == 0 and pt.data.data_ptr() % 8:
         raise ValueError("packed rows of a multiple of 8 bytes must start 8-byte aligned")
 
 
@@ -234,19 +240,20 @@ class PackedGroup(NamedTuple):
     """Packed tables looked up together: table `tables[i]` reads ids and mask
     `slots[i]` of a [T, B, P] batch and writes the [B, D_i] block at float
     offset `cols[i] * B` of the output, whose first `width * B` floats the
-    group writes (slot k of a [T, B, D] output is column k * D). `dim` is
+    group owns (slot k of a [T, B, D] output is column k * D). `dim` is
     the tables' common D, None where the widths differ. `descs` is the
     kernel's descriptor array (one row of 8 int64 per table: data, scale and
     bias addresses, rows, bits, D_i, slot, column), on the tables' device;
     it holds raw addresses, so the group keeps the tables, which must
-    outlive it."""
+    outlive it. Under tracing there are no addresses: `descs` is None and
+    the registered op builds its own at run time."""
 
     tables: tuple
     slots: tuple
     dim: Optional[int]
     cols: tuple
     width: int
-    descs: torch.Tensor
+    descs: Optional[torch.Tensor]
     max_items_per_bag: int  # 8-byte row chunks (or bytes) per bag, the largest
 
 
@@ -256,13 +263,25 @@ def _vector_rows(pt: PackedTable) -> bool:
     return pt.data.shape[1] % 8 == 0
 
 
+def _items_per_bag(tables: Sequence[PackedTable]) -> int:
+    return max(pt.data.shape[1] // 8 if _vector_rows(pt) else pt.data.shape[1] for pt in tables)
+
+
+def _descriptors(tables: Sequence[PackedTable], slots: Sequence[int], cols: Sequence[int]) -> torch.Tensor:
+    """The kernel's descriptor array of a group, on the tables' device."""
+    rows = [[pt.data.data_ptr(), pt.scale.data_ptr(), pt.bias.data_ptr() if pt.bias is not None else 0,
+             pt.rows, pt.bits, pt.dim, slot, col] for pt, slot, col in zip(tables, slots, cols)]
+    return torch.tensor(rows, dtype=torch.int64).to(tables[0].data.device)
+
+
 def make_packed_group(tables: Sequence[PackedTable], slots: Optional[Sequence[int]] = None,
-                      cols: Optional[Sequence[int]] = None) -> PackedGroup:
+                      cols: Optional[Sequence[int]] = None, width: int = 0) -> PackedGroup:
     """Group `tables` (slot i for table i unless `slots` is given) and build
     the kernel's descriptor array once. Table i writes its [B, D_i] block at
     column `cols[i]`, by default `slots[i] * D` (the tables then share D);
     a table with 8-byte row chunks needs a column that is a multiple of 4:
-    its block takes 16-byte stores."""
+    its block takes 16-byte stores. The group owns `width` columns of the
+    output, or just those its blocks reach if that is more."""
     tables = tuple(tables)
     slots = tuple(range(len(tables)) if slots is None else slots)
     if not tables or len(slots) != len(tables) or len(set(slots)) != len(slots) or min(slots) < 0:
@@ -276,20 +295,19 @@ def make_packed_group(tables: Sequence[PackedTable], slots: Optional[Sequence[in
     if len(cols) != len(tables) or min(cols) < 0 or any(
             c % 4 for c, pt in zip(cols, tables) if _vector_rows(pt)):
         raise ValueError(f"bad output columns {cols}")
+    tracing = torch.compiler.is_compiling()
     dev = tables[0].data.device
     for pt in tables:
-        _check_table(pt, dev)
-    rows, items = [], []
-    for pt, slot, col in zip(tables, slots, cols):
-        dp = pt.data.shape[1]
-        items.append(dp // 8 if _vector_rows(pt) else dp)
-        rows.append([pt.data.data_ptr(), pt.scale.data_ptr(),
-                     pt.bias.data_ptr() if pt.bias is not None else 0,
-                     pt.rows, pt.bits, pt.dim, slot, col])
-    descs = torch.tensor(rows, dtype=torch.int64).to(dev)
+        _check_table(pt, dev, addresses=not tracing)
     return PackedGroup(tables=tables, slots=slots, dim=dims.pop() if len(dims) == 1 else None,
-                       cols=cols, width=max(c + pt.dim for c, pt in zip(cols, tables)),
-                       descs=descs, max_items_per_bag=max(items))
+                       cols=cols, width=max([width] + [c + pt.dim for c, pt in zip(cols, tables)]),
+                       descs=None if tracing else _descriptors(tables, slots, cols),
+                       max_items_per_bag=_items_per_bag(tables))
+
+
+def _out_args(group: PackedGroup, indices: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
+    return grouped_lookup_out(group.slots, group.width, group.dim, indices, out, group.cols,
+                              [pt.dim for pt in group.tables])
 
 
 def packed_pooled_lookup_grouped_plain(
@@ -299,14 +317,39 @@ def packed_pooled_lookup_grouped_plain(
     out: Optional[torch.Tensor] = None,  # float32, at least width * B values
 ) -> torch.Tensor:
     """Plain version of the grouped lookup: `packed_pooled_lookup` of each
-    table of the group into its block of `out` (a new [T, B, D] tensor
-    unless given; its slots outside the group are then 0)."""
-    out = grouped_lookup_out(group.slots, group.width, group.dim, indices, out)
+    table of the group into its block of `out` (a new tensor unless given,
+    [T, B, D] for tables that share D and fit, else flat [width * B]; its
+    values outside the group are then 0)."""
+    out = _out_args(group, indices, out)
     B = indices.shape[1]
     for pt, k, c in zip(group.tables, group.slots, group.cols):
         block_view(out, c, B, pt.dim).copy_(
             packed_pooled_lookup(pt, indices[k], None if mask is None else mask[k]))
     return out
+
+
+def _launch_grouped(tables, descs: torch.Tensor, indices: torch.Tensor, mask: Optional[torch.Tensor],
+                    out: torch.Tensor, max_items_per_bag: int) -> None:
+    """One launch of csrc/packed_embedding.cu for the group of `tables`
+    (descriptor array `descs`) into `out`; counted in
+    `packed_pooled_lookup_grouped.launches`."""
+    dev = indices.device
+    if descs.device != dev:
+        raise ValueError("packed tables, indices and mask must be on one device")
+    _check_ids(indices, mask, dev)
+    if out.data_ptr() % 16:
+        raise ValueError("the output must start 16-byte aligned")
+    _, B, P = indices.shape
+    if B == 0 or P == 0:
+        return
+    lib = _build.load("packed_embedding", _SIGNATURES)
+    err = lib.dqrm_packed_pooled_lookup_grouped(
+        descs.data_ptr(), len(tables), indices.data_ptr(),
+        mask.data_ptr() if mask is not None else None, out.data_ptr(),
+        B, P, max_items_per_bag, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "packed_pooled_lookup_grouped")
+    packed_pooled_lookup_grouped.launches += 1
 
 
 def packed_pooled_lookup_grouped(
@@ -316,36 +359,101 @@ def packed_pooled_lookup_grouped(
     out: Optional[torch.Tensor] = None,  # float32, at least width * B values
 ) -> torch.Tensor:
     """Every table of `group` in one launch, into its block of `out` (a new
-    [T, B, D] tensor unless given; its slots outside the group are then 0):
-    the plain version for a CPU tensor, the CUDA kernel
-    (csrc/packed_embedding.cu) for a CUDA tensor.
+    tensor unless given, [T, B, D] for tables that share D and fit, else
+    flat [width * B]; its values outside the group are then 0): the plain
+    version for a CPU tensor, the CUDA kernel (csrc/packed_embedding.cu)
+    for a CUDA tensor. Under tracing (`torch.export`) it is the registered
+    op `dqrm::packed_pooled_lookup_grouped`, which reaches the same two and
+    returns a new tensor where `out` is given (the group's blocks, and
+    `out`'s values elsewhere): callers use the value returned. Called
+    eagerly it launches directly, with the descriptor array built once in
+    the group.
 
-    Counts its kernel launches in `packed_pooled_lookup_grouped.launches`."""
+    Counts its kernel launches in `packed_pooled_lookup_grouped.launches`,
+    the op's included."""
+    if torch.compiler.is_compiling():
+        W = output_width(group.dim, group.width, indices, out)
+        res = torch.ops.dqrm.packed_pooled_lookup_grouped(
+            [pt.data for pt in group.tables], [pt.scale for pt in group.tables],
+            [pt.bias for pt in group.tables], [pt.bits for pt in group.tables],
+            [pt.dim for pt in group.tables], list(group.slots), list(group.cols), W, indices, mask)
+        return traced_lookup_out(res, group.cols, [pt.dim for pt in group.tables], indices.shape[1],
+                                 out, group.dim, indices.shape[0])
     if indices.device.type == "cpu":
         return packed_pooled_lookup_grouped_plain(group, indices, mask, out)
-    dev = indices.device
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    out = grouped_lookup_out(group.slots, group.width, group.dim, indices, out)
-    if group.descs.device != dev:
-        raise ValueError("packed tables, indices and mask must be on one device")
-    _check_ids(indices, mask, dev)
-    if out.data_ptr() % 16:
-        raise ValueError("the output must start 16-byte aligned")
-    _, B, P = indices.shape
-    if B == 0 or P == 0:
+    if indices.device.type != "cuda":
+        raise ValueError(f"unsupported device {indices.device}")
+    out = _out_args(group, indices, out)
+    _, B, _ = indices.shape
+    if B == 0 or indices.shape[2] == 0:
         for pt, c in zip(group.tables, group.cols):
             block_view(out, c, B, pt.dim).zero_()
-        return out
-    lib = _build.load("packed_embedding", _SIGNATURES)
-    err = lib.dqrm_packed_pooled_lookup_grouped(
-        group.descs.data_ptr(), len(group.tables), indices.data_ptr(),
-        mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        B, P, group.max_items_per_bag, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "packed_pooled_lookup_grouped")
-    packed_pooled_lookup_grouped.launches += 1
+    _launch_grouped(group.tables, group.descs, indices, mask, out, group.max_items_per_bag)
     return out
 
 
 packed_pooled_lookup_grouped.launches = 0
+
+
+def _op_tables(data, scale, bias, bits, dims) -> Tuple[PackedTable, ...]:
+    return tuple(PackedTable(data=d, scale=s, bias=b, bits=n, dim=D)
+                 for d, s, b, n, D in zip(data, scale, bias, bits, dims))
+
+
+# the op's groups, by the tables' addresses, formats, slots and columns:
+# (descriptor array, 8-byte chunks per bag). A group is checked, and its
+# descriptor array copied to the card, once, as `make_packed_group` does for
+# an eager caller
+_groups_cache: Dict[tuple, Tuple[torch.Tensor, int]] = {}
+_GROUPS_CACHED = 64
+
+
+@torch.library.custom_op("dqrm::packed_pooled_lookup_grouped", mutates_args=(), device_types="cpu")
+def packed_pooled_lookup_grouped_op(
+    data: List[torch.Tensor], scale: List[torch.Tensor], bias: List[Optional[torch.Tensor]], bits: List[int],
+    dims: List[int], slots: List[int], cols: List[int], width: int, indices: torch.Tensor,
+    mask: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """K2 for a group of packed tables as a registered op, the form
+    `torch.export` traces: table i (`data[i]` uint8, `scale[i]` and
+    `bias[i]` float32, None for symmetric tables; `bits[i]`, `dims[i]`)
+    reads id row `slots[i]` and writes its [B, dims[i]] block at column
+    `cols[i]` of a new flat float32 [width * B] output, 0 outside the
+    blocks. The plain version on the CPU, the kernel on the card, where the
+    tables are checked and the descriptor array of addresses built on the
+    first call of a group and cached by the tables' addresses.
+
+    It returns its own tensor rather than writing into a caller's
+    (`mutates_args=("out",)`): a traced program then holds no copy of an
+    output buffer for the op's functional form, and the serving function's
+    one K2 launch makes its whole output; the K4 blocks, where a serving
+    function has them, merge into it by one select (`traced_lookup_out`).
+    JAX's `_fuse_packed_tables` (serving.py:293-332) has no counterpart:
+    this one launch already reads every table in place."""
+    tables = _op_tables(data, scale, bias, bits, dims)
+    group = PackedGroup(tables=tables, slots=tuple(slots), dim=None, cols=tuple(cols), width=width,
+                        descs=None, max_items_per_bag=0)
+    return packed_pooled_lookup_grouped_plain(group, indices, mask)
+
+
+@packed_pooled_lookup_grouped_op.register_kernel("cuda")
+def _(data, scale, bias, bits, dims, slots, cols, width, indices, mask):
+    dev = indices.device
+    tables = _op_tables(data, scale, bias, bits, dims)
+    key = (dev, tuple((pt.data.data_ptr(), pt.scale.data_ptr(), pt.bias.data_ptr() if pt.bias is not None
+                       else 0, pt.rows, pt.bits, pt.dim) for pt in tables), tuple(slots), tuple(cols))
+    cached = _groups_cache.get(key)
+    if cached is None:
+        for pt in tables:
+            _check_table(pt, dev)
+        if len(_groups_cache) >= _GROUPS_CACHED:
+            _groups_cache.clear()
+        cached = _groups_cache[key] = (_descriptors(tables, slots, cols), _items_per_bag(tables))
+    out = grouped_lookup_out(tuple(slots), width, None, indices, None, cols, dims)
+    _launch_grouped(tables, cached[0], indices, mask, out, cached[1])
+    return out
+
+
+@packed_pooled_lookup_grouped_op.register_fake
+def _(data, scale, bias, bits, dims, slots, cols, width, indices, mask):
+    return indices.new_empty((width * indices.shape[1],), dtype=torch.float32)

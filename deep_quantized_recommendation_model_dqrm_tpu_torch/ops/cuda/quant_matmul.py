@@ -8,7 +8,11 @@ with per-output-channel symmetric scales (the prepack step of
 - `int8_linear_xla` — the plain PyTorch version (the name of the JAX
   package's plain path), the CPU path and the reference for the kernel;
 - `int8_linear` — the wrapper: a CPU tensor takes the plain version, a CUDA
-  tensor launches the kernel of csrc/quant_matmul.cu (or raises).
+  tensor launches the kernel of csrc/quant_matmul.cu (or raises);
+- `int8_linear_op` — the same registered as the op `dqrm::int8_linear`
+  (CPU: the plain version; CUDA: the kernel; a fake kernel for tracing),
+  which `torch.export` traces and a loaded program calls; the wrapper
+  calls it under tracing. Importing this module registers it.
 
 Both take `relu=True` to apply ReLU to the result, as the serving MLP does
 after every layer but the last; the kernel fuses it into its epilogue. The
@@ -66,30 +70,23 @@ _SIGNATURES = {
 }
 
 
-def int8_linear(x: torch.Tensor, qw: QuantLinearWeights, relu: bool = False) -> torch.Tensor:
-    """Dequant-matmul (then ReLU if `relu`): the plain version for a CPU
-    tensor, the CUDA kernel (csrc/quant_matmul.cu) for a CUDA tensor, which
-    takes any number of input features (K >= 1; above 640 in chunks of 640).
-
-    Counts its kernel launches in `int8_linear.launches`."""
-    if x.device.type == "cpu":
-        return int8_linear_xla(x, qw, relu)
+def _int8_linear_cuda(x: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                      relu: bool) -> torch.Tensor:
+    """Check the operands and launch the kernel of csrc/quant_matmul.cu
+    into a new [M, N] float32 tensor; counts the launch in
+    `int8_linear.launches`."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     M, K = x.shape
-    N = qw.w_int.shape[0]
-    tensors = (x, qw.w_int, qw.scale, qw.bias)
+    N = w_int.shape[0]
+    tensors = (x, w_int, scale, bias)
     if any(t.device != dev for t in tensors):
         raise ValueError("activations and weights must be on one device")
-    if qw.w_int.dtype != torch.int8 or any(
-        t.dtype != torch.float32 for t in (x, qw.scale, qw.bias)
-    ):
+    if w_int.dtype != torch.int8 or any(t.dtype != torch.float32 for t in (x, scale, bias)):
         raise TypeError("w_int must be int8; x, scale and bias float32")
-    if qw.w_int.shape != (N, K) or qw.scale.shape != (N,) or qw.bias.shape != (N,):
-        raise ValueError(
-            f"weights {tuple(qw.w_int.shape)} do not fit activations {tuple(x.shape)}"
-        )
+    if w_int.shape != (N, K) or scale.shape != (N,) or bias.shape != (N,):
+        raise ValueError(f"weights {tuple(w_int.shape)} do not fit activations {tuple(x.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("activations and weights must be contiguous")
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
@@ -97,12 +94,46 @@ def int8_linear(x: torch.Tensor, qw: QuantLinearWeights, relu: bool = False) -> 
         return out
     lib = _build.load("quant_matmul", _SIGNATURES)
     err = lib.dqrm_int8_linear(
-        x.data_ptr(), qw.w_int.data_ptr(), qw.scale.data_ptr(), qw.bias.data_ptr(),
+        x.data_ptr(), w_int.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         out.data_ptr(), M, K, N, int(relu), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "int8_linear")
     int8_linear.launches += 1
     return out
+
+
+@torch.library.custom_op("dqrm::int8_linear", mutates_args=(), device_types="cpu")
+def int8_linear_op(x: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   relu: bool) -> torch.Tensor:
+    """K3 as a registered op, the form `torch.export` traces: the plain
+    version on the CPU, the kernel on the card."""
+    return int8_linear_xla(x, QuantLinearWeights(w_int, scale, bias, 8), relu)
+
+
+int8_linear_op.register_kernel("cuda")(_int8_linear_cuda)
+
+
+@int8_linear_op.register_fake
+def _(x, w_int, scale, bias, relu):
+    return x.new_empty((x.shape[0], w_int.shape[0]))
+
+
+def int8_linear(x: torch.Tensor, qw: QuantLinearWeights, relu: bool = False) -> torch.Tensor:
+    """Dequant-matmul (then ReLU if `relu`): the plain version for a CPU
+    tensor, the CUDA kernel (csrc/quant_matmul.cu) for a CUDA tensor, which
+    takes any number of input features (K >= 1; above 640 in chunks of 640).
+    Under tracing (`torch.export`) it is the registered op
+    `dqrm::int8_linear`, which reaches the same two; called eagerly it
+    launches directly, without the op's dispatch (PERF.md: the op costs
+    host time on every call).
+
+    Counts its kernel launches in `int8_linear.launches`, the op's
+    included."""
+    if torch.compiler.is_compiling():
+        return torch.ops.dqrm.int8_linear(x, qw.w_int, qw.scale, qw.bias, relu)
+    if x.device.type == "cpu":
+        return int8_linear_xla(x, qw, relu)
+    return _int8_linear_cuda(x, qw.w_int, qw.scale, qw.bias, relu)
 
 
 int8_linear.launches = 0

@@ -84,31 +84,70 @@ def check_slots_fit(slots: Tuple[int, ...], indices: torch.Tensor) -> None:
         raise ValueError(f"group slots {slots} do not fit {indices.shape[0]} id rows")
 
 
+def covers(cols: Sequence[int], dims: Sequence[int], width: int) -> bool:
+    """Whether blocks of `dims[i]` columns at `cols[i]` tile [0, width)
+    (then a grouped lookup writes every value of its output)."""
+    cover = sorted(zip(cols, dims))
+    return all(c == e for (c, _), e in zip(cover, [0] + [c + d for c, d in cover])) and \
+        cover[-1][0] + cover[-1][1] == width
+
+
 def grouped_lookup_out(
     slots: Tuple[int, ...],
     width: int,
     dim: Optional[int],
     indices: torch.Tensor,  # [T, B, P]
     out: Optional[torch.Tensor] = None,
+    cols: Sequence[int] = (),
+    dims: Sequence[int] = (),
 ) -> torch.Tensor:
     """The output of a grouped lookup whose tables read id rows `slots` and
-    write [B, D_i] blocks at columns below `width` (float offset col * B;
-    slot k of a [T, B, D] output is the block at column k * D): `out` once
-    checked, a contiguous float32 tensor of at least width * B values; else
-    a new float32 [T, B, dim] tensor for tables that share D = `dim`, whose
-    blocks outside the group read 0."""
+    write [B, D_i] blocks (`dims`) at columns `cols` below `width` (float
+    offset col * B; slot k of a [T, B, D] output is the block at column
+    k * D): `out` once checked, a contiguous float32 tensor of at least
+    width * B values; else a new float32 tensor, [T, B, dim] for tables
+    that share D = `dim` and fit, flat [width * B] otherwise, whose values
+    outside the group's blocks read 0."""
     check_slots_fit(slots, indices)
     T, B, _ = indices.shape
     if out is None:
-        if dim is None or width > T * dim:
-            raise ValueError("tables of different widths, or columns past [T, B, D], need out=")
-        alloc = torch.empty if len(slots) == T else torch.zeros
-        return alloc((T, B, dim), dtype=torch.float32, device=indices.device)
+        shape = (T, B, dim) if dim is not None and width <= T * dim else (width * B,)
+        n = shape[0] * shape[2] if len(shape) == 3 else width
+        alloc = torch.empty if covers(cols, dims, n) else torch.zeros
+        return alloc(shape, dtype=torch.float32, device=indices.device)
     if out.dtype != torch.float32 or not out.is_contiguous() or out.numel() < width * B \
             or out.device != indices.device:
         raise ValueError(f"out must be a contiguous float32 tensor of at least {width} x {B} values "
                          f"on {indices.device}")
     return out
+
+
+def output_width(dim: Optional[int], width: int, indices: torch.Tensor,
+                 out: Optional[torch.Tensor]) -> int:
+    """The columns of `grouped_lookup_out`'s tensor: [T, B, dim] is T * dim
+    columns of B values."""
+    T, B, _ = indices.shape
+    if out is not None:
+        return out.numel() // max(B, 1)
+    return T * dim if dim is not None and width <= T * dim else width
+
+
+def traced_lookup_out(res: torch.Tensor, cols: Sequence[int], dims: Sequence[int], B: int,
+                      shape_of: Optional[torch.Tensor], dim: Optional[int], T: int) -> torch.Tensor:
+    """A registered grouped-lookup op's flat result `res` ([W * B], 0
+    outside the group's blocks) in the shape the eager wrapper returns.
+    Given `shape_of` (the caller's `out`), the result is a new tensor that
+    holds the group's blocks from `res` and `shape_of`'s values elsewhere:
+    a traced program takes the value, since it cannot write into the
+    caller's tensor."""
+    if shape_of is None:
+        W = res.numel() // max(B, 1)
+        return res.view(T, B, dim) if dim is not None and W == T * dim else res
+    W = shape_of.numel() // max(B, 1)
+    keep = torch.zeros((W, 1), dtype=torch.bool, device=res.device)
+    for c, d in zip(cols, dims):
+        keep[c:c + d] = True
+    return torch.where(keep, res.view(W, B), shape_of.reshape(W, B)).view(shape_of.shape)
 
 
 def block_view(out: torch.Tensor, col: int, B: int, dim: int) -> torch.Tensor:

@@ -40,6 +40,16 @@ def _tril_flat_index(num_fea: int, interact_itself: bool, device: torch.device) 
         return torch.from_numpy(li * num_fea + lj).to(device)
 
 
+def _tril_index(num_fea: int, interact_itself: bool, device: torch.device) -> torch.Tensor:
+    """`_tril_flat_index`, or under tracing (`torch.export`) a fresh
+    constant of the traced program: the cache must not keep a traced
+    tensor."""
+    if torch.compiler.is_compiling():
+        li, lj = _tril_indices(num_fea, interact_itself)
+        return torch.from_numpy(li * num_fea + lj).to(device)
+    return _tril_flat_index(num_fea, interact_itself, device)
+
+
 def dot_interaction(
     x: torch.Tensor,  # [B, D] bottom MLP output
     ly: torch.Tensor,  # [T, B, D] pooled embeddings
@@ -52,7 +62,7 @@ def dot_interaction(
     the dense passthrough stays float32)."""
     tb = torch.cat([x[None], ly], dim=0).transpose(0, 1)  # [B, F, D]
     z = gram(tb, bf16)  # [B, F, F]
-    flat = z.reshape(z.shape[0], -1)[:, _tril_flat_index(tb.shape[1], interact_itself, z.device)]
+    flat = z.reshape(z.shape[0], -1)[:, _tril_index(tb.shape[1], interact_itself, z.device)]
     return torch.cat([x, flat], dim=1)
 
 
@@ -78,5 +88,5 @@ def quantized_dot_interaction(
     scale = q.symmetric_quantization_params(bits, t_all.min(), t_all.max()).detach()
     tb = q.quantize_ste(t_all, scale, bits).transpose(0, 1)  # float-typed integers
     z = torch.bmm(tb, tb.transpose(1, 2)) * (scale * scale)
-    flat = z.reshape(z.shape[0], -1)[:, _tril_flat_index(tb.shape[1], interact_itself, z.device)]
+    flat = z.reshape(z.shape[0], -1)[:, _tril_index(tb.shape[1], interact_itself, z.device)]
     return torch.cat([x, flat], dim=1)

@@ -20,8 +20,12 @@ Port of the JAX package's serving.py:
   chunks large ones; `MicroBatcher` aggregates concurrent requests from many
   threads into one device batch per dispatch.
 
-`ptq_export_streaming` and `export_stablehlo` wait for later slices of the
-port.
+- `export_stablehlo` / `load_stablehlo` write a `torch.export` program of
+  the serving function (`ServingModule`: the model's tensors as buffers,
+  K2 and K3 as registered ops) and load it back.
+
+`ptq_export_streaming` waits for a later slice of the port (ROADMAP.md
+queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update i
     onehot_pooled_lookup_grouped_plain,
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
+    PackedGroup,
     PackedTable,
     make_packed_group,
     pack_table,
@@ -181,6 +186,107 @@ def _members(sm: ServingModel):
     return members, qr, col
 
 
+class _Parts(NamedTuple):
+    """What the serving function computes once from a `ServingModel`: the
+    lookup groups, the QR/MD tables to compose or project after them, the
+    pooling weights concatenated, the MLPs."""
+
+    config: DLRMConfig
+    width: int  # output columns of the lookups: the [T, B, D] slots, then QR's and MD's blocks
+    qr: list  # the QR tables' slots
+    qsel: Optional[torch.Tensor]  # the same, int64, on the model's device; None without QR
+    vw: Optional[tuple]  # (v_W concatenated, each table's offset, each table's last row) or None
+    group: Optional[PackedGroup]  # the packed tables of one K2 launch
+    onehot_groups: list  # the unpacked small tables, one K4 launch per 32
+    post: list  # (slot, entry, its members): the QR tables to compose, the MD tables to project
+    bot: List
+    top: List
+    mlp_bits: int
+
+
+def _vw_parts(vw: Sequence[torch.Tensor]) -> tuple:
+    """The pooling weights as one vector, with each table's offset and last
+    row ([T, 1, 1] int64): one gather serves every table."""
+    dev = vw[0].device
+    sizes = torch.tensor([v.shape[0] for v in vw], dtype=torch.int64, device=dev)
+    return torch.cat(list(vw)), (torch.cumsum(sizes, 0) - sizes)[:, None, None], (sizes - 1)[:, None, None]
+
+
+def _parts(sm: ServingModel, onehot_lookup_max_rows: int = 0, vw: Optional[tuple] = None,
+           qsel: Optional[torch.Tensor] = None) -> _Parts:
+    """The `_Parts` of `sm`; `vw` and `qsel` where the caller keeps them
+    (the exported module, as buffers)."""
+    T = len(sm.emb)
+    members, qr, width = _members(sm)
+    by_slot = {m.slot: m for m in members}
+    post = []
+    for k, e in enumerate(sm.emb):
+        if isinstance(e, dict) and "q" in e:
+            i = qr.index(k)
+            post.append((k, e, [by_slot[T + i], by_slot[T + len(qr) + i]]))
+        elif isinstance(e, dict) and "proj" in e:
+            post.append((k, e, [by_slot[k]]))
+    small = [m for m in members if 0 < m.pt.rows <= onehot_lookup_max_rows]
+    big = [m for m in members if not 0 < m.pt.rows <= onehot_lookup_max_rows]
+    group = make_packed_group([m.pt for m in big], [m.slot for m in big], [m.col for m in big],
+                              width) if big else None
+    onehot_groups = []
+    for part in group_slots(range(len(small))):
+        ms = [small[i] for i in part]
+        onehot_groups.append(make_onehot_lookup_group(
+            [unpack_table(m.pt) for m in ms], [m.slot for m in ms], [m.col for m in ms]))
+    if vw is None and sm.vw is not None:
+        vw = _vw_parts(sm.vw)
+    if qsel is None and qr:
+        qsel = torch.tensor(qr, dtype=torch.int64, device=members[0].pt.data.device)
+    return _Parts(config=sm.config, width=width, qr=qr, qsel=qsel, vw=vw, group=group,
+                  onehot_groups=onehot_groups, post=post, bot=sm.bot, top=sm.top, mlp_bits=sm.mlp_bits)
+
+
+def _serve(p: _Parts, dense: torch.Tensor, indices: torch.Tensor, mask: Optional[torch.Tensor],
+           grouped, onehot, linear8) -> torch.Tensor:
+    """The serving function's body: probabilities [B] of one batch, the
+    lookups through `grouped` (K2) and `onehot` (K4), the int8 layers
+    through `linear8`."""
+    cfg = p.config
+    T, D = len(cfg.table_sizes), cfg.embedding_dim
+    w = mask
+    B = indices.shape[1]
+    if p.vw is not None:  # per_sample_weights v_W[ids] composed with the mask
+        vw_flat, vw_off, vw_max = p.vw
+        rows = vw_flat[torch.minimum(indices.long().clamp_min(0), vw_max) + vw_off]
+        w = rows if w is None else w * rows
+    if p.qr:
+        c = cfg.qr_collisions
+        qi = indices[p.qsel]
+        indices = torch.cat([indices, qi // c, qi % c])
+        if w is not None:
+            w = torch.cat([w, w[p.qsel], w[p.qsel]])
+    # the slots of the plain tables, then QR's and MD's blocks: K2 makes the
+    # output, K4 writes its blocks into it (a traced program takes the value)
+    if p.group is not None:
+        out = grouped(p.group, indices, w).view(-1)
+    else:
+        out = torch.empty((p.width * B,), device=indices.device)
+    for og in p.onehot_groups:
+        out = onehot(og, indices, w, out=out)
+    ly = out[:T * D * B].view(T, B, D)
+    for k, e, ms in p.post:
+        blocks = [block_view(out, m.col, B, m.pt.dim) for m in ms]
+        ly[k] = tricks.qr_compose(*blocks, cfg.qr_operation) if "q" in e else tricks.md_project(e, blocks[0])
+    x = _apply_mlp_serving(p.bot, dense, p.mlp_bits, False, linear8)
+    z = (
+        dot_interaction(x, ly, cfg.interact_itself)
+        if cfg.interaction == "dot"
+        else cat_interaction(x, ly)
+    )
+    logits = _apply_mlp_serving(p.top, z, p.mlp_bits, True, linear8)
+    probs = torch.sigmoid(logits.reshape(-1))
+    if 0.0 < cfg.loss_threshold < 1.0:
+        probs = torch.clamp(probs, cfg.loss_threshold, 1.0 - cfg.loss_threshold)
+    return probs
+
+
 def make_serving_fn(
     sm: ServingModel,
     mlp_impl: Optional[str] = None,
@@ -221,78 +327,154 @@ def make_serving_fn(
     kernels are checked against on the card. `use_pallas_lookup` and
     `use_pallas_mlp` are accepted for the JAX package's signature and change
     nothing: there they choose the Pallas kernels over XLA's gather and
-    matmul, and here the kernels are the only path."""
+    matmul, and here the kernels are the only path. `export_stablehlo`
+    traces the same body (`_serve`)."""
     del use_pallas_lookup, use_pallas_mlp  # the kernels are the only path
     if mlp_impl not in (None, "int8"):
         raise ValueError(f"unknown mlp_impl {mlp_impl!r}")
     del fused_gather  # the grouped lookup below is the fused path
-    cfg = sm.config
-    T, D = len(sm.emb), cfg.embedding_dim
     grouped = packed_pooled_lookup_grouped_plain if plain else packed_pooled_lookup_grouped
     onehot = onehot_pooled_lookup_grouped_plain if plain else onehot_pooled_lookup_grouped_fwd
     if mlp_impl == "int8":
         linear8 = int8_linear_dynamic_plain if plain else int8_linear_dynamic
     else:
         linear8 = int8_linear_xla if plain else int8_linear
-    members, qr, width = _members(sm)
-    by_slot = {m.slot: m for m in members}
-    post = []  # (slot, entry, its members): the QR tables to compose, the MD tables to project
-    for k, e in enumerate(sm.emb):
-        if isinstance(e, dict) and "q" in e:
-            i = qr.index(k)
-            post.append((k, e, [by_slot[T + i], by_slot[T + len(qr) + i]]))
-        elif isinstance(e, dict) and "proj" in e:
-            post.append((k, e, [by_slot[k]]))
-    small = [m for m in members if 0 < m.pt.rows <= onehot_lookup_max_rows]
-    big = [m for m in members if not 0 < m.pt.rows <= onehot_lookup_max_rows]
-    group = make_packed_group([m.pt for m in big], [m.slot for m in big], [m.col for m in big]) if big else None
-    onehot_groups = []
-    for part in group_slots(range(len(small))):
-        ms = [small[i] for i in part]
-        onehot_groups.append(make_onehot_lookup_group(
-            [unpack_table(m.pt) for m in ms], [m.slot for m in ms], [m.col for m in ms]))
-    vw_flat = vw_off = vw_max = None
-    if sm.vw is not None:
-        dev = sm.vw[0].device
-        vw_flat = torch.cat(list(sm.vw))
-        sizes = torch.tensor([v.shape[0] for v in sm.vw], dtype=torch.int64, device=dev)
-        vw_off = (torch.cumsum(sizes, 0) - sizes)[:, None, None]
-        vw_max = (sizes - 1)[:, None, None]
-    qsel = torch.tensor(qr, dtype=torch.int64, device=members[0].pt.data.device)
+    parts = _parts(sm, onehot_lookup_max_rows)
 
     @torch.inference_mode()
     def fn(batch: dlrm.Batch) -> torch.Tensor:
-        indices, w = batch.indices, batch.mask
-        B = indices.shape[1]
-        if vw_flat is not None:  # per_sample_weights v_W[ids] composed with the mask
-            rows = vw_flat[torch.minimum(indices.long().clamp_min(0), vw_max) + vw_off]
-            w = rows if w is None else w * rows
+        return _serve(parts, batch.dense, batch.indices, batch.mask, grouped, onehot, linear8)
+
+    return fn
+
+
+def _serving_arrays(sm: ServingModel):
+    """Split the ServingModel into (named tensors, static metadata), the
+    JAX package's `_serving_arrays` (serving.py:207-259): here the tensors
+    become an `nn.Module`'s buffers and the metadata its constructor's
+    state. Names follow the model's structure: `emb_3_data`,
+    `emb_5_q_scale`, `emb_7_proj`, `bot_0_w_int`, `top_2_b`."""
+    arrays, emb_meta = {}, []
+
+    def packed(prefix, pt: PackedTable):
+        arrays[f"{prefix}_data"], arrays[f"{prefix}_scale"] = pt.data, pt.scale
+        if pt.bias is not None:
+            arrays[f"{prefix}_bias"] = pt.bias
+        return (pt.bits, pt.dim, pt.bias is not None)
+
+    for k, e in enumerate(sm.emb):
+        if isinstance(e, dict):
+            meta = {}
+            for name, v in e.items():
+                if isinstance(v, PackedTable):
+                    meta[name] = packed(f"emb_{k}_{name}", v)
+                else:
+                    arrays[f"emb_{k}_{name}"] = v
+                    meta[name] = None
+            emb_meta.append(meta)
+        else:
+            emb_meta.append(packed(f"emb_{k}", e))
+    for part in ("bot", "top"):
+        for i, l in enumerate(getattr(sm, part)):
+            fields = ("w_int", "scale", "bias") if isinstance(l, QuantLinearWeights) else ("w", "b")
+            for f in fields:
+                arrays[f"{part}_{i}_{f}"] = getattr(l, f) if isinstance(l, QuantLinearWeights) else l[f]
+    meta = {"config": sm.config, "emb": emb_meta, "mlp_bits": sm.mlp_bits,
+            "layers": (len(sm.bot), len(sm.top))}
+    return arrays, meta
+
+
+def _rebuild_serving_model(arrays, meta) -> ServingModel:
+    """The ServingModel of `_serving_arrays`' (tensors, metadata), without
+    its pooling weights (the serving body takes them concatenated)."""
+    def packed(prefix, m):
+        bits, dim, has_bias = m
+        return PackedTable(data=arrays[f"{prefix}_data"], scale=arrays[f"{prefix}_scale"],
+                           bias=arrays[f"{prefix}_bias"] if has_bias else None, bits=bits, dim=dim)
+
+    emb = []
+    for k, m in enumerate(meta["emb"]):
+        if isinstance(m, dict):
+            emb.append({name: arrays[f"emb_{k}_{name}"] if mm is None else packed(f"emb_{k}_{name}", mm)
+                        for name, mm in m.items()})
+        else:
+            emb.append(packed(f"emb_{k}", m))
+    mlps = []
+    for part, n in zip(("bot", "top"), meta["layers"]):
+        if meta["mlp_bits"] == 8:
+            mlps.append([QuantLinearWeights(w_int=arrays[f"{part}_{i}_w_int"], scale=arrays[f"{part}_{i}_scale"],
+                                            bias=arrays[f"{part}_{i}_bias"], bits=8) for i in range(n)])
+        else:
+            mlps.append([{"w": arrays[f"{part}_{i}_w"], "b": arrays[f"{part}_{i}_b"]} for i in range(n)])
+    return ServingModel(config=meta["config"], emb=emb, bot=mlps[0], top=mlps[1], mlp_bits=meta["mlp_bits"])
+
+
+class ServingModule(torch.nn.Module):
+    """The packed serving model as an `nn.Module`: its tensors are buffers
+    (the pooling weights concatenated, as the serving function keeps them)
+    and `forward(dense, indices)` is `make_serving_fn`'s body with no mask,
+    with K2, K3 (and the fixed int8 MLP) reached through the registered
+    ops when traced. The form `export_stablehlo` exports."""
+
+    def __init__(self, sm: ServingModel):
+        super().__init__()
+        arrays, self._meta = _serving_arrays(sm)
+        for name, t in arrays.items():
+            self.register_buffer(name, t)
+        self._names = tuple(arrays)
+        if sm.vw is not None:
+            for name, t in zip(("vw_flat", "vw_off", "vw_max"), _vw_parts(sm.vw)):
+                self.register_buffer(name, t)
+        qr = _members(sm)[1]
         if qr:
-            c = cfg.qr_collisions
-            qi = indices[qsel]
-            indices = torch.cat([indices, qi // c, qi % c])
-            if w is not None:
-                w = torch.cat([w, w[qsel], w[qsel]])
-        out = torch.empty((width * B,), device=indices.device)
-        ly = out[:T * D * B].view(T, B, D)  # the slots of the plain tables, then QR's and MD's blocks
-        if group is not None:
-            grouped(group, indices, w, out=out)
-        for og in onehot_groups:
-            onehot(og, indices, w, out=out)
-        for k, e, ms in post:
-            blocks = [block_view(out, m.col, B, m.pt.dim) for m in ms]
-            ly[k] = tricks.qr_compose(*blocks, cfg.qr_operation) if "q" in e else tricks.md_project(e, blocks[0])
-        x = _apply_mlp_serving(sm.bot, batch.dense, sm.mlp_bits, False, linear8)
-        z = (
-            dot_interaction(x, ly, cfg.interact_itself)
-            if cfg.interaction == "dot"
-            else cat_interaction(x, ly)
-        )
-        logits = _apply_mlp_serving(sm.top, z, sm.mlp_bits, True, linear8)
-        p = torch.sigmoid(logits.reshape(-1))
-        if 0.0 < cfg.loss_threshold < 1.0:
-            p = torch.clamp(p, cfg.loss_threshold, 1.0 - cfg.loss_threshold)
-        return p
+            self.register_buffer("qsel", torch.tensor(qr, dtype=torch.int64, device=next(self.buffers()).device))
+
+    def forward(self, dense: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+        sm = _rebuild_serving_model({n: getattr(self, n) for n in self._names}, self._meta)
+        vw = (self.vw_flat, self.vw_off, self.vw_max) if hasattr(self, "vw_flat") else None
+        parts = _parts(sm, vw=vw, qsel=getattr(self, "qsel", None))
+        return _serve(parts, dense, indices, None, packed_pooled_lookup_grouped, None, int8_linear)
+
+
+def export_program(sm: ServingModel, batch_size: int) -> "torch.export.ExportedProgram":
+    """`torch.export` of the serving model at a fixed batch: dense [B,
+    num_dense] float32 and indices [T, B, P] int32, P = the config's
+    pooling size, on the model's device (JAX's ShapeDtypeStructs,
+    serving.py:486-489)."""
+    cfg = sm.config
+    module = ServingModule(sm)
+    dev = next(module.buffers()).device
+    dense = torch.zeros((batch_size, cfg.num_dense), dtype=torch.float32, device=dev)
+    indices = torch.zeros((cfg.num_tables, batch_size, cfg.pooling_size), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        return torch.export.export(module, (dense, indices))
+
+
+def export_stablehlo(sm: ServingModel, batch_size: int, path: str) -> str:
+    """Serialize the packed inference function: the counterpart of the JAX
+    package's `export_stablehlo` (serving.py:463-496), which writes
+    StableHLO. Here `torch.export` traces `ServingModule` (K2 and K3 as the
+    registered ops `dqrm::packed_pooled_lookup_grouped` and
+    `dqrm::int8_linear`) at a fixed batch and `torch.export.save` writes
+    the program with the model's tensors to `path`; `load_stablehlo` reads
+    it back. The analogue of the reference's `--save-onnx` export
+    (dlrm_s_pytorch.py:1813-1893). JAX's `_fuse_packed_tables`
+    (serving.py:293-332), which concatenates the tables for one gather,
+    has no counterpart: the grouped K2 launch already reads every table in
+    place."""
+    torch.export.save(export_program(sm, batch_size), path)
+    return path
+
+
+def load_stablehlo(path: str) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """Load an `export_stablehlo` artifact: fn(dense, indices) -> click
+    probabilities, run in inference mode (the ops then skip autograd's
+    layer). Importing this module registers the ops it calls."""
+    module = torch.export.load(path).module()
+
+    def fn(dense: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return module(dense, indices)
 
     return fn
 

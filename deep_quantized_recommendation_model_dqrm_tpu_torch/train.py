@@ -33,9 +33,14 @@ preprocessed into `--processed-data-dir` by data/criteo.py with the native
 parser this package builds into `build/native/`, then the train, val and
 test splits), with the `--investigating-inputs` audit.
 What this slice does not run exits with a message naming the later slice
-(ROADMAP.md queue 1): `--export-stablehlo` and `--plot-compute-graph`
-(item 3), `--parallelism=hybrid` (item 6) and `--parallelism=rowshard`
-(item 7). Every QAT scheme runs
+(ROADMAP.md queue 1): `--parallelism=hybrid` (item 6) and
+`--parallelism=rowshard` (item 7). `--export-stablehlo=PATH` writes the
+`--inference-only` PTQ model as a `torch.export` program at the test
+batch size (`serving.export_stablehlo`), and `--plot-compute-graph`
+writes `<log-dir>/compute_graph.stablehlo.txt`, the JAX CLI's file name:
+here the `torch.export` graph of the model's forward and training loss on
+the run's last batch, under the run's last config (a failure raises,
+where the JAX CLI prints it). Every QAT scheme runs
 (`--quant-scheme=hawq|pact|lsq`, `--quantize_activation`,
 `--quantize_act_and_lin`, `--modify_feature_interaction`,
 `--act-percentile`), and every model option (`--qr-flag`, `--md-flag`,
@@ -331,8 +336,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="np.set_printoptions precision "
                         "(dlrm_s_pytorch.py:1061-1062)")
     p.add_argument("--plot-compute-graph", action="store_true",
-                   help=("dump the train step's graph (a later slice of the "
-                        "port; the JAX package dumps its StableHLO)"))
+                   help=("write the torch.export graph of the model's forward and "
+                         "loss on the last batch to <log-dir>/compute_graph.stablehlo.txt "
+                         "(the JAX package writes the train step's StableHLO there)"))
     p.add_argument("--enable-profiling", action="store_true")
     p.add_argument("--profile-dir", type=str, default="/tmp/dqrm_trace")
     p.add_argument("--platform", type=str, default="",
@@ -354,10 +360,6 @@ def unported(args) -> Optional[str]:
         return _later("--parallelism=hybrid", 6)
     if args.parallelism == "rowshard":
         return _later("--parallelism=rowshard", 7)
-    if args.export_stablehlo:
-        return _later("--export-stablehlo", 3)
-    if args.plot_compute_graph:
-        return _later("--plot-compute-graph", 3)
     return None
 
 
@@ -895,6 +897,7 @@ def _run(args, device, rank: int, nproc: int) -> dict:
             # dlrm_s_pytorch.py:1446-1471): kernel K2 for the packed tables,
             # K3 for the int8 layers
             from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import (
+                export_stablehlo,
                 make_serving_fn,
                 ptq_export,
                 serving_model_bytes,
@@ -908,6 +911,9 @@ def _run(args, device, rank: int, nproc: int) -> dict:
             )
             rank0_print(rank, f"PTQ model: {serving_model_bytes(sm)/1e6:.2f} MB")
             sfn = make_serving_fn(sm)
+            if args.export_stablehlo and rank == 0:  # rank 0 alone writes, as it saves
+                path = export_stablehlo(sm, tc.test_batch_size, args.export_stablehlo)
+                rank0_print(rank, f"exported the torch.export program to {path}")
             m = evaluate(cfg, state, test_loader, lambda s, b: sfn(_on(b, dev)))
         else:
             m = evaluate(cfg, state, test_loader, eval_fn)
@@ -1261,6 +1267,20 @@ def _run(args, device, rank: int, nproc: int) -> dict:
                 {"epoch": tc.nepochs, "batch": 0, "iter": it,
                  "test_acc": result.get("accuracy", 0.0), **arch_meta},
             )
+    if args.plot_compute_graph and rank == 0:
+        # torchviz compute-graph analogue (dlrm_s_pytorch.py:1797-1803): the
+        # torch.export graph of the forward and loss on the last batch
+        # (tracing runs nothing on the card)
+        from deep_quantized_recommendation_model_dqrm_tpu_torch.models.flax_module import (
+            DLRM,
+            export_forward_loss,
+        )
+
+        model = DLRM(config_for_epoch(cfg, tc, tc.nepochs - 1), params=state.params, qstate=state.qstate)
+        out = os.path.join(args.log_dir or ".", "compute_graph.stablehlo.txt")
+        with open(out, "w") as f:
+            f.write(str(export_forward_loss(model, _on(batch, dev))))
+        rank0_print(rank, f"compute graph -> {out}")
     document_tables("1")
     logger.close()
     return result

@@ -297,16 +297,33 @@ def test_act_with_linear_channel_raises_as_jax():
     ("--parallelism=dp --table-dtype=bfloat16", 2), ("--parallelism=pseudo --compute-dtype=bfloat16", 2),
 ])
 def test_unported_flags_exit_naming_their_slice(tmp_path, flag, item):
-    """Each flag the port does not run yet exits naming its ROADMAP item (3,
-    6, 7). The cases of items 2 and 5, once refused, now run: the model
+    """Each flag the port does not run yet exits naming its ROADMAP item (6,
+    7). The cases of items 2, 3 and 5, once refused, now run: the model
     options under the dp, dp-nosync and pseudo engines train to their final
     eval with finite logged losses (pseudo's equal to the JAX CLI's on the
-    same argv within rtol 1e-4), and `--ranking-range` without dp is
-    accepted and unused, as the JAX CLI takes it: the run logs the losses
-    of the run without it, bit for bit."""
-    if item not in (2, 5):
+    same argv within rtol 1e-4); `--ranking-range` without dp is accepted
+    and unused, as the JAX CLI takes it: the run logs the losses of the run
+    without it, bit for bit; `--export-stablehlo` (its path moved under the
+    test's directory) writes the PTQ model's program, which loads and
+    serves the test batch size, and `--plot-compute-graph` writes the
+    forward and loss graph under the log dir."""
+    if item not in (2, 3, 5):
         with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1 item {item}"):
             ttrain.run(COMMON + flag.split() + ["--platform=cpu"])
+        return
+    if item == 3:
+        from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import load_stablehlo
+
+        flag = flag.replace("/nonexistent", str(tmp_path))
+        d = str(tmp_path / "torch")
+        extra = PTQ if "export" in flag else []
+        m = ttrain.run(COMMON + extra + [flag, "--platform=cpu", f"--log-dir={d}/log"])
+        assert set(m) >= {"accuracy", "roc_auc"}
+        if "export" in flag:
+            probs = load_stablehlo(str(tmp_path / "x"))(torch.zeros((64, 13)), torch.zeros((4, 64, 1), dtype=torch.int32))
+            assert probs.shape == (64,) and bool(torch.isfinite(probs).all())
+        else:
+            assert "p_model_top_0_w" in open(f"{d}/log/compute_graph.stablehlo.txt").read()
         return
     argv = COMMON + flag.split() + ["--platform=cpu"]
     d = str(tmp_path / "torch")
@@ -324,6 +341,47 @@ def test_unported_flags_exit_naming_their_slice(tmp_path, flag, item):
         want = losses(dj)
         assert [s_ for s_, _ in got] == [s_ for s_, _ in want]
         np.testing.assert_allclose([v for _, v in got], [v for _, v in want], rtol=1e-4)
+
+
+def test_export_stablehlo_through_both_clis(tmp_path):
+    """`--inference-only --export-stablehlo` on the same argv through both
+    CLIs: each package's artifact, loaded by its own package, gives the
+    same probabilities on a test-sized batch within 1e-6 (the bound of
+    tests/test_torch_serving.py)."""
+    from deep_quantized_recommendation_model_dqrm_tpu.serving import load_stablehlo as j_load_stablehlo
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import load_stablehlo
+
+    argv = COMMON + PTQ
+    mt = ttrain.run(argv + [f"--export-stablehlo={tmp_path}/torch.pt2", "--platform=cpu"])
+    mj = jtrain.run(argv + [f"--export-stablehlo={tmp_path}/jax.bin"])
+    for k in ("accuracy", "roc_auc"):
+        assert abs(mt[k] - mj[k]) <= PTQ_METRIC_ATOL, (k, mt[k], mj[k])
+    rng = np.random.RandomState(5)
+    dense = rng.uniform(0, 2, size=(64, 13)).astype(np.float32)
+    indices = np.stack([rng.randint(0, n, size=(64, 1)) for n in (30000, 500, 20, 7)]).astype(np.int32)
+    got = load_stablehlo(f"{tmp_path}/torch.pt2")(torch.from_numpy(dense), torch.from_numpy(indices))
+    want = np.asarray(j_load_stablehlo(f"{tmp_path}/jax.bin")(dense, indices))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["none", "dp"])
+def test_plot_compute_graph_writes_the_forward_and_loss(tmp_path, mode):
+    """`--plot-compute-graph` writes <log-dir>/compute_graph.stablehlo.txt,
+    the JAX CLI's file name, under `--parallelism=none` and `dp` (the
+    one-rank gloo group): the torch.export graph of the forward and loss,
+    every linear layer's weight among its inputs, K4's op where
+    `--onehot-lookup-max-rows` sends the small tables to it."""
+    d = str(tmp_path / "torch")
+    argv = COMMON + ["--plot-compute-graph", "--onehot-lookup-max-rows=600", f"--parallelism={mode}"]
+    ttrain.run(argv + ["--platform=cpu", f"--log-dir={d}/log"])
+    text = open(f"{d}/log/compute_graph.stablehlo.txt").read()
+    for part, n in (("bot", 2), ("top", 1)):
+        assert all(f"p_model_{part}_{i}_w" in text for i in range(n)), part
+    assert text.count("torch.ops.dqrm.onehot_pooled_lookup_grouped.default(") == 1
+    if mode == "none":
+        dj = str(tmp_path / "jax")
+        jtrain.run(COMMON + ["--plot-compute-graph", f"--log-dir={dj}/log"])
+        assert os.path.getsize(f"{dj}/log/compute_graph.stablehlo.txt") > 0
 
 
 @pytest.mark.parametrize("flag", ["--data-generation=dataset", "--investigating-inputs"])

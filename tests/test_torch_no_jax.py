@@ -3,7 +3,8 @@ its entry points, the CLI's `train.run` among them (also under
 `--parallelism=dp`, `dp-nosync` and `pseudo`, on a one-rank gloo group),
 refuse to fall back to the CPU without being asked. A PACT, an LSQ and an
 integer-activation step (sparse and dense) and their CLI runs load no jax
-either."""
+either. The export path, the Module API and the reference-checkpoint
+import tool run with jax blocked too."""
 
 import os
 import subprocess
@@ -122,7 +123,8 @@ def test_port_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     n_modules = int(res.stdout.split()[-1])
-    for name in ("data.criteo", "data.native_ext", "data.trace", "tools.analysis"):
+    for name in ("data.criteo", "data.native_ext", "data.trace", "tools.analysis", "models.flax_module",
+                 "tools.torch_import"):
         assert f"deep_quantized_recommendation_model_dqrm_tpu_torch.{name}" in res.stdout
     # config, device, models, data (synthetic, binary, prefetch), ops, kernels, optim,
     # train_step, train, serving, utils (checkpoint, logging, profiling, tfevents), ...
@@ -236,3 +238,61 @@ def test_data_pipeline_runs_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split()[-1] == "OK" and "'clean': True" in res.stdout
+
+
+EXPORT_SCRIPT = textwrap.dedent(
+    """
+    import os, sys, tempfile
+    sys.modules["jax"] = None  # any import of jax now raises ImportError
+    import numpy as np, torch
+    from deep_quantized_recommendation_model_dqrm_tpu_torch import serving
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import DLRMConfig
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.data.synthetic import random_batch
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_params
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.flax_module import (
+        DLRM, export_forward_loss, predict_proba)
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.tools import torch_import
+    cfg = DLRMConfig(table_sizes=(50, 9, 7), embedding_dim=4, mlp_bot=(13, 8, 4), mlp_top=(10, 4, 1),
+                     onehot_lookup_max_rows=10)
+    try:
+        DLRM(cfg)
+    except RuntimeError as e:
+        assert "CUDA is not available" in str(e)
+    else:
+        raise AssertionError("the Module API fell back to the CPU")
+    tmp = tempfile.mkdtemp()
+    sm = serving.ptq_export(cfg, init_params(cfg, device="cpu"), emb_bits=4)
+    b = random_batch(cfg, 8, np.random.RandomState(0), device="cpu")
+    fn = serving.load_stablehlo(serving.export_stablehlo(sm, 8, os.path.join(tmp, "s.pt2")))
+    assert torch.equal(fn(b.dense, b.indices), serving.make_serving_fn(sm)(b))
+    model = DLRM(cfg, device="cpu")
+    assert predict_proba(model, b).shape == (8,)
+    ep = export_forward_loss(model, b)
+    assert any("dqrm.onehot_pooled_lookup_grouped" in str(n.target) for n in ep.graph.nodes)
+    p = model.params()
+    sd = {f"emb_l.{k}.weight": t.detach() for k, t in enumerate(p["emb"])}
+    for part in ("bot", "top"):
+        for j, l in enumerate(p[part]):
+            sd[f"{part}_l.{2 * j}.weight"], sd[f"{part}_l.{2 * j}.bias"] = l["w"].detach(), l["b"].detach()
+    torch.save({"state_dict": sd}, os.path.join(tmp, "ref.pt"))
+    torch_import.main([os.path.join(tmp, "ref.pt"), os.path.join(tmp, "out.npz")])
+    with np.load(os.path.join(tmp, "out.npz")) as z:
+        np.testing.assert_array_equal(z[".params['emb'][0]"], p["emb"][0].detach().numpy())
+    jax_pkg = "deep_quantized_recommendation_model_dqrm_tpu"
+    assert not [m for m in sys.modules if m == jax_pkg or m.startswith(jax_pkg + ".")]
+    assert sys.modules["jax"] is None
+    print("OK")
+    """
+)
+
+
+def test_export_module_api_and_import_tool_run_without_jax():
+    """The export path (`export_stablehlo` -> `load_stablehlo`), the
+    Module API (its refusal to fall back to the CPU, `predict_proba`,
+    `export_forward_loss` through K4's op) and the import tool's `main` on
+    a reference-layout `.pt`, with jax blocked."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", EXPORT_SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "OK"
