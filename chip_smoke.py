@@ -12,9 +12,11 @@ serving and the CLI, the Terabyte model at its full 49M rows on bf16
 tables, trained and served, the Criteo data pipeline from raw text
 through training and serving, directly and through the CLI, the engines
 under the model options and the ranking-range policy, the JAX
-package's Terabyte rehearsal recipe through the CLI, the serving artifact
-(`torch.export`), the Module API and the import of a reference
-checkpoint.
+package's Terabyte rehearsal recipes through the CLI (under dp and under
+the hybrid mega-table engine, with sharded checkpoints and streaming PTQ
+serving), the serving artifact (`torch.export`), the Module API, the
+import of a reference checkpoint, and the mega-table engines (hybrid,
+rowshard) at one rank on the card and at two gloo ranks sharing it.
 
     python3 chip_smoke.py
 
@@ -138,7 +140,7 @@ launch counters of its kernels set to 0 just before and read just after:
    trace replay of dist files profiled from processed day-0 ids;
 23. dp_tricks: the dp engine (one NCCL rank, B = 128, bits 8 + EC) under
    QR, MD, fixed and learned v_W, learned v_W under PACT and bf16
-   compute, 32 steps of the kernel path against the plain path each, a
+   compute, 16 steps of the kernel path against the plain path each, a
    timed megastep beside the tricks phase's step; the pseudo engine (4
    workers) on fixed v_W and bf16 tables, 32 steps kernel against plain,
    the tables held by bf16 ulps;
@@ -181,7 +183,35 @@ launch counters of its kernels set to 0 just before and read just after:
    --plot-compute-graph: its AUC against the same weights through
    `make_serving_fn` and the artifact, within 1e-4; then 8 training
    steps from the import with --plot-compute-graph, the graph holding
-   every layer and K4's op.
+   every layer and K4's op;
+30. hybrid_tb: the hybrid engine (`parallel/hybrid.py`, one NCCL rank) at
+   Terabyte's full width on bf16 tables (the params tb_bf16 and tb_dp
+   trained, packed into one 6.29 GB block), B = 2048, k = 8,
+   scale_update_period 4: 8 steps at grad bits 32 and 32 at grad bits 8
+   against the single-device `train` step from the same params and
+   batches (the tables within one bf16 ulp per update of the row), both
+   timed in turns and profiled; the peak memory of `ptq_export_streaming`
+   against `ptq_export` on the same tables, bit-equal models;
+31. rowshard: the row-sharded engine (`parallel/rowshard.py`, one NCCL
+   rank) at Kaggle's full width: 32 steps against `train` within its
+   bounds, timed in turns, profiled;
+32. cli_hybrid: scripts/terabyte_rehearsal_hybrid.sh:17-31 through
+   `train.run --parallelism=hybrid` at full Terabyte width (bf16 tables,
+   --pin-table-layout, megasteps of 8, B = 2048): epochs 0-1 and a sharded
+   save, a `--load-model` resume for epochs 2-3 and a save, then
+   `--inference-only` PTQ from it through `ptq_export_streaming` (held
+   bit-equal to `ptq_export`, 1,572,818,576 bytes), one K2 and 7 K3 launches
+   a batch, the AUC of the eager serving function's (cut: 24 batches an
+   epoch);
+33. cli_rowshard: `train.run --parallelism=rowshard` at Kaggle's width, 32
+   steps with a sharded save at the test eval, then `--load-model
+   --inference-only` through the engine's eval step;
+34. mega2 (hybrid2, rowshard2): both engines at world 2, two gloo
+   processes on the one card, Kaggle's width (its rows over two blocks),
+   B = 128 global, 8 steps against world 1 from the same params and
+   batches (hybrid also QR + learned v_W, rowshard also PACT with its
+   normalizer a MAX over the ranks); hybrid's compressed all-to-all at 8
+   and 4 bits against the 32-bit exchange.
 
 Kernel K6 (`dma_row_update`) is on no path; its kernel phase holds it
 against its plain version on the 2,202,608-row table.
@@ -195,7 +225,9 @@ dp_ranking, dense_bf16, module_graph, eval, export, serve, profile (serve),
 serve_onehot with profile, export_artifact, serve_cat, tb_bf16 with
 profile, tb_dp with profile, tb_serve, criteo, cli, cli_schemes,
 cli_tricks, cli_import, cli_dp, cli_criteo, cli_tb_rehearsal, dp2,
-kernels.
+kernels; the mega-table phases slot in: hybrid_tb (with profiles) after
+tb_dp, rowshard (with profile) after dp_ranking, cli_hybrid and
+cli_rowshard after cli_tb_rehearsal, mega2 after dp2.
 
 Output: one JSON line per phase; then the {"kernels": [...]} summary; then
 the card's name and power limit as nvidia-smi gives them; and last
@@ -337,8 +369,11 @@ def device_ops(fn, n: int):
 def device_ms(fn, n: int = 5):
     """Device time of one fn() call in ms: the sum of its device operations'
     durations, without the gaps between launches; "not measured" where the
-    profiler records no device time."""
+    profiler records no device time in two tries (a trace of a few short
+    kernels came back empty once in a run)."""
     ops, _ = device_ops(fn, n)
+    if not ops:
+        ops, _ = device_ops(fn, n)
     return sum(o["ms_per_call"] for o in ops) if ops else "not measured"
 
 
@@ -2939,7 +2974,7 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(x.abs().float().clamp_min(2.0 ** -126))) - 7)
 
 
-def bf16_tables_check(pa, pb, indices, small, calls, label):
+def bf16_tables_check(pa, pb, indices, small, calls, label, mlp_atol=TRAIN_PARAM_ATOL):
     """Two runs' bf16 tables (`pa`'s and `pb`'s "emb", the runs' k-step
     `indices` [k, T, B, P] taken `calls` times) held element by element to
     bf16 ulps (of the larger of the two values and of the table's init
@@ -2949,7 +2984,7 @@ def bf16_tables_check(pa, pb, indices, small, calls, label):
     rounded once, so one ulp per step that touched the row; a scatter
     table one `index_add_` per update, each rounding to bf16 in a
     run-dependent order, so one per update of the row. The MLPs within
-    TRAIN_PARAM_ATOL. Returns the stats."""
+    `mlp_atol` (None: reported, not held). Returns the stats."""
     beyond, max_ulps, max_touch, differ, worst = 0, {"k1": 0.0, "scatter": 0.0}, 0, 0, []
     k_steps = indices.shape[0]
     for k, (a, b) in enumerate(zip(pa["emb"], pb["emb"])):
@@ -2976,8 +3011,8 @@ def bf16_tables_check(pa, pb, indices, small, calls, label):
                   for x, y in zip(leaves(pa[part]), leaves(pb[part])))
     check(beyond == 0, f"{label}: {beyond} table elements beyond their bf16 ulps (K1: per step that "
                        f"touched the row; scatter: per update of the row): {worst}")
-    check(mlp_err <= TRAIN_PARAM_ATOL, f"{label}: MLP kernel vs plain {mlp_err} <= {TRAIN_PARAM_ATOL}")
-    return {"mlp_max_abs_err": mlp_err, "mlp_atol": TRAIN_PARAM_ATOL, "table_max_bf16_ulps": max_ulps,
+    check(mlp_atol is None or mlp_err <= mlp_atol, f"{label}: MLP {mlp_err} <= {mlp_atol}")
+    return {"mlp_max_abs_err": mlp_err, "mlp_atol": mlp_atol, "table_max_bf16_ulps": max_ulps,
             "table_elements_that_differ": differ, "table_elements_beyond_bound": beyond,
             "bound": "bf16 ulps (of the larger value, at least the table's init bound): K1 tables "
                      "one per step that touched the row, scatter tables one per update of the row",
@@ -3526,7 +3561,7 @@ DP_TRICK_OPTIONS = {  # the tricks phase's options, and the other pooling and co
     "vw_pact": dict(weighted_pooling="learned"),  # with quant_scheme="pact"
     "bf16_compute": dict(compute_dtype="bfloat16"),
 }
-DP_TRICK_STEPS = 32  # kernel path against plain path
+DP_TRICK_STEPS = 16  # kernel path against plain path
 RANKING_STEPS = 32
 RANKING_STEP_CHECKS = 4  # single steps whose skipped tables are checked untouched
 CLI_REFUSED_BATCHES = 16
@@ -3668,8 +3703,8 @@ def phase_dp_tricks(cfg, params0, trick_ms):
     """The dp engine (one-rank NCCL, B = 128, megasteps of 16, grad bits 8
     with error compensation, K1 on the 18 small tables) under the tricks
     phase's options (QR mult c = 4, MD temperature 0.3, learned v_W), fixed
-    v_W, learned v_W under PACT and compute_dtype="bfloat16": 32 steps of
-    the kernel path against 32 of the plain path under the tricks phase's
+    v_W, learned v_W under PACT and compute_dtype="bfloat16": 16 steps of
+    the kernel path against 16 of the plain path under the tricks phase's
     gates (PACT's parameters scaled by max(1, |value|)), then one timed
     megastep with the counters from 0 (one K1 launch a step) beside the
     single-device step of the tricks phase. Then the pseudo engine (4
@@ -3693,7 +3728,7 @@ def phase_dp_tricks(cfg, params0, trick_ms):
         start = lambda: comm_grad.dp_state_from(tree_map(torch.clone, params), init_quant_state(tcfg))  # noqa: E731
         runs = {plain: run_chain(comm_grad.make_dp_train_step(tcfg, tc, steps_per_dispatch=K_MEGA, plain=plain),
                                  start(), batches, DP_TRICK_STEPS // K_MEGA) for plain in (False, True)}
-        vs_plain = path_diff(*runs[False], *runs[True], f"dp_tricks {name}: 32 steps kernel vs plain",
+        vs_plain = path_diff(*runs[False], *runs[True], f"dp_tricks {name}: {DP_TRICK_STEPS} steps kernel vs plain",
                              scaled=name == "vw_pact")
         state = runs[False][0]
         del runs, params
@@ -3706,7 +3741,7 @@ def phase_dp_tricks(cfg, params0, trick_ms):
         if tcfg.weighted_pooling == "learned":
             check(sum(int((v != 1).sum()) for v in state.params["v_W"]) > 0, f"dp_tricks {name}: v_W moved")
         total += launches["onehot_dense_grad"]
-        rows[name] = {"flags": DP_TRICK_OPTIONS[name], "kernel_vs_plain_32_steps": vs_plain, "launches": launches,
+        rows[name] = {"flags": DP_TRICK_OPTIONS[name], f"kernel_vs_plain_{DP_TRICK_STEPS}_steps": vs_plain, "launches": launches,
                       "dp_step_ms": ms, "single_device_step_ms": trick_ms.get(name),
                       "phase_s": time.perf_counter() - t1}
         del state
@@ -4722,6 +4757,534 @@ def phase_cli_import(cfg):
     return {**launches, "onehot_dense_grad": 8}
 
 
+# the mega-table engines (hybrid_tb, rowshard, mega2, cli_hybrid,
+# cli_rowshard): `--parallelism=hybrid` and `rowshard`
+HYBRID_TB_K = 8  # the hybrid rehearsal's --steps-per-dispatch
+HYBRID_TB_CALLS = 4  # 32 steps: refreshes at 0, 4, ..., 28
+HYBRID_TB_PERIOD = 4
+ROWSHARD_CALLS = 2  # 32 steps of 16
+MEGA2_STEPS = 8
+MEGA2_PERIOD = 4  # a refresh at step 4 falls inside the compared steps
+MEGA2_TIMEOUT_S = 600
+CLI_HYBRID_BATCHES = 24  # per epoch: 3 megasteps of 8; epochs 0-1, then 2-3 resumed
+CLI_ROWSHARD_BATCHES = 32
+
+
+def mega_state(engine, cfg, params, plan, rank=0):
+    """A mega-table engine's state over `params`: this rank's block packed
+    from the tables (a copy), the replicated rest shared, a fresh QuantState."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_quant_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import hybrid, rowshard
+
+    dev = params["bot"][0]["w"].device
+    if engine == "hybrid":
+        mlp, vw = hybrid.split_params(params, lambda v: hybrid.pack_vw(v, plan, rank, dev), dev)
+        return hybrid.HybridState(hybrid.pack_tables(params["emb"], plan, rank, dev), mlp,
+                                  init_quant_state(cfg, dev), vw)
+    mlp, vw = hybrid.split_params(params, lambda v: rowshard.pack_rows_vw(v, plan, rank, dev), dev)
+    return rowshard.RowShardState(rowshard.pack_rows(params["emb"], plan, rank, dev), mlp,
+                                  init_quant_state(cfg, dev), vw)
+
+
+def mega_tables(engine, cfg, state, plan):
+    """The dense tables of a one-rank mega-table state, views of its block."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import hybrid, rowshard
+
+    if engine == "hybrid":
+        return hybrid.unpack_tables(state.mega, plan, cfg.table_sizes)
+    return rowshard.unpack_rows(state.mega, plan, cfg.table_sizes)
+
+
+def phase_hybrid_tb(cfg, params, tb_step_ms):
+    """The hybrid engine at Terabyte's full width (scripts/
+    terabyte_rehearsal_hybrid.sh:17-31 on one rank): `terabyte_config` at
+    its real 49,126,297 rows on bf16 tables (the params tb_bf16 and tb_dp
+    trained, packed into one 6.29 GB block), one NCCL rank, B = 2048, k = 8,
+    scale_update_period = 4 (refreshes at steps 0, 4, ...). Against the
+    single-device `train` step (K1 on the 16 small tables) from the same
+    params and batches: first 8 steps at grad bits 32 (losses rtol 1e-4, the
+    MLP 1e-5), then 32 at grad bits 8, the hybrid rehearsal's (losses within
+    TRAJECTORY_LOSS_RTOL; the MLP's INT8-exchange drift reported); each bf16
+    table element within one ulp per update of its row (the hybrid step
+    rounds each update, `train`'s K1 once a step). Then both steps timed by
+    CUDA events in turns (train, hybrid, hybrid, train), each profiled
+    (launches, busy, idle), with the peak memory of each engine's timed
+    chain; and the peak memory of `ptq_export_streaming` against
+    `ptq_export` on the same tables, the two models bit-equal."""
+    import dataclasses
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import TrainConfig
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_quant_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import hybrid
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import (
+        ptq_export,
+        ptq_export_streaming,
+        serving_model_bytes,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import TrainState, make_multi_train_step
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, quant=dataclasses.replace(cfg.quant, scale_update_period=HYBRID_TB_PERIOD))
+    plan = hybrid.plan_table_sharding(cfg.table_sizes, 1)
+    batches = device_batches(cfg, TB_B, HYBRID_TB_K, 240)
+    train_tc = TrainConfig(batch_size=TB_B, learning_rate=0.1, onehot_update_max_rows=SMALL_ROWS)
+    train_step = make_multi_train_step(cfg, train_tc, HYBRID_TB_K, sparse_emb_grad=True)
+    compared = {}
+    for bits, calls in ((32, 1), (8, HYBRID_TB_CALLS)):
+        tc = TrainConfig(batch_size=TB_B, learning_rate=0.1, grad_quant_bits=bits)
+        hstep = hybrid.make_hybrid_train_step(cfg, tc, plan, steps_per_dispatch=HYBRID_TB_K)
+        tstate, tl = run_chain(train_step, TrainState(tree_map(torch.clone, params), None, init_quant_state(cfg)),
+                               batches, calls)
+        hstate, hl = run_chain(hstep, mega_state("hybrid", cfg, params, plan), batches, calls)
+        check(bool(torch.isfinite(hl).all()), f"hybrid_tb bits {bits}: finite losses")
+        loss_err = ((hl - tl).abs() / tl.abs()).max().item()
+        rtol = TRAIN_LOSS_RTOL if bits == 32 else TRAJECTORY_LOSS_RTOL
+        check(loss_err <= rtol, f"hybrid_tb bits {bits}: {calls * HYBRID_TB_K} steps, loss hybrid vs train "
+                                f"{loss_err} <= {rtol}")
+        # the refreshed scales follow the tables' extremes, held above by ulps
+        scale_err = ((hstate.qstate.emb_scales - tstate.qstate.emb_scales).abs()
+                     / tstate.qstate.emb_scales).max().item()
+        check(hstate.qstate.step == calls * HYBRID_TB_K, f"hybrid_tb bits {bits}: qstate.step")
+        ulps = bf16_tables_check({"emb": mega_tables("hybrid", cfg, hstate, plan), **hstate.mlp}, tstate.params,
+                                 batches.indices, (), calls, f"hybrid_tb bits {bits}",
+                                 mlp_atol=TRAIN_PARAM_ATOL if bits == 32 else None)
+        compared[f"grad_bits_{bits}"] = {"steps": calls * HYBRID_TB_K, "loss_max_rel_err": loss_err,
+                                         "loss_rtol": rtol, "scale_max_rel_err": scale_err, **ulps}
+        if bits == 32:
+            del tstate, hstate
+    # timed in turns from the 32-step states: train, hybrid, hybrid, train
+    ms = {"train": [], "hybrid": []}
+    peak = {}
+    steps = {"train": train_step, "hybrid": hstep}
+    states = {"train": tstate, "hybrid": hstate}
+    for name in ("train", "hybrid", "hybrid", "train"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        m, _, states[name] = event_ms_per_step(steps[name], states[name], batches, HYBRID_TB_K, chains=1, calls=2)
+        peak[name] = {"peak_bytes": torch.cuda.max_memory_allocated(), "resident_before_bytes": base}
+        ms[name].append(m)
+        check(bool(torch.isfinite(steps[name].losses).all()), f"hybrid_tb {name}: finite timed losses")
+    for name in ("train", "hybrid"):
+        states[name] = profile_megastep(f"hybrid_tb {name}", steps[name], states[name], batches, HYBRID_TB_K,
+                                        batch=TB_B, world=1)
+    del states, tstate, hstate
+    # the PTQ export's peak, whole tables against streamed chunks
+    ptq = {}
+    for name in ("ptq_export", "ptq_export_streaming"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        if name == "ptq_export":
+            sm = ptq_export(cfg, params, emb_bits=4, mlp_bits=8)
+        else:
+            sm = ptq_export_streaming(cfg, lambda k: params["emb"][k], params["bot"], params["top"])
+        torch.cuda.synchronize()
+        ptq[name] = {"s": time.perf_counter() - t, "peak_above_resident_bytes": torch.cuda.max_memory_allocated() - base,
+                     "resident_before_bytes": base, "serving_model_bytes": serving_model_bytes(sm)}
+        if name == "ptq_export":
+            ref = sm
+        del sm
+    stream = ptq_export_streaming(cfg, lambda k: params["emb"][k], params["bot"], params["top"])
+    equal = all(torch.equal(a.data, b.data) and torch.equal(a.scale, b.scale) for a, b in zip(stream.emb, ref.emb))
+    check(equal and ptq["ptq_export_streaming"]["serving_model_bytes"] == TB_SERVE_BYTES,
+          f"hybrid_tb: streaming PTQ bit-equal to ptq_export, {TB_SERVE_BYTES} bytes ({ptq})")
+    del stream, ref
+    emit({"phase": "hybrid_tb", "config": "terabyte", "source": "scripts/terabyte_rehearsal_hybrid.sh:17-31",
+          "engine": "hybrid", "world": 1, "backend": "nccl", "table_dtype": "bfloat16",
+          "rows": sum(cfg.table_sizes), "block_rows": plan.block_rows, "batch": TB_B, "k": HYBRID_TB_K,
+          "scale_update_period": HYBRID_TB_PERIOD, "against": "make_multi_train_step (K1 on 16 tables)",
+          "compared": compared, "step_ms": ms, "tb_bf16_step_ms": tb_step_ms, "peak_memory": peak,
+          "samples_per_s": {k: TB_B / statistics.median(v) * 1e3 for k, v in ms.items()},
+          "ptq_peak_memory": ptq, "phase_s": time.perf_counter() - t0})
+
+
+def phase_rowshard(cfg, params0, train_step_ms):
+    """The row-sharded engine on one NCCL rank at Kaggle's full width (the
+    33,762,577 rows in one chunk), INT4 HAWQ QAT, B = 128, k = 16, grad bits
+    32: 32 steps against the `train` step (K1 on the 18 small tables) from
+    the same params and batches, under the train phase's bounds (losses
+    rtol 1e-4, tables and MLP 1e-5); then both timed in turns (train,
+    rowshard, rowshard, train) and the rowshard megastep profiled."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import TrainConfig
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_quant_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import rowshard
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import TrainState, make_multi_train_step
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    tc = TrainConfig(batch_size=B_TRAIN, learning_rate=0.1, onehot_update_max_rows=SMALL_ROWS, grad_quant_bits=32)
+    plan = rowshard.plan_row_sharding(cfg.table_sizes, 1)
+    batches = device_batches(cfg, B_TRAIN, K_MEGA, 250)
+    steps = {"train": make_multi_train_step(cfg, tc, K_MEGA, sparse_emb_grad=True),
+             "rowshard": rowshard.make_rowshard_train_step(cfg, tc, plan, steps_per_dispatch=K_MEGA)}
+    tstate, tl = run_chain(steps["train"], TrainState(tree_map(torch.clone, params0), None, init_quant_state(cfg)),
+                           batches, ROWSHARD_CALLS)
+    rstate, rl = run_chain(steps["rowshard"], mega_state("rowshard", cfg, params0, plan), batches, ROWSHARD_CALLS)
+    rparams = {**rstate.mlp, "emb": mega_tables("rowshard", cfg, rstate, plan)}
+    diff = path_diff(TrainState(rparams, None, rstate.qstate), rl, tstate, tl, "rowshard vs train")
+    check(torch.equal(rstate.qstate.emb_scales, tstate.qstate.emb_scales), "rowshard: the scales of train")
+    ms = {"train": [], "rowshard": []}
+    states = {"train": tstate, "rowshard": rstate}
+    for name in ("train", "rowshard", "rowshard", "train"):
+        m, _, states[name] = event_ms_per_step(steps[name], states[name], batches, K_MEGA, chains=1, calls=2)
+        ms[name].append(m)
+    profile_megastep("rowshard", steps["rowshard"], states["rowshard"], batches, K_MEGA, batch=B_TRAIN, world=1)
+    del states, tstate, rstate, rparams
+    emit({"phase": "rowshard", "config": "kaggle", "engine": "rowshard", "world": 1, "backend": "nccl",
+          "rows": sum(cfg.table_sizes), "chunk": plan.chunk, "batch": B_TRAIN, "k": K_MEGA,
+          "steps": ROWSHARD_CALLS * K_MEGA, "against": "make_multi_train_step (K1 on 18 tables)",
+          "vs_train": diff, "step_ms": ms, "train_phase_step_ms": train_step_ms,
+          "phase_s": time.perf_counter() - t0})
+
+
+def mega2_rank(rank: int, store: str, out) -> None:
+    """One rank of the mega2 phase, in its own process: a gloo group of two
+    on the one card (and a one-rank subgroup of each rank for the world-1
+    runs). Kaggle's full width, INT4 HAWQ QAT with scale_update_period 4,
+    B = 128 global, 8 steps: each engine at world 2 against world 1 from the
+    same params and global batches (32-bit exchanges; hybrid also QR +
+    learned v_W, rowshard also PACT, whose per-table normalizer is a MAX
+    over the ranks); hybrid's compressed all-to-all at 8 and 4 bits against
+    the 32-bit exchange on the same pooled block (within half the
+    quantizer's step) and over the 8 steps. Each rank compares its own
+    block. Puts (rank, results) on `out`."""
+    import dataclasses
+    import traceback
+
+    import torch.distributed as dist
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import QuantConfig, TrainConfig, kaggle_config
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_params
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops import quant as q
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import compressed_a2a, hybrid, multihost, rowshard
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        multihost.init_distributed(f"file://{store}", DP2_RANKS, rank, backend="gloo", timeout_s=300)
+        solo = {r: dist.new_group([r], backend="gloo") for r in range(DP2_RANKS)}[rank]
+        cfg = kaggle_config(QuantConfig(enabled=True, embedding_bit=4, weight_bit=4, scale_update_period=MEGA2_PERIOD))
+        params0 = init_params(cfg, seed=0)
+        batches = device_batches(cfg, B_TRAIN, MEGA2_STEPS, 260)
+        tc = TrainConfig(batch_size=B_TRAIN, learning_rate=0.1, grad_quant_bits=32)
+        qr_cfg = dataclasses.replace(cfg, weighted_pooling="learned", **TRICK_OPTIONS["qr"])
+        qr_params = {**init_params(qr_cfg, seed=0), "v_W": [torch.ones((n,), device=DEVICE) for n in cfg.table_sizes]}
+        pact_cfg = dataclasses.replace(cfg, quant=dataclasses.replace(cfg.quant, quant_scheme="pact"))
+        engines = {"hybrid": (hybrid.plan_table_sharding, hybrid.make_hybrid_train_step),
+                   "rowshard": (rowshard.plan_row_sharding, rowshard.make_rowshard_train_step)}
+
+        def run(engine, ecfg, etc, params, world):
+            plan_fn, make = engines[engine]
+            kinds = tuple(ecfg.table_kind(k) for k in range(ecfg.num_tables))
+            plan = plan_fn(ecfg.table_sizes, world, kinds=kinds)
+            step = make(ecfg, etc, plan, group=solo if world == 1 else None, steps_per_dispatch=MEGA2_STEPS,
+                        backend="gloo")
+            st, losses = run_chain(step, mega_state(engine, ecfg, params, plan, rank if world == 2 else 0),
+                                   batches, 1)
+            torch.cuda.synchronize()
+            return plan, st, losses
+
+        def mine(engine, plan1, st1, plan2, st2, ecfg):
+            """(this rank's world-2 rows, the same rows of the world-1 state)."""
+            if engine == "hybrid":
+                t2 = hybrid.unpack_tables(st2.mega, plan2, ecfg.table_sizes, rank)
+                t1 = hybrid.unpack_tables(st1.mega, plan1, ecfg.table_sizes, 0)
+                pairs = [(a, b) for a, b in zip(t2, t1) if a is not None]
+                if st2.vw is not None:
+                    v2 = hybrid.unpack_vw(st2.vw, plan2, ecfg.table_sizes, rank)
+                    v1 = hybrid.unpack_vw(st1.vw, plan1, ecfg.table_sizes, 0)
+                    pairs += [(a, b) for a, b in zip(v2, v1) if a is not None]
+                return pairs
+            lo = rank * plan2.chunk
+            n = min(plan2.chunk, st1.mega.shape[0] - lo)
+            return [(st2.mega[:n], st1.mega[lo:lo + n])]
+
+        res = {}
+        cases = (("hybrid", "fp32", cfg, params0), ("hybrid", "qr_vw", qr_cfg, qr_params),
+                 ("rowshard", "fp32", cfg, params0), ("rowshard", "pact", pact_cfg, params0))
+        for engine, name, ecfg, params in cases:
+            dense = [k for k in range(ecfg.num_tables) if ecfg.table_kind(k) == "dense"]
+            plan1, st1, l1 = run(engine, ecfg, tc, params, 1)
+            plan2, st2, l2 = run(engine, ecfg, tc, params, 2)
+            pairs = mine(engine, plan1, st1, plan2, st2, ecfg)
+            pairs += list(zip(leaves(st2.mlp), leaves(st1.mlp)))
+            # PACT's tables and logits run to thousands at lr 0.1 (its losses
+            # to 1e5): each element is held to 1e-5 x max(1, the largest
+            # |value| of its row), the scale its float32 sums carry
+            scaled = name == "pact"
+
+            def err_of(a, b):
+                d = (a.float() - b.float()).abs()
+                if not scaled:
+                    return d.max().item()
+                ref = b.float().abs()
+                ref = ref.amax(dim=-1, keepdim=True) if ref.dim() > 1 else ref.amax()
+                return (d / ref.clamp_min(1.0)).max().item()
+
+            err = max(err_of(a, b) for a, b in pairs)
+            res[f"{engine}_{name}"] = {"loss_max_rel_err": ((l2 - l1).abs() / l1.abs()).max().item(),
+                                       "param_max_err": err, "scaled": scaled, "losses": l2.tolist(),
+                                       # the dense tables' (a QR/MD table's scale is unused),
+                                       # refreshed at step 4 from tables whose atomics
+                                       # summed in another order
+                                       "scale_max_rel_err": ((st2.qstate.emb_scales[dense] - st1.qstate.emb_scales[dense]).abs()
+                                                             / st1.qstate.emb_scales[dense]).max().item(),
+                                       "steps": st2.qstate.step}
+            del st1, st2, pairs
+            if engine == "hybrid" and name == "fp32":
+                base_losses = l2
+        # the compressed exchange on the first batch's pooled block of this rank's slots
+        plan2 = hybrid.plan_table_sharding(cfg.table_sizes, DP2_RANKS)
+        block = hybrid.pack_tables(params0["emb"], plan2, rank, DEVICE)
+        lids = torch.as_tensor(plan2.local_ids[rank], dtype=torch.long, device=DEVICE)
+        lbase = torch.as_tensor(plan2.local_base[rank], dtype=torch.long, device=DEVICE)
+        pooled = hybrid._local_pooled(block, hybrid._local_rows(batches.indices[0], lids, lbase), None)
+        gmax = pooled.abs().max()
+        dist.all_reduce(gmax, op=dist.ReduceOp.MAX)
+        y32 = compressed_a2a.all_to_all(pooled)
+        for bits in (8, 4):
+            y = compressed_a2a.compressed_all_to_all(pooled, None, bits)
+            # half the quantizer's step, plus the float32 rounding of the dequantized product
+            bound = (gmax / q.intmax(bits) / 2 + gmax * 2.0**-20).item()
+            _, _, lq = run("hybrid", cfg, tc.replace(a2a_quant_bits=bits), params0, 2)
+            res[f"a2a{bits}"] = {"exchange_max_abs_err": (y - y32).abs().max().item(), "bound": bound,
+                                 "loss_max_rel_err_vs_32": ((lq - base_losses).abs() / base_losses.abs()).max().item(),
+                                 "losses": lq.tolist()}
+        res["world"] = multihost.world()
+        out.put((rank, res))
+    except Exception:  # reported to the parent, which fails the phase
+        out.put((rank, {"error": traceback.format_exc()}))
+    finally:
+        multihost.shutdown()
+
+
+def phase_mega2():
+    """The mega-table engines at world 2 on the one card (see `mega2_rank`):
+    two processes, ranks 0 and 1 of a gloo group (each stages the new
+    collectives through host copies, `multihost.staged`). Held: world 2
+    against world 1 within the train phase's bounds (losses rtol 1e-4,
+    parameters 1e-5; PACT's 1e-5 x max(1, the largest |value| of the row)),
+    the scales within 1e-5 relative; the
+    compressed exchange within half the quantizer's step of the plain one,
+    and its 8-step losses within TRAJECTORY_LOSS_RTOL of the 32-bit run's."""
+    import queue
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    store = os.path.join(tempfile.mkdtemp(prefix="dqrm_mega2_"), "store")
+    procs = [ctx.Process(target=mega2_rank, args=(r, store, out)) for r in range(DP2_RANKS)]
+    for p in procs:
+        p.start()
+    try:
+        results = dict(out.get(timeout=MEGA2_TIMEOUT_S) for _ in procs)
+    except queue.Empty:
+        results = {}
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(sorted(results) == list(range(DP2_RANKS)), f"mega2: both ranks reported ({sorted(results)})")
+    errors = {r: res["error"] for r, res in sorted(results.items()) if "error" in res}
+    check(not errors, "mega2: " + "\n".join(f"rank {r} failed:\n{e}" for r, e in errors.items()))
+    r0, r1 = results[0], results[1]
+    check(r0["world"] == (0, 2) and r1["world"] == (1, 2), "mega2: ranks 0 and 1 of 2")
+    for key in ("hybrid_fp32", "hybrid_qr_vw", "rowshard_fp32", "rowshard_pact"):
+        a, b = r0[key], r1[key]
+        check(a["losses"] == b["losses"] and all(np.isfinite(a["losses"])), f"mega2 {key}: the ranks' losses")
+        for r, d in ((0, a), (1, b)):
+            check(d["loss_max_rel_err"] <= TRAIN_LOSS_RTOL and d["param_max_err"] <= TRAIN_PARAM_ATOL
+                  and d["scale_max_rel_err"] <= TRAIN_PARAM_ATOL and d["steps"] == MEGA2_STEPS,
+                  f"mega2 {key} rank {r}: world 2 vs 1 {d}")
+    for bits in (8, 4):
+        for r, res in results.items():
+            d = res[f"a2a{bits}"]
+            check(d["exchange_max_abs_err"] <= d["bound"], f"mega2 a2a{bits} rank {r}: {d}")
+            check(d["loss_max_rel_err_vs_32"] <= TRAJECTORY_LOSS_RTOL and all(np.isfinite(d["losses"])),
+                  f"mega2 a2a{bits} rank {r}: 8 steps vs the 32-bit exchange {d}")
+    summary = {k: {r: {kk: vv for kk, vv in results[r][k].items() if kk != "losses"} for r in results}
+               for k in r0 if k != "world"}
+    for engine, keys in (("hybrid2", ("hybrid_fp32", "hybrid_qr_vw", "a2a8", "a2a4")),
+                         ("rowshard2", ("rowshard_fp32", "rowshard_pact"))):
+        emit({"phase": engine, "of": "mega2", "world": DP2_RANKS, "backend": "gloo",
+              "devices": torch.cuda.device_count(), "config": "kaggle", "batch": B_TRAIN, "steps": MEGA2_STEPS,
+              "scale_update_period": MEGA2_PERIOD, "checks": {k: summary[k] for k in keys}})
+    emit({"phase": "mega2", "phases": ["hybrid2", "rowshard2"], "phase_s": time.perf_counter() - t0})
+
+
+def phase_cli_hybrid():
+    """The JAX package's hybrid Terabyte rehearsal (scripts/
+    terabyte_rehearsal_hybrid.sh:17-31) through the port's `train.run` at
+    full width: `--parallelism=hybrid` on the one-rank NCCL group,
+    learnable data, bf16 tables, `--pin-table-layout` (the tables drawn on
+    the host and copied into the block one at a time), the 4-epoch QAT
+    schedule, megasteps of 8, B = 2048. Cut in depth: 24 batches an epoch;
+    epochs 0-1 run and save the sharded state, a second run resumes it
+    (`--load-model`) for epochs 2-3 and saves again; then `--inference-only`
+    PTQ (INT4 tables, INT8 MLP) from that checkpoint, exported one table at
+    a time (`ptq_export_streaming`, held bit-equal to `ptq_export` of the
+    same views): 1,572,818,576 bytes, one grouped K2 and 7 K3 launches a
+    test batch, and its AUC equal to the eager serving function's of the
+    `ptq_export` model on the same test batches. Returns the launches."""
+    import shutil
+    import tempfile
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch import serving, train
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
+        packed_pooled_lookup_grouped as k2,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul import int8_linear as k3
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import _on
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.checkpoint_sharded import ShardedCheckpointManager
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dqrm_cli_hybrid_")
+    io_s = {"save": [], "restore": []}
+    methods = {name: getattr(ShardedCheckpointManager, name) for name in io_s}
+    stream_export = serving.ptq_export_streaming
+    captured = {}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = methods[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            io_s[name].append(time.perf_counter() - t)
+            return out
+        return call
+
+    def export_and_reference(cfg, get_table, bot, top, vw=None, **kw):
+        """The CLI's streaming export, and `ptq_export` of the same tables."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        sm = stream_export(cfg, get_table, bot, top, vw=vw, **kw)
+        torch.cuda.synchronize()
+        captured.update(export_s=time.perf_counter() - t, resident_before_bytes=base,
+                        peak_above_resident_bytes=torch.cuda.max_memory_allocated() - base)
+        ref = serving.ptq_export(cfg, {"emb": [get_table(k) for k in range(cfg.num_tables)], "bot": bot, "top": top},
+                                 emb_bits=kw["emb_bits"], mlp_bits=kw["mlp_bits"])
+        captured["bit_equal"] = all(torch.equal(a.data, b.data) and torch.equal(a.scale, b.scale)
+                                    for a, b in zip(sm.emb, ref.emb))
+        captured["ref"] = ref
+        return sm
+
+    for name in io_s:
+        setattr(ShardedCheckpointManager, name, timed(name))
+    serving.ptq_export_streaming = export_and_reference
+    try:
+        ck, log = os.path.join(tmp, "ckpt"), os.path.join(tmp, "log")
+        data = ["--data-generation=learnable", f"--num-batches={CLI_HYBRID_BATCHES}"]
+        base = data + CLI_TB_ARCH + [
+            "--pin-table-layout", "--quantization_flag", "--embedding_bit=4", "--weight_bit=4",
+            "--scale-update-period=1000", "--pretrain_and_quantize", "--pretrain_and_quantize_lin",
+            "--linear_shift_down_bit_width", "--shift-bit-width-to=4", "--parallelism=hybrid",
+            "--steps-per-dispatch=8", "--mini-batch-size=2048", "--test-mini-batch-size=8192",
+            "--learning-rate=0.1", "--print-freq=8", "--test-freq=300", f"--save-model={ck}"]
+        runs = {}
+        for name, extra in (("epochs_0_1", ["--nepochs=2"]),
+                            ("epochs_2_3_resumed", ["--nepochs=4", f"--load-model={ck}"])):
+            torch.cuda.reset_peak_memory_stats()
+            result, out, wall, ms_per_it = cli_run(train, base + extra + [f"--log-dir={log}_{name}"])
+            with open(os.path.join(f"{log}_{name}", "run.scalars.jsonl")) as f:
+                losses = [json.loads(line)["value"] for line in f if json.loads(line)["tag"] == "Train/Loss"]
+            check(np.isfinite(result["roc_auc"]) and len(losses) == 2 * CLI_HYBRID_BATCHES // 8
+                  and all(np.isfinite(losses)), f"cli_hybrid {name}: losses {losses}, final eval {result}")
+            runs[name] = {"wall_s": wall, "ms_per_it_at_prints": ms_per_it, "losses": losses,
+                          "final_eval": result, "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+            if "resumed" in name:
+                check("resumed sharded hybrid state" in out and "@ epoch 2 batch 0" in out,
+                      f"cli_hybrid: the resume from epoch 2 {out[-2000:]}")
+        slot = ShardedCheckpointManager(ck).latest()
+        ck_bytes = sum(os.path.getsize(os.path.join(slot, f)) for f in os.listdir(slot))
+        ptq_argv = data + CLI_TB_ARCH + ["--parallelism=hybrid", "--mini-batch-size=2048",
+                                         "--test-mini-batch-size=8192", "--inference-only", f"--load-model={ck}",
+                                         "--quantize-emb-with-bit=4", "--quantize-mlp-with-bit=8"]
+        k2.launches = k3.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        result_ptq, out_ptq, wall_ptq, _ = cli_run(train, ptq_argv)
+        ptq_peak = torch.cuda.max_memory_allocated()
+        n_test = max(1, CLI_HYBRID_BATCHES // 8)
+        launches = {"packed_pooled_lookup": k2.launches, "int8_linear": k3.launches}
+        check(launches == {"packed_pooled_lookup": n_test, "int8_linear": 7 * n_test},
+              f"cli_hybrid PTQ: launches {launches}: 1 grouped K2 and 7 K3 per batch x {n_test}")
+        check(f"PTQ model: {TB_SERVE_BYTES / 1e6:.2f} MB" in out_ptq and captured.get("bit_equal"),
+              f"cli_hybrid PTQ: {TB_SERVE_BYTES} bytes, streaming bit-equal to ptq_export ({captured})")
+        check(serving.serving_model_bytes(captured["ref"]) == TB_SERVE_BYTES, "cli_hybrid: the reference's bytes")
+        # the eager serving function of the reference model on the CLI's test batches
+        args = train.build_parser().parse_args(ptq_argv)
+        cfg, tc = train.make_configs(args)
+        cfg, _, test_loader, _ = train.make_loaders(args, cfg, tc)
+        fn = serving.make_serving_fn(captured.pop("ref"))
+        k2.launches = k3.launches = 0
+        eager = train.evaluate(cfg, None, test_loader, lambda s, b: fn(_on(b, torch.device(DEVICE))))
+        check(abs(eager["roc_auc"] - result_ptq["roc_auc"]) <= CLI_AUC_ATOL and np.isfinite(eager["roc_auc"]),
+              f"cli_hybrid PTQ: AUC {result_ptq['roc_auc']} vs the eager serving function's {eager['roc_auc']}")
+        check(len(io_s["save"]) == 2 and len(io_s["restore"]) == 2, f"cli_hybrid: two saves, two loads {io_s}")
+    finally:
+        for name, method in methods.items():
+            setattr(ShardedCheckpointManager, name, method)
+        serving.ptq_export_streaming = stream_export
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "cli_hybrid", "entry": f"python -m {PKG}.train", "source": "scripts/terabyte_rehearsal_hybrid.sh:17-31",
+          "config": "terabyte", "parallelism": "hybrid", "table_dtype": "bfloat16", "batch": 2048,
+          "test_batch": 8192, "k": 8, "epochs": 4, "batches_per_epoch": CLI_HYBRID_BATCHES, "runs": runs,
+          "checkpoint_bytes": ck_bytes, "save_s": io_s["save"], "load_s": io_s["restore"],
+          "ptq": {"wall_s": wall_ptq, "launches": launches, "eval": result_ptq, "eager_serving_fn_eval": eager,
+                  "serving_model_bytes": TB_SERVE_BYTES, "peak_memory_bytes": ptq_peak,
+                  "streaming_export": captured},
+          "phase_s": time.perf_counter() - t0})
+    return {"packed_pooled_lookup": n_test, "int8_linear": 7 * n_test}
+
+
+def phase_cli_rowshard(cfg):
+    """`train.run --parallelism=rowshard` at Kaggle's full width on the
+    one-rank NCCL group: 32 steps of INT4 QAT (B = 128, megasteps of 16), a
+    test eval at step 16 saving the sharded state and the final eval saving
+    the other slot; then `--load-model --inference-only` (the sharded eval
+    through the engine's eval step) from the newer slot."""
+    import shutil
+    import tempfile
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch import train
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dqrm_cli_rowshard_")
+    try:
+        ck, log = os.path.join(tmp, "ck"), os.path.join(tmp, "log")
+        arch = ["--data-generation=random", f"--num-batches={CLI_ROWSHARD_BATCHES}",
+                "--arch-embedding-size=" + "-".join(str(n) for n in cfg.table_sizes),
+                "--arch-sparse-feature-size=16", "--arch-mlp-bot=13-512-256-64-16",
+                "--arch-mlp-top=512-256-1", "--parallelism=rowshard", "--test-mini-batch-size=16384"]
+        argv = arch + ["--quantization_flag", "--embedding_bit=4", "--weight_bit=4", "--scale-update-period=200",
+                       "--learning-rate=0.1", "--mini-batch-size=128", f"--steps-per-dispatch={K_MEGA}",
+                       f"--test-freq={K_MEGA}", f"--print-freq={K_MEGA}", f"--save-model={ck}", f"--log-dir={log}"]
+        result, out, wall, ms_per_it = cli_run(train, argv)
+        with open(os.path.join(log, "run.scalars.jsonl")) as f:
+            losses = [json.loads(line)["value"] for line in f if json.loads(line)["tag"] == "Train/Loss"]
+        check(len(losses) == CLI_ROWSHARD_BATCHES // K_MEGA and all(np.isfinite(losses))
+              and np.isfinite(result["roc_auc"]), f"cli_rowshard: losses {losses}, eval {result}")
+        check(os.path.isdir(os.path.join(ck, "dqrm_0")), "cli_rowshard: the sharded save")
+        result_b, out_b, wall_b, _ = cli_run(train, arch + [f"--load-model={ck}", "--inference-only"])
+        check("resumed sharded hybrid state" in out_b and np.isfinite(result_b["roc_auc"]),
+              f"cli_rowshard: the load and eval {result_b}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "cli_rowshard", "entry": f"python -m {PKG}.train", "config": "kaggle", "parallelism": "rowshard",
+          "batch": B_TRAIN, "steps": CLI_ROWSHARD_BATCHES, "train": {"wall_s": wall, "ms_per_it_at_prints": ms_per_it,
+                                                                     "losses": losses, "test_eval": result},
+          "load_and_eval": {"wall_s": wall_b, "eval": result_b}, "phase_s": time.perf_counter() - t0})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no usable CUDA card (torch.cuda.is_available() is false)",
@@ -4785,6 +5348,7 @@ def main() -> int:
     trick_launches, trick_ms, trick_sms = phase_tricks(cfg, params0, train_step_ms)
     dp_launches["onehot_dense_grad"] += phase_dp_tricks(cfg, params0, trick_ms)
     dp_launches["onehot_dense_grad"] += phase_dp_ranking(cfg, params0, dp_step_ms)
+    phase_rowshard(cfg, params0, train_step_ms)
     dense_bf16_launches = phase_dense_bf16(cfg, params0)
     graph_launches = phase_module_graph(cfg, params0)
     del params0
@@ -4806,6 +5370,7 @@ def main() -> int:
     phase_serve_cat(flush)
     tb_cfg, tb_params, tb_k1, tb_step_ms = phase_tb_bf16(train_step_ms)
     tb_k1 += phase_tb_dp(tb_cfg, tb_params, tb_step_ms)
+    phase_hybrid_tb(tb_cfg, tb_params, tb_step_ms)
     tb_launches = phase_tb_serve(tb_cfg, tb_params, flush)
     del tb_params
     # give the Terabyte phases' cached blocks (some 45 GB) back to the card:
@@ -4838,8 +5403,13 @@ def main() -> int:
         launches[name] += n
     for name, n in phase_cli_tb_rehearsal().items():
         launches[name] += n
+    for name, n in phase_cli_hybrid().items():
+        launches[name] += n
+    phase_cli_rowshard(cfg)
     torch.cuda.empty_cache()  # dp2's two processes each need their own Kaggle model on the card
     launches["onehot_dense_grad"] += phase_dp2(cfg)
+    torch.cuda.empty_cache()
+    phase_mega2()
     multihost.shutdown()
     launches["onehot_dense_grad"] += dp_launches["onehot_dense_grad"]
     launches["stream_scatter_add"] = stream_launches["stream_scatter_add"] + dp_launches["stream_scatter_add"]
@@ -4871,11 +5441,12 @@ def main() -> int:
                                                                       "export_artifact", "tb_serve", "cli",
                                                                       "cli_schemes", "cli_import",
                                                                       "cli_tricks", "criteo", "cli_criteo",
-                                                                      "cli_tb_rehearsal"],
+                                                                      "cli_tb_rehearsal", "cli_hybrid"],
                                              "int8_linear": ["kernel", "serve", "serve_onehot", "tricks",
                                                              "export_artifact", "tb_serve", "cli", "cli_schemes",
                                                              "cli_import", "cli_tricks",
-                                                             "criteo", "cli_criteo", "cli_tb_rehearsal"],
+                                                             "criteo", "cli_criteo", "cli_tb_rehearsal",
+                                                             "cli_hybrid"],
                                              "onehot_pooled_lookup": ["kernel", "serve_onehot", "tricks",
                                                                       "dense_bf16", "module_graph"],
                                              "stream_scatter_add": ["kernel", "train_stream", "dp_stream"],

@@ -68,13 +68,20 @@ class PackedTable(NamedTuple):
         return n
 
 
-def pack_table(table: torch.Tensor, bits: int = 4, rowwise: bool = False) -> PackedTable:
+def pack_table(table: torch.Tensor, bits: int = 4, rowwise: bool = False,
+               row_chunk: int = 0) -> PackedTable:
     """Quantize + bit-pack a [rows, D] float32 or bf16 table (bit-identical
     to the JAX package's `pack_table`, whose reductions run in the table's
     dtype and whose arithmetic promotes a bf16 table wherever it meets a
     float32 operand). Scale and bias are stored as float32: the 8-bit
     rowwise pair of a bf16 table holds bf16 values, which the lookup
-    multiplies in float32 as the JAX package does."""
+    multiplies in float32 as the JAX package does.
+
+    `row_chunk` > 0 (symmetric tables only): the per-table scale is taken
+    once over the whole table, then the rows are quantized and packed
+    `row_chunk` at a time into the one output, so the float32 temporaries
+    hold one chunk instead of the table (JAX packed_embedding.py:62-85).
+    The output is bit-identical to the unchunked pack."""
     if table.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"pack_table takes float32 or bfloat16 tables, got {table.dtype}")
     if bits not in (4, 8):
@@ -82,39 +89,49 @@ def pack_table(table: torch.Tensor, bits: int = 4, rowwise: bool = False) -> Pac
     rows, D = table.shape
     if bits == 4 and D % 2:
         raise ValueError("int4 packing requires an even embedding dim")
-    if rowwise:
-        # ATen embedding_bag_{4bit,byte}_prepack scheme (dlrm_s_pytorch.py:
-        # 457-474): 4 bit keeps fp16-rounded (scale, bias) with a zero range
-        # giving scale 1.0; 8 bit keeps fp32 (max-min)/255 and quantizes via
-        # the guarded inverse scale.
-        lo = table.amin(dim=1)
-        hi = table.amax(dim=1)
-        n = 2**bits - 1
-        if bits == 4:
-            bias = lo.half().float()
-            scale = q.divide(hi - bias, n).half().float()
-            scale = torch.where(scale == 0, torch.ones_like(scale), scale)
-            qv = torch.clamp(torch.round((table - bias[:, None]) / scale[:, None]), 0, n)
-        else:
-            bias = lo
-            rng = hi - lo
-            inv = torch.where(rng == 0, torch.ones_like(rng), q.divide(n, rng))
-            scale = q.divide(rng, n)
-            qv = torch.clamp(torch.round((table - bias[:, None]) * inv[:, None]), 0, n)
-            scale, bias = scale.float(), bias.float()
-        qv = qv.to(torch.uint8)
-    else:
+    if not rowwise:
         scale = q.table_scale(bits, table)
-        n = q.intmax(bits)
-        qv = torch.clamp(torch.round(table.float() / scale), -n - 1, n).to(torch.int32)
-        # signed values stored offset into the unsigned nibble/byte range
-        qv = (qv + 2 ** (bits - 1)).to(torch.uint8)
-        bias = None
+        if not (row_chunk and rows > row_chunk):
+            data = _pack_symmetric_rows(table, scale, bits)
+        else:
+            data = torch.empty((rows, D // 2 if bits == 4 else D), dtype=torch.uint8, device=table.device)
+            for off in range(0, rows, row_chunk):
+                data[off:off + row_chunk] = _pack_symmetric_rows(table[off:off + row_chunk], scale, bits)
+        return PackedTable(data=data.contiguous(), scale=scale, bias=None, bits=bits, dim=D)
+    # ATen embedding_bag_{4bit,byte}_prepack scheme (dlrm_s_pytorch.py:
+    # 457-474): 4 bit keeps fp16-rounded (scale, bias) with a zero range
+    # giving scale 1.0; 8 bit keeps fp32 (max-min)/255 and quantizes via
+    # the guarded inverse scale.
+    lo = table.amin(dim=1)
+    hi = table.amax(dim=1)
+    n = 2**bits - 1
     if bits == 4:
-        data = qv[:, : D // 2] | (qv[:, D // 2 :] << 4)
+        bias = lo.half().float()
+        scale = q.divide(hi - bias, n).half().float()
+        scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+        qv = torch.clamp(torch.round((table - bias[:, None]) / scale[:, None]), 0, n)
     else:
-        data = qv
+        bias = lo
+        rng = hi - lo
+        inv = torch.where(rng == 0, torch.ones_like(rng), q.divide(n, rng))
+        scale = q.divide(rng, n)
+        qv = torch.clamp(torch.round((table - bias[:, None]) * inv[:, None]), 0, n)
+        scale, bias = scale.float(), bias.float()
+    qv = qv.to(torch.uint8)
+    data = qv[:, : D // 2] | (qv[:, D // 2 :] << 4) if bits == 4 else qv
     return PackedTable(data=data.contiguous(), scale=scale, bias=bias, bits=bits, dim=D)
+
+
+def _pack_symmetric_rows(rows: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:
+    """Symmetric quantize + nibble/byte pack of [rows, D] at a per-table
+    scale: signed values stored offset into the unsigned range."""
+    n = q.intmax(bits)
+    qv = torch.clamp(torch.round(rows.float() / scale), -n - 1, n).to(torch.int32)
+    qv = (qv + 2 ** (bits - 1)).to(torch.uint8)
+    if bits == 4:
+        d = rows.shape[1] // 2
+        return qv[:, :d] | (qv[:, d:] << 4)
+    return qv
 
 
 def _unpack_rows(pt: PackedTable, raw: torch.Tensor) -> torch.Tensor:

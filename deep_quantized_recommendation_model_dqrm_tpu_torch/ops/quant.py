@@ -23,8 +23,11 @@ Port of the JAX package's ops/quant.py, numerics matched bit for bit (both
   integer-only path (quant_utils.py:256-281, 435-551) with float32 mantissas,
   as the JAX package computes them without x64
 
-The segmented PACT helpers of the mega-table engines come with those
-engines.
+- the segmented PACT helpers of the mega-table engines
+  (`fake_quant_pact_segmented`, `pact_segment_absmax`,
+  `pact_apply_segmented`): the per-table DoReFa normalizer of a block of
+  row-concatenated tables as a segment max, so one pass over the block
+  serves every table in it
 """
 
 from __future__ import annotations
@@ -242,6 +245,54 @@ def fake_quant_pact(x: torch.Tensor, bits: int) -> torch.Tensor:
     transform, tanh normalization included (the reference's
     DoReFaQuant.backward, "formula (5)")."""
     return pact_apply(x, pact_normalizer(x), bits)
+
+
+def pact_segment_absmax(tanh_block: torch.Tensor, seg_ids: torch.Tensor,
+                        n_segments: int) -> torch.Tensor:
+    """Per-segment max|tanh(w)| of a mega-table block ([n_segments + 1],
+    the block's dtype): the DoReFa normalizer of each table. Rows whose
+    segment id is at least `n_segments` (pad rows) share the last slot.
+    Where a table spans the blocks of several ranks (the row-sharded
+    engine), the caller reduces the result with MAX over the ranks before
+    applying it (JAX quant.py:256-268)."""
+    row_absmax = tanh_block.abs().amax(dim=1)
+    safe = seg_ids.long().clamp_max(n_segments)
+    out = torch.zeros((n_segments + 1,), dtype=tanh_block.dtype, device=tanh_block.device)
+    return out.scatter_reduce_(0, safe, row_absmax, "amax")
+
+
+def pact_apply_segmented(tanh_block: torch.Tensor, bits: int, seg_ids: torch.Tensor,
+                         n_segments: int, seg_max: torch.Tensor) -> torch.Tensor:
+    """The DoReFa transform of rows of tanh(w) under their segments'
+    normalizers `seg_max` (`pact_segment_absmax`, possibly reduced over the
+    ranks); a segment whose normalizer is 0 divides by 1 (JAX quant.py:
+    271-285). Rows gathered from a block and transformed with their own
+    segment ids equal the same rows of the transformed block."""
+    safe = seg_ids.long().clamp_max(n_segments)
+    denom = 2.0 * seg_max[safe][:, None]
+    denom = torch.where(denom == 0, torch.ones_like(denom), denom)
+    n = 2**bits - 1
+    w_n = tanh_block / denom + 0.5
+    w_q = divide(torch.round(w_n * n), n)
+    return 2.0 * w_q - 1.0
+
+
+def _pact_segmented(block: torch.Tensor, bits: int, seg_ids: torch.Tensor,
+                    n_segments: int) -> torch.Tensor:
+    t = torch.tanh(block)
+    return pact_apply_segmented(t, bits, seg_ids, n_segments,
+                                pact_segment_absmax(t, seg_ids, n_segments))
+
+
+def fake_quant_pact_segmented(block: torch.Tensor, bits: int, seg_ids: torch.Tensor,
+                              n_segments: int) -> torch.Tensor:
+    """Per-TABLE DoReFa fake-quant of a block of row-concatenated tables
+    [rows, D] (JAX quant.py:232-253): equal to `fake_quant_pact` of each
+    table's slice, its normalizer the table's segment max. `seg_ids` [rows]
+    holds each row's table id (>= n_segments for pad rows, which normalize
+    by 1 when they are zeros). The backward is the identity, as
+    `fake_quant_pact`'s."""
+    return _Identity.apply(_pact_segmented, block, bits, seg_ids, n_segments)
 
 
 def _grad_scale(x: torch.Tensor, scale: float) -> torch.Tensor:

@@ -100,6 +100,17 @@ def world() -> Tuple[int, int]:
     return dist.get_rank(), dist.get_world_size()
 
 
+def staged(x: torch.Tensor, group=None) -> torch.Tensor:
+    """`x`, or its host copy where the group runs gloo and `x` lies on the
+    card. The mega-table engines hand gloo host tensors for their
+    all-to-all, reduce-scatter and MIN/MAX all-reduce and copy the results
+    back: the same collective on the same values, staged through the host
+    explicitly (chip_smoke's two gloo ranks on one card)."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        return x.cpu()
+    return x
+
+
 def local_batch_slice(global_batch: int) -> Tuple[int, int]:
     """(start, size) of this rank's rows of a global batch: rank r of N
     takes rows [r B/N, (r+1) B/N), the contiguous block JAX's batch

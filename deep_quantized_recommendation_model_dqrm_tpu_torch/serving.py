@@ -24,8 +24,9 @@ Port of the JAX package's serving.py:
   the serving function (`ServingModule`: the model's tensors as buffers,
   K2 and K3 as registered ops) and load it back.
 
-`ptq_export_streaming` waits for a later slice of the port (ROADMAP.md
-queue 1 item 6).
+- `ptq_export_streaming` packs one table at a time from a caller's
+  accessor (the mega-table engines' blocks), each in row chunks, dropping
+  its source before the next: bit-identical to `ptq_export`.
 """
 
 from __future__ import annotations
@@ -81,12 +82,22 @@ class ServingModel(NamedTuple):
     vw: Optional[List[torch.Tensor]] = None  # per-row pooling weights, float32 [n_k]
 
 
-def _pack_entry(t, emb_bits: int, rowwise: bool):
+def _pack_entry(t, emb_bits: int, rowwise: bool, row_chunk: int = 0):
     """A table packed, or each component of a QR/MD dict (the projection
     kept as it is); JAX serving.py:98-114."""
     if not isinstance(t, dict):
-        return pack_table(t, bits=emb_bits, rowwise=rowwise)
-    return {k: v if k == "proj" else pack_table(v, bits=emb_bits, rowwise=rowwise) for k, v in t.items()}
+        return pack_table(t, bits=emb_bits, rowwise=rowwise, row_chunk=row_chunk)
+    return {k: v if k == "proj" else pack_table(v, bits=emb_bits, rowwise=rowwise, row_chunk=row_chunk)
+            for k, v in t.items()}
+
+
+def _quantize_mlp(bot, top, mlp_bits: int):
+    if mlp_bits not in (8, 32):
+        raise ValueError("mlp_bits must be 8 or 32")
+    if mlp_bits == 32:
+        return bot, top
+    return ([quantize_linear_weights(l["w"], l["b"], 8) for l in bot],
+            [quantize_linear_weights(l["w"], l["b"], 8) for l in top])
 
 
 def ptq_export(
@@ -104,16 +115,39 @@ def ptq_export(
     along in float32. The model stays on the params' device."""
     if emb_bits not in (4, 8):
         raise ValueError("emb_bits must be 4 or 8 for packed serving")
-    if mlp_bits not in (8, 32):
-        raise ValueError("mlp_bits must be 8 or 32")
+    bot, top = _quantize_mlp(params["bot"], params["top"], mlp_bits)
     emb = [_pack_entry(t, emb_bits, rowwise) for t in params["emb"]]
-    if mlp_bits == 8:
-        bot = [quantize_linear_weights(l["w"], l["b"], 8) for l in params["bot"]]
-        top = [quantize_linear_weights(l["w"], l["b"], 8) for l in params["top"]]
-    else:
-        bot, top = params["bot"], params["top"]
     vw = list(params["v_W"]) if config.weighted_pooling is not None else None
     return ServingModel(config=config, emb=emb, bot=bot, top=top, mlp_bits=mlp_bits, vw=vw)
+
+
+def ptq_export_streaming(
+    config: DLRMConfig,
+    get_table: Callable[[int], Any],
+    bot,
+    top,
+    vw: Optional[List[torch.Tensor]] = None,
+    emb_bits: int = 4,
+    mlp_bits: int = 8,
+    rowwise: bool = False,
+    row_chunk: int = 2_000_000,
+) -> ServingModel:
+    """`ptq_export` one table at a time (JAX serving.py:117-163): `get_table(k)`
+    gives table k (a view of a mega-table block, or a QR/MD dict), which is
+    packed in chunks of `row_chunk` rows (`pack_table(row_chunk=)`) and
+    dropped before the next table is asked for. The peak holds the packed
+    model, one table's source if `get_table` copies, and one chunk's
+    temporaries, where `ptq_export` of a whole params dict holds every
+    table's float32 temporaries in turn beside the source tables. The
+    result is bit-identical to `ptq_export` of the same tables."""
+    if emb_bits not in (4, 8):
+        raise ValueError("emb_bits must be 4 or 8 for packed serving")
+    bot, top = _quantize_mlp(bot, top, mlp_bits)
+    emb = []
+    for k in range(config.num_tables):
+        emb.append(_pack_entry(get_table(k), emb_bits, rowwise, row_chunk))
+    return ServingModel(config=config, emb=emb, bot=bot, top=top, mlp_bits=mlp_bits,
+                        vw=list(vw) if vw is not None else None)
 
 
 def serving_model_bytes(sm: ServingModel) -> int:

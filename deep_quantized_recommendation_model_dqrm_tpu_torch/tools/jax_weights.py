@@ -1,8 +1,10 @@
 """Carry weights from the JAX package into the port, bit for bit.
 
 The JAX package keeps params as a pytree of arrays, the data-parallel and
-pseudo engines' states (params, `QuantState`, error-compensation residuals)
-and a packed serving model as NamedTuples of arrays. These functions take
+pseudo engines' states (params, `QuantState`, error-compensation residuals),
+the mega-table engines' states (the whole mega-table, the replicated MLPs,
+`QuantState`, packed `v_W`) and a packed serving model as NamedTuples of
+arrays. These functions take
 them as numpy arrays (or anything `np.asarray` accepts, read by attribute
 name), so the port imports nothing of JAX. Values are copied in their own dtype (uint8 packed
 data, int8 weights, float32 scales): no float conversion touches them.
@@ -30,7 +32,9 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.quant_matmul im
     QuantLinearWeights,
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel.comm_grad import DPState
+from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel.hybrid import HybridState, TableShardingPlan
 from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel.pseudo import PseudoState
+from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel.rowshard import RowShardPlan, RowShardState
 from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import ServingModel
 from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import TrainState
 from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
@@ -51,20 +55,22 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def _port_tree(tree, dev: torch.device):
+    """A nest of numpy arrays as tensors on `dev`, each layer's dict in the
+    port's order {"w", "b"} (jax.tree_util sorts keys)."""
+    if isinstance(tree, dict):
+        return {k: _port_tree(tree[k], dev) for k in sorted(tree, key=lambda k: (k != "w", k))}
+    if isinstance(tree, (list, tuple)):
+        return [_port_tree(x, dev) for x in tree]
+    return _tensor(tree, dev)
+
+
 def params_from_numpy(np_params: Any, device: Device = None) -> Params:
     """The JAX package's params ({"emb": [..], "bot": [{"w","b"}], "top":
     [..]}, and "v_W", LSQ's "lsq_emb" and "lsq_mlp" where present) as the
     port's `Params` on `device`."""
     dev = resolve_device(device)
-
-    def port(tree):  # the port's layer order {"w", "b"}; jax.tree_util sorts keys
-        if isinstance(tree, dict):
-            return {k: port(tree[k]) for k in sorted(tree, key=lambda k: (k != "w", k))}
-        if isinstance(tree, (list, tuple)):
-            return [port(x) for x in tree]
-        return _tensor(tree, dev)
-
-    return {key: port(np_params[key]) for key in PARAM_KEYS if key in np_params}
+    return {key: _port_tree(np_params[key], dev) for key in PARAM_KEYS if key in np_params}
 
 
 def params_to_numpy(params: Params) -> dict:
@@ -124,6 +130,49 @@ def replica_state_to_numpy(state: Union[DPState, PseudoState]) -> dict:
                    "act_max": qs.act_max.cpu().numpy(), "step": np.int32(qs.step),
                    "act_fixed": np.int32(qs.act_fixed)},
         "ec": tree_map(_numpy, state.ec),
+    }
+
+
+def _mega_fields(np_mlp: Any, np_qstate: Any, device: Device) -> tuple:
+    dev = resolve_device(device)
+    return dev, _port_tree(np_mlp, dev), _quant_state_from_numpy(np_qstate, dev)
+
+
+def hybrid_state_from_numpy(np_mega: Any, np_mlp: Any, np_qstate: Any, np_vw: Any,
+                            plan: TableShardingPlan, rank: int, device: Device = None) -> HybridState:
+    """Rank `rank`'s `HybridState` from the JAX package's (as numpy): its
+    block of the whole mega-table [n_dev * block_rows, D] (and of the packed
+    `v_W`), the replicated MLPs (with "emb_trick", "vw_trick" and LSQ's
+    steps where present) and `QuantState` (read by attribute name), bit for
+    bit."""
+    dev, mlp, qs = _mega_fields(np_mlp, np_qstate, device)
+    rows = slice(rank * plan.block_rows, (rank + 1) * plan.block_rows)
+    vw = None if np_vw is None else _tensor(np.asarray(np_vw)[rows], dev)
+    return HybridState(mega=_tensor(np.asarray(np_mega)[rows], dev), mlp=mlp, qstate=qs, vw=vw)
+
+
+def rowshard_state_from_numpy(np_mega: Any, np_mlp: Any, np_qstate: Any, np_vw: Any,
+                              plan: RowShardPlan, rank: int, device: Device = None) -> RowShardState:
+    """Rank `rank`'s `RowShardState` from the JAX package's (as numpy): rows
+    [rank * chunk, (rank + 1) * chunk) of the global mega-table (and of the
+    packed `v_W`), the replicated rest as `hybrid_state_from_numpy`."""
+    dev, mlp, qs = _mega_fields(np_mlp, np_qstate, device)
+    rows = slice(rank * plan.chunk, (rank + 1) * plan.chunk)
+    vw = None if np_vw is None else _tensor(np.asarray(np_vw)[rows], dev)
+    return RowShardState(mega=_tensor(np.asarray(np_mega)[rows], dev), mlp=mlp, qstate=qs, vw=vw)
+
+
+def mega_state_to_numpy(state: Union[HybridState, RowShardState]) -> dict:
+    """A mega-table engine's state as {"mega", "vw", "mlp", "qstate"} of
+    numpy arrays (this rank's block; bf16 as float32 of the same values)."""
+    qs = state.qstate
+    return {
+        "mega": _numpy(state.mega),
+        "vw": None if state.vw is None else _numpy(state.vw),
+        "mlp": tree_map(_numpy, state.mlp),
+        "qstate": {"emb_scales": qs.emb_scales.cpu().numpy(), "act_min": qs.act_min.cpu().numpy(),
+                   "act_max": qs.act_max.cpu().numpy(), "step": np.int32(qs.step),
+                   "act_fixed": np.int32(qs.act_fixed)},
     }
 
 

@@ -1,6 +1,7 @@
 """CLI training entry point of the PyTorch/CUDA port: the JAX package's
 train.py for one device (`--parallelism=none`), the data-parallel engines
-(`dp`, `dp-nosync`) and the simulated workers (`pseudo`).
+(`dp`, `dp-nosync`), the simulated workers (`pseudo`) and the mega-table
+engines (`hybrid`, `rowshard`).
 
 Run:  python -m deep_quantized_recommendation_model_dqrm_tpu_torch.train \
         --data-generation=random --num-batches=100 ...
@@ -16,14 +17,21 @@ save, resume, the QAT epoch schedule, `--steps-per-dispatch` megasteps,
 gradient accumulation, and `--inference-only` evaluation or PTQ serving.
 
 It runs on the card unless `--platform=cpu` asks for the CPU; without a
-card it raises and never falls back. Under `dp` and `dp-nosync` each
-process is one rank of a torch.distributed group (`parallel/multihost.py`:
-NCCL on the card, gloo on the CPU; torchrun's environment or
-`--coordinator-address`, `--num-processes`, `--process-id`; one rank when
-neither is given) that trains on its slice of every global batch; rank 0
-alone logs, documents and saves. Checkpoints are the JAX package's npz
-format (utils/checkpoint.py) for every engine, so either package resumes or
-serves what the other saved. The loss is read from the device only at
+card it raises and never falls back. Under `dp`, `dp-nosync`, `hybrid` and
+`rowshard` each process is one rank of a torch.distributed group
+(`parallel/multihost.py`: NCCL on the card, gloo on the CPU; torchrun's
+environment or `--coordinator-address`, `--num-processes`, `--process-id`;
+one rank when neither is given). Under dp a rank trains on its slice of
+every global batch and rank 0 alone logs, documents and saves; checkpoints
+are the JAX package's npz format (utils/checkpoint.py), so either package
+resumes or serves what the other saved. Under the mega-table engines every
+rank takes the whole batch (its ids for the tables it owns, its slice of
+the dense features and labels), holds its block of the mega-table and
+writes it into a sharded checkpoint (`utils/checkpoint_sharded.py`; the
+`train` state is a 1-row placeholder there, as in the JAX CLI);
+`--inference-only` packs the tables one at a time from the block
+(`serving.ptq_export_streaming`, one process), and `--pin-table-layout`
+copies host-drawn tables into the block one at a time. The loss is read from the device only at
 print boundaries and evaluation scores once per pass.
 
 Every data mode of the JAX package runs: random, learnable, the mlperf
@@ -32,9 +40,7 @@ dataset (`--data-generation=dataset`: a raw TSV, or one raw file per day,
 preprocessed into `--processed-data-dir` by data/criteo.py with the native
 parser this package builds into `build/native/`, then the train, val and
 test splits), with the `--investigating-inputs` audit.
-What this slice does not run exits with a message naming the later slice
-(ROADMAP.md queue 1): `--parallelism=hybrid` (item 6) and
-`--parallelism=rowshard` (item 7). `--export-stablehlo=PATH` writes the
+`--export-stablehlo=PATH` writes the
 `--inference-only` PTQ model as a `torch.export` program at the test
 batch size (`serving.export_stablehlo`), and `--plot-compute-graph`
 writes `<log-dir>/compute_graph.stablehlo.txt`, the JAX CLI's file name:
@@ -50,7 +56,8 @@ under (the pseudo engine refuses learned pooling weights and QR/MD tables,
 as JAX's does), training and `--inference-only` PTQ alike.
 `--ranking-range` runs under `--parallelism=dp`; the other engines accept
 it and do not use it, as the JAX CLI does.
-`--pin-table-layout` fixes a TPU memory layout and is accepted as a no-op.
+`--pin-table-layout` is accepted where the JAX CLI accepts it (none, dp,
+hybrid); it changes nothing but hybrid's build of the block.
 """
 
 from __future__ import annotations
@@ -82,10 +89,7 @@ _STREAM_AUTO_ROWS_PER_BATCH = 0
 # gradients: 0.
 _ONEHOT_AUTO_ROWS = 20000
 _DP_MODES = ("dp", "dp-nosync")
-
-
-def _later(what: str, item: int) -> str:
-    return f"{what}: a later slice of the port (ROADMAP.md queue 1 item {item})"
+_MEGA_MODES = ("hybrid", "rowshard")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -321,13 +325,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "scatter (0 disables). Default -1 = auto = off, as "
                         "in the JAX package"))
     p.add_argument("--pin-table-layout", action="store_true",
-                   help=("accepted and ignored: it pins TPU table layouts "
-                        "in the JAX package, and the card has no such "
-                        "layout to pin"))
+                   help=("hybrid: draw the tables on the host and copy them "
+                        "into the block one at a time; none/dp: accepted and "
+                        "ignored (it pins TPU table layouts in the JAX package)"))
     # multi-process launch (the reference's -n/-g/-nr + MASTER_ADDR/PORT env,
     # dlrm_s_pytorch_comm_grad.py:1159-1167) of the dp engines
     p.add_argument("--coordinator-address", type=str, default="",
-                   help="host:port (or file:// URL) of process 0 for --parallelism=dp/dp-nosync")
+                   help="host:port (or file:// URL) of process 0 for --parallelism="
+                        "dp/dp-nosync/hybrid/rowshard")
     p.add_argument("--num-processes", type=int, default=0)
     p.add_argument("--process-id", type=int, default=-1)
     p.add_argument("--investigating-inputs", action="store_true")
@@ -352,15 +357,6 @@ def _trace_replay(args) -> bool:
     from deep_quantized_recommendation_model_dqrm_tpu_torch.data.trace import table_dist_path
 
     return bool(args.data_trace_file) and os.path.exists(table_dist_path(args.data_trace_file, 0))
-
-
-def unported(args) -> Optional[str]:
-    """The message for the first flag this slice does not run, else None."""
-    if args.parallelism == "hybrid":
-        return _later("--parallelism=hybrid", 6)
-    if args.parallelism == "rowshard":
-        return _later("--parallelism=rowshard", 7)
-    return None
 
 
 def _day_sort_key(path: str):
@@ -724,47 +720,110 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _pad_batch(b, nproc: int):
+    """(b padded with zero rows to a multiple of nproc, its true size)."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import Batch
+
+    B = int(b.labels.shape[0])
+    pad = -B % nproc
+    if not pad:
+        return b, B
+    return Batch(
+        dense=torch.cat([b.dense, b.dense.new_zeros((pad, b.dense.shape[1]))]),
+        indices=torch.cat([b.indices, b.indices.new_zeros(
+            (b.indices.shape[0], pad) + tuple(b.indices.shape[2:]))], dim=1),
+        labels=torch.cat([b.labels, b.labels.new_zeros(pad)]),
+        mask=None if b.mask is None else torch.cat([b.mask, b.mask.new_zeros(
+            (b.mask.shape[0], pad) + tuple(b.mask.shape[2:]))], dim=1),
+    ), B
+
+
 def pad_eval(fn, nproc: int):
     """A rank-sharded eval step over whole host batches: the batch padded
     to a multiple of the world size, this rank's slice scored and gathered,
     the padding's scores dropped. (The reference skips an indivisible batch,
     dlrm_s_pytorch.py:789-791; the JAX package pads, train.py:660-697.)"""
-    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import Batch
     from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel.multihost import (
         local_batch_slice,
     )
     from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import batch_rows
 
     def wrapped(state, b):
-        B = int(b.labels.shape[0])
-        pad = -B % nproc
-        if pad:
-            b = Batch(
-                dense=torch.cat([b.dense, b.dense.new_zeros((pad, b.dense.shape[1]))]),
-                indices=torch.cat([b.indices, b.indices.new_zeros(
-                    (b.indices.shape[0], pad) + tuple(b.indices.shape[2:]))], dim=1),
-                labels=torch.cat([b.labels, b.labels.new_zeros(pad)]),
-                mask=None if b.mask is None else torch.cat([b.mask, b.mask.new_zeros(
-                    (b.mask.shape[0], pad) + tuple(b.mask.shape[2:]))], dim=1),
-            )
-        start, per = local_batch_slice(B + pad)
+        b, B = _pad_batch(b, nproc)
+        start, per = local_batch_slice(b.labels.shape[0])
         return fn(state, batch_rows(b, start, start + per))[:B]
 
     return wrapped
+
+
+def pad_global(fn, nproc: int):
+    """A mega-table engine's eval step over whole host batches: the batch
+    padded to a multiple of the world size (every rank takes the whole
+    batch), the padding's scores dropped (JAX train.py:1264-1282)."""
+
+    def wrapped(state, b):
+        b, B = _pad_batch(b, nproc)
+        return fn(state, b)[:B]
+
+    return wrapped
+
+
+def mega_params(cfg, hstate, plan) -> dict:
+    """A params dict over a one-process mega-table state: each table a view
+    of the block (QR/MD tables from the replicated part), "v_W" views of the
+    packed weights, the MLPs and LSQ's steps as they are."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import hybrid, rowshard
+
+    if isinstance(hstate, hybrid.HybridState):
+        emb = hybrid.unpack_tables(hstate.mega, plan, cfg.table_sizes)
+        vw = None if hstate.vw is None else hybrid.unpack_vw(hstate.vw, plan, cfg.table_sizes)
+    else:
+        emb = rowshard.unpack_rows(hstate.mega, plan, cfg.table_sizes)
+        vw = None if hstate.vw is None else rowshard.unpack_rows_vw(hstate.vw, plan, cfg.table_sizes)
+    trick = hstate.mlp.get("emb_trick", {})
+    params = {k: v for k, v in hstate.mlp.items() if k not in ("emb_trick", "vw_trick")}
+    params["emb"] = [trick[str(k)] if t is None else t for k, t in enumerate(emb)]
+    if vw is not None:
+        vw_trick = hstate.mlp.get("vw_trick", {})
+        params["v_W"] = [vw_trick[str(k)] if v is None else v for k, v in enumerate(vw)]
+    return params
+
+
+def _mega_ptq(args, cfg, hstate, plan, rank: int, nproc: int):
+    """The PTQ model of a mega-table engine's state for `--inference-only`
+    (JAX train.py:1293-1368): one table at a time from views of the block
+    (`ptq_export_streaming`), one process."""
+    if nproc > 1:
+        raise SystemExit(
+            "--inference-only PTQ is a single-process tool for the "
+            "mega-table engines (remote shards not addressable); "
+            "run it on one process"
+        )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import (
+        ptq_export_streaming,
+        serving_model_bytes,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.logging import rank0_print
+
+    params = mega_params(cfg, hstate, plan)
+    sm = ptq_export_streaming(
+        cfg, lambda k: params["emb"][k], bot=params["bot"], top=params["top"], vw=params.get("v_W"),
+        emb_bits=args.quantize_emb_with_bit, mlp_bits=8 if args.quantize_mlp_with_bit == 8 else 32,
+    )
+    rank0_print(rank, f"PTQ model: {serving_model_bytes(sm)/1e6:.2f} MB")
+    return sm
 
 
 def run(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     np.set_printoptions(precision=args.print_precision)
     device = _device(args.platform)
-    why = unported(args)
-    if why:
-        raise SystemExit(why)
     multi_process = args.coordinator_address or args.num_processes or args.process_id >= 0
-    if args.parallelism not in _DP_MODES:
+    if args.parallelism not in _DP_MODES + _MEGA_MODES:
         if multi_process:
             raise SystemExit("--coordinator-address/--num-processes/--process-id apply to "
-                             "--parallelism=dp and dp-nosync")
+                             "--parallelism=dp and dp-nosync, and to the mega-table engines "
+                             "hybrid and rowshard")
         return _run(args, device, 0, 1)
     import torch.distributed as dist
 
@@ -815,10 +874,21 @@ def _run(args, device, rank: int, nproc: int) -> dict:
     dev = resolve_device(device)  # no card and no --platform=cpu: raises
     np.random.seed(args.numpy_rand_seed)  # dlrm_s_pytorch.py:1060-1063
     step_mode = args.parallelism
+    mega = step_mode in _MEGA_MODES
     if args.onehot_update_max_rows < 0:
-        args.onehot_update_max_rows = 0 if step_mode == "dp-nosync" else _ONEHOT_AUTO_ROWS
+        args.onehot_update_max_rows = 0 if step_mode == "dp-nosync" or mega else _ONEHOT_AUTO_ROWS
     if args.stream_update_max_rows < 0:
         args.stream_update_max_rows = _STREAM_AUTO_ROWS_PER_BATCH
+    if mega and (args.onehot_update_max_rows > 0 or args.onehot_lookup_max_rows > 0
+                 or args.stream_update_max_rows > 0):
+        # the mega-table engines gather and scatter their own blocks (JAX
+        # train.py:782-797, whose refusal names the pseudo engine too)
+        raise SystemExit(
+            "--onehot-update-max-rows / --onehot-lookup-max-rows apply to "
+            "parallelism none / dp / dp-nosync (dp-nosync: lookup flag "
+            "only); the hybrid/rowshard mega-table scatter and the pseudo "
+            "simulator do not take the one-hot path"
+        )
     if step_mode == "dp-nosync" and (args.onehot_update_max_rows > 0 or args.stream_update_max_rows > 0):
         raise SystemExit(
             "--onehot-update-max-rows / --stream-update-max-rows: dp-nosync updates via dense "
@@ -841,9 +911,30 @@ def _run(args, device, rank: int, nproc: int) -> dict:
     )
     mll.start("init")
 
-    # a checkpoint to load replaces every leaf (load_checkpoint raises on a
-    # missing one): its template is not drawn, unless --debug-mode prints it
-    state = init_train_state(cfg, tc, device=device, draw=not args.load_model or args.debug_mode)
+    if mega:
+        # the mega-table state (hstate, below) holds the model; 1-row
+        # placeholder tables keep `state` valid without a second copy of
+        # the tables (JAX train.py:805-817)
+        state = init_train_state(dataclasses.replace(cfg, table_sizes=(1,) * cfg.num_tables,
+                                                     qr_flag=False, md_flag=False),
+                                 tc, device=device)
+    else:
+        # a checkpoint to load replaces every leaf (load_checkpoint raises
+        # on a missing one): its template is not drawn, unless --debug-mode
+        # prints it
+        state = init_train_state(cfg, tc, device=device, draw=not args.load_model or args.debug_mode)
+    if args.pin_table_layout and step_mode not in ("none", "dp", "hybrid"):
+        raise SystemExit(
+            "--pin-table-layout applies to the single-chip megastep, "
+            "the dp engine, and the hybrid mega-table engine; "
+            "rowshard manages its own layout"
+        )
+    if args.debug_mode and mega:
+        raise SystemExit(
+            "--debug-mode prints the single-chip `state`, which is a "
+            "placeholder for the mega-table engines; use "
+            "--documenting-table-weight for their real tables"
+        )
     if args.debug_mode:
         # arch + initial parameter printout (dlrm_s_pytorch.py:1210-1263)
         rank0_print(rank, f"model config: {cfg}")
@@ -858,7 +949,14 @@ def _run(args, device, rank: int, nproc: int) -> dict:
             for name, leaf in (t.items() if isinstance(t, dict) else [(None, t)]):
                 label = f"emb[{k}]" if name is None else f"emb[{k}].{name}"
                 rank0_print(rank, f"{label} first rows:\n{_host(leaf[: min(4, leaf.shape[0])].float())}")
-    ckpt = CheckpointManager(args.save_model) if args.save_model and rank == 0 else None
+    if mega:  # every rank writes its block (the sharded manager is collective)
+        from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.checkpoint_sharded import (
+            ShardedCheckpointManager,
+        )
+
+        ckpt = ShardedCheckpointManager(args.save_model) if args.save_model else None
+    else:
+        ckpt = CheckpointManager(args.save_model) if args.save_model and rank == 0 else None
     start_epoch = start_batch = 0
     best_acc = 0.0
     # the true architecture rides every checkpoint (the JAX package's
@@ -875,7 +973,7 @@ def _run(args, device, rank: int, nproc: int) -> dict:
                          qr_threshold=int(cfg.qr_threshold))
     if cfg.md_flag:
         arch_meta["md_threshold"] = int(cfg.md_threshold)
-    if args.load_model:
+    if args.load_model and not mega:
         state, meta = CheckpointManager(args.load_model).restore(state)
         start_epoch = int(meta.get("epoch", 0))
         start_batch = int(meta.get("batch", 0))
@@ -891,7 +989,7 @@ def _run(args, device, rank: int, nproc: int) -> dict:
             rank0_print(rank, f"input audit [{name}]: {rep}")
 
     eval_fn = make_eval_step(cfg, device=device)
-    if args.inference_only:
+    if args.inference_only and not mega:  # the mega-table engines' comes after their state
         if args.quantize_emb_with_bit in (4, 8):
             # PTQ serving path (quantize_embedding + quantize_dynamic,
             # dlrm_s_pytorch.py:1446-1471): kernel K2 for the packed tables,
@@ -939,9 +1037,44 @@ def _run(args, device, rank: int, nproc: int) -> dict:
         from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import pseudo
 
         pstate = pseudo.pseudo_state_from(state.params, state.qstate)
+    elif mega:
+        from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import hybrid, rowshard
+
+        kinds = tuple(cfg.table_kind(k) for k in range(cfg.num_tables))
+        if step_mode == "hybrid":
+            plan = hybrid.plan_table_sharding(cfg.table_sizes, nproc, kinds=kinds)
+            hstate = hybrid.init_hybrid_state(cfg, tc, plan, device=device,
+                                              pin_mega_layout=args.pin_table_layout,
+                                              draw=not args.load_model)
+            make_engine_step, make_engine_eval = hybrid.make_hybrid_train_step, hybrid.make_hybrid_eval_step
+        else:
+            plan = rowshard.plan_row_sharding(cfg.table_sizes, nproc, kinds=kinds)
+            hstate = rowshard.init_rowshard_state(cfg, tc, plan, device=device, draw=not args.load_model)
+            make_engine_step, make_engine_eval = (rowshard.make_rowshard_train_step,
+                                                  rowshard.make_rowshard_eval_step)
+        if args.load_model:  # every rank loads its own block, in place
+            hstate, meta = ShardedCheckpointManager(args.load_model).restore(hstate)
+            start_epoch = int(meta.get("epoch", 0))
+            start_batch = int(meta.get("batch", 0))
+            best_acc = float(meta.get("test_acc", 0.0))
+            rank0_print(rank, f"resumed sharded hybrid state from {args.load_model} @ "
+                              f"epoch {start_epoch} batch {start_batch}")
+        mega_eval_fn = pad_global(make_engine_eval(cfg, plan, device=device), nproc)
+        if args.inference_only:
+            if args.quantize_emb_with_bit in (4, 8):
+                from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import make_serving_fn
+
+                sm = _mega_ptq(args, cfg, hstate, plan, rank, nproc)
+                hstate = None  # the block goes before serving (JAX deletes the mega)
+                sfn = make_serving_fn(sm)
+                m = evaluate(cfg, None, test_loader, lambda s, b: sfn(_on(b, dev)))
+            else:
+                m = evaluate(cfg, hstate, test_loader, mega_eval_fn)
+            rank0_print(rank, f"inference: {m}")
+            return m
 
     # --steps-per-dispatch: k steps per call over k batches uploaded at once
-    multi_k = max(1, args.steps_per_dispatch) if step_mode in ("none", "dp") else 1
+    multi_k = max(1, args.steps_per_dispatch) if step_mode in ("none", "dp") or mega else 1
     accum_n = max(1, args.mlperf_grad_accum_iter)
     if accum_n > 1:
         if step_mode != "none":
@@ -988,6 +1121,8 @@ def _run(args, device, rank: int, nproc: int) -> dict:
             elif step_mode == "pseudo":
                 _step_cache[key] = pseudo.make_pseudo_train_step(
                     eff, tc, args.num_pseudo_workers, device=device)
+            elif mega:
+                _step_cache[key] = make_engine_step(eff, tc, plan, steps_per_dispatch=k, device=device)
             elif k > 1:
                 _step_cache[key] = make_multi_train_step(
                     eff, tc, k, sparse_emb_grad=True, device=device
@@ -1028,8 +1163,12 @@ def _run(args, device, rank: int, nproc: int) -> dict:
         dlrm_s_pytorch_comm_grad.py:1699, 2112)."""
         if not args.documenting_table_weight or rank != 0:
             return
+        if mega and nproc > 1:
+            rank0_print(rank, "--documenting-table-weight is a single-process tool; "
+                              "skipping (mega-table shards are not rank-0-addressable)")
+            return
         arrs = {}
-        for k, t in enumerate(state.params["emb"]):
+        for k, t in enumerate(mega_params(cfg, hstate, plan)["emb"] if mega else state.params["emb"]):
             if isinstance(t, dict):
                 arrs.update((f"table_{k}_{name}", _host(leaf)) for name, leaf in t.items())
             else:
@@ -1046,6 +1185,9 @@ def _run(args, device, rank: int, nproc: int) -> dict:
     dtg = args.documenting_table_grads
     if dtg > 0 and step_mode == "pseudo":
         raise SystemExit("--documenting-table-grads supports parallelism none/dp/dp-nosync")
+    if dtg > 0 and mega:
+        raise SystemExit("--documenting-table-grads supports parallelism none/dp "
+                         "(the mega-table engines' shards are not rank-0-addressable)")
     _probe_cache: dict = {}
 
     def document_grads(epoch: int, it_: int, batch) -> None:
@@ -1068,6 +1210,8 @@ def _run(args, device, rank: int, nproc: int) -> dict:
         nosync replicas averaged first (dp_only.py's accuracy
         aggregation)."""
         nonlocal dstate, state
+        if mega:  # the tables stay in their blocks
+            return evaluate(cfg, hstate, loader, mega_eval_fn)
         if step_mode in _DP_MODES:
             if step_mode == "dp-nosync":
                 dstate = sync_fn(dstate)
@@ -1084,7 +1228,7 @@ def _run(args, device, rank: int, nproc: int) -> dict:
         for bi, batch in enumerate(prefetch(train_loader, depth=3)):
             if epoch == start_epoch and bi < start_batch:
                 continue  # fast-forward resume (dlrm_s_pytorch.py:1523-1534)
-            if step_mode in _DP_MODES and batch.labels.shape[0] % nproc != 0:
+            if (step_mode in _DP_MODES or mega) and batch.labels.shape[0] % nproc != 0:
                 # the reference's skip-with-warning for batches not divisible
                 # by the world size (dlrm_s_pytorch.py:1553-1558)
                 rank0_print(
@@ -1124,6 +1268,8 @@ def _run(args, device, rank: int, nproc: int) -> dict:
                 pack, _buf = _buf, []
                 if step_mode == "dp":
                     dstate, loss = step_fn(dstate, _on(stack_batches(pack), dev))
+                elif mega:
+                    hstate, loss = step_fn(hstate, _on(stack_batches(pack), dev))
                 else:
                     state, loss = step_fn(state, _on(stack_batches(pack), dev))
                 it += multi_k
@@ -1133,6 +1279,9 @@ def _run(args, device, rank: int, nproc: int) -> dict:
             elif step_mode == "pseudo":
                 pstate, loss = step_fn(pstate, batch)
                 state = state._replace(params=pstate.params, qstate=pstate.qstate)
+                it += 1
+            elif mega:
+                hstate, loss = step_fn(hstate, batch)
                 it += 1
             else:
                 state, loss = step_fn(state, batch)
@@ -1179,7 +1328,7 @@ def _run(args, device, rank: int, nproc: int) -> dict:
                     return
                 best_acc = m["accuracy"]
                 ckpt.save(
-                    state,
+                    hstate if mega else state,
                     {"epoch": epoch, "batch": bi + 1, "iter": it,
                      # "test_acc" key kept for resume-compat; records the
                      # SELECTION metric (val acc when --val-freq is on)
@@ -1230,6 +1379,8 @@ def _run(args, device, rank: int, nproc: int) -> dict:
                 if step_mode == "dp":
                     dstate, loss = single(dstate, b)
                     state = state._replace(params=dstate.params, qstate=dstate.qstate)
+                elif mega:
+                    hstate, loss = single(hstate, b)
                 else:
                     state, loss = single(state, b)
                 it += 1
@@ -1259,15 +1410,21 @@ def _run(args, device, rank: int, nproc: int) -> dict:
         dstate = sync_fn(dstate)
         state = state._replace(params=dstate.params, qstate=dstate.qstate)
     if not result:
-        result = evaluate(cfg, state, test_loader, eval_fn, max_batches=8)
+        if mega:  # sharded final eval: the tables stay in their blocks
+            result = evaluate(cfg, hstate, test_loader, mega_eval_fn, max_batches=8)
+        else:
+            result = evaluate(cfg, state, test_loader, eval_fn, max_batches=8)
         rank0_print(rank, f"final eval: {result}")
         if ckpt:
             ckpt.save(
-                state,
+                hstate if mega else state,
                 {"epoch": tc.nepochs, "batch": 0, "iter": it,
                  "test_acc": result.get("accuracy", 0.0), **arch_meta},
             )
-    if args.plot_compute_graph and rank == 0:
+    if args.plot_compute_graph and rank == 0 and mega and nproc > 1:
+        rank0_print(rank, "--plot-compute-graph: skipping (mega-table shards are not "
+                          "rank-0-addressable)")
+    elif args.plot_compute_graph and rank == 0:
         # torchviz compute-graph analogue (dlrm_s_pytorch.py:1797-1803): the
         # torch.export graph of the forward and loss on the last batch
         # (tracing runs nothing on the card)
@@ -1276,7 +1433,8 @@ def _run(args, device, rank: int, nproc: int) -> dict:
             export_forward_loss,
         )
 
-        model = DLRM(config_for_epoch(cfg, tc, tc.nepochs - 1), params=state.params, qstate=state.qstate)
+        gparams, gq = (mega_params(cfg, hstate, plan), hstate.qstate) if mega else (state.params, state.qstate)
+        model = DLRM(config_for_epoch(cfg, tc, tc.nepochs - 1), params=gparams, qstate=gq)
         out = os.path.join(args.log_dir or ".", "compute_graph.stablehlo.txt")
         with open(out, "w") as f:
             f.write(str(export_forward_loss(model, _on(batch, dev))))

@@ -1,6 +1,7 @@
 """The port imports with jax blocked, loads nothing of the JAX package, and
 its entry points, the CLI's `train.run` among them (also under
-`--parallelism=dp`, `dp-nosync` and `pseudo`, on a one-rank gloo group),
+`--parallelism=dp`, `dp-nosync`, `pseudo`, `hybrid` and `rowshard`, on a
+one-rank gloo group),
 refuse to fall back to the CPU without being asked. A PACT, an LSQ and an
 integer-activation step (sparse and dense) and their CLI runs load no jax
 either. The export path, the Module API and the reference-checkpoint
@@ -124,11 +125,63 @@ def test_port_imports_without_jax():
     assert res.returncode == 0, res.stderr
     n_modules = int(res.stdout.split()[-1])
     for name in ("data.criteo", "data.native_ext", "data.trace", "tools.analysis", "models.flax_module",
-                 "tools.torch_import"):
+                 "tools.torch_import", "parallel.hybrid", "parallel.rowshard", "parallel.compressed_a2a",
+                 "utils.checkpoint_sharded"):
         assert f"deep_quantized_recommendation_model_dqrm_tpu_torch.{name}" in res.stdout
     # config, device, models, data (synthetic, binary, prefetch), ops, kernels, optim,
     # train_step, train, serving, utils (checkpoint, logging, profiling, tfevents), ...
     assert n_modules >= 35
+
+
+MEGA_SCRIPT = textwrap.dedent(
+    """
+    import os, sys, tempfile
+    sys.modules["jax"] = None  # any import of jax now raises ImportError
+    import torch.distributed as dist
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import DLRMConfig, TrainConfig
+    from deep_quantized_recommendation_model_dqrm_tpu_torch import train
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import hybrid, rowshard
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils import checkpoint_sharded
+    cfg = DLRMConfig(table_sizes=(300, 20, 7), embedding_dim=4, mlp_bot=(13, 8, 4), mlp_top=(10, 4, 1))
+    argv = ["--num-batches=4", "--arch-mlp-bot=13-8-4", "--arch-sparse-feature-size=4",
+            "--arch-embedding-size=300-20-7", "--mini-batch-size=4", "--test-mini-batch-size=4",
+            "--print-freq=1", "--quantization_flag"]
+    for call in (lambda: hybrid.init_hybrid_state(cfg, TrainConfig(), hybrid.plan_table_sharding(cfg.table_sizes, 1)),
+                 lambda: rowshard.init_rowshard_state(cfg, TrainConfig(),
+                                                      rowshard.plan_row_sharding(cfg.table_sizes, 1)),
+                 lambda: train.run(argv + ["--parallelism=hybrid"]),
+                 lambda: train.run(argv + ["--parallelism=rowshard"])):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA is not available" in str(e)
+        else:
+            raise AssertionError("a mega-table entry point fell back to the CPU")
+    d = tempfile.mkdtemp()
+    for mode in ("hybrid", "rowshard"):
+        ck = os.path.join(d, mode)
+        m = train.run(argv + ["--platform=cpu", f"--parallelism={mode}", f"--save-model={ck}"])
+        assert set(m) >= {"accuracy", "roc_auc"} and not dist.is_initialized()
+        m = train.run(argv + ["--platform=cpu", f"--parallelism={mode}", f"--load-model={ck}",
+                              "--inference-only", "--quantize-emb-with-bit=4"])
+        assert set(m) >= {"accuracy", "roc_auc"}
+    jax_pkg = "deep_quantized_recommendation_model_dqrm_tpu"
+    assert not [m for m in sys.modules if m == jax_pkg or m.startswith(jax_pkg + ".")]
+    print("OK")
+    """
+)
+
+
+def test_mega_engines_run_without_jax():
+    """The mega-table engines' entry points refuse to fall back to the CPU;
+    with `--platform=cpu` a hybrid and a row-sharded CLI run save their
+    sharded state and serve it through `--inference-only` PTQ, with jax
+    blocked."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", MEGA_SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "OK"
 
 
 MODEL_OPTIONS_SCRIPT = textwrap.dedent(

@@ -198,3 +198,121 @@ def test_dp_cli_resume_with_options(tmp_path, flags):
     want = [v for s, v in scalars(full, "Train/Loss") if s > 8]
     got = [v for _, v in scalars(part, "Train/Loss")]  # counted from the resume
     assert len(want) == 4 and got == want
+
+
+# ---------------------------------------------------------------------------
+# The mega-table engines: --parallelism=hybrid and rowshard
+# ---------------------------------------------------------------------------
+
+MEGA = COMMON + ["--steps-per-dispatch=3", "--documenting-table-weight"]
+MEGA_FLAGS = {"hybrid": ["--parallelism=hybrid", "--pin-table-layout", "--a2a-quant-bits=8"],
+              "rowshard": ["--parallelism=rowshard"]}
+MEGA_PTQ = ["--inference-only", "--quantize-emb-with-bit=4", "--quantize-mlp-with-bit=8"]
+
+
+def run_mega_both(tmp_path, argv, world):
+    """`argv` through the JAX CLI on a `world`-device CPU mesh and through
+    the port's CLI as `world` gloo ranks, all processes at once; returns
+    (port dir, JAX dir, JAX stdout, the port ranks' stdouts)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={world}")
+    dt, dj = str(tmp_path / "torch"), str(tmp_path / "jax")
+    out_args = lambda d: [f"--log-dir={d}/log", f"--save-model={d}/ck", "--platform=cpu"]  # noqa: E731
+    cmds = [[sys.executable, "-m", "deep_quantized_recommendation_model_dqrm_tpu.train"] + argv + out_args(dj)]
+    group = (lambda r: [f"--coordinator-address=file://{tmp_path}/store", f"--num-processes={world}",
+                        f"--process-id={r}"]) if world > 1 else (lambda r: [])
+    cmds += [[sys.executable, "-m", "deep_quantized_recommendation_model_dqrm_tpu_torch.train"] + argv
+             + out_args(dt) + group(r) for r in range(world)]
+    procs = [subprocess.Popen(c, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (o, e) in zip(procs, outs):
+        assert p.returncode == 0, e[-3000:]
+    return (dt, dj, outs[0][0], [o for o, _ in outs[1:]])
+
+
+@pytest.mark.parametrize("mode", ["hybrid", "rowshard"])
+def test_mega_cli_matches_jax(tmp_path, mode):
+    """One rank against one device: the logged losses and test metrics, the
+    final tables (`--documenting-table-weight`, atol 1e-5), and each CLI's
+    `--inference-only` PTQ of its own sharded checkpoint (streaming export,
+    metrics within 1e-4)."""
+    argv = MEGA + MEGA_FLAGS[mode]
+    dt, dj, jax_out, (out,) = run_mega_both(tmp_path, argv, 1)
+    assert "Finished training it 15/16" in out and "Finished training it 15/16" in jax_out
+    assert_logs_agree(dt, dj)
+    with np.load(f"{dt}/log/table_weights_1.npz") as a, np.load(f"{dj}/log/table_weights_1.npz") as b:
+        assert sorted(a.files) == sorted(b.files) == [f"table_{k}" for k in range(4)]
+        for k in a.files:
+            np.testing.assert_allclose(a[k], b[k], rtol=0, atol=1e-5, err_msg=k)
+    infer = [a for a in argv if a not in ("--documenting-table-weight", "--test-freq=8")] + MEGA_PTQ
+    got = ttrain.run(infer + ["--platform=cpu", f"--load-model={dt}/ck"])
+    want = run_jax_ptq(infer + [f"--load-model={dj}/ck"])
+    for k in ("accuracy", "roc_auc"):
+        assert abs(got[k] - want[k]) <= METRIC_ATOL, (k, got[k], want[k])
+
+
+def run_jax_ptq(argv):
+    """The JAX CLI's `--inference-only` run on the 1-device mesh its
+    checkpoint was written on (this process's mesh has 8 devices)."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_force_host_platform_device_count=1")
+    code = ("import json, sys; from deep_quantized_recommendation_model_dqrm_tpu import train; "
+            "print('RESULT', json.dumps(train.run(sys.argv[1:])))")
+    res = subprocess.run([sys.executable, "-c", code] + argv + ["--platform=cpu"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.split("RESULT", 1)[1])
+
+
+@pytest.mark.parametrize("mode", ["hybrid", "rowshard"])
+def test_mega_cli_two_ranks_matches_jax(tmp_path, mode):
+    """Two gloo ranks against two devices: the logged losses and metrics
+    (rank 0 alone prints); the sharded checkpoint holds each rank's
+    block."""
+    argv = [a for a in MEGA if a != "--documenting-table-weight"] + MEGA_FLAGS[mode]
+    dt, dj, jax_out, (rank0, rank1) = run_mega_both(tmp_path, argv, 2)
+    assert "Finished training it" in rank0 and not rank1.strip()
+    assert_logs_agree(dt, dj)
+    names = sorted(os.listdir(f"{dt}/ck/dqrm_0"))
+    assert {"__0_0.distcp", "__1_0.distcp", ".metadata"} <= set(names)
+
+
+@pytest.mark.parametrize("mode", ["hybrid", "rowshard"])
+def test_mega_cli_resume(tmp_path, mode):
+    """The port's CLI saves its sharded state at the test eval of step 9; a
+    second run resumes from that slot (the batches fast-forwarded, the QAT
+    step restored) and logs the losses of the run that never stopped, bit
+    for bit."""
+    argv = MEGA + MEGA_FLAGS[mode] + ["--platform=cpu"]
+    full, part = str(tmp_path / "full"), str(tmp_path / "part")
+    ttrain.run(argv + [f"--log-dir={full}/log", f"--save-model={full}/ck"])
+    os.makedirs(f"{part}/ck")  # the slot of step 9 alone (the final save's is newer)
+    shutil.copytree(f"{full}/ck/dqrm_0", f"{part}/ck/dqrm_0")
+    shutil.copy(f"{full}/ck/dqrm_0.meta.json", f"{part}/ck/dqrm_0.meta.json")
+    ttrain.run(argv + [f"--log-dir={part}/log", f"--load-model={part}/ck"])
+    want = [v for s, v in scalars(full, "Train/Loss") if s > 9]
+    got = [v for _, v in scalars(part, "Train/Loss")]  # counted from the resume
+    assert len(want) == 2 and got == want
+
+
+@pytest.mark.parametrize("mode,flag", [
+    ("hybrid", "--onehot-update-max-rows=100"), ("rowshard", "--onehot-lookup-max-rows=100"),
+    ("hybrid", "--stream-update-max-rows=100"), ("rowshard", "--debug-mode"),
+    ("rowshard", "--pin-table-layout"), ("hybrid", "--documenting-table-grads=1"),
+])
+def test_mega_cli_refusals_match_jax(mode, flag):
+    """What the JAX CLI refuses under the mega-table engines, the port's
+    refuses with the same message."""
+    argv = COMMON + [f"--parallelism={mode}", flag]
+    with pytest.raises(SystemExit) as want:
+        jtrain.run(argv)
+    with pytest.raises(SystemExit) as got:
+        ttrain.run(argv + ["--platform=cpu"])
+    assert str(got.value) == str(want.value)
