@@ -15,8 +15,10 @@ under the model options and the ranking-range policy, the JAX
 package's Terabyte rehearsal recipes through the CLI (under dp and under
 the hybrid mega-table engine, with sharded checkpoints and streaming PTQ
 serving), the serving artifact (`torch.export`), the Module API, the
-import of a reference checkpoint, and the mega-table engines (hybrid,
-rowshard) at one rank on the card and at two gloo ranks sharing it.
+import of a reference checkpoint, the mega-table engines (hybrid,
+rowshard) at one rank on the card and at two gloo ranks sharing it, the
+quantized CNN side-harness with its top-k row-sparsified gradient sync
+(`train_cnn`), and the fused mega-table engine.
 
     python3 chip_smoke.py
 
@@ -211,7 +213,26 @@ launch counters of its kernels set to 0 just before and read just after:
    B = 128 global, 8 steps against world 1 from the same params and
    batches (hybrid also QR + learned v_W, rowshard also PACT with its
    normalizer a MAX over the ranks); hybrid's compressed all-to-all at 8
-   and 4 bits against the 32-bit exchange.
+   and 4 bits against the 32-bit exchange;
+35. cnn: `train_cnn.run` at its default model (--arch=32-64-128, 32x32x3
+   images, 10 classes, 8-bit QAT with BN, B = 256, --mode=gather,
+   --top-k=32) on one NCCL rank with cuDNN at PyTorch's TF32 default (the
+   port's convs pin float32 themselves): 8 steps against the same run on
+   the CPU (losses rtol 1e-4, params 5e-4, the rows selected at step 0
+   equal), 100 steps through the CLI (its ms/it, the final top-1), and the
+   step alone timed by CUDA events and profiled;
+36. cnn2: the top-k engine at world 2, two gloo processes on the one card,
+   in mask mode, gather mode and gather mode with --metric=hessian
+   --hessian-samples=2, 8 steps each against the same run on the two
+   ranks' CPUs (losses rtol 1e-3, params 5e-3: a top-k pick that a float32
+   difference flips parts the runs at world 2); synced Melem a step
+   against the dense count;
+37. fused: the fused engine (one 2.16 GB mega-table) at Kaggle's width,
+   B = 128, INT4 QAT: 32 steps against `train`'s sparse step within its
+   bounds, both timed in turns and profiled;
+38. fused_tb: the fused engine on Terabyte's 6.29 GB bf16 block, B = 2048,
+   scale_update_period 4: 8 steps against `train` as hybrid_tb holds it,
+   the steps' peak memory above what is held, timed and profiled.
 
 Kernel K6 (`dma_row_update`) is on no path; its kernel phase holds it
 against its plain version on the 2,202,608-row table.
@@ -227,7 +248,9 @@ profile, tb_dp with profile, tb_serve, criteo, cli, cli_schemes,
 cli_tricks, cli_import, cli_dp, cli_criteo, cli_tb_rehearsal, dp2,
 kernels; the mega-table phases slot in: hybrid_tb (with profiles) after
 tb_dp, rowshard (with profile) after dp_ranking, cli_hybrid and
-cli_rowshard after cli_tb_rehearsal, mega2 after dp2.
+cli_rowshard after cli_tb_rehearsal, mega2 after dp2; cnn before dp
+(its CLI runs make and destroy their own groups), fused after rowshard,
+fused_tb after hybrid_tb, cnn2 after mega2.
 
 Output: one JSON line per phase; then the {"kernels": [...]} summary; then
 the card's name and power limit as nvidia-smi gives them; and last
@@ -2134,10 +2157,10 @@ def dp_wire_bytes(cfg, local_batch, bits):
     return out
 
 
-def profile_megastep(of, step, state, batches, k, **extra):
+def profile_megastep(of, step, state, batches, k, into=None, **extra):
     """torch.profiler over one k-step call: launches per step, device busy,
-    idle share, and the NCCL (or gloo) collectives' device time. Returns
-    the state."""
+    idle share, and the NCCL (or gloo) collectives' device time, emitted
+    (and put into the dict `into` where given). Returns the state."""
     holder = [state]
 
     def megastep():
@@ -2146,12 +2169,14 @@ def profile_megastep(of, step, state, batches, k, **extra):
     ops, wall_ms = device_ops(megastep, 1)
     busy = sum(o["ms_per_call"] for o in ops)
     nccl = [o for o in ops if "nccl" in o["name"].lower()]
-    emit({"phase": "profile", "of": of, "megasteps": 1, "steps": k, **extra,
-          "wall_ms_per_step": wall_ms / k,
-          "device_busy_ms_per_step": busy / k if ops else "not measured",
-          "device_idle_share": 1.0 - busy / wall_ms if ops else "not measured",
-          "device_launches_per_step": sum(o["launches_per_call"] for o in ops) / k if ops else "not measured",
-          "nccl_ms_per_step": sum(o["ms_per_call"] for o in nccl) / k if ops else "not measured",
+    stats = {"wall_ms_per_step": wall_ms / k,
+             "device_busy_ms_per_step": busy / k if ops else "not measured",
+             "device_idle_share": 1.0 - busy / wall_ms if ops else "not measured",
+             "device_launches_per_step": sum(o["launches_per_call"] for o in ops) / k if ops else "not measured",
+             "nccl_ms_per_step": sum(o["ms_per_call"] for o in nccl) / k if ops else "not measured"}
+    if into is not None:
+        into.update(stats)
+    emit({"phase": "profile", "of": of, "megasteps": 1, "steps": k, **extra, **stats,
           "nccl_ops": [o["name"] for o in nccl],
           "top_device_ops": [{"name": o["name"], "ms_per_step": o["ms_per_call"] / k,
                               "launches_per_step": o["launches_per_call"] / k} for o in ops[:15]]})
@@ -5285,6 +5310,379 @@ def phase_cli_rowshard(cfg):
           "load_and_eval": {"wall_s": wall_b, "eval": result_b}, "phase_s": time.perf_counter() - t0})
 
 
+# The CNN side-harness and the fused engine (the JAX package's last modules)
+CNN_MODEL = ["--arch=32-64-128", "--image-size=32", "--num-classes=10", "--bits=8", "--batch-size=256",
+             "--top-k=32"]  # train_cnn's default model: 8-bit QAT with BN, B = 256, k = 32
+CNN_ARGV = CNN_MODEL + ["--mode=gather"]
+CNN_STEPS = 100
+CNN_COMPARE_STEPS = 8
+CNN_TIMED_STEPS = 32
+# card against CPU over 8 steps at world 1: float32 convolutions summed in
+# other orders (cuDNN's algorithms against the CPU's), and an 8-bit rounding
+# that a tie flips moves a forward weight by one quantization step
+# (|w|max / 127); at world 1 a row's update is its gradient whether or not
+# the top-k picks it, so nothing else parts the runs: the losses stay within
+# 1e-4 (TF32's 10-bit products move them by about 1e-3: the phase's
+# control) and the params, after 8 SGD steps at lr 0.05, within 5e-4
+CNN_LOSS_RTOL = 1e-4
+CNN_PARAM_ATOL = 5e-4
+# at world 2 a pick matters: a score that a float32 difference moves across
+# the k-th can give a filter the ranks' mean update instead of its own
+# rank's, up to lr |g| (about 5e-3) on its elements, and the runs part from
+# there; the losses follow within 1e-3 (cnn holds the 1e-4 at world 1)
+CNN2_LOSS_RTOL = 1e-3
+CNN2_PARAM_ATOL = 5e-3
+CNN2_STEPS = 8
+CNN2_CASES = {"mask": ["--mode=mask"], "gather": ["--mode=gather"],
+              "hessian": ["--mode=gather", "--metric=hessian", "--hessian-samples=2"]}
+CNN2_TIMEOUT_S = 600
+FUSED_CALLS = 2  # 32 steps of 16: the refresh at step 0 (period 200)
+FUSED_TB_K = 8
+FUSED_TB_PERIOD = 4  # refreshes at steps 0 and 4
+
+
+def cnn_cli(argv):
+    """`train_cnn.run(argv)` with its printed lines captured: (result,
+    lines)."""
+    import contextlib
+    import io
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch import train_cnn
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = train_cnn.run(argv)
+    check(res["rc"] == 0, f"train_cnn {argv}: rc {res['rc']}")
+    return res, out.getvalue().strip().splitlines()
+
+
+def cnn_compare(card, cpu, k, label, loss_rtol=CNN_LOSS_RTOL, param_atol=CNN_PARAM_ATOL):
+    """The card's train_cnn run against the CPU's of the same argv: losses,
+    each param, the rows step 0 selected."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import topk_grad
+
+    lc, lp = card["losses"].cpu(), cpu["losses"]
+    rel = (lc - lp).abs() / lp.abs()
+    out = {"steps": int(lc.numel()), "loss_max_rel_err": rel.max().item(), "loss_rel_err_by_step": rel.tolist(),
+           "param_max_abs_err": max((a.cpu() - b).abs().max().item()
+                                    for a, b in zip(leaves(card["state"].params), leaves(cpu["state"].params))),
+           "loss_rtol": loss_rtol, "param_atol": param_atol}
+    # step 0 applies rank 0's scores (the round robin's first owner)
+    sel = [topk_grad.top_k_indices(r["scores0"][0].cpu(), k).tolist() for r in (card, cpu)]
+    out["selected_at_step_0_equal"] = sel[0] == sel[1]
+    check(bool(torch.isfinite(lc).all()), f"{label}: finite losses")
+    check(out["loss_max_rel_err"] <= loss_rtol and out["param_max_abs_err"] <= param_atol
+          and out["selected_at_step_0_equal"], f"{label}: card vs CPU {out}")
+    return out
+
+
+def phase_cnn():
+    """The CNN side-harness at `train_cnn`'s default model (32-64-128, 32x32x3
+    images, 10 classes, 8-bit QAT with BN, B = 256, gather mode, k = 32) on
+    one NCCL rank, with cuDNN left at PyTorch's default (TF32 allowed) so
+    that the port's convs must pin float32 themselves: 8 steps through
+    `train_cnn.run` on the card against 8 through `--platform=cpu` (losses
+    rtol 1e-4, params 5e-4, the rows selected at step 0 equal); 100 steps
+    through the CLI (its own ms/it and the final top-1); then the step
+    alone on batches already on the card, timed by CUDA events and
+    profiled (launches, busy, idle). Each CLI run makes its own group and
+    destroys it; the timed step runs on a one-rank NCCL group made here."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models import cnn
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import multihost, topk_grad
+
+    t0 = time.perf_counter()
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    try:
+        argv = CNN_ARGV + [f"--steps={CNN_COMPARE_STEPS}", f"--print-freq={CNN_COMPARE_STEPS}"]
+        cpu, _ = cnn_cli(argv + ["--platform=cpu"])
+        card, _ = cnn_cli(argv)
+        compared = cnn_compare(card, cpu, 32, "cnn")
+        # the control: the same run with the convs' float32 pin lifted
+        # (cuDNN at PyTorch's TF32 default), held to nothing, reported
+        import contextlib
+
+        from deep_quantized_recommendation_model_dqrm_tpu_torch.ops import quant_conv
+
+        pin = quant_conv.fp32_convs
+        quant_conv.fp32_convs = topk_grad.fp32_convs = contextlib.nullcontext
+        try:
+            tf32, _ = cnn_cli(argv)
+        finally:
+            quant_conv.fp32_convs = topk_grad.fp32_convs = pin
+        lt, lp = tf32["losses"].cpu(), cpu["losses"]
+        tf32_control = {"loss_rel_err_by_step": ((lt - lp).abs() / lp.abs()).tolist(),
+                        "param_max_abs_err": max((a.cpu() - b).abs().max().item() for a, b in
+                                                 zip(leaves(tf32["state"].params), leaves(cpu["state"].params)))}
+        del cpu, card, tf32
+        t = time.perf_counter()
+        full, lines = cnn_cli(CNN_ARGV + [f"--steps={CNN_STEPS}", "--print-freq=20"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t
+        check(bool(torch.isfinite(full["losses"]).all()), "cnn: finite losses over 100 steps")
+        check(full["losses"][-10:].mean().item() < full["losses"][:10].mean().item(), "cnn: the loss falls")
+        cfg = cnn.CNNConfig()
+        multihost.init_distributed()
+        try:
+            def loss_fn(p, batch):
+                return cnn.cross_entropy_loss(cnn.cnn_forward(cfg, p, batch[0], train=True), batch[1])
+
+            rs = np.random.RandomState(1)
+            host = [cnn.synthetic_image_batch(cfg, 256, rs) for _ in range(CNN_TIMED_STEPS)]
+            batches = [(torch.from_numpy(i).to(DEVICE), torch.from_numpy(l).to(DEVICE)) for i, l in host]
+            tstep = topk_grad.make_topk_dp_train_step(loss_fn, None, 32, 0.05, mode="gather")
+            state = topk_grad.init_topk_state(cnn.init_cnn_params(cfg, 0), 1)
+            holder = [state, 0]
+
+            def one():
+                holder[0], _ = tstep(holder[0], batches[holder[1] % CNN_TIMED_STEPS])
+                holder[1] += 1
+
+            for _ in range(3):
+                one()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(3):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(CNN_TIMED_STEPS):
+                    one()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end) / CNN_TIMED_STEPS)
+            ops, wall_ms = device_ops(one, 8)
+            busy = sum(o["ms_per_call"] for o in ops)
+            prof = {"wall_ms_per_step": wall_ms / 8, "device_busy_ms_per_step": busy if ops else "not measured",
+                    "device_idle_share": 1.0 - busy * 8 / wall_ms if ops else "not measured",
+                    "device_launches_per_step": sum(o["launches_per_call"] for o in ops) if ops else "not measured",
+                    "top_device_ops": [{"name": o["name"], "ms_per_step": o["ms_per_call"],
+                                        "launches_per_step": o["launches_per_call"]} for o in ops[:10]]}
+        finally:
+            multihost.shutdown()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    conv_flops = 0
+    cin, hw = 3, 32
+    for cout in (32, 64, 128):  # forward MACs of each 3x3 conv at B = 256, times 2 for the FLOPs
+        conv_flops += 2 * 256 * hw * hw * cout * 9 * cin
+        cin, hw = cout, hw // 2
+    emit({"phase": "cnn", "config": "train_cnn default: --arch=32-64-128, 32x32x3, 10 classes, 8-bit QAT + BN",
+          "batch": 256, "mode": "gather", "top_k": 32, "world": 1, "backend": "nccl",
+          "cudnn_allow_tf32_during_phase": True, "card_vs_cpu": compared,
+          "tf32_control_vs_cpu": tf32_control,
+          "cli_steps": CNN_STEPS, "cli_s": cli_s, "cli_lines": lines, "final_top1": full["top1"],
+          "synced_melem_per_step": full["synced"][-1].item(),
+          "dense_melem": sum(x.numel() for x in leaves(full["state"].params)) / 1e6,
+          "step_ms": statistics.median(times), "step_ms_chains": times,
+          "conv_gflop_per_step_fwd": conv_flops / 1e9, "profile": prof, "phase_s": time.perf_counter() - t0})
+
+
+def cnn2_rank(rank: int, store: str, out) -> None:
+    """One rank of the cnn2 phase, in its own process: a gloo group of two
+    sharing the one card (the collectives staged through host copies). For
+    each of mask mode, gather mode and gather mode with the Hessian-trace
+    metric (2 samples), `train_cnn.run` at the default model (B = 256
+    global) for 8 steps on the card and again with `--platform=cpu` on the
+    same group: this rank's losses, params and step-0 rows, card against
+    CPU. Puts (rank, results) on `out`."""
+    import traceback
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import multihost
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        multihost.init_distributed(f"file://{store}", DP2_RANKS, rank, backend="gloo", timeout_s=300)
+        res = {}
+        for name, extra in CNN2_CASES.items():
+            argv = CNN_MODEL + extra + [f"--steps={CNN2_STEPS}", f"--print-freq={CNN2_STEPS}"]
+            t = time.perf_counter()
+            card, lines = cnn_cli(argv)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t
+            cpu, _ = cnn_cli(argv + ["--platform=cpu"])
+            res[name] = {**cnn_compare(card, cpu, 32, f"cnn2 {name} rank {rank}", CNN2_LOSS_RTOL,
+                                       CNN2_PARAM_ATOL),
+                         "losses": card["losses"].tolist(), "card_s": card_s, "lines": lines,
+                         "synced_melem_per_step": card["synced"].mean().item(),
+                         "dense_melem": sum(x.numel() for x in leaves(card["state"].params)) / 1e6,
+                         "w0": card["state"].params["conv"][0]["w"].cpu().numpy()}
+        res["world"] = multihost.world()
+        out.put((rank, res))
+    except Exception:  # reported to the parent, which fails the phase
+        out.put((rank, {"error": traceback.format_exc()}))
+    finally:
+        multihost.shutdown()
+
+
+def phase_cnn2():
+    """The top-k engine at world 2 on the one card (see `cnn2_rank`): two
+    processes, ranks 0 and 1 of a gloo group. Held: each rank's card run
+    against its CPU run (losses rtol 1e-3, params 5e-3: see CNN2_LOSS_RTOL;
+    the step-0 rows equal); both ranks' losses equal; the ranks' first kernels drift apart
+    (local SGD on the unselected rows). Reported: synced Melem a step
+    against the dense count."""
+    import queue
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    store = os.path.join(tempfile.mkdtemp(prefix="dqrm_cnn2_"), "store")
+    procs = [ctx.Process(target=cnn2_rank, args=(r, store, out)) for r in range(DP2_RANKS)]
+    for p in procs:
+        p.start()
+    try:
+        results = dict(out.get(timeout=CNN2_TIMEOUT_S) for _ in procs)
+    except queue.Empty:
+        results = {}
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(sorted(results) == list(range(DP2_RANKS)), f"cnn2: both ranks reported ({sorted(results)})")
+    errors = {r: res["error"] for r, res in sorted(results.items()) if "error" in res}
+    check(not errors, "cnn2: " + "\n".join(f"rank {r} failed:\n{e}" for r, e in errors.items()))
+    r0, r1 = results[0], results[1]
+    check(r0["world"] == (0, 2) and r1["world"] == (1, 2), "cnn2: ranks 0 and 1 of 2")
+    summary = {}
+    for name in CNN2_CASES:
+        a, b = r0[name], r1[name]
+        check(a["losses"] == b["losses"], f"cnn2 {name}: the ranks' losses")
+        drift = float(np.abs(a["w0"] - b["w0"]).max())
+        check(drift > 0, f"cnn2 {name}: unselected rows drift between the ranks")
+        summary[name] = {"ranks": {r: {k: v for k, v in res[name].items() if k not in ("losses", "w0")}
+                                   for r, res in results.items()},
+                         "replica_drift_conv0": drift, "losses": a["losses"]}
+    emit({"phase": "cnn2", "world": DP2_RANKS, "backend": "gloo", "devices": torch.cuda.device_count(),
+          "config": "train_cnn default", "batch": 256, "steps": CNN2_STEPS, "checks": summary,
+          "phase_s": time.perf_counter() - t0})
+
+
+def phase_fused(cfg, params0, train_step_ms):
+    """The fused engine (`fused_engine.py`) at Kaggle's full width: the
+    untrained params of `train` concatenated into one 2.16 GB mega-table,
+    INT4 HAWQ QAT (period 200), B = 128, SGD at 0.1: 32 steps against the
+    per-table sparse step (K1 on the 18 small tables) from the same params
+    and batches, held to the train phase's bounds (losses rtol 1e-4, tables
+    through `from_fused` and MLP 1e-5; the step-0 scales equal); then both
+    timed by CUDA events in turns (train, fused, fused, train) and each
+    profiled."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import TrainConfig
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.fused_engine import (
+        from_fused,
+        make_fused_train_step,
+        to_fused,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_quant_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import (
+        TrainState,
+        make_multi_train_step,
+        repeat_step,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    tc = TrainConfig(batch_size=B_TRAIN, learning_rate=0.1, onehot_update_max_rows=SMALL_ROWS)
+    batches = device_batches(cfg, B_TRAIN, K_MEGA, 270)
+    steps = {"train": make_multi_train_step(cfg, tc, K_MEGA, sparse_emb_grad=True),
+             "fused": repeat_step(make_fused_train_step(cfg, TrainConfig(batch_size=B_TRAIN, learning_rate=0.1)),
+                                  K_MEGA)}
+    tstate, tl = run_chain(steps["train"], TrainState(tree_map(torch.clone, params0), None, init_quant_state(cfg)),
+                           batches, FUSED_CALLS)
+    fstate, fl = run_chain(steps["fused"], to_fused(params0, cfg), batches, FUSED_CALLS)
+    diff = path_diff(TrainState(from_fused(fstate, cfg), None, fstate.qstate), fl, tstate, tl, "fused vs train")
+    check(torch.equal(fstate.qstate.emb_scales, tstate.qstate.emb_scales), "fused: the scales of train")
+    ms = {"train": [], "fused": []}
+    states = {"train": tstate, "fused": fstate}
+    for name in ("train", "fused", "fused", "train"):
+        m, _, states[name] = event_ms_per_step(steps[name], states[name], batches, K_MEGA, chains=1, calls=2)
+        ms[name].append(m)
+    prof = {"train": {}, "fused": {}}
+    for name in ("train", "fused"):
+        states[name] = profile_megastep(f"fused {name}", steps[name], states[name], batches, K_MEGA,
+                                        into=prof[name], batch=B_TRAIN)
+    del states, tstate, fstate
+    emit({"phase": "fused", "config": "kaggle", "engine": "fused", "rows": sum(cfg.table_sizes),
+          "mega_bytes": sum(cfg.table_sizes) * cfg.embedding_dim * 4, "batch": B_TRAIN, "k": K_MEGA,
+          "steps": FUSED_CALLS * K_MEGA, "against": "make_multi_train_step (K1 on 18 tables)", "vs_train": diff,
+          "step_ms": ms, "train_phase_step_ms": train_step_ms, "profile": prof,
+          "phase_s": time.perf_counter() - t0})
+
+
+def phase_fused_tb(cfg, params, tb_step_ms):
+    """The fused engine at Terabyte's full width on bf16 tables (the params
+    tb_bf16, tb_dp and hybrid_tb trained, concatenated into one 6.29 GB
+    mega-table), B = 2048, scale_update_period 4: 8 steps against the
+    single-device `train` step (K1 on the 16 small tables) from the same
+    params and batches, held as hybrid_tb holds its 32-bit run (losses rtol
+    1e-4, the MLP 1e-5, each bf16 element within one ulp per update of its
+    row: the fused step rounds each update, `train`'s K1 once a step); the
+    peak memory of the fused steps above what is held (the update is cast
+    to bf16 after its scaling, so no full-table convert); both timed in
+    turns and profiled."""
+    import dataclasses
+
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import TrainConfig
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.fused_engine import (
+        from_fused,
+        make_fused_train_step,
+        to_fused,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_quant_state
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import (
+        TrainState,
+        make_multi_train_step,
+        repeat_step,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, quant=dataclasses.replace(cfg.quant, scale_update_period=FUSED_TB_PERIOD))
+    batches = device_batches(cfg, TB_B, FUSED_TB_K, 280)
+    train_tc = TrainConfig(batch_size=TB_B, learning_rate=0.1, onehot_update_max_rows=SMALL_ROWS)
+    steps = {"train": make_multi_train_step(cfg, train_tc, FUSED_TB_K, sparse_emb_grad=True),
+             "fused": repeat_step(make_fused_train_step(cfg, TrainConfig(batch_size=TB_B, learning_rate=0.1)),
+                                  FUSED_TB_K)}
+    tstate, tl = run_chain(steps["train"], TrainState(tree_map(torch.clone, params), None, init_quant_state(cfg)),
+                           batches, 1)
+    fstate = to_fused(params, cfg)
+    check(fstate.mega.dtype == torch.bfloat16, "fused_tb: a bf16 mega-table")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fstate, fl = run_chain(steps["fused"], fstate, batches, 1)
+    torch.cuda.synchronize()
+    peak_above = torch.cuda.max_memory_allocated() - resident
+    check(peak_above < TB_TABLE_BYTES // 4, f"fused_tb: the steps' peak {peak_above} bytes above what is held "
+                                            "(no full-table convert)")
+    check(bool(torch.isfinite(fl).all()), "fused_tb: finite losses")
+    loss_err = ((fl - tl).abs() / tl.abs()).max().item()
+    check(loss_err <= TRAIN_LOSS_RTOL, f"fused_tb: {FUSED_TB_K} steps, loss fused vs train {loss_err}")
+    check(fstate.mega.dtype == torch.bfloat16 and fstate.qstate.step == FUSED_TB_K, "fused_tb: dtype and step")
+    scale_err = ((fstate.qstate.emb_scales - tstate.qstate.emb_scales).abs() / tstate.qstate.emb_scales).max().item()
+    ulps = bf16_tables_check(from_fused(fstate, cfg), tstate.params, batches.indices, (), 1, "fused_tb")
+    ms = {"train": [], "fused": []}
+    states = {"train": tstate, "fused": fstate}
+    for name in ("train", "fused", "fused", "train"):
+        m, _, states[name] = event_ms_per_step(steps[name], states[name], batches, FUSED_TB_K, chains=1, calls=1)
+        ms[name].append(m)
+    prof = {"train": {}, "fused": {}}
+    for name in ("train", "fused"):
+        states[name] = profile_megastep(f"fused_tb {name}", steps[name], states[name], batches, FUSED_TB_K,
+                                        into=prof[name], batch=TB_B)
+    del states, tstate, fstate
+    emit({"phase": "fused_tb", "config": "terabyte", "engine": "fused", "table_dtype": "bfloat16",
+          "rows": sum(cfg.table_sizes), "mega_bytes": TB_TABLE_BYTES, "batch": TB_B, "k": FUSED_TB_K,
+          "scale_update_period": FUSED_TB_PERIOD, "against": "make_multi_train_step (K1 on 16 tables)",
+          "loss_max_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL, "scale_max_rel_err": scale_err, **ulps,
+          "peak_above_resident_bytes": peak_above, "resident_bytes": resident, "step_ms": ms,
+          "tb_bf16_step_ms": tb_step_ms, "profile": prof, "phase_s": time.perf_counter() - t0})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no usable CUDA card (torch.cuda.is_available() is false)",
@@ -5338,6 +5736,7 @@ def main() -> int:
     state, train_launches, train_step_ms = phase_train(cfg, params)
     stream_launches, stream_step_ms = phase_train_stream(cfg, params0)
     scheme_k1 = phase_schemes(cfg, params0, train_step_ms, flush)
+    phase_cnn()  # its CLI runs make and destroy their own groups: before the dp phases' one
     multihost.init_distributed()  # one rank, NCCL: the dp phases and cli_dp
     dp_k1, dp_step_ms = phase_dp(cfg, params0, train_step_ms)
     dp_launches = {"onehot_dense_grad": dp_k1}
@@ -5349,6 +5748,7 @@ def main() -> int:
     dp_launches["onehot_dense_grad"] += phase_dp_tricks(cfg, params0, trick_ms)
     dp_launches["onehot_dense_grad"] += phase_dp_ranking(cfg, params0, dp_step_ms)
     phase_rowshard(cfg, params0, train_step_ms)
+    phase_fused(cfg, params0, train_step_ms)
     dense_bf16_launches = phase_dense_bf16(cfg, params0)
     graph_launches = phase_module_graph(cfg, params0)
     del params0
@@ -5371,6 +5771,7 @@ def main() -> int:
     tb_cfg, tb_params, tb_k1, tb_step_ms = phase_tb_bf16(train_step_ms)
     tb_k1 += phase_tb_dp(tb_cfg, tb_params, tb_step_ms)
     phase_hybrid_tb(tb_cfg, tb_params, tb_step_ms)
+    phase_fused_tb(tb_cfg, tb_params, tb_step_ms)
     tb_launches = phase_tb_serve(tb_cfg, tb_params, flush)
     del tb_params
     # give the Terabyte phases' cached blocks (some 45 GB) back to the card:
@@ -5410,6 +5811,7 @@ def main() -> int:
     launches["onehot_dense_grad"] += phase_dp2(cfg)
     torch.cuda.empty_cache()
     phase_mega2()
+    phase_cnn2()
     multihost.shutdown()
     launches["onehot_dense_grad"] += dp_launches["onehot_dense_grad"]
     launches["stream_scatter_add"] = stream_launches["stream_scatter_add"] + dp_launches["stream_scatter_add"]

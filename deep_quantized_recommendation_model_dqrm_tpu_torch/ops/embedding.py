@@ -171,11 +171,12 @@ def scatter_add_drop(
 ) -> torch.Tensor:
     """table[ids] += values in place, summing duplicates and dropping ids
     outside [0, rows) (`.at[ids].add(values, mode="drop")`). The ids are
-    clamped and the dropped values zeroed, so `index_add_` never sees an
-    out-of-range id and nothing waits for the device."""
+    clamped and the dropped values replaced by zeros (a NaN of a dropped
+    id adds nothing to the row its id is clamped to), so `index_add_` never
+    sees an out-of-range id and nothing waits for the device."""
     cids, keep = clamp_ids(ids, table.shape[0])
     keep = keep.view(-1, *([1] * (values.dim() - 1)))
-    vals = values.to(table.dtype) * keep.to(table.dtype)
+    vals = torch.where(keep, values.to(table.dtype), torch.zeros((), dtype=table.dtype, device=table.device))
     return table.index_add_(0, cids, vals)
 
 

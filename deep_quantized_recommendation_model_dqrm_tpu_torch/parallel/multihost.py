@@ -24,6 +24,15 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 
+# torch.distributed.nn.functional binds `group.WORLD` as a default argument
+# when it is first imported (torch.distributed.checkpoint imports it). Imported
+# after the default group exists, it keeps that group alive past
+# `destroy_process_group`: a gloo group's worker threads then outlive the
+# interpreter, and one still releasing a collective's tensors at exit aborts
+# the process ("terminate called without an active exception"). Imported
+# here, before any group exists, it binds None.
+import torch.distributed.nn  # noqa: F401  (isort: skip)
+
 from deep_quantized_recommendation_model_dqrm_tpu_torch.device import resolve_device
 
 Device = Optional[Union[str, torch.device]]

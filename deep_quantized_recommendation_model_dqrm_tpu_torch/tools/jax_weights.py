@@ -8,6 +8,9 @@ arrays. These functions take
 them as numpy arrays (or anything `np.asarray` accepts, read by attribute
 name), so the port imports nothing of JAX. Values are copied in their own dtype (uint8 packed
 data, int8 weights, float32 scales): no float conversion touches them.
+The CNN side-harness's params (`models/cnn.py`), the top-k engine's state
+(one rank's params, the score vectors and the step) and the fused engine's
+state (the mega-table, the MLPs, `QuantState`) carry across the same way.
 The params may hold QR/MD dict tables, the pooling weights "v_W" and bf16
 tables: a bf16 array (numpy's 2-byte record type, which the JAX package's
 `np.asarray` and `np.load` give) is read by its bits; the other way, a bf16
@@ -24,6 +27,7 @@ import torch
 
 from deep_quantized_recommendation_model_dqrm_tpu_torch.config import DLRMConfig
 from deep_quantized_recommendation_model_dqrm_tpu_torch.device import resolve_device
+from deep_quantized_recommendation_model_dqrm_tpu_torch.fused_engine import FusedState
 from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import Params, QuantState
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.packed_embedding import (
     PackedTable,
@@ -35,6 +39,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel.comm_grad impor
 from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel.hybrid import HybridState, TableShardingPlan
 from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel.pseudo import PseudoState
 from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel.rowshard import RowShardPlan, RowShardState
+from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel.topk_grad import TopKState
 from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import ServingModel
 from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import TrainState
 from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_map
@@ -123,12 +128,9 @@ def pseudo_state_from_numpy(jax_state: Any, device: Device = None) -> PseudoStat
 def replica_state_to_numpy(state: Union[DPState, PseudoState]) -> dict:
     """A `DPState` or `PseudoState` as {"params", "qstate", "ec"} of numpy
     arrays (the QuantState as a dict of its fields, host ints as int32)."""
-    qs = state.qstate
     return {
         "params": params_to_numpy(state.params),
-        "qstate": {"emb_scales": qs.emb_scales.cpu().numpy(), "act_min": qs.act_min.cpu().numpy(),
-                   "act_max": qs.act_max.cpu().numpy(), "step": np.int32(qs.step),
-                   "act_fixed": np.int32(qs.act_fixed)},
+        "qstate": _qstate_to_numpy(state.qstate),
         "ec": tree_map(_numpy, state.ec),
     }
 
@@ -165,15 +167,56 @@ def rowshard_state_from_numpy(np_mega: Any, np_mlp: Any, np_qstate: Any, np_vw: 
 def mega_state_to_numpy(state: Union[HybridState, RowShardState]) -> dict:
     """A mega-table engine's state as {"mega", "vw", "mlp", "qstate"} of
     numpy arrays (this rank's block; bf16 as float32 of the same values)."""
-    qs = state.qstate
     return {
         "mega": _numpy(state.mega),
         "vw": None if state.vw is None else _numpy(state.vw),
         "mlp": tree_map(_numpy, state.mlp),
-        "qstate": {"emb_scales": qs.emb_scales.cpu().numpy(), "act_min": qs.act_min.cpu().numpy(),
-                   "act_max": qs.act_max.cpu().numpy(), "step": np.int32(qs.step),
-                   "act_fixed": np.int32(qs.act_fixed)},
+        "qstate": _qstate_to_numpy(state.qstate),
     }
+
+
+def _qstate_to_numpy(qs: QuantState) -> dict:
+    return {"emb_scales": qs.emb_scales.cpu().numpy(), "act_min": qs.act_min.cpu().numpy(),
+            "act_max": qs.act_max.cpu().numpy(), "step": np.int32(qs.step), "act_fixed": np.int32(qs.act_fixed)}
+
+
+def fused_state_from_numpy(np_mega: Any, np_mlp: Any, np_qstate: Any, device: Device = None) -> FusedState:
+    """A JAX `FusedState`'s mega-table, MLPs and `QuantState` (read by
+    attribute name) as the port's `FusedState` on `device`, bit for bit."""
+    dev, mlp, qs = _mega_fields(np_mlp, np_qstate, device)
+    return FusedState(mega=_tensor(np.asarray(np_mega), dev), mlp=mlp, qstate=qs)
+
+
+def fused_state_to_numpy(state: FusedState) -> dict:
+    """A `FusedState` as {"mega", "mlp", "qstate"} of numpy arrays (bf16 as
+    float32 of the same values)."""
+    return {"mega": _numpy(state.mega), "mlp": tree_map(_numpy, state.mlp), "qstate": _qstate_to_numpy(state.qstate)}
+
+
+CNN_BLOCK_KEYS = ("w", "b", "bn_scale", "bn_bias")
+
+
+def cnn_params_from_numpy(np_params: Any, device: Device = None) -> dict:
+    """The JAX package's CNN params ({"conv": [{"w", "b"[, "bn_scale",
+    "bn_bias"]}], "head": {"w", "b"}}, kernels [cout, kh, kw, cin]) as the
+    port's nest on `device`, in `models/cnn.py`'s key order."""
+    dev = resolve_device(device)
+    return {"conv": [{k: _tensor(b[k], dev) for k in CNN_BLOCK_KEYS if k in b} for b in np_params["conv"]],
+            "head": {k: _tensor(np_params["head"][k], dev) for k in ("w", "b")}}
+
+
+def cnn_params_to_numpy(params: Any) -> dict:
+    """The port's CNN params as numpy arrays in the same nest."""
+    return tree_map(_numpy, params)
+
+
+def topk_state_from_numpy(np_params: Any, scores: Any, step: Any, device: Device = None) -> TopKState:
+    """A `TopKState` from one rank's params (JAX's
+    `leaf.addressable_shards[r].data` of each CNN leaf), the [world,
+    rows_total] scores and the step."""
+    dev = resolve_device(device)
+    return TopKState(params=cnn_params_from_numpy(np_params, dev), scores=_tensor(scores, dev),
+                     step=int(np.asarray(step)))
 
 
 def opt_state_to_numpy(opt_state: Any) -> Any:

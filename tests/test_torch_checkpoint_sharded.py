@@ -117,3 +117,30 @@ def test_rotation_and_errors(world1, tmp_path):
     save_sharded(str(tmp_path / "plain"), st)
     assert not os.path.exists(str(tmp_path / "plain") + ".meta.json")
     assert restore_sharded(str(tmp_path / "plain"), like)[1] == {}
+
+
+GROUP_TEARDOWN = """
+import os, sys, torch, torch.distributed as dist
+from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import multihost
+multihost.init_distributed(device="cpu")
+x = torch.ones(8)
+dist.all_reduce(x)
+import torch.distributed.checkpoint  # imported with the group alive, as the CLI's sharded save does
+multihost.shutdown()
+print(sorted(open(f"/proc/self/task/{t}/comm").read().strip() for t in os.listdir("/proc/self/task")))
+"""
+
+
+def test_shutdown_frees_the_gloo_group_after_the_checkpoint_import():
+    """`torch.distributed.checkpoint` imported after the group exists must
+    not keep it alive past `multihost.shutdown`: a gloo group's threads
+    outliving the interpreter can abort the process at exit."""
+    import subprocess
+    import sys
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", GROUP_TEARDOWN], cwd=H.REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    threads = res.stdout.strip().splitlines()[-1]
+    assert "gloo" not in threads, threads

@@ -87,6 +87,19 @@ def test_scatter_add_drop_drops_out_of_range():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_scatter_add_drop_drops_non_finite_values_of_dropped_ids():
+    """A dropped id's NaN or inf adds nothing, not even to the row its id
+    is clamped to (as `.at[ids].add(vals, mode="drop")`)."""
+    rows, D = 6, 2
+    ids = np.array([0, rows, rows + 3, 5, 5], np.int32)
+    vals = np.array([[1, 2], [np.nan, np.nan], [np.inf, -np.inf], [3, 4], [5, 6]], np.float32)
+    table = np.arange(rows * D, dtype=np.float32).reshape(rows, D)
+    want = np.asarray(jnp.asarray(table).at[jnp.asarray(ids)].add(jnp.asarray(vals), mode="drop"))
+    got = te.scatter_add_drop(torch.from_numpy(table.copy()), torch.from_numpy(ids), torch.from_numpy(vals))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert np.isfinite(got.numpy()).all()
+
+
 def test_scatter_add_drop_drops_negative_ids():
     """Negative ids add nothing, as in kernel K1. (JAX's `.at[]` wraps them
     NumPy-style before its drop check; the steps never produce them.)"""

@@ -1,8 +1,8 @@
 """The port imports with jax blocked, loads nothing of the JAX package, and
 its entry points, the CLI's `train.run` among them (also under
 `--parallelism=dp`, `dp-nosync`, `pseudo`, `hybrid` and `rowshard`, on a
-one-rank gloo group),
-refuse to fall back to the CPU without being asked. A PACT, an LSQ and an
+one-rank gloo group), the CNN side-harness CLI `train_cnn.main` and the
+fused engine, refuse to fall back to the CPU without being asked. A PACT, an LSQ and an
 integer-activation step (sparse and dense) and their CLI runs load no jax
 either. The export path, the Module API and the reference-checkpoint
 import tool run with jax blocked too."""
@@ -346,6 +346,66 @@ def test_export_module_api_and_import_tool_run_without_jax():
     a reference-layout `.pt`, with jax blocked."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     res = subprocess.run([sys.executable, "-c", EXPORT_SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "OK"
+
+
+CNN_FUSED_SCRIPT = textwrap.dedent(
+    """
+    import io, sys, contextlib
+    sys.modules["jax"] = None  # any import of jax now raises ImportError
+    import numpy as np, torch
+    from deep_quantized_recommendation_model_dqrm_tpu_torch import fused_engine as fe, train_cnn
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import DLRMConfig, QuantConfig, TrainConfig
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.data.synthetic import random_batch
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models import cnn
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import init_params
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops import quant_conv
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.parallel import topk_grad
+    cfg = DLRMConfig(table_sizes=(300, 20, 7), embedding_dim=4, mlp_bot=(13, 8, 4), mlp_top=(10, 4, 1),
+                     quant=QuantConfig(enabled=True, embedding_bit=4, weight_bit=4))
+    ccfg = cnn.CNNConfig(image_size=8, in_channels=2, channels=(4, 8), num_classes=3)
+    argv = ["--arch=4-8", "--image-size=8", "--num-classes=3", "--batch-size=8", "--steps=2",
+            "--steps-per-epoch=1", "--top-k=4", "--print-freq=1"]
+    for call in (lambda: fe.make_fused_train_step(cfg, TrainConfig()), lambda: cnn.init_cnn_params(ccfg),
+                 lambda: train_cnn.main(argv)):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA is not available" in str(e)
+        else:
+            raise AssertionError("an entry point fell back to the CPU")
+    try:
+        topk_grad.make_topk_dp_train_step(lambda p, b: p, None, 4, 0.1, device="cpu")
+    except RuntimeError as e:
+        assert "need a process group" in str(e)
+    else:
+        raise AssertionError("the top-k step ran without a process group")
+    st = fe.to_fused(init_params(cfg, device="cpu"), cfg)
+    st, loss = fe.make_fused_train_step(cfg, TrainConfig(), device="cpu")(
+        st, random_batch(cfg, 8, np.random.RandomState(1), device="cpu"))
+    assert st.qstate.step == 1 and bool(torch.isfinite(loss))
+    x = torch.rand(2, 8, 8, 2)
+    assert quant_conv.quant_conv2d(x, torch.randn(3, 3, 2, 4), None).shape == (2, 8, 8, 4)
+    for extra in ([], ["--metric=hessian", "--hessian-samples=1", "--mode=gather"]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert train_cnn.main(argv + extra + ["--platform=cpu"]) == 0
+        assert "final:" in out.getvalue()
+    jax_pkg = "deep_quantized_recommendation_model_dqrm_tpu"
+    assert not [m for m in sys.modules if m == jax_pkg or m.startswith(jax_pkg + ".")]
+    print("OK")
+    """
+)
+
+
+def test_cnn_harness_and_fused_engine_run_without_jax():
+    """The CNN side-harness (quant conv, the model, the top-k step, the
+    `train_cnn` CLI) and the fused engine refuse to fall back to the CPU
+    and run with `--platform=cpu` / device="cpu", with jax blocked."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", CNN_FUSED_SCRIPT], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split()[-1] == "OK"
