@@ -1,0 +1,9 @@
+"""backward_launches.train: CUDA runtime calls that enqueue device work inside
+the train step's `dqrm.train.backward` spans, over the traced steps
+(`phases.launches`)."""
+
+import phases
+
+
+def read(record):
+    return phases.train_launches(record, "backward")

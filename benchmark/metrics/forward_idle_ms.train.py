@@ -1,0 +1,8 @@
+"""forward_idle_ms.train: the device's idle ms inside the train step's
+`dqrm.train.forward` spans, over the traced steps (`phases.idle_us`)."""
+
+import phases
+
+
+def read(record):
+    return phases.train_idle_ms(record, "forward")

@@ -1,0 +1,8 @@
+"""h2d_ms.serve: host ms of the serving engine's `dqrm.serve.h2d` span
+per device batch in the traced stretch (`phases.mean_ms`)."""
+
+import phases
+
+
+def read(record):
+    return phases.serve_ms(record, "h2d")

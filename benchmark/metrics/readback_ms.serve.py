@@ -1,0 +1,8 @@
+"""readback_ms.serve: host ms of the serving engine's `dqrm.serve.readback` span
+per device batch in the traced stretch (`phases.mean_ms`)."""
+
+import phases
+
+
+def read(record):
+    return phases.serve_ms(record, "readback")

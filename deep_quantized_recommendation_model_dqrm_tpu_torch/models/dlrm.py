@@ -225,11 +225,15 @@ def compute_emb_scales(config: DLRMConfig, params: Params) -> torch.Tensor:
         else q.table_scale(config.quant.embedding_bit, t) for t in params["emb"]])
 
 
+def emb_scales_due(config: DLRMConfig, qstate: QuantState) -> bool:
+    """Whether `update_emb_scales` refreshes the scales at this step:
+    quantized tables and step % period == 0 (paper section 3.2)."""
+    return config.quant.quantize_emb and qstate.step % max(config.quant.scale_update_period, 1) == 0
+
+
 def update_emb_scales(config: DLRMConfig, params: Params, qstate: QuantState) -> QuantState:
-    """Refresh the scales when step % period == 0 (paper section 3.2)."""
-    if not config.quant.quantize_emb:
-        return qstate
-    if qstate.step % max(config.quant.scale_update_period, 1) != 0:
+    """Refresh the scales where `emb_scales_due`."""
+    if not emb_scales_due(config, qstate):
         return qstate
     with torch.no_grad():
         return qstate._replace(emb_scales=compute_emb_scales(config, params))

@@ -69,6 +69,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.interaction import (
     cat_interaction,
     dot_interaction,
 )
+from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.profiling import annotate
 
 
 class ServingModel(NamedTuple):
@@ -518,7 +519,9 @@ class ServingEngine:
 
     Pads request batches up to the nearest bucket so the device sees a few
     fixed shapes, chunks requests larger than the biggest bucket, and slices
-    the padding off. `batches` counts the device batches dispatched.
+    the padding off. `batches` counts the device batches dispatched. Each
+    device batch opens the spans `dqrm.serve.pad`, `dqrm.serve.h2d` and
+    `dqrm.serve.readback` (`utils.profiling`).
     """
 
     def __init__(
@@ -559,17 +562,21 @@ class ServingEngine:
         while pos < B:
             chunk = min(B - pos, self.buckets[-1])
             nb = self._bucket(chunk)
-            d = np.zeros((nb, dense.shape[1]), np.float32)
-            d[:chunk] = dense[pos : pos + chunk]
-            ix = np.zeros((indices.shape[0], nb, indices.shape[2]), np.int32)
-            ix[:, :chunk] = indices[:, pos : pos + chunk]
-            batch = dlrm.Batch(
-                dense=torch.from_numpy(d).to(self.device),
-                indices=torch.from_numpy(ix).to(self.device),
-                labels=torch.zeros((nb,), dtype=torch.float32, device=self.device),
-                mask=None,
-            )
-            out[pos : pos + chunk] = self.fn(batch).cpu().numpy()[:chunk]
+            with annotate("dqrm.serve.pad"):
+                d = np.zeros((nb, dense.shape[1]), np.float32)
+                d[:chunk] = dense[pos : pos + chunk]
+                ix = np.zeros((indices.shape[0], nb, indices.shape[2]), np.int32)
+                ix[:, :chunk] = indices[:, pos : pos + chunk]
+            with annotate("dqrm.serve.h2d"):
+                batch = dlrm.Batch(
+                    dense=torch.from_numpy(d).to(self.device),
+                    indices=torch.from_numpy(ix).to(self.device),
+                    labels=torch.zeros((nb,), dtype=torch.float32, device=self.device),
+                    mask=None,
+                )
+            probs = self.fn(batch)
+            with annotate("dqrm.serve.readback"):
+                out[pos : pos + chunk] = probs.cpu().numpy()[:chunk]
             with self._count_lock:
                 self.batches += 1
             pos += chunk

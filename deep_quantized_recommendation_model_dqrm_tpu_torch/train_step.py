@@ -91,6 +91,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.optim.sgd import (
     rwsadagrad_update,
     sgd_update,
 )
+from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.profiling import annotate
 from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_leaves, tree_map
 
 Device = Optional[Union[str, torch.device]]
@@ -402,6 +403,14 @@ def sparse_grads(config: DLRMConfig, params: dlrm.Params, qstate: dlrm.QuantStat
     the identity. The QR/MD slots are recomputed from their tables with
     their gradient (`dlrm.splice_trick_pooled`); their slots of the pooled
     gradient are 0."""
+    return _sparse_backward(*_sparse_forward(config, params, qstate, batch, plain, lsq_numel_scale))
+
+
+def _sparse_forward(config: DLRMConfig, params: dlrm.Params, qstate: dlrm.QuantState,
+                    batch: dlrm.Batch, plain: bool, lsq_numel_scale: float = 1.0):
+    """`sparse_grads`' forward: (loss, the forward's QuantState, and the
+    leaves `_sparse_backward` differentiates: the dense parameters, the
+    QR/MD tables, the pooled lookups)."""
     with torch.no_grad():
         raw_pooled = dlrm.lookup_all(config, params, batch.indices, batch.mask,
                                      not config.quant.enabled, plain=plain)
@@ -417,10 +426,14 @@ def sparse_grads(config: DLRMConfig, params: dlrm.Params, qstate: dlrm.QuantStat
     logits, new_qs = dlrm.forward(config, {**dense, "emb": params["emb"]}, batch, qstate,
                                   train=True, raw_pooled=fwd_in, lsq_numel_scale=lsq_numel_scale)
     loss = dlrm.training_loss(config, logits, batch.labels)
+    return loss, new_qs, dense, emb_trick, pooled
+
+
+def _sparse_backward(loss, new_qs, dense, emb_trick, pooled):
     *grads, g_pooled = _grads(loss, tree_leaves(dense) + tree_leaves(emb_trick) + [pooled])
     n = len(tree_leaves(dense))
     out = _unflatten(dense, grads[:n])
-    if ks:
+    if emb_trick:
         out["emb_trick"] = _unflatten(emb_trick, grads[n:])
     return loss, new_qs, out, g_pooled
 
@@ -457,7 +470,9 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
     nn.EmbeddingBag(sparse=True) + manual optimizer, sgd_quantized_gradients_
     parallel_comm.py:601-685). Updates the embedding tables and their
     accumulators in place (the QR/MD tables, learned pooling weights and the
-    MLPs take new tensors)."""
+    MLPs take new tensors). Each step opens the spans `dqrm.train.step`,
+    `.refresh` (on the steps the scales refresh), `.forward`, `.backward`
+    and `.update` (`utils.profiling`)."""
     _check(tc)
     dev = resolve_device(device)
     qc = config.quant
@@ -468,19 +483,28 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
         if config.weighted_pooling == "learned" else []
 
     def step_fn(state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
+        with annotate("dqrm.train.step"):
+            return step(state, batch)
+
+    def step(state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
         _params_device(state.params, dev)
         batch = _on(batch, dev)
         params, qstate = state.params, state.qstate
-        if qc.enabled:
-            qstate = dlrm.update_emb_scales(config, params, qstate)
-        loss, new_qs, mlp_grads, g_pooled = sparse_grads(config, params, qstate, batch, plain)
+        if qc.enabled and dlrm.emb_scales_due(config, qstate):
+            with annotate("dqrm.train.refresh"):
+                qstate = dlrm.update_emb_scales(config, params, qstate)
+        with annotate("dqrm.train.forward"):
+            fwd = _sparse_forward(config, params, qstate, batch, plain)
+        with annotate("dqrm.train.backward"):
+            loss, new_qs, mlp_grads, g_pooled = _sparse_backward(*fwd)
+        del fwd  # the pooled lookups, freed before the update
         if tc.loss_scale != 1.0:
             mlp_grads = tree_map(lambda g: g * tc.loss_scale, mlp_grads)
             g_pooled = g_pooled * tc.loss_scale
         lr = _lr(tc, qstate.step + 1)
         trick_grads = mlp_grads.pop("emb_trick", {})
 
-        with torch.no_grad():
+        with annotate("dqrm.train.update"), torch.no_grad():
             mlp_params = {key: params[key] for key in mlp_grads}
             opt_state = state.opt_state
             if opt == "sgd":

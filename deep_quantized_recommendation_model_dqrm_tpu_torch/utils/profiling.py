@@ -1,33 +1,45 @@
-"""Profiling: step timing and trace capture on torch.profiler.
+"""Profiling: trace capture and the program's spans, on torch.profiler.
 
 Port of the JAX package's utils/profiling.py, which replaces the
 reference's profiling stack (SURVEY §5): the legacy autograd profiler +
-chrome-trace export (dlrm_s_pytorch.py:1501-1503, :1783-1795),
-`record_function` scopes, and the `time_wrap`/ms-per-it printouts
-(dlrm_s_pytorch.py:114-117).
+chrome-trace export (dlrm_s_pytorch.py:1501-1503, :1783-1795) and its
+`record_function` scopes.
 
 - `trace(logdir)`: a torch.profiler capture of the host and, where there is
-  a card, of the device, written as a Chrome trace into `logdir`;
-- `annotate(name)`: `torch.profiler.record_function`, a named scope in the
-  trace;
-- `StepTimer`: wall-clock ms/it that waits for the device only at
-  measurement boundaries;
-- `PhaseStats`: mean/std accumulator matching
-  `list_profiles_stats_and_clear` (quant_modules_not_quantize_grad.py:
-  400-460).
+  a card, of the device, written as a Chrome trace into `logdir`
+  (`--enable-profiling`);
+- `annotate(name)`: the program's one span. While a torch.profiler runs it
+  is a `record_function` range, on the same timeline as the device's
+  records, so each idle stretch of the device falls in a named phase of
+  the host; while none runs it is a shared null context behind one check of
+  a flag.
+
+The spans the program opens, in eager host loops only (none in code that
+`torch.export` traces):
+
+- the sparse train step (`train_step.make_train_step(sparse_emb_grad=True)`
+  and the megastep over it): `dqrm.train.step` around each step, inside it
+  `dqrm.train.refresh` (the QAT scale refresh, on the steps it runs),
+  `dqrm.train.forward` (pooled lookups to the loss), `dqrm.train.backward`
+  (autograd) and `dqrm.train.update` (the MLP, table and `v_W` updates);
+- `serving.ServingEngine.predict`, per device batch: `dqrm.serve.pad` (the
+  bucket's host buffers), `dqrm.serve.h2d` (the uploads) and
+  `dqrm.serve.readback` (the result's copy to the host, which waits for
+  the forward).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import defaultdict
-from typing import Dict, Iterator, List, Tuple
+from typing import Iterator
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 TRACE_FILE = "trace.json"
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -46,52 +58,10 @@ def trace(logdir: str) -> Iterator[None]:
 
 
 def annotate(name: str):
-    """Named scope visible in profiler traces."""
+    """A named span in the profiler's trace while a profiler runs (on any
+    thread); otherwise the shared null context. The flag is the profiler's
+    own, process-wide (a thread-local check would miss the serving callers'
+    threads)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
     return torch.profiler.record_function(name)
-
-
-class StepTimer:
-    """ms/it between measurement boundaries; call `lap(sync_on)` at
-    print-freq boundaries with any tensor from the last step."""
-
-    def __init__(self) -> None:
-        self._t0 = time.perf_counter()
-        self._steps = 0
-
-    def step(self) -> None:
-        self._steps += 1
-
-    def lap(self, sync_on=None) -> float:
-        if sync_on is not None and sync_on.device.type == "cuda":
-            torch.cuda.synchronize(sync_on.device)
-        now = time.perf_counter()
-        ms = (now - self._t0) / max(self._steps, 1) * 1e3
-        self._t0 = now
-        self._steps = 0
-        return ms
-
-
-class PhaseStats:
-    """Accumulate per-phase wall times; report mean/std per phase
-    (list_profiles_stats_and_clear semantics)."""
-
-    def __init__(self) -> None:
-        self._times: Dict[str, List[float]] = defaultdict(list)
-
-    @contextlib.contextmanager
-    def phase(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._times[name].append(time.perf_counter() - t0)
-
-    def stats_and_clear(self) -> Dict[str, Tuple[float, float]]:
-        import numpy as np
-
-        out = {}
-        for name, ts in self._times.items():
-            arr = np.asarray(ts)
-            out[name] = (float(arr.mean()), float(arr.std()))
-        self._times.clear()
-        return out

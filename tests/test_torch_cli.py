@@ -168,7 +168,8 @@ def test_adagrad_run_and_checkpoints_match_jax(tmp_path):
 def test_resume_with_grad_accum_sum_matches_jax(sgd_runs, tmp_path):
     """Each CLI resumes from its own saved slot (batch fast-forward), then
     accumulates pairs of batches under `sum`, against JAX; the port's run
-    is traced with --enable-profiling."""
+    is traced with --enable-profiling, and its trace holds the train step's
+    spans."""
     res = {}
     for pkg, mod in (("torch", ttrain), ("jax", jtrain)):
         src = sgd_runs[pkg][1]
@@ -179,7 +180,9 @@ def test_resume_with_grad_accum_sum_matches_jax(sgd_runs, tmp_path):
         if pkg == "torch":  # the port's torch.profiler trace of the run
             argv += ["--enable-profiling", f"--profile-dir={d}/prof"]
         res[pkg] = (mod.run(argv), d)
-    assert os.path.exists(os.path.join(res["torch"][1], "prof", "trace.json"))
+    with open(os.path.join(res["torch"][1], "prof", "trace.json")) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"dqrm.train.step", "dqrm.train.forward", "dqrm.train.backward", "dqrm.train.update"} <= names
     assert_runs_agree(res)
 
 
