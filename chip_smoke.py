@@ -27,7 +27,14 @@ It builds the port's CUDA kernels from the sources in the checkout and holds
 each kernel against its plain PyTorch version at the shapes of the main path,
 timed beside the least time the card could take and a PyTorch library
 yardstick. Then it runs the main paths as users run them, each with the
-launch counters of its kernels set to 0 just before and read just after:
+launch counters of its kernels set to 0 just before and read just after.
+The single-device sparse step is one CUDA graph replayed per step
+(`train_step._GraphedSparseStep`): a kernel's wrapper counts the calls that
+reach it, one per eager step and one per capture, the graph counters
+(`graph_counts`) the eager, captured and replayed steps, and each profiled
+megastep of that step checks in the trace that K1 (and K5 where routed)
+ran once a step. Where the list below says "one launch per step" of that
+step, read "one run per step":
 
 1. train: the INT4 QAT sparse step (`make_multi_train_step`, k = 16, B = 128,
    SGD) for 216 steps, so the scale refresh fires at steps 0 and 200, after
@@ -341,6 +348,42 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+# The kernels' names in a profiler's trace, which lists the kernels of a
+# CUDA graph's replay one by one
+K1_KERNEL = "dense_grad_grouped_kernel"
+K4_KERNEL = "pooled_lookup_grouped_kernel"
+K5_KERNEL = "stream_scatter_grouped_kernel"
+
+
+def graph_counts_zero() -> None:
+    """Sets the graphed sparse steps' counters, summed over every step
+    object, to 0, as the phases set the kernel wrappers' `launches`."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import _GraphedSparseStep
+
+    for name in _GraphedSparseStep.totals:
+        _GraphedSparseStep.totals[name] = 0
+
+
+def graph_counts() -> dict:
+    """The graphed sparse steps' counters since `graph_counts_zero`: steps
+    run eagerly, CUDA graphs captured, steps replayed."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import _GraphedSparseStep
+
+    return dict(_GraphedSparseStep.totals)
+
+
+def graphed_calls(steps: int, label: str) -> int:
+    """The calls that reached a kernel which the sparse step launches once a
+    step, over `steps` steps of the graphed sparse step on the card since
+    `graph_counts_zero`: one per eager step and one per capture (a replay
+    runs the captured kernel without a call to its wrapper). Checks that
+    each step ran once, eagerly or replayed."""
+    g = graph_counts()
+    check(g["eager_steps"] + g["graph_replays"] == steps,
+          f"{label}: graph counters {g}: each of {steps} steps ran eagerly or replayed")
+    return g["eager_steps"] + g["graph_captures"]
+
+
 def time_ms(fn, flush: torch.Tensor, reps: int = 25, warmup: int = 3) -> float:
     """Median device time of fn() in ms over `reps` runs, timed with CUDA
     events; the 64 MB `flush` write before each run evicts the 50 MB L2, as
@@ -380,6 +423,8 @@ def device_ops(fn, n: int):
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:  # host ops; their kernels are listed apart
             continue
+        if e.key.startswith("dqrm."):  # the program's spans, mirrored on the device's timeline
+            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
@@ -387,6 +432,21 @@ def device_ops(fn, n: int):
             ops.append({"name": e.key[:120], "ms_per_call": us / 1e3 / n, "launches_per_call": e.count / n})
     ops.sort(key=lambda o: -o["ms_per_call"])
     return ops, wall_ms
+
+
+def kernel_runs_per_call(ops, kernel: str) -> float:
+    """Runs of the kernels whose name holds `kernel` per call, from
+    `device_ops`' list."""
+    return sum(o["launches_per_call"] for o in ops if kernel in o["name"])
+
+
+def check_runs(ops, k: int, runs: dict, label: str) -> None:
+    """Checks that a profiled call of k steps ran each kernel of `runs` (a
+    name fragment) the given number of times a step on the card."""
+    for kernel, per_step in runs.items():
+        got = kernel_runs_per_call(ops, kernel)
+        check(got == per_step * k, f"{label}: {kernel} ran {got} times in the trace of {k} steps, "
+                                   f"{per_step} a step")
 
 
 def device_ms(fn, n: int = 5):
@@ -1361,6 +1421,7 @@ def phase_train(cfg, params):
     tail = make_multi_train_step(cfg, tc, 8, sparse_emb_grad=True)
     torch.cuda.synchronize()
     k1.launches = k1_one.launches = k4.launches = k4_one.launches = 0
+    graph_counts_zero()
     t1 = time.perf_counter()
     losses = []
     state, _ = multi(state, batches)
@@ -1380,12 +1441,14 @@ def phase_train(cfg, params):
     run_s = time.perf_counter() - t1
     launches = {"onehot_dense_grad": k1.launches, "onehot_pooled_lookup": k4.launches}
     per_table = {"onehot_dense_grad": k1_one.launches, "onehot_pooled_lookup": k4_one.launches}
+    graph = graph_counts()
+    check(graph["graph_captures"] == 2, f"graph counters {graph}: one capture for each megastep (16, 8)")
     check(state.qstate.step == TRAIN_STEPS, f"qstate.step {state.qstate.step} == {TRAIN_STEPS}")
     check(bool(torch.equal(state.qstate.emb_scales, scales200)), "scales refreshed at step 200")
     check(not torch.equal(scales200, scales0), "the refresh at step 200 saw the trained tables")
     check(losses.numel() == TRAIN_STEPS and bool(torch.isfinite(losses).all()), "every loss finite")
-    check(launches["onehot_dense_grad"] == TRAIN_STEPS,
-          f"K1 launches {launches} == 1 grouped launch per step x {TRAIN_STEPS}")
+    check(launches["onehot_dense_grad"] == graphed_calls(TRAIN_STEPS, "train"),
+          f"K1 launches {launches} == 1 grouped launch per eager step and per capture, {graph}")
     check(not any(per_table.values()), f"per-table K1/K4 launches {per_table} == 0")
     check(launches["onehot_pooled_lookup"] == 0, f"K4 launches {launches} == 0 in training")
 
@@ -1408,6 +1471,7 @@ def phase_train(cfg, params):
         holder[0], _ = multi(holder[0], batches)
 
     ops, wall_ms = device_ops(megastep, 1)
+    check_runs(ops, K_MEGA, {K1_KERNEL: 1, K4_KERNEL: 0}, "train profile")
     busy = sum(o["ms_per_call"] for o in ops)
     per_step = [{"name": o["name"], "ms_per_step": o["ms_per_call"] / K_MEGA,
                  "launches_per_step": o["launches_per_call"] / K_MEGA} for o in ops]
@@ -1422,7 +1486,7 @@ def phase_train(cfg, params):
     bound = train_step_bound(cfg, B_TRAIN)
     row = {"phase": "train", "config": "kaggle_int4_qat", "batch": B_TRAIN, "k": K_MEGA,
            "steps": TRAIN_STEPS, "first_loss": losses[0].item(), "last_loss": losses[-1].item(),
-           "launches": launches, "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+           "launches": launches, "graph": graph,
            "kernel_vs_plain_32_steps": {"loss_max_rel_err": loss_err, "param_max_abs_err": param_err,
                                         "loss_rtol": TRAIN_LOSS_RTOL, "param_atol": TRAIN_PARAM_ATOL},
            "train_step_ms": ms, "train_step_ms_chains": [c[0] for c in chains],
@@ -1529,13 +1593,14 @@ def phase_train_stream(cfg, params0):
         first = one_step_check(cfg, tc, state, Batch(*(None if t is None else t[0] for t in batches)),
                                param_tol, f"{opt} from the start")
         # the kernel path twice (its run-to-run spread) and the plain path
-        paths = {}
+        paths, calls = {}, {}
         for path in ("kernel", "kernel_again", "plain"):
             st = clone_state(state)
             run = make_multi_train_step(cfg, tc, K_MEGA, sparse_emb_grad=True, plain=path == "plain")
             losses = []
             torch.cuda.synchronize()
             k1.launches = k1_one.launches = k5.launches = k5_one.launches = 0
+            graph_counts_zero()
             for _ in range(STREAM_STEPS // K_MEGA):
                 st, _ = run(st, batches)
                 losses.append(run.losses)
@@ -1544,6 +1609,8 @@ def phase_train_stream(cfg, params0):
                                                     "onehot_dense_grad_per_table": k1_one.launches,
                                                     "stream_scatter_add": k5.launches,
                                                     "stream_scatter_add_per_table": k5_one.launches})
+            if path != "plain":
+                calls[path] = graphed_calls(STREAM_STEPS, f"{opt} {path}")
         del state
         (sk, lk, launches), (sk2, lk2, launches2), (sp, lp, plain_launches) = paths.values()
         loss_err = ((lk - lp).abs() / lp.abs()).max().item()
@@ -1559,9 +1626,11 @@ def phase_train_stream(cfg, params0):
 
         # the timed chain on the kernel path, its launches counted too
         multi = make_multi_train_step(cfg, tc, K_MEGA, sparse_emb_grad=True)
+        sk, _ = multi(sk, batches)  # its warm-up steps and capture, untimed
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         k1.launches = k1_one.launches = k5.launches = k5_one.launches = 0
+        graph_counts_zero()
         h0 = time.perf_counter()
         start.record()
         for _ in range(STREAM_CHAIN_MEGASTEPS):
@@ -1569,6 +1638,7 @@ def phase_train_stream(cfg, params0):
         end.record()
         end.synchronize()
         chain_steps = STREAM_CHAIN_MEGASTEPS * K_MEGA
+        calls["chain"] = graphed_calls(chain_steps, f"{opt} chain")
         ms = step_ms[opt] = start.elapsed_time(end) / chain_steps
         host_ms = (time.perf_counter() - h0) * 1e3 / chain_steps
         chain_losses = multi.losses
@@ -1586,6 +1656,7 @@ def phase_train_stream(cfg, params0):
                 holder[0], _ = multi(holder[0], batches)
 
             ops, wall_ms = device_ops(megastep, 1)
+            check_runs(ops, K_MEGA, {K1_KERNEL: 1, K5_KERNEL: 1}, "train_stream_sgd profile")
             busy = sum(o["ms_per_call"] for o in ops)
             emit({"phase": "profile", "of": "train_stream_sgd", "megasteps": 1, "steps": K_MEGA,
                   "batch": B_STREAM, "wall_ms_per_step": wall_ms / K_MEGA,
@@ -1600,7 +1671,7 @@ def phase_train_stream(cfg, params0):
         row = {"phase": "train_stream", "optimizer": opt, "learning_rate": lr, "batch": B_STREAM,
                "k": K_MEGA, "onehot_update_max_rows": SMALL_ROWS, "stream_update_max_rows": STREAM_ROWS,
                "steps": steps, "first_loss": lk[0].item(), "last_loss": chain_losses[-1].item(),
-               "launches": launches, "plain_path_launches": plain_launches,
+               "launches": launches, "graphed_calls": calls, "plain_path_launches": plain_launches,
                "kernel_vs_plain_32_steps": {"loss_max_rel_err": loss_err, "param_max_abs_err": param_err,
                                             "params_off_by_more_than_1e-5": n_off,
                                             "acc_max_err_over_max": acc, "loss_rtol": loss_tol,
@@ -1611,13 +1682,14 @@ def phase_train_stream(cfg, params0):
         emit(row)
         check(bool(torch.isfinite(lk).all()) and bool(torch.isfinite(lp).all())
               and bool(torch.isfinite(chain_losses).all()), f"{opt}: every loss finite")
-        check(launches["stream_scatter_add"] == steps and launches["stream_scatter_add_per_table"] == 0,
-              f"{opt}: K5 launches {launches} == 1 grouped launch for the {n_stream} tables per step x {steps}")
-        check(launches["onehot_dense_grad"] == steps and launches["onehot_dense_grad_per_table"] == 0,
-              f"{opt}: K1 launches {launches} == 1 grouped launch per step x {steps}")
-        check(launches2 == {"onehot_dense_grad": STREAM_STEPS, "onehot_dense_grad_per_table": 0,
-                            "stream_scatter_add": STREAM_STEPS, "stream_scatter_add_per_table": 0},
-              f"{opt}: the second kernel-path run launched {launches2}")
+        want = calls["kernel"] + calls["chain"]  # one per eager step and per capture, of `steps` steps
+        check(launches["stream_scatter_add"] == want and launches["stream_scatter_add_per_table"] == 0,
+              f"{opt}: K5 launches {launches} == 1 grouped launch for the {n_stream} tables per call {calls}")
+        check(launches["onehot_dense_grad"] == want and launches["onehot_dense_grad_per_table"] == 0,
+              f"{opt}: K1 launches {launches} == 1 grouped launch per call {calls}")
+        check(launches2 == {"onehot_dense_grad": calls["kernel_again"], "onehot_dense_grad_per_table": 0,
+                            "stream_scatter_add": calls["kernel_again"], "stream_scatter_add_per_table": 0},
+              f"{opt}: the second kernel-path run launched {launches2}, calls {calls}")
         check(not any(plain_launches.values()), f"{opt}: the plain path launched {plain_launches}")
         check(loss_err <= loss_tol, f"{opt}: 32 steps, loss kernel vs plain {loss_err} <= {loss_tol}")
         if opt == "sgd":
@@ -1895,12 +1967,14 @@ CLI_AUC_ATOL = 1e-4  # the CLI's PTQ AUC against this script's own on the same s
 
 def cli_run(train, argv):
     """`train.run(argv)` with its stdout captured: (result, stdout, wall s,
-    the ms/it of its prints)."""
+    the ms/it of its prints). Sets the graph counters to 0 first
+    (`graph_counts`)."""
     import contextlib
     import io
     import re
 
     out = io.StringIO()
+    graph_counts_zero()
     torch.cuda.synchronize()
     t = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -1975,9 +2049,10 @@ def phase_cli(cfg, train_step_ms):
         result_a, _, wall_a, ms_per_it = cli_run(train, argv_a)
         launches_a = {"onehot_dense_grad": k1.launches, "packed_pooled_lookup": k2.launches,
                       "int8_linear": k3.launches}
-        check(launches_a["onehot_dense_grad"] == CLI_BATCHES and k1_one.launches == 0,
+        graph_a = graph_counts()
+        check(launches_a["onehot_dense_grad"] == graphed_calls(CLI_BATCHES, "cli A") and k1_one.launches == 0,
               f"cli A: K1 launches {launches_a}, per-table {k1_one.launches}: one grouped launch "
-              f"per step x {CLI_BATCHES}")
+              f"per eager step and per capture {graph_a}")
         check(k2.launches == k3.launches == 0, f"cli A: no serving kernel in training {launches_a}")
         with open(os.path.join(log, "run.scalars.jsonl")) as f:
             losses = [json.loads(line)["value"] for line in f
@@ -2047,7 +2122,7 @@ def phase_cli(cfg, train_step_ms):
           "train": {"wall_s": wall_a, "ms_per_it_at_prints": ms_per_it,
                     "ms_per_it": steady_ms(ms_per_it),
                     "train_phase_step_ms": train_step_ms,
-                    "losses": losses, "launches": launches_a,
+                    "losses": losses, "launches": launches_a, "graph": graph_a,
                     "launches_per_step": launches_a["onehot_dense_grad"] / CLI_BATCHES,
                     "final_eval": result_a},
           "checkpoint": {"bytes": ckpt_bytes, "save_s": save_s, "load_s": load_s},
@@ -2157,16 +2232,19 @@ def dp_wire_bytes(cfg, local_batch, bits):
     return out
 
 
-def profile_megastep(of, step, state, batches, k, into=None, **extra):
+def profile_megastep(of, step, state, batches, k, into=None, runs=None, **extra):
     """torch.profiler over one k-step call: launches per step, device busy,
     idle share, and the NCCL (or gloo) collectives' device time, emitted
-    (and put into the dict `into` where given). Returns the state."""
+    (and put into the dict `into` where given). `runs` maps kernel names
+    (`K1_KERNEL`, ...) to the runs a step must show in the trace, checked.
+    Returns the state."""
     holder = [state]
 
     def megastep():
         holder[0], _ = step(holder[0], batches)
 
     ops, wall_ms = device_ops(megastep, 1)
+    check_runs(ops, k, runs or {}, of)
     busy = sum(o["ms_per_call"] for o in ops)
     nccl = [o for o in ops if "nccl" in o["name"].lower()]
     stats = {"wall_ms_per_step": wall_ms / k,
@@ -2761,32 +2839,35 @@ def phase_schemes(cfg, params0, train_step_ms, flush):
         state, losses = runs[False]
         del runs
         multi = make_multi_train_step(scfg, tc, K_MEGA, sparse_emb_grad=True)
+        state, _ = multi(state, batches)  # its warm-up steps and capture, untimed
         torch.cuda.synchronize()
         k1.launches = k1_one.launches = k4.launches = 0
+        graph_counts_zero()
         ms, chains, state = event_ms_per_step(multi, state, batches, K_MEGA, chains=1,
                                               calls=SCHEME_CHAIN_MEGASTEPS)
         torch.cuda.synchronize()
         steps = SCHEME_CHAIN_MEGASTEPS * K_MEGA
         launches = {"onehot_dense_grad": k1.launches, "onehot_dense_grad_per_table": k1_one.launches,
                     "onehot_pooled_lookup": k4.launches}
-        check(launches == {"onehot_dense_grad": steps, "onehot_dense_grad_per_table": 0,
-                           "onehot_pooled_lookup": 0},
-              f"schemes {name}: launches {launches}: 1 grouped K1 launch per step x {steps}")
-        total += steps
-        check(state.qstate.step == SCHEME_STEPS + steps, f"schemes {name}: qstate.step")
+        graph = graph_counts()
+        check(launches == {"onehot_dense_grad": graphed_calls(steps, f"schemes {name}"),
+                           "onehot_dense_grad_per_table": 0, "onehot_pooled_lookup": 0},
+              f"schemes {name}: launches {launches}: 1 grouped K1 launch per eager step and per capture {graph}")
+        total += launches["onehot_dense_grad"]
+        check(state.qstate.step == SCHEME_STEPS + K_MEGA + steps, f"schemes {name}: qstate.step")
         check(bool(torch.isfinite(multi.losses).all()), f"schemes {name}: finite losses")
         if name == "act":
             check(bool((state.qstate.act_max > state.qstate.act_min).all()), f"schemes act: ranges {state.qstate}")
         if name == "lsq":
             check(all(bool(torch.isfinite(t).all()) for t in leaves(state.params["lsq_mlp"])),
                   "schemes lsq: finite steps")
-        state = profile_megastep(f"schemes_{name}", multi, state, batches, K_MEGA, batch=B_TRAIN)
+        state = profile_megastep(f"schemes_{name}", multi, state, batches, K_MEGA,
+                                 runs={K1_KERNEL: 1, K4_KERNEL: 0}, batch=B_TRAIN)
         batch = random_batch(scfg, B_MAIN, np.random.RandomState(120 + i))
         p = make_eval_step(scfg)(state, batch).cpu().numpy()
         check(p.shape == (B_MAIN,) and bool(np.all(np.isfinite(p))), f"schemes {name}: eval finite")
         row = {"phase": "schemes", "scheme": name, "quant": SCHEME_QUANT[name], "batch": B_TRAIN,
-               "k": K_MEGA, "kernel_vs_plain_32_steps": vs_plain, "launches": launches,
-               "launches_per_step": {k: v / steps for k, v in launches.items()},
+               "k": K_MEGA, "kernel_vs_plain_32_steps": vs_plain, "launches": launches, "graph": graph,
                "first_loss": losses[0].item(), "last_loss": multi.losses[-1].item(),
                "step_ms": ms, "train_phase_step_ms": train_step_ms,
                "eval": {"batch": B_MAIN, "roc_auc": roc_auc(p, batch.labels.cpu().numpy())}}
@@ -2868,9 +2949,10 @@ def phase_cli_schemes(cfg, tf32_default):
             result, _, wall, ms_per_it = cli_run(train, common + flags + [f"--save-model={ck}", f"--log-dir={log}"])
             launches = {"onehot_dense_grad": k1.launches, "packed_pooled_lookup": k2.launches,
                         "int8_linear": k3.launches}
-            check(launches == {"onehot_dense_grad": CLI_SCHEME_BATCHES, "packed_pooled_lookup": 0,
-                               "int8_linear": 0} and k1_one.launches == 0,
-                  f"cli_schemes {name}: launches {launches}: 1 grouped K1 launch per step")
+            check(launches == {"onehot_dense_grad": graphed_calls(CLI_SCHEME_BATCHES, f"cli_schemes {name}"),
+                               "packed_pooled_lookup": 0, "int8_linear": 0} and k1_one.launches == 0,
+                  f"cli_schemes {name}: launches {launches}: 1 grouped K1 launch per eager step and per "
+                  f"capture {graph_counts()}")
             with open(os.path.join(log, "run.scalars.jsonl")) as f:
                 losses = [json.loads(line)["value"] for line in f if json.loads(line)["tag"] == "Train/Loss"]
             check(len(losses) == 2 and all(np.isfinite(losses)), f"cli_schemes {name}: losses {losses}")
@@ -3154,17 +3236,21 @@ def phase_tb_bf16(train_step_ms):
     check(state.qstate.step == TB_STEPS, "tb_bf16: qstate.step")
 
     multi = make_multi_train_step(cfg, tc, K_MEGA, sparse_emb_grad=True)
+    state, _ = multi(state, batches)  # its warm-up steps and capture, untimed
     torch.cuda.synchronize()
     k1.launches = k1_one.launches = k4.launches = 0
+    graph_counts_zero()
     ms, chains, state = event_ms_per_step(multi, state, batches, K_MEGA, chains=1, calls=TB_CHAIN_MEGASTEPS)
     torch.cuda.synchronize()
     steps = TB_CHAIN_MEGASTEPS * K_MEGA
     launches = {"onehot_dense_grad": k1.launches, "onehot_dense_grad_per_table": k1_one.launches,
                 "onehot_pooled_lookup": k4.launches}
-    check(launches == {"onehot_dense_grad": steps, "onehot_dense_grad_per_table": 0, "onehot_pooled_lookup": 0},
-          f"tb_bf16: launches {launches}: 1 grouped K1 launch per step x {steps}")
+    graph = graph_counts()
+    check(launches == {"onehot_dense_grad": graphed_calls(steps, "tb_bf16"), "onehot_dense_grad_per_table": 0,
+                       "onehot_pooled_lookup": 0},
+          f"tb_bf16: launches {launches}: 1 grouped K1 launch per eager step and per capture {graph}")
     check(bool(torch.isfinite(multi.losses).all()), "tb_bf16: finite main-path losses")
-    state = profile_megastep("tb_bf16", multi, state, batches, K_MEGA, batch=TB_B)
+    state = profile_megastep("tb_bf16", multi, state, batches, K_MEGA, runs={K1_KERNEL: 1}, batch=TB_B)
 
     # compute_dtype="bfloat16" beside float32, 8 steps each, turns f32 bf16 bf16 f32
     bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
@@ -3188,7 +3274,7 @@ def phase_tb_bf16(train_step_ms):
           "k1_first_batch": {"max_abs_err": k1_err, "tol": "2 (c-1) u sum|v| per element"},
           "kernel_vs_plain_16_steps": {"loss_max_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL,
                                        **ulp_check},
-          "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
+          "launches": launches, "graph": graph,
           "first_loss": losses[0].item(), "last_loss": multi.losses[-1].item(),
           "train_step_ms": ms, "samples_per_s": TB_B / ms * 1e3, "kaggle_train_step_ms": train_step_ms,
           "compute_dtype_step_ms": compute_ms,
@@ -3345,19 +3431,24 @@ def phase_tricks(cfg, params0, train_step_ms):
         state, losses = runs[False]
         del runs, params
         multi = make_multi_train_step(tcfg, tc, K_MEGA, sparse_emb_grad=True)
+        state, _ = multi(state, batches)  # its warm-up steps and capture, untimed
         torch.cuda.synchronize()
         k1.launches = k1_one.launches = k4.launches = 0
+        graph_counts_zero()
         ms, _, state = event_ms_per_step(multi, state, batches, K_MEGA, chains=1, calls=TRICK_CHAIN_MEGASTEPS)
         torch.cuda.synchronize()
         step_ms[name] = ms
         steps = TRICK_CHAIN_MEGASTEPS * K_MEGA
         launches = {"onehot_dense_grad": k1.launches, "onehot_dense_grad_per_table": k1_one.launches,
                     "onehot_pooled_lookup": k4.launches}
-        check(launches == {"onehot_dense_grad": steps, "onehot_dense_grad_per_table": 0,
-                           "onehot_pooled_lookup": 0},
-              f"tricks {name}: launches {launches}: 1 grouped K1 launch per step x {steps}")
+        graph = graph_counts()
+        check(launches == {"onehot_dense_grad": graphed_calls(steps, f"tricks {name}"),
+                           "onehot_dense_grad_per_table": 0, "onehot_pooled_lookup": 0},
+              f"tricks {name}: launches {launches}: 1 grouped K1 launch per eager step and per capture {graph}")
         check(bool(torch.isfinite(multi.losses).all()), f"tricks {name}: finite losses")
-        total["onehot_dense_grad"] += steps
+        total["onehot_dense_grad"] += launches["onehot_dense_grad"]
+        state = profile_megastep(f"tricks_{name}", multi, state, batches, K_MEGA, runs={K1_KERNEL: 1},
+                                 batch=B_TRAIN)
         if name == "vw":
             moved = sum(int((v != 1).sum()) for v in state.params["v_W"])
             check(moved > 0, "tricks vw: the learned pooling weights moved")
@@ -3388,8 +3479,7 @@ def phase_tricks(cfg, params0, train_step_ms):
         emit({"phase": "tricks", "option": name, "flags": opts, "batch": B_TRAIN, "k": K_MEGA,
               "tables": [tcfg.table_kind(k) for k in range(tcfg.num_tables)].count(
                   {"qr": "qr", "md": "md", "vw": "dense"}[name]),
-              "kernel_vs_plain_32_steps": vs_plain, "launches": launches,
-              "launches_per_step": {k: v / steps for k, v in launches.items()},
+              "kernel_vs_plain_32_steps": vs_plain, "launches": launches, "graph": graph,
               "first_loss": losses[0].item(), "last_loss": multi.losses[-1].item(),
               "step_ms": ms, "train_phase_step_ms": train_step_ms,
               "serve": {"emb_bits": bits, "batch": B_MAIN, "serving_model_bytes": serving_model_bytes(sm),
@@ -3527,9 +3617,10 @@ def phase_cli_tricks(cfg):
             result, _, wall, _ = cli_run(train, arch + train_args + flags + [f"--save-model={ck}", f"--log-dir={log}"])
             launches = {"onehot_dense_grad": k1.launches, "packed_pooled_lookup": k2.launches,
                         "int8_linear": k3.launches}
-            check(launches == {"onehot_dense_grad": CLI_TRICK_BATCHES, "packed_pooled_lookup": 0,
-                               "int8_linear": 0} and k1_one.launches == 0,
-                  f"cli_tricks {name}: launches {launches}: 1 grouped K1 launch per step")
+            check(launches == {"onehot_dense_grad": graphed_calls(CLI_TRICK_BATCHES, f"cli_tricks {name}"),
+                               "packed_pooled_lookup": 0, "int8_linear": 0} and k1_one.launches == 0,
+                  f"cli_tricks {name}: launches {launches}: 1 grouped K1 launch per eager step and per "
+                  f"capture {graph_counts()}")
             with open(os.path.join(log, "run.scalars.jsonl")) as f:
                 losses = [json.loads(line)["value"] for line in f if json.loads(line)["tag"] == "Train/Loss"]
             check(len(losses) == 2 and all(np.isfinite(losses)), f"cli_tricks {name}: losses {losses}")
@@ -4171,6 +4262,7 @@ def phase_criteo(cfg, train_step_ms):
         multi = make_multi_train_step(ccfg, tc, K_MEGA, sparse_emb_grad=True)
         torch.cuda.synchronize()
         k1.launches = k1_one.launches = 0
+        graph_counts_zero()
         losses = []
         lead = CRITEO_COMPARE_STEPS // K_MEGA
         for mb in megas[:lead]:
@@ -4187,8 +4279,9 @@ def phase_criteo(cfg, train_step_ms):
         host_ms = (time.perf_counter() - h0) * 1e3 / CRITEO_TIMED_STEPS
         ms = start.elapsed_time(end) / CRITEO_TIMED_STEPS
         losses = torch.cat(losses)
-        check(k1.launches == n_steps and k1_one.launches == 0,
-              f"criteo: K1 launches {k1.launches} == 1 grouped launch per step x {n_steps}")
+        graph = graph_counts()
+        check(k1.launches == graphed_calls(n_steps, "criteo") and k1_one.launches == 0,
+              f"criteo: K1 launches {k1.launches} == 1 grouped launch per eager step and per capture {graph}")
         check(losses.numel() == n_steps and bool(torch.isfinite(losses).all()), "criteo: every loss finite")
         train_launches = k1.launches
         holder = [state]
@@ -4197,6 +4290,7 @@ def phase_criteo(cfg, train_step_ms):
             holder[0], _ = multi(holder[0], megas[-1])
 
         ops, wall_ms = device_ops(megastep, 1)
+        check_runs(ops, K_MEGA, {K1_KERNEL: 1}, "criteo profile")
         state = holder[0]
         busy = sum(o["ms_per_call"] for o in ops)
         emit({"phase": "profile", "of": "criteo", "megasteps": 1, "steps": K_MEGA,
@@ -4244,7 +4338,7 @@ def phase_criteo(cfg, train_step_ms):
           "kernel_vs_plain_32_steps": {"loss_max_rel_err": loss_err, "param_max_abs_err": param_err,
                                        "loss_rtol": TRAIN_LOSS_RTOL, "param_atol": TRAIN_PARAM_ATOL},
           "first_loss": losses[0].item(), "last_loss": losses[-1].item(),
-          "launches": {"onehot_dense_grad": train_launches, **serve_launches},
+          "launches": {"onehot_dense_grad": train_launches, **serve_launches}, "graph": graph,
           "train_step_ms": ms, "host_ms_per_step": host_ms, "samples_per_s": B_TRAIN / ms * 1e3,
           "train_phase_step_ms": train_step_ms, "train_phase_samples_per_s": B_TRAIN / train_step_ms * 1e3,
           "serve": {"batch": B_MAIN, "batches": serve_launches["packed_pooled_lookup"], "ms_per_batch": serve_ms,
@@ -4316,8 +4410,10 @@ def phase_cli_criteo(cfg):
         result, stdout, wall, ms = cli_run(train, qat)
         steps = len(CriteoDataset(out, "train")) // 128
         check("(native parser)" in stdout, "cli_criteo qat: the native parser ran")
-        check(k1.launches == steps and k1_one.launches == 0 and k2.launches == k3.launches == 0,
-              f"cli_criteo qat: K1 launches {k1.launches} == 1 grouped launch per step x {steps}")
+        check(k1.launches == graphed_calls(steps, "cli_criteo qat") and k1_one.launches == 0
+              and k2.launches == k3.launches == 0,
+              f"cli_criteo qat: K1 launches {k1.launches} == 1 grouped launch per eager step and per capture "
+              f"{graph_counts()}")
         check(np.isfinite(result["roc_auc"]), f"cli_criteo qat: test eval {result}")
         rows["qat"] = {"wall_s": wall, "steps": steps, "ms_per_it_at_prints": ms,
                        "ms_per_it": steady_ms(ms),
@@ -4368,7 +4464,8 @@ def phase_cli_criteo(cfg):
         steps = len(CriteoDataset(out_days, "train")) // 128
         check("preprocessing 3 day files" in stdout and "global shuffle of 2 train day files" in stdout,
               "cli_criteo days: preprocessed and shuffled")
-        check(k1.launches == steps and np.isfinite(result["roc_auc"]), f"cli_criteo days: {k1.launches} {result}")
+        check(k1.launches == graphed_calls(steps, "cli_criteo days") and np.isfinite(result["roc_auc"]),
+              f"cli_criteo days: {k1.launches} {graph_counts()} {result}")
         rows["days"] = {"wall_s": wall, "steps": steps, "ms_per_it_at_prints": ms,
                         "ms_per_it": steady_ms(ms),
                         "launches": {"onehot_dense_grad": k1.launches}, "final_eval": result}
@@ -4418,8 +4515,9 @@ def phase_cli_criteo(cfg):
         k1.launches = 0
         result, stdout, wall, ms = cli_run(train, argv)
         os.chdir(cwd)
-        check(k1.launches == CLI_CRITEO_TRACE_STEPS and np.isfinite(result["roc_auc"]),
-              f"cli_criteo trace: K1 launches {k1.launches}, {result}")
+        check(k1.launches == graphed_calls(CLI_CRITEO_TRACE_STEPS, "cli_criteo trace")
+              and np.isfinite(result["roc_auc"]),
+              f"cli_criteo trace: K1 launches {k1.launches}, {graph_counts()}, {result}")
         rows["trace"] = {"wall_s": wall, "profile_s": profile_s, "steps": CLI_CRITEO_TRACE_STEPS,
                          "ms_per_it_at_prints": ms, "ms_per_it": steady_ms(ms),
                          "launches": {"onehot_dense_grad": k1.launches}, "final_eval": result}
@@ -4764,7 +4862,8 @@ def phase_cli_import(cfg):
             "--mini-batch-size=128", "--test-mini-batch-size=4096", f"--log-dir={log}"]
         k1.launches = 0
         result_g, _, wall_g, _ = cli_run(train, argv_g)
-        check(k1.launches == 8, f"cli_import: 8 training steps, K1 launches {k1.launches}")
+        check(k1.launches == graphed_calls(8, "cli_import"),
+              f"cli_import: 8 training steps, K1 launches {k1.launches}, {graph_counts()}")
         with open(os.path.join(log, "compute_graph.stablehlo.txt")) as f:
             graph = f.read()
         layers = all(f"p_model_{part}_{i}_w" in graph for part, n in (("bot", 4), ("top", 3)) for i in range(n))
@@ -4878,6 +4977,8 @@ def phase_hybrid_tb(cfg, params, tb_step_ms):
                                          "loss_rtol": rtol, "scale_max_rel_err": scale_err, **ulps}
         if bits == 32:
             del tstate, hstate
+            # the graphed step holds the state weakly: its graph went with it
+            check(train_step.step.graph is None, "hybrid_tb: the train step let go of the freed state's graph")
     # timed in turns from the 32-step states: train, hybrid, hybrid, train
     ms = {"train": [], "hybrid": []}
     peak = {}

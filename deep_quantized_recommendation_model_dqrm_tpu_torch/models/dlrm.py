@@ -494,9 +494,8 @@ def emb_postprocess(
         out = q.fake_quant(pooled, qstate.emb_scales[:, None, None], qc.embedding_bit)
     ks = trick_slots(config)
     if ks:
-        trick = torch.zeros((config.num_tables, 1, 1), dtype=torch.bool, device=pooled.device)
-        trick[list(ks)] = True
-        out = torch.where(trick, pooled, out)
+        trick = q.constant(tuple(k in ks for k in range(config.num_tables)), torch.bool, pooled.device)
+        out = torch.where(trick[:, None, None], pooled, out)
     return out
 
 

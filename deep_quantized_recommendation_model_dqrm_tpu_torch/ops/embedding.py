@@ -239,7 +239,10 @@ def coalesce_sparse_grads_batched(
     is_new[:, 1:] = (sids[:, 1:] != sids[:, :-1]).to(sids.dtype)
     slot = (torch.cumsum(is_new, dim=1) - 1).clamp_max(max_unique - 1).long()
     gslot = (torch.arange(T, device=ids.device)[:, None] * max_unique + slot).reshape(-1)
-    lengths = torch.bincount(gslot, minlength=T * max_unique)  # gslot ascends: slots are runs
+    # gslot ascends: slots are runs; counted by a scatter, since bincount
+    # reads the largest id back to the host
+    lengths = torch.zeros((T * max_unique,), dtype=gslot.dtype, device=gslot.device).scatter_add_(
+        0, gslot, torch.ones_like(gslot))
     uniq_vals = torch.segment_reduce(svals.reshape(T * K, -1), "sum", lengths=lengths, axis=0,
                                      unsafe=True).reshape(T, max_unique, -1)
     rows = torch.as_tensor(num_rows, dtype=sids.dtype).to(sids.device)

@@ -32,8 +32,9 @@ Port of the JAX package's ops/quant.py, numerics matched bit for bit (both
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Tuple
+from typing import Tuple, Union
 
 import numpy as np
 import torch
@@ -47,17 +48,38 @@ def intmax(bits: int) -> int:
     return 2 ** (bits - 1) - 1
 
 
+@functools.lru_cache(maxsize=None)
+def _cached_constant(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.tensor(value, dtype=dtype, device=device)
+
+
+def constant(value: Union[float, Tuple], dtype: torch.dtype,
+             device: Union[str, torch.device]) -> torch.Tensor:
+    """`torch.tensor(value, dtype=dtype, device=device)` for a Python number
+    or tuple, uploaded once per (value, dtype, device) and shared: a step
+    that reuses it neither copies from the host nor waits for the device,
+    and a CUDA graph may capture it. Made outside inference mode, so that a
+    first use from serving leaves a tensor that training's autograd may
+    save; under tracing (`torch.export`) a fresh constant of the traced
+    program, since the cache must not keep a traced tensor. Never written
+    to."""
+    if torch.compiler.is_compiling():
+        return torch.tensor(value, dtype=dtype, device=device)
+    return _cached_constant(value, dtype, torch.device(device))
+
+
 def divide(a, b):
     """a / b, correctly rounded, where a Python number is either operand.
 
     PyTorch applies `tensor / number` on CUDA, and `number / tensor`
     everywhere, as a product with a reciprocal, which can differ from the
     quotient in the last bit; a 0-d tensor on the operands' device gives
-    true division."""
+    true division (the number as a `constant`)."""
     if not isinstance(a, torch.Tensor):
-        a = torch.tensor(a, dtype=b.dtype, device=b.device)
+        a = constant(a, b.dtype, b.device)
     if not isinstance(b, torch.Tensor):
-        b = torch.tensor(b, dtype=a.dtype, device=a.device)
+        b = constant(b, a.dtype, a.device)
     return a / b
 
 
@@ -186,7 +208,7 @@ def _percentile(sorted_flat: torch.Tensor, percentile: float) -> torch.Tensor:
     rounding of the sum (XLA fuses it into a multiply-add), computed in
     float64 where the products are exact."""
     low, high, lw, hw = _percentile_index(sorted_flat.numel(), percentile)
-    pair = sorted_flat[[low, high]].double()
+    pair = torch.stack((sorted_flat[low], sorted_flat[high])).double()
     lo_term = (pair[0].float() * lw).double()
     return (pair[1] * hw + lo_term).float()
 
@@ -332,8 +354,8 @@ def fake_quant_lsq(
     s = _grad_scale(step_size, lsq_grad_scale(numel or x.numel(), bits, numel_scale))
     if per_channel:
         s = _broadcast_scale(s, x)
-    lo = torch.tensor(-qn, dtype=x.dtype, device=x.device)
-    hi = torch.tensor(qp, dtype=x.dtype, device=x.device)
+    lo = constant(-qn, x.dtype, x.device)
+    hi = constant(qp, x.dtype, x.device)
     xq = torch.minimum(torch.maximum(x / s, lo), hi)
     return ste_round(xq) * s
 

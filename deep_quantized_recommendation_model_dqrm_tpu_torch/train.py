@@ -1113,6 +1113,10 @@ def _run(args, device, rank: int, nproc: int) -> dict:
         eff = config_for_epoch(cfg, tc, epoch)
         key = (eff, k)
         if key not in _step_cache:
+            # an earlier epoch's steps are not called again: drop them, and
+            # with them a graphed step's CUDA graph and its memory pool
+            for old in [old for old in _step_cache if old[0] != eff]:
+                del _step_cache[old]
             if step_mode == "dp":
                 _step_cache[key] = comm_grad.make_dp_train_step(
                     eff, tc, steps_per_dispatch=k, device=device)

@@ -25,12 +25,14 @@ policy -> optimizer, with the QAT scale refresh folded in as explicit state.
     4096 updates (train_step.py:427-443 of the JAX package); under Adagrad
     and RWSAdagrad a coalesced update of the touched rows.
 
-The steps run eagerly; there is no jit to donate the state to, so the sparse
-step updates the embedding tables and their optimizer accumulators in place
-and returns a state that shares them. A caller that needs the old state
-clones it first (`clone_state`). `plain=True` makes the steps call the plain
-versions of K1, K4 and K5 on any device: the reference the kernels are held
-against on the card.
+There is no jit to donate the state to, so the sparse step updates the
+embedding tables and their optimizer accumulators in place and returns a
+state that shares them; on a CUDA state, where it is one CUDA graph replayed
+per step (`_GraphedSparseStep`), it updates the MLPs, their optimizer state
+and the QAT state's tensors in place too. A caller that needs the old state
+(tables or MLPs) clones it first (`clone_state`). `plain=True` makes the
+steps call the plain versions of K1, K4 and K5 on any device, eagerly: the
+reference the kernels are held against on the card.
 
 Every QAT scheme of the model runs through both steps: HAWQ, PACT and LSQ,
 with or without the integer-activation chain. The parameters other than the
@@ -54,6 +56,8 @@ train_step.py:186-230, 280-290, 325-362, 499-560):
 from __future__ import annotations
 
 import dataclasses
+import gc
+import weakref
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
@@ -96,6 +100,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_l
 
 Device = Optional[Union[str, torch.device]]
 Step = Callable[["TrainState", dlrm.Batch], Tuple["TrainState", torch.Tensor]]
+LR = Union[float, torch.Tensor]  # a Python float, or a 0-d float32 tensor on the step's device
 
 # Pre-coalescing gates of the JAX package's sparse step (train_step.py:38-39).
 _SORTED_SCATTER_MAX_ROWS = 1_000_000
@@ -234,7 +239,7 @@ def _build_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = False,
 
 
 def _dense_table_update(optimizer: str, table: torch.Tensor, acc: Optional[torch.Tensor],
-                        dense: torch.Tensor, lr: float) -> None:
+                        dense: torch.Tensor, lr: LR) -> None:
     """A table's update from its dense gradient, in place (rows the batch did
     not touch see 0 and keep their values and accumulators); the float32
     update is rounded to the table's dtype before the add."""
@@ -249,7 +254,7 @@ def _dense_table_update(optimizer: str, table: torch.Tensor, acc: Optional[torch
 
 
 def _sparse_table_update(optimizer: str, table: torch.Tensor, acc: Optional[torch.Tensor],
-                         ids: torch.Tensor, vals: torch.Tensor, lr: float, presum: bool = True) -> None:
+                         ids: torch.Tensor, vals: torch.Tensor, lr: LR, presum: bool = True) -> None:
     """A table's update from its (ids, rows) gradient by scatter-adds, in
     place. Adagrad and RWSAdagrad coalesce duplicates first (torch sparse
     `.coalesce()` semantics) and touch only those rows; the padding ids of
@@ -309,7 +314,7 @@ def apply_table_updates(
     g: torch.Tensor,  # [T, B, D] gradient w.r.t. the pooled lookups
     indices: torch.Tensor,  # [T, B, P] int32
     mask: Optional[torch.Tensor],  # [T, B, P] or None
-    lr: float,
+    lr: LR,
     plain: bool = False,
     presum: bool = True,
 ) -> None:
@@ -454,12 +459,12 @@ def _learned_vw_grads(config: DLRMConfig, params: dlrm.Params, batch: dlrm.Batch
         if pact:
             r = q.pact_apply(r, q.pact_normalizer(table), qc.embedding_bit)
         rows.append(r.float())
-    sel = torch.tensor(list(ks), device=g_pooled.device)
+    sel = q.constant(tuple(ks), torch.int64, g_pooled.device)
     contrib = torch.einsum("tbd,tbpd->tbp", g_pooled[sel].float(), torch.stack(rows))
     if batch.mask is not None:
         contrib = contrib * batch.mask[sel]
     ids = batch.indices[sel].reshape(len(ks), -1)
-    nrv = [params["v_W"][k].shape[0] for k in ks]
+    nrv = q.constant(tuple(params["v_W"][k].shape[0] for k in ks), ids.dtype, ids.device)
     uids, uvals = coalesce_sparse_grads_batched(ids, contrib.reshape(len(ks), -1, 1), nrv, ids.shape[1])
     return uids, uvals[..., 0]
 
@@ -469,10 +474,16 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
     """The train step with explicit sparse embedding updates (the reference's
     nn.EmbeddingBag(sparse=True) + manual optimizer, sgd_quantized_gradients_
     parallel_comm.py:601-685). Updates the embedding tables and their
-    accumulators in place (the QR/MD tables, learned pooling weights and the
-    MLPs take new tensors). Each step opens the spans `dqrm.train.step`,
-    `.refresh` (on the steps the scales refresh), `.forward`, `.backward`
-    and `.update` (`utils.profiling`)."""
+    accumulators in place.
+
+    On a CPU state, and with `plain=True`, the step runs eagerly and the
+    QR/MD tables, learned pooling weights and the MLPs take new tensors. On
+    a CUDA state the step is `_GraphedSparseStep`: one CUDA graph replayed
+    per step, every leaf of the state, the MLPs and the QAT state's tensors
+    included, updated in place. Each step opens the spans `dqrm.train.step`,
+    `.refresh` (on the steps the scales refresh), and `.forward`,
+    `.backward` and `.update` where it runs eagerly, `.graph` where it
+    replays (`utils.profiling`)."""
     _check(tc)
     dev = resolve_device(device)
     qc = config.quant
@@ -482,17 +493,10 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
     vw_ks = [k for k in range(config.num_tables) if k not in ks] \
         if config.weighted_pooling == "learned" else []
 
-    def step_fn(state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
-        with annotate("dqrm.train.step"):
-            return step(state, batch)
-
-    def step(state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
-        _params_device(state.params, dev)
-        batch = _on(batch, dev)
-        params, qstate = state.params, state.qstate
-        if qc.enabled and dlrm.emb_scales_due(config, qstate):
-            with annotate("dqrm.train.refresh"):
-                qstate = dlrm.update_emb_scales(config, params, qstate)
+    def body(params: dlrm.Params, opt_state: Any, qstate: dlrm.QuantState, batch: dlrm.Batch, lr: LR):
+        """One step after the refresh: (params, optimizer state, the
+        forward's QuantState, loss), the tables and their accumulators
+        updated in place, new tensors for the rest."""
         with annotate("dqrm.train.forward"):
             fwd = _sparse_forward(config, params, qstate, batch, plain)
         with annotate("dqrm.train.backward"):
@@ -501,12 +505,10 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
         if tc.loss_scale != 1.0:
             mlp_grads = tree_map(lambda g: g * tc.loss_scale, mlp_grads)
             g_pooled = g_pooled * tc.loss_scale
-        lr = _lr(tc, qstate.step + 1)
         trick_grads = mlp_grads.pop("emb_trick", {})
 
         with annotate("dqrm.train.update"), torch.no_grad():
             mlp_params = {key: params[key] for key in mlp_grads}
-            opt_state = state.opt_state
             if opt == "sgd":
                 new_params = dict(params, **sgd_update(mlp_params, mlp_grads, lr))
             else:  # classic Adagrad on the rest under both optimizers
@@ -541,10 +543,184 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
                 scatter_add_drop(acc, vw_ids[i], vw_vals[i] * vw_vals[i])
                 denom = torch.sqrt(acc[clamp_ids(vw_ids[i], acc.shape[0])[0]]) + EPS
                 scatter_add_drop(vw, vw_ids[i], -lr * vw_vals[i] / denom)
-        new_qs = new_qs._replace(step=qstate.step + 1)
-        return TrainState(new_params, opt_state, new_qs), loss.detach()
+        return new_params, opt_state, new_qs, loss.detach()
 
-    return step_fn
+    def step(state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
+        _params_device(state.params, dev)
+        batch = _on(batch, dev)
+        qstate = state.qstate
+        if qc.enabled and dlrm.emb_scales_due(config, qstate):
+            with annotate("dqrm.train.refresh"):
+                qstate = dlrm.update_emb_scales(config, state.params, qstate)
+        params, opt_state, new_qs, loss = body(state.params, state.opt_state, qstate, batch,
+                                               _lr(tc, qstate.step + 1))
+        return TrainState(params, opt_state, new_qs._replace(step=qstate.step + 1)), loss
+
+    def step_fn(state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
+        with annotate("dqrm.train.step"):
+            return step(state, batch)
+
+    if dev.type != "cuda" or plain:
+        return step_fn
+    return _GraphedSparseStep(config, tc, dev, body, step_fn)
+
+
+# Eager steps a new capture key takes first. They are real steps of the run
+# and set up what a capture may not: the kernels' libraries, the cached
+# constants, cuBLAS's workspace and the autograd threads on the capture
+# stream.
+GRAPH_WARMUP_STEPS = 2
+
+
+def _state_leaves(state: TrainState) -> List[torch.Tensor]:
+    """Every tensor of a state that a captured step reads or writes."""
+    qs = state.qstate
+    opt = [] if state.opt_state is None else tree_leaves(state.opt_state)
+    return tree_leaves(state.params) + opt + [qs.emb_scales, qs.act_min, qs.act_max]
+
+
+class _GraphedSparseStep:
+    """The sparse step on a CUDA state as one CUDA graph, replayed for every
+    step: the forward, `autograd.grad`, the MLP update and
+    `apply_table_updates` run as one graph launch instead of some 440
+    kernel launches from Python.
+
+    The graph reads and writes static buffers: the batch (copied in each
+    step), the learning rate (a 0-d float32 tensor, filled each step with
+    `_lr`'s float32 value, which multiplies to the same bits as the Python
+    float), and the state's own tensors, which it updates in place: the
+    tables and accumulators as the eager step does, the new MLP leaves,
+    optimizer state and activation ranges copied into the state's tensors.
+    The QAT scale refresh, 1 step in `scale_update_period`, runs eagerly
+    and copies the scales into the state's `emb_scales`.
+
+    A capture bakes in the state's tensors, the batch's shapes and dtypes
+    and `act_fixed`: its key. A call whose key differs (another state, such
+    as a `clone_state` copy, or another batch shape) takes
+    `GRAPH_WARMUP_STEPS` eager steps on the capture stream, then a new
+    capture, which replaces the old graph; the capture does not execute, so
+    it is replayed for the step it was captured on. The key holds the
+    state's tensors by weak reference: when the first of them is freed,
+    the step drops its graph, its memory pool and its static buffers.
+
+    Counters: `graph_replays`, `graph_captures`, `eager_steps` (the warm-up
+    steps), and the same summed over every instance in the class's `totals`,
+    which a reader sets to 0 and reads after, as it does the kernel
+    wrappers' `launches`. A wrapper's `launches` counts the calls that reach
+    it: one per eager step and one per capture, none per replay; a
+    profiler's trace lists the kernels a replay runs. `eager` is the same
+    step run eagerly without the graph (new MLP tensors), the reference the
+    graph is held against."""
+
+    totals = {"graph_replays": 0, "graph_captures": 0, "eager_steps": 0}
+
+    def __init__(self, config: DLRMConfig, tc: TrainConfig, dev: torch.device, body: Callable,
+                 eager: Step):
+        self.config, self.tc, self.dev, self.body, self.eager = config, tc, dev, body, eager
+        self.graph_replays = self.graph_captures = self.eager_steps = 0
+        self.stream = torch.cuda.Stream(dev)
+        self.refs = self.key = self.graph = self.batch = self.lr = self.loss = self.freed = None
+        self.warm = 0
+
+    def __call__(self, state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
+        with annotate("dqrm.train.step"):
+            return self._step(state, batch)
+
+    def _count(self, name: str) -> None:
+        setattr(self, name, getattr(self, name) + 1)
+        _GraphedSparseStep.totals[name] += 1
+
+    def _counts(self) -> str:
+        return f"replays={self.graph_replays} captures={self.graph_captures} eager_steps={self.eager_steps}"
+
+    def _step(self, state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
+        _params_device(state.params, self.dev)
+        qs = state.qstate
+        if self.config.quant.enabled and dlrm.emb_scales_due(self.config, qs):
+            with annotate("dqrm.train.refresh"):
+                qs.emb_scales.copy_(dlrm.compute_emb_scales(self.config, state.params))
+        leaves = _state_leaves(state)
+        key = (qs.act_fixed, tuple(None if t is None else (t.shape, t.dtype) for t in batch))
+        if not (key == self.key and len(leaves) == len(self.refs)
+                and all(r() is t for r, t in zip(self.refs, leaves))):
+            self._rekey(key, leaves, batch)
+        for buf, t in zip(self.batch, batch):
+            if buf is not None:
+                buf.copy_(t, non_blocking=True)
+        self.lr.fill_(_lr(self.tc, qs.step + 1))
+        if self.graph is None and self.warm < GRAPH_WARMUP_STEPS:
+            loss = self._warm_up(state)
+        else:
+            if self.graph is None:
+                self._capture(state)
+            with annotate("dqrm.train.graph", self._counts):
+                self.graph.replay()
+            self._count("graph_replays")
+            loss = self.loss.clone()
+        return state._replace(qstate=qs._replace(step=qs.step + 1)), loss
+
+    def _release(self) -> None:
+        """Drops the graph, its memory pool and the static buffers."""
+        if self.freed is not None:
+            self.freed.detach()
+        self.refs = self.key = self.graph = self.batch = self.lr = self.loss = self.freed = None
+
+    def _rekey(self, key, leaves: List[torch.Tensor], batch: dlrm.Batch) -> None:
+        self._release()
+        self.key, self.refs, self.warm = key, [weakref.ref(t) for t in leaves], 0
+        # a finalizer on the first leaf; it holds the step weakly, so an
+        # unused step is freed whatever becomes of the state
+        self.freed = weakref.finalize(leaves[0], _release_step, weakref.ref(self))
+        self.batch = dlrm.Batch(*(None if t is None else torch.empty(t.shape, dtype=t.dtype, device=self.dev)
+                                  for t in batch))
+        self.lr = torch.zeros((), dtype=torch.float32, device=self.dev)
+
+    def _in_place(self, state: TrainState) -> torch.Tensor:
+        """The step on the static buffers, every new tensor of its result
+        copied into the state's own; returns the loss."""
+        qs = state.qstate
+        params, opt_state, new_qs, loss = self.body(state.params, state.opt_state, qs, self.batch, self.lr)
+        pairs = []
+        tree_map(lambda old, new: pairs.append((old, new)), [state.params, state.opt_state],
+                 [params, opt_state])
+        pairs += [(qs.act_min, new_qs.act_min), (qs.act_max, new_qs.act_max)]
+        pairs = [(old, new) for old, new in pairs if new is not old]
+        if pairs:
+            with torch.no_grad():
+                torch._foreach_copy_([old for old, _ in pairs], [new for _, new in pairs])
+        return loss
+
+    def _warm_up(self, state: TrainState) -> torch.Tensor:
+        current = torch.cuda.current_stream(self.dev)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            loss = self._in_place(state)
+        current.wait_stream(self.stream)
+        self.warm += 1
+        self._count("eager_steps")
+        return loss
+
+    def _capture(self, state: TrainState) -> None:
+        self.graph = torch.cuda.CUDAGraph()
+        # `torch.cuda.graph` collects garbage before the capture; none may be
+        # collected inside it. A graph held in a reference cycle (by a
+        # traceback's frames, say) waits for the cycle collector, and freeing
+        # a graph inside a capture is a call the capture refuses, which ends it
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, stream=self.stream):
+                self.loss = self._in_place(state)
+        finally:
+            if collecting:
+                gc.enable()
+        self._count("graph_captures")
+
+
+def _release_step(ref: "weakref.ref[_GraphedSparseStep]") -> None:
+    step = ref()
+    if step is not None:
+        step._release()
 
 
 def make_train_step(config: DLRMConfig, tc: TrainConfig, sparse_emb_grad: bool = False,
@@ -575,29 +751,37 @@ def make_multi_train_step(config: DLRMConfig, tc: TrainConfig, k: int,
 
     Takes (TrainState, a list of k Batches or one Batch with a leading [k]
     axis) and returns (state, last loss). The k losses of the last call stay
-    in `multi.losses` ([k] tensor on the device)."""
+    in `multi.losses` ([k] tensor on the device). The sparse step on a CUDA
+    state replays one CUDA graph per step (`_GraphedSparseStep`)."""
     return repeat_step(make_train_step(config, tc, sparse_emb_grad, plain=plain, device=device), k)
+
+
+class _Repeated:
+    """`step` run k times per call (`repeat_step`). A class, so that nothing
+    refers to itself: a dropped megastep frees its step (and a graphed
+    step's CUDA graph) at once, without the cycle collector."""
+
+    def __init__(self, step: Callable, k: int):
+        self.step, self.k, self.losses = step, k, None
+
+    def __call__(self, state, batches):
+        seq = _unstack(batches, self.k) if isinstance(batches, dlrm.Batch) else list(batches)
+        if len(seq) != self.k:
+            raise ValueError(f"expected {self.k} batches, got {len(seq)}")
+        losses = []
+        for b in seq:
+            state, loss = self.step(state, b)
+            losses.append(loss)
+        self.losses = torch.stack(losses)
+        return state, losses[-1]
 
 
 def repeat_step(body: Callable, k: int) -> Callable:
     """`body` run k times per call: takes (state, a list of k Batches or one
     Batch with a leading [k] axis) and returns (state, last loss). The k
     losses of the last call stay in `multi.losses` ([k] tensor on the
-    device)."""
-
-    def multi(state, batches):
-        seq = _unstack(batches, k) if isinstance(batches, dlrm.Batch) else list(batches)
-        if len(seq) != k:
-            raise ValueError(f"expected {k} batches, got {len(seq)}")
-        losses = []
-        for b in seq:
-            state, loss = body(state, b)
-            losses.append(loss)
-        multi.losses = torch.stack(losses)
-        return state, losses[-1]
-
-    multi.losses = None
-    return multi
+    device), `body` in `multi.step`."""
+    return _Repeated(body, k)
 
 
 def stack_batches(batches: Sequence[dlrm.Batch]) -> dlrm.Batch:

@@ -19,9 +19,13 @@ The spans the program opens, in eager host loops only (none in code that
 
 - the sparse train step (`train_step.make_train_step(sparse_emb_grad=True)`
   and the megastep over it): `dqrm.train.step` around each step, inside it
-  `dqrm.train.refresh` (the QAT scale refresh, on the steps it runs),
-  `dqrm.train.forward` (pooled lookups to the loss), `dqrm.train.backward`
-  (autograd) and `dqrm.train.update` (the MLP, table and `v_W` updates);
+  `dqrm.train.refresh` (the QAT scale refresh, on the steps it runs), and
+  on the steps that run eagerly (on the CPU, with `plain=True`, and a CUDA
+  graph's warm-up steps) `dqrm.train.forward` (pooled lookups to the
+  loss), `dqrm.train.backward` (autograd) and `dqrm.train.update` (the
+  MLP, table and `v_W` updates), on the steps a CUDA graph replays
+  `dqrm.train.graph` (the replay; its args hold the step's replay,
+  capture and eager-step counts before it);
 - `serving.ServingEngine.predict`, per device batch: `dqrm.serve.pad` (the
   bucket's host buffers), `dqrm.serve.h2d` (the uploads) and
   `dqrm.serve.readback` (the result's copy to the host, which waits for
@@ -32,7 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Iterator
+from typing import Callable, Iterator, Optional
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
@@ -57,11 +61,12 @@ def trace(logdir: str) -> Iterator[None]:
     prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
 
 
-def annotate(name: str):
+def annotate(name: str, args: Optional[Callable[[], str]] = None):
     """A named span in the profiler's trace while a profiler runs (on any
-    thread); otherwise the shared null context. The flag is the profiler's
-    own, process-wide (a thread-local check would miss the serving callers'
-    threads)."""
+    thread), with the string `args()` recorded with it; otherwise the
+    shared null context, and `args` is not called. The flag is the
+    profiler's own, process-wide (a thread-local check would miss the
+    serving callers' threads)."""
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
-    return torch.profiler.record_function(name)
+    return torch.profiler.record_function(name, None if args is None else args())

@@ -45,6 +45,44 @@ def test_divide_is_true_division():
     np.testing.assert_array_equal(tq.divide(t, 7).numpy(), x / np.float32(7))
 
 
+# divide's Python operands on the QAT paths: 7 (INT4), each bit width's
+# 2^(b-1) - 1, LSQ's float32 roots of them (2 mean|w| / root), and others
+DIVIDE_VALUES = [7, 127.0, 255, 2.0, 3.5] + [2 ** (b - 1) - 1 for b in range(2, 17)] + [
+    float(np.float32(np.sqrt(2 ** (b - 1) - 1))) for b in range(2, 17)]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_divide_by_a_cached_constant_gives_the_bits_of_a_fresh_tensor(dtype):
+    x = torch.from_numpy(np.random.RandomState(1).uniform(-3.0, 3.0, size=4096).astype(np.float32)).to(dtype)
+    x[:3] = torch.tensor([0.0, -0.0, 1e-30])
+    for v in DIVIDE_VALUES:
+        fresh = torch.tensor(v, dtype=dtype)
+        assert torch.equal(_bits(tq.divide(x, v)), _bits(x / fresh)), v
+        assert torch.equal(_bits(tq.divide(v, x[3:])), _bits(fresh / x[3:])), v
+
+
+def test_constant_is_one_tensor_per_value_dtype_and_device():
+    a = tq.constant(7, torch.float32, "cpu")
+    assert tq.constant(7, torch.float32, torch.device("cpu")) is a
+    assert tq.constant(7, torch.bfloat16, "cpu") is not a
+    assert tq.constant(3, torch.float32, "cpu") is not a
+    assert a.shape == () and float(a) == 7.0
+    sel = tq.constant((0, 2, 5), torch.int64, "cpu")
+    assert tq.constant((0, 2, 5), torch.int64, "cpu") is sel and sel.tolist() == [0, 2, 5]
+    x = torch.full((4,), 21.0)
+    tq.divide(x, 7)
+    assert tq.divide(x, 7).tolist() == [3.0] * 4 and float(a) == 7.0  # never written to
+    with torch.inference_mode():  # made outside inference mode: autograd may save it later
+        assert not tq.constant(11, torch.float32, "cpu").is_inference()
+    w = torch.ones(3, requires_grad=True)
+    tq.divide(w, 11).sum().backward()
+    assert torch.equal(w.grad, torch.full((3,), 1.0) / torch.tensor(11.0))
+
+
 @pytest.mark.parametrize("interact_itself", [False, True])
 @pytest.mark.parametrize("T,D", [(26, 16), (3, 8)])
 def test_interactions_match_jax(T, D, interact_itself):

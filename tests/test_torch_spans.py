@@ -50,6 +50,23 @@ def test_annotate_is_one_shared_null_context_without_a_profiler():
     assert profiling.annotate("a") is profiling.annotate("b")
 
 
+def test_annotate_builds_its_args_only_under_a_profiler():
+    calls = []
+
+    def args():
+        calls.append(1)
+        return "replays=3"
+
+    with profiling.annotate("dqrm.test", args):
+        pass
+    assert calls == []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.annotate("dqrm.test", args):
+            pass
+    assert calls == [1]
+    assert [e.name for e in prof.events() if e.name == "dqrm.test"] == ["dqrm.test"]
+
+
 def test_megastep_spans_each_step_phase_and_refresh():
     """k = 4 steps at a refresh period of 2: four steps, four of each phase
     inside its step in order, and the refresh at steps 0 and 2 only."""

@@ -1,0 +1,236 @@
+"""The sparse train step on the card, where it is one CUDA graph replayed per
+step (`train_step._GraphedSparseStep`), against the same step run eagerly
+(`step.eager`): bit for bit over two megasteps of k = 4, with a scale refresh
+inside each call (`scale_update_period` = 3) and a learning rate that changes
+every step, under each optimizer, route and QAT scheme, QR/MD tables and
+learned pooling weights. Each table's ids are distinct within a step, so no
+row takes two atomic adds and the kernels' sums are exact in any order.
+
+Also: the graph's counters, K1 run once in each replay (read from a
+profiler trace) and a new capture for a `clone_state` copy; a dropped
+state's tables and the graph freed; no
+host synchronization in an eager sparse step or in a replayed megastep
+(`torch.cuda.set_sync_debug_mode("error")`); the learning rate as a device
+scalar multiplies to the bits of the Python float.
+
+Card tests (marker `card`): they skip without a card and import no JAX. On
+the card: `python -m pytest --noconftest -m card tests/test_torch_train_graph.py`
+(the tests' conftest imports JAX, which the card's machine lacks)."""
+
+import contextlib
+import weakref
+
+import numpy as np
+import pytest
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from deep_quantized_recommendation_model_dqrm_tpu_torch import config as tcfg
+from deep_quantized_recommendation_model_dqrm_tpu_torch import train_step as tts
+from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import Batch
+from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+    onehot_dense_grad_grouped,
+)
+from deep_quantized_recommendation_model_dqrm_tpu_torch.optim.lr_policy import lr_policy
+from deep_quantized_recommendation_model_dqrm_tpu_torch.optim.sgd import sgd_update
+
+pytestmark = pytest.mark.card
+
+SIZES = (60, 3000, 400, 90, 100000)  # K1: 60, 90; K5: 400, 3000; scatter: 100000
+B, P, K = 16, 2, 4
+
+CASES = {
+    "sgd": ({}, {}, {}),
+    "adagrad": ({}, {}, dict(optimizer="adagrad")),
+    "rwsadagrad": ({}, {}, dict(optimizer="rwsadagrad")),
+    "pact": (dict(quant_scheme="pact"), {}, {}),
+    "lsq": (dict(quant_scheme="lsq"), {}, dict(optimizer="adagrad")),
+    "act": (dict(quantize_activation=True, modify_feature_interaction=True, act_percentile=99.9), {}, {}),
+    "k4_pact": (dict(quant_scheme="pact"), dict(onehot_lookup_max_rows=100), {}),
+    "qr": ({}, dict(qr_flag=True, qr_threshold=1000), {}),
+    "md": ({}, dict(md_flag=True, md_threshold=1000), dict(optimizer="adagrad")),
+    "vw_sgd": ({}, dict(weighted_pooling="learned"), {}),
+    "vw_rwsadagrad": ({}, dict(weighted_pooling="learned"), dict(optimizer="rwsadagrad")),
+    "bf16_tables": ({}, dict(table_dtype="bfloat16"), {}),
+    "bf16_compute": ({}, dict(compute_dtype="bfloat16"), {}),
+}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (how to run it there: the module's docstring)")
+    return torch.device("cuda", 0)
+
+
+def setup(name, period=3):
+    quant, model, train = CASES[name]
+    qc = tcfg.QuantConfig(enabled=True, embedding_bit=4, weight_bit=4, scale_update_period=period, **quant)
+    n_fea = len(SIZES) + 1
+    cfg = tcfg.DLRMConfig(table_sizes=SIZES, embedding_dim=16, mlp_bot=(13, 32, 16),
+                          mlp_top=(16 + n_fea * (n_fea - 1) // 2, 32, 1), quant=qc, **model)
+    tc = tcfg.TrainConfig(batch_size=B, learning_rate=0.05, onehot_update_max_rows=100,
+                          stream_update_max_rows=5000, lr_num_warmup_steps=100, **train)
+    return cfg, tc
+
+
+def batches(cfg, n, dev, seed=0):
+    """n batches on `dev`, each table's B * P ids distinct within a batch."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(n):
+        ids = torch.stack([torch.randperm(rows, generator=g)[:B * P].view(B, P) for rows in cfg.table_sizes])
+        out.append(Batch(dense=torch.rand(B, 13, generator=g).to(dev), indices=ids.int().to(dev),
+                         labels=(torch.rand(B, generator=g) < 0.3).float().to(dev),
+                         mask=(torch.rand(len(cfg.table_sizes), B, P, generator=g) > 0.25).float().to(dev)))
+    return out
+
+
+def leaves(state):
+    return tts._state_leaves(state)
+
+
+def assert_bits_equal(a, b):
+    assert len(a) == len(b)
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert x.dtype == y.dtype and x.shape == y.shape, i
+        assert torch.equal(x.view(torch.uint8) if x.dim() else x.reshape(1).view(torch.uint8),
+                           y.view(torch.uint8) if y.dim() else y.reshape(1).view(torch.uint8)), f"leaf {i}"
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_graphed_step_equals_eager_step(card, name):
+    cfg, tc = setup(name)
+    step = tts.make_train_step(cfg, tc, sparse_emb_grad=True, device=card)
+    assert isinstance(step, tts._GraphedSparseStep)
+    s0 = tts.init_train_state(cfg, tc, seed=3, device=card)
+    s1 = tts.clone_state(s0)
+    bs = batches(cfg, 2 * K, card)
+    graphed, eager = tts.repeat_step(step, K), tts.repeat_step(step.eager, K)
+    for c in range(2):
+        mine = bs[c * K:(c + 1) * K]
+        s0, _ = graphed(s0, mine)
+        s1, _ = eager(s1, mine)
+        assert_bits_equal([graphed.losses], [eager.losses])
+    torch.cuda.synchronize()
+    assert s0.qstate.step == s1.qstate.step == 2 * K
+    assert_bits_equal(leaves(s0), leaves(s1))
+    assert (step.graph_captures, step.eager_steps) == (1, tts.GRAPH_WARMUP_STEPS)
+    assert step.graph_replays == 2 * K - tts.GRAPH_WARMUP_STEPS
+
+
+def test_counters_and_a_new_capture_for_a_clone(card):
+    cfg, tc = setup("sgd")
+    step = tts.make_train_step(cfg, tc, sparse_emb_grad=True, device=card)
+    multi = tts.repeat_step(step, K)
+    state = tts.init_train_state(cfg, tc, seed=1, device=card)
+    params = state.params
+    bs = batches(cfg, 3 * K, card, seed=1)
+    k1 = onehot_dense_grad_grouped.launches
+    state, _ = multi(state, bs[:K])
+    assert state.params is params  # every leaf updated in place
+    # K1's wrapper counts the calls that reach it: the eager steps and the
+    # capture; the profiler lists the kernel once in each replay
+    assert onehot_dense_grad_grouped.launches - k1 == tts.GRAPH_WARMUP_STEPS + 1
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = multi(state, bs[K:2 * K])
+        torch.cuda.synchronize()
+    assert onehot_dense_grad_grouped.launches - k1 == tts.GRAPH_WARMUP_STEPS + 1
+    assert kernel_runs(prof, "dense_grad_grouped_kernel") == K
+    assert (step.graph_captures, step.graph_replays) == (1, 2 * K - tts.GRAPH_WARMUP_STEPS)
+    before = [t.clone() for t in leaves(state)]
+    copy = tts.clone_state(state)
+    copy, _ = multi(copy, bs[2 * K:])
+    assert step.graph_captures == 2 and step.eager_steps == 2 * tts.GRAPH_WARMUP_STEPS
+    assert_bits_equal(leaves(state), before)  # the graph of the copy left the original alone
+    ref = tts.clone_state(state)
+    ref, _ = tts.repeat_step(step.eager, K)(ref, bs[2 * K:])
+    torch.cuda.synchronize()
+    assert_bits_equal(leaves(copy), leaves(ref))
+
+
+def test_a_dropped_state_frees_its_tables_and_the_graph(card):
+    """The capture key holds the state weakly: once the state is dropped,
+    its tables are freed and the step lets go of its graph and buffers."""
+    cfg, tc = setup("sgd")
+    multi = tts.make_multi_train_step(cfg, tc, K, sparse_emb_grad=True, device=card)
+    bs = batches(cfg, 2 * K, card, seed=5)
+    state = tts.init_train_state(cfg, tc, seed=5, device=card)
+    state, _ = multi(state, bs[:K])  # the cached constants and the libraries, made once
+    del state
+    torch.cuda.synchronize()
+    assert multi.step.graph is None and multi.step.batch is None
+    held = torch.cuda.memory_allocated(card)
+    state = tts.init_train_state(cfg, tc, seed=6, device=card)
+    table = weakref.ref(state.params["emb"][-1])
+    for c in range(2):
+        state, _ = multi(state, bs[c * K:(c + 1) * K])
+    assert multi.step.graph is not None and multi.step.graph_captures == 2
+    del state
+    torch.cuda.synchronize()
+    assert table() is None and multi.step.graph is None
+    assert torch.cuda.memory_allocated(card) <= held
+
+
+def kernel_runs(prof, name: str) -> int:
+    """Runs on the card of the kernels whose name holds `name`."""
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and name in e.key)
+
+
+@contextlib.contextmanager
+def sync_errors():
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_eager_sparse_step_never_waits_for_the_card(card, name):
+    """After a first step (kernel libraries and constants made), an eager
+    step with a scale refresh in it runs without a host synchronization."""
+    cfg, tc = setup(name, period=1)
+    step = tts.make_train_step(cfg, tc, sparse_emb_grad=True, device=card)
+    state = tts.init_train_state(cfg, tc, seed=2, device=card)
+    b0, b1 = batches(cfg, 2, card, seed=2)
+    state, _ = step.eager(state, b0)
+    torch.cuda.synchronize()
+    with sync_errors():
+        state, loss = step.eager(state, b1)
+    assert torch.isfinite(loss).item()
+
+
+def test_replayed_megastep_never_waits_for_the_card(card):
+    cfg, tc = setup("sgd")
+    multi = tts.make_multi_train_step(cfg, tc, K, sparse_emb_grad=True, device=card)
+    state = tts.init_train_state(cfg, tc, seed=4, device=card)
+    bs = batches(cfg, 2 * K, card, seed=4)
+    state, _ = multi(state, bs[:K])
+    torch.cuda.synchronize()
+    with sync_errors():
+        state, _ = multi(state, bs[K:])
+    assert torch.isfinite(multi.losses).all().item()
+
+
+def test_lr_as_a_device_scalar_gives_the_float_bits(card):
+    g = torch.from_numpy(np.random.RandomState(0).normal(size=(257, 33)).astype(np.float32)).to(card)
+    params = {"w": torch.randn(257, 33, device=card)}
+    for step in range(1, 300, 7):
+        lr = lr_policy(0.1, step, 50, 100, 150)
+        t = torch.tensor(lr, dtype=torch.float32, device=card)
+        assert torch.equal((lr * g).view(torch.int32), (t * g).view(torch.int32))
+        assert torch.equal((-lr * g).view(torch.int32), (-t * g).view(torch.int32))
+        assert torch.equal(sgd_update(params, {"w": g}, lr)["w"].view(torch.int32),
+                           sgd_update(params, {"w": g}, t)["w"].view(torch.int32))
+
+
+def test_cpu_and_plain_steps_stay_eager(card):
+    cfg, tc = setup("sgd")
+    assert not isinstance(tts.make_train_step(cfg, tc, sparse_emb_grad=True, device="cpu"),
+                          tts._GraphedSparseStep)
+    assert not isinstance(tts.make_train_step(cfg, tc, sparse_emb_grad=True, plain=True, device=card),
+                          tts._GraphedSparseStep)
+    assert not isinstance(tts.make_train_step(cfg, tc, device=card), tts._GraphedSparseStep)

@@ -11,6 +11,8 @@ trajectories against JAX, the sparse step against the dense step, LSQ's
 steps under Adagrad and RWSAdagrad."""
 
 import dataclasses
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +33,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update i
     dense_grad_plain,
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.optim.lr_policy import lr_policy
+from deep_quantized_recommendation_model_dqrm_tpu_torch.optim.sgd import sgd_update
 from deep_quantized_recommendation_model_dqrm_tpu_torch.tools.jax_weights import (
     opt_state_to_numpy,
     params_to_numpy,
@@ -266,6 +269,81 @@ def test_multi_step_equals_single_steps():
             np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError):
         multi(s0, bs[:3])
+
+
+def test_a_dropped_megastep_frees_its_step_at_once():
+    """A megastep is in no reference cycle: dropped, it frees its step (on
+    the card, the step's CUDA graph) without the cycle collector, which
+    must not run inside a capture."""
+    class Step:
+        def __call__(self, state, batch):
+            return state, torch.zeros(())
+
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        step = Step()
+        ref = weakref.ref(step)
+        multi = tts.repeat_step(step, 2)
+        assert multi.step is step
+        multi(None, [None, None])
+        del step, multi
+        assert ref() is None
+    finally:
+        if collecting:
+            gc.enable()
+
+
+def test_cpu_megastep_stays_eager_and_out_of_place():
+    """On the CPU (and with `plain=True`) the sparse step runs eagerly, as
+    before the CUDA graph: the MLPs and the QAT state take new tensors, the
+    state passed in keeps them, only its tables move in place."""
+    jc, tc = configs((300, 40, 7), INT4)
+    _, ttc = train_configs(batch_size=32, learning_rate=0.2, onehot_update_max_rows=100,
+                           lr_num_warmup_steps=3)
+    for plain in (False, True):
+        multi = tts.make_multi_train_step(tc, ttc, 2, sparse_emb_grad=True, plain=plain, device="cpu")
+        single = tts.make_train_step(tc, ttc, sparse_emb_grad=True, plain=plain, device="cpu")
+        assert not isinstance(single, tts._GraphedSparseStep)
+        s0 = tts.init_train_state(tc, ttc, seed=2, device="cpu")
+        mlp = [t.clone() for t in tree_leaves({"bot": s0.params["bot"], "top": s0.params["top"]})]
+        qs = [t.clone() for t in (s0.qstate.emb_scales, s0.qstate.act_min, s0.qstate.act_max)]
+        rng = np.random.RandomState(6)
+        s1, _ = multi(s0, [tsyn.random_batch(tc, 32, rng, device="cpu") for _ in range(2)])
+        assert s1.params is not s0.params and s1.params["emb"][0] is s0.params["emb"][0]
+        for a, b in zip(mlp, tree_leaves({"bot": s0.params["bot"], "top": s0.params["top"]})):
+            assert torch.equal(a, b)
+        for a, b in zip(qs, (s0.qstate.emb_scales, s0.qstate.act_min, s0.qstate.act_max)):
+            assert torch.equal(a, b)
+        assert s0.qstate.step == 0 and s1.qstate.step == 2
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "rwsadagrad"])
+def test_learning_rate_as_a_device_scalar_gives_the_float_bits(optimizer):
+    """The CUDA graph takes the learning rate as a 0-d float32 tensor: the
+    table updates of every route, and the MLP updates, equal those from the
+    Python float bit for bit, at learning rates of warmup and decay."""
+    _, tc = configs((300, 40, 7), INT4)
+    _, ttc = train_configs(batch_size=32, learning_rate=0.2, optimizer=optimizer,
+                           onehot_update_max_rows=10, stream_update_max_rows=100)
+    routes = tts.make_table_routes(tc.table_sizes, ttc)
+    assert routes.groups and routes.stream and routes.scatter
+    rng = np.random.RandomState(8)
+    g = torch.from_numpy(rng.normal(size=(3, 32, tc.embedding_dim)).astype(np.float32))
+    idx = torch.from_numpy(rng.randint(0, 7, size=(3, 32, 2)).astype(np.int32))
+    mask = torch.from_numpy((rng.uniform(size=(3, 32, 2)) > 0.3).astype(np.float32))
+    s0 = tts.init_train_state(tc, ttc, seed=3, device="cpu")
+    for step in (1, 2, 9, 40, 77):
+        lr = lr_policy(0.2, step, 10, 30, 50)
+        out = []
+        for rate in (lr, torch.tensor(lr, dtype=torch.float32)):
+            s = tts.clone_state(s0)
+            accs = None if optimizer == "sgd" else s.opt_state["emb"]
+            tts.apply_table_updates(routes, optimizer, s.params["emb"], accs, g, idx, mask, rate)
+            out.append(tree_leaves(s.params["emb"]) + (tree_leaves(accs) if accs else []) +
+                       tree_leaves(sgd_update(s.params["top"], s.params["top"], rate)))
+        for a, b in zip(*out):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), step
 
 
 def test_dense_step_through_k4_backward(monkeypatch):
