@@ -131,6 +131,18 @@ def closed_loop(call, pool, callers: int, seconds: float, sample: set, sync):
     return t["t0"], t["end"], log, kept, errors, stuck
 
 
+def control(cell, rec: dict, seed: int, device) -> dict:
+    """For `calibrate.py` and the tests, never a run: the control, the
+    reference with TF32 operands in the program's place, on the run's
+    checked rows, compared with its float32 reference as the check compares
+    the program."""
+    model = cell.config["model"]
+    got = reference.serve(model, cell.config["serve"], lambda k: weights.table(model, seed, k, device),
+                          {p: weights.mlp(model, seed, p, device) for p in ("bot", "top")},
+                          rec["check"]["dense"], rec["check"]["ids"], precision="tf32").cpu().numpy()
+    return {"control_tf32": {"prob_gap": float(np.abs(got.astype(np.float64) - rec["check"]["reference"]).max())}}
+
+
 def run(cell, seed: int, seconds: float, trace: bool, device: torch.device, t_start: float, log) -> dict:
     config, traffic = cell.config, cell.traffic
     model, serve_cfg = config["model"], config["serve"]

@@ -83,6 +83,23 @@ def loss_gap(got, want) -> float:
     return max(abs(g - w) / abs(w) for g, w in zip(got[:LOSS_STEPS], want[:LOSS_STEPS]))
 
 
+def control(cell, rec: dict, seed: int, device) -> dict:
+    """For `calibrate.py` and the tests, never a run: the control (the
+    reference with TF32 operands in the program's place) and the planted
+    fault of half of each batch left out, in the reference, each compared
+    with the run's float32 reference as the check compares the program."""
+    model = cell.config["model"]
+    mlp = {p: weights.mlp(model, seed, p, device) for p in ("bot", "top")}
+    want = rec["check"]["reference"]
+    out = {}
+    for name, kw in (("control_tf32", {"precision": "tf32"}), ("fault_half_batch", {"half_batch": True})):
+        got = reference.train(model, cell.config["quant"], cell.config["train"]["learning_rate"],
+                              lambda k: weights.table(model, seed, k, device), mlp, rec["check"]["batches"], **kw)
+        out[name] = {"loss_gap": loss_gap(got["losses"], want["losses"]),
+                     "change_gap": change_gap(got["change"], want["change"])}
+    return out
+
+
 def run(cell, seed: int, seconds: float, trace: bool, device: torch.device, t_start: float, log) -> dict:
     config, traffic = cell.config, cell.traffic
     model, quant, tr = config["model"], config["quant"], config["train"]
@@ -101,7 +118,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: torch.device, t_st
     params = weights.params(model, seed, device)
     pool = draw.train_pool(model, traffic, seed, n_batches, device)
     multi = port.megastep(cfg, tc, k, device)
-    state = port.train_state(cfg, params)
+    state = port.train_state(cfg, tc, params)
 
     state, _ = multi(state, _batch(pool, 0, k))
     first_losses = multi.losses.double().cpu().tolist()

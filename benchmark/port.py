@@ -7,6 +7,7 @@ imports the program.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
@@ -18,22 +19,23 @@ Batch = dlrm.Batch
 
 
 def dlrm_config(config: dict) -> DLRMConfig:
-    """The model as the configuration file states it."""
-    m = config["model"]
-    quant = QuantConfig(**config["quant"])
-    return DLRMConfig(
-        table_sizes=tuple(m["table_sizes"]), embedding_dim=m["embedding_dim"],
-        mlp_bot=tuple(m["mlp_bot"]), mlp_top=tuple(m["mlp_top"]), interaction=m["interaction"],
-        max_ind_range=m["max_ind_range"], table_dtype=m["table_dtype"],
-        compute_dtype=m["compute_dtype"], quant=quant,
-    )
+    """The model as the configuration file states it: every key of its
+    `model` (lists as tuples) and its `quant`. A key that `DLRMConfig` lacks
+    raises a TypeError that names it, before any weight is drawn."""
+    model = {k: tuple(v) if isinstance(v, list) else v for k, v in config["model"].items()}
+    return DLRMConfig(**model, quant=QuantConfig(**config["quant"]))
+
+
+TRAIN_FIELDS = frozenset(f.name for f in dataclasses.fields(TrainConfig))
 
 
 def train_config(config: dict, traffic: dict) -> TrainConfig:
-    t = config["train"]
-    return TrainConfig(batch_size=traffic["batch"], learning_rate=t["learning_rate"],
-                       optimizer=t["optimizer"], onehot_update_max_rows=t["onehot_update_max_rows"],
-                       stream_update_max_rows=t["stream_update_max_rows"])
+    """Every key of the configuration's `train` that is a `TrainConfig`
+    field (the optimizer and the learning-rate policy among them; the
+    benchmark's own keys, such as `steps_per_dispatch`, left out), at the
+    traffic's batch."""
+    kw = {k: v for k, v in config["train"].items() if k in TRAIN_FIELDS}
+    return TrainConfig(**{**kw, "batch_size": traffic["batch"]})
 
 
 def megastep(cfg: DLRMConfig, tc: TrainConfig, k: int, device):
@@ -42,10 +44,12 @@ def megastep(cfg: DLRMConfig, tc: TrainConfig, k: int, device):
     return train_step.make_multi_train_step(cfg, tc, k, sparse_emb_grad=True, device=device)
 
 
-def train_state(cfg: DLRMConfig, params: dict) -> train_step.TrainState:
-    """SGD keeps no optimizer state; the QAT state starts fresh."""
+def train_state(cfg: DLRMConfig, tc: TrainConfig, params: dict) -> train_step.TrainState:
+    """The optimizer state `tc.optimizer` starts from, by the program's own
+    init (None for SGD), and a fresh QAT state."""
     dev = params["bot"][0]["w"].device
-    return train_step.TrainState(params=params, opt_state=None, qstate=dlrm.init_quant_state(cfg, dev))
+    return train_step.TrainState(params=params, opt_state=train_step._init_opt_state(tc, params),
+                                 qstate=dlrm.init_quant_state(cfg, dev))
 
 
 def export(cfg: DLRMConfig, params: dict, serve: dict) -> serving.ServingModel:

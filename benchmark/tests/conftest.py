@@ -3,13 +3,18 @@
 Tests marked `card` need an NVIDIA card and skip without one; the fixture
 `card` decides, never the import of a module. `tiny_root` is a checkout
 root holding BENCHMARK.json's cells, and the deferred ones below, over
-tiny copies of their configurations and traffic (the same keys, small
-sizes), with the cells' own limits.
+tiny forms of their configurations and traffic, with the cells' own
+limits. A tiny form is the cell's own file with the overrides of the file
+beside it merged over it (`configs/<config>.tiny.json` beside
+`configs/<config>.json`, `traffic/<mix>.tiny.json` beside
+`traffic/<mix>.json`): a cell of any shape brings its tiny form with it, and
+no run of the benchmark reads one.
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 import sys
 from pathlib import Path
 
@@ -37,79 +42,72 @@ def card():
 
 # Cells whose files the benchmark keeps while BENCHMARK.json leaves them out
 # until their runs hold still (PERF.md, Open questions); the tiny root runs
-# them, so that their paths (the MicroBatcher front end) stay tested.
+# them, so that their paths (the MicroBatcher front end) stay tested. Each
+# reports the metrics of the committed cell it names under "like".
 DEFERRED = [{"name": "kaggle-serve-c32", "config": "dqrm-kaggle-int4", "traffic": "serve-closed32", "chips": 1,
-             "why": "32 closed-loop callers through the MicroBatcher"}]
+             "why": "32 closed-loop callers through the MicroBatcher", "like": "terabyte-serve-b16k"}]
 DEFERRED_METRICS = [{"name": "pad_waste_share.serve", "unit": "%", "better": "lower", "source": "program_counter",
                      "layer": "front end", "moves": "serve_preds_per_s", "workloads": ["kaggle-serve-c32"]}]
-RUN_WORKLOADS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]] + [
-    w["name"] for w in DEFERRED]
 
 
 def with_deferred(bench: dict) -> dict:
-    """BENCHMARK.json with the deferred cells, each reporting the metrics of
-    the committed cells of its entry kind (`-serve-` or `-train-` in the
-    name)."""
-    for w in DEFERRED:
-        kind = "-serve-" if "-serve-" in w["name"] else "-train-"
+    """BENCHMARK.json with the deferred cells and their metrics."""
+    for d in DEFERRED:
+        w = {k: v for k, v in d.items() if k != "like"}
         for m in bench["end_to_end"] + bench["per_layer"]:
-            if any(kind in c for c in m.get("workloads", ())):
+            if d["like"] in m.get("workloads", ()):
                 m["workloads"].append(w["name"])
         bench["workloads"].append(w)
     bench["per_layer"] += DEFERRED_METRICS
     return bench
 
 
-TINY_TABLES = [40, 3, 300, 7, 1000, 50]
+def traffic_file(root: Path, traffic: str) -> Path:
+    return root / "benchmark" / "traffic" / f"{traffic}.json"
 
 
-def tiny_config(cfg: dict) -> dict:
-    cfg = json.loads(json.dumps(cfg))
-    m = cfg["model"]
-    m["table_sizes"] = TINY_TABLES
-    m["mlp_bot"] = [m["mlp_bot"][0], 32, 8]
-    m["embedding_dim"] = 8
-    f = len(TINY_TABLES) + 1
-    m["mlp_top"] = [f * (f - 1) // 2 + 8, 16, 1]
-    cfg["train"]["onehot_update_max_rows"] = 200
-    cfg["train"]["steps_per_dispatch"] = 4
-    cfg["serve"]["buckets"] = [16, 64, 256]
-    return cfg
+RUN_BENCH = with_deferred(json.loads((ROOT / "BENCHMARK.json").read_text()))
+RUN_WORKLOADS = [w["name"] for w in RUN_BENCH["workloads"]]
+# each cell's driver module, as its traffic file names it: faults and
+# controls belong to a driver module
+RUN_DRIVERS = {w["name"]: json.loads(traffic_file(ROOT, w["traffic"]).read_text())["driver"]
+               for w in RUN_BENCH["workloads"]}
 
 
-def tiny_traffic(t: dict) -> dict:
-    t = json.loads(json.dumps(t))
-    if t["driver"] == "drive_train":
-        t["batch"] = 32
-        t["pool_samples_per_s"] = 2000
-    else:
-        t["pool_requests"], t["sample_requests"] = 48, 8
-        t["callers"] = min(t["callers"], 4)
-        t["warmup_s"] = t["trace_s"] = 0.1
-        if t["front_end"]["kind"] == "batcher":
-            t["front_end"]["max_batch"] = 256
-            t["request_rows"] = {"dist": "log_uniform", "lo": 4, "hi": 200}
-        else:
-            t["request_rows"] = {"dist": "fixed", "rows": 256}
-    return t
+def merged(base: dict, over: dict) -> dict:
+    """`base` with `over` merged over it: objects key by key, anything else
+    replaced."""
+    out = dict(base)
+    for k, v in over.items():
+        out[k] = merged(base[k], v) if isinstance(v, dict) and isinstance(base.get(k), dict) else v
+    return out
+
+
+def tiny_form(path: Path) -> dict:
+    """The JSON file at `path` with the overrides of `<stem>.tiny.json`
+    beside it merged over it."""
+    return merged(json.loads(path.read_text()), json.loads(path.with_suffix(".tiny.json").read_text()))
+
+
+def make_tiny_root(src: Path, dst: Path, bench: dict) -> Path:
+    """A checkout root at `dst` holding `bench`'s cells over the tiny forms
+    of their files under `src`, with their limits."""
+    for c in bench["configs"]:
+        (dst / c["file"]).parent.mkdir(parents=True, exist_ok=True)
+        (dst / c["file"]).write_text(json.dumps(tiny_form(src / c["file"])))
+    for sub in ("traffic", "limits"):
+        (dst / "benchmark" / sub).mkdir(parents=True, exist_ok=True)
+    for w in bench["workloads"]:
+        traffic_file(dst, w["traffic"]).write_text(json.dumps(tiny_form(traffic_file(src, w["traffic"]))))
+        limits = Path("benchmark") / "limits" / f"{w['name']}.json"
+        shutil.copyfile(src / limits, dst / limits)
+    (dst / "BENCHMARK.json").write_text(json.dumps(bench))
+    return dst
 
 
 @pytest.fixture(scope="session")
 def tiny_root(tmp_path_factory) -> Path:
-    root = tmp_path_factory.mktemp("tiny_root")
-    bench = with_deferred(json.loads((ROOT / "BENCHMARK.json").read_text()))
-    for sub in ("configs", "traffic", "limits"):
-        (root / "benchmark" / sub).mkdir(parents=True)
-    for c in bench["configs"]:
-        cfg = tiny_config(json.loads((ROOT / c["file"]).read_text()))
-        (root / c["file"]).write_text(json.dumps(cfg))
-    for w in bench["workloads"]:
-        t = json.loads((BENCH / "traffic" / f"{w['traffic']}.json").read_text())
-        (root / "benchmark" / "traffic" / f"{w['traffic']}.json").write_text(json.dumps(tiny_traffic(t)))
-        (root / "benchmark" / "limits" / f"{w['name']}.json").write_text(
-            (BENCH / "limits" / f"{w['name']}.json").read_text())
-    (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    return root
+    return make_tiny_root(ROOT, tmp_path_factory.mktemp("tiny_root"), RUN_BENCH)
 
 
 def run_cell(root: Path, workload: str, trace: int = 0, seed: int = 2147483661, seconds: float = 0.3,

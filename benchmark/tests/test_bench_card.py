@@ -8,7 +8,6 @@ import time
 
 import pytest
 
-import calibrate
 import cells
 from conftest import RUN_WORKLOADS, run_cell
 
@@ -22,5 +21,5 @@ def test_cell_on_the_card(tiny_root, card, workload):
     cell = cells.load_cell(tiny_root, workload)
     rec = cells.driver(cell.traffic).run(cell, seed=7, seconds=0.2, trace=False, device=card,
                                          t_start=time.perf_counter(), log=lambda m: None)
-    control = calibrate.control_readings(cell, rec, 7, card)["control_tf32"]
+    control = cells.driver(cell.traffic).control(cell, rec, 7, card)["control_tf32"]
     assert any(v > cell.limits[k] for k, v in control.items()), control

@@ -3,8 +3,6 @@ The only test that imports both."""
 
 from __future__ import annotations
 
-import json
-
 import numpy as np
 import torch
 
@@ -12,10 +10,10 @@ import draw
 import port
 import reference
 import weights
-from conftest import ROOT, tiny_config
+from conftest import BENCH, tiny_form
 
 CPU = torch.device("cpu")
-CONFIG = tiny_config(json.loads((ROOT / "benchmark/configs/dqrm-kaggle-int4.json").read_text()))
+CONFIG = tiny_form(BENCH / "configs" / "dqrm-kaggle-int4.json")
 MODEL = CONFIG["model"]
 SEED = 2**31 + 5
 
@@ -26,8 +24,9 @@ def test_training_trajectory_matches():
     k = CONFIG["train"]["steps_per_dispatch"]
     pool = draw.train_pool(MODEL, traffic, SEED, k, CPU)
     cfg = port.dlrm_config(CONFIG)
-    multi = port.megastep(cfg, port.train_config(CONFIG, traffic), k, CPU)
-    state, _ = multi(port.train_state(cfg, weights.params(MODEL, SEED, CPU)),
+    tc = port.train_config(CONFIG, traffic)
+    multi = port.megastep(cfg, tc, k, CPU)
+    state, _ = multi(port.train_state(cfg, tc, weights.params(MODEL, SEED, CPU)),
                      port.Batch(pool.dense, pool.indices, pool.labels, None))
     ref = reference.train(MODEL, CONFIG["quant"], CONFIG["train"]["learning_rate"],
                           lambda j: weights.table(MODEL, SEED, j, CPU),
