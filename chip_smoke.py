@@ -244,8 +244,18 @@ step, read "one run per step":
 Kernel K6 (`dma_row_update`) is on no path; its kernel phase holds it
 against its plain version on the 2,202,608-row table.
 
+K1 at per-slot widths (`kernel` phase, case `dcnv2_16_small_tables_b8192`):
+the group the DLRM-DCNv2 configuration's train step builds
+(`make_table_routes` under `onehot_update_max_rows=20000` with the
+configuration's bags, from benchmark/configs/mlperf-dlrm-dcnv2-int4.json:
+16 tables of at most 20000 rows, bag widths 1-9, 36 of the 214 ids of a
+sample, d = 128) at B = 8192, one launch against its plain version within
+the atomic-order bound, timed beside the plain version and one flat
+`index_add_`.
+
 Every check raises, so any failure exits non-zero. Phases in order: device,
-build, model, kernel (K2, K3, K3 at K = 1728, K1 with D = 512, K4 with
+build, model, kernel (K2, K3, K3 at K = 1728, K1 with D = 512, K1 at
+per-slot widths, K4 with
 bf16 tables and D = 512, K5 with Zipf ids, K6), train, profile (train), train_stream with
 profile (SGD), schemes (pact, lsq, act, each with its profile), dp with
 profile, dp_stream, pseudo, dp_schemes, tricks (qr, md, vw), dp_tricks,
@@ -366,10 +376,11 @@ def graph_counts_zero() -> None:
 
 def graph_counts() -> dict:
     """The graphed sparse steps' counters since `graph_counts_zero`: steps
-    run eagerly, CUDA graphs captured, steps replayed."""
+    run eagerly, CUDA graphs captured, steps replayed, ids pooled and slots
+    read (a masked batch's ids are a device count: read here)."""
     from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import _GraphedSparseStep
 
-    return dict(_GraphedSparseStep.totals)
+    return {name: int(n) for name, n in _GraphedSparseStep.totals.items()}
 
 
 def graphed_calls(steps: int, label: str) -> int:
@@ -730,13 +741,16 @@ def atomic_order_bound(ids, vals, n):
 
 def k1_updates(group, g, indices, mask):
     """The grouped K1's updates as one sparse gradient of the flat buffer:
-    each table's `rows_grad_from_pooled`, its ids moved by the table's row
-    offset (ids out of range become -1)."""
+    each table's `rows_grad_from_pooled` (of its bag's columns, for a group
+    of bags), its ids moved by the table's row offset (ids out of range
+    become -1)."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import bag_of
     from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import rows_grad_from_pooled
 
     ids, vals = [], []
-    for n, k, off in zip(group.rows, group.slots, group.offsets):
-        i, v = rows_grad_from_pooled(g[k], indices[k], None if mask is None else mask[k])
+    bags = group.bags or [None] * len(group.rows)
+    for n, k, off, bag in zip(group.rows, group.slots, group.offsets, bags):
+        i, v = rows_grad_from_pooled(g[k], bag_of(indices, k, bag), None if mask is None else bag_of(mask, k, bag))
         ids.append(torch.where((i >= 0) & (i < n), i + off, torch.full_like(i, -1)))
         vals.append(v)
     return torch.cat(ids), torch.cat(vals)
@@ -852,6 +866,77 @@ def phase_kernel_k1(cfg, flush):
           "phase_s": time.perf_counter() - t0})
     wide = k1_wide()
     return rows[0], max([heavy, masked, wide] + [r["max_abs_err"] for r in rows])
+
+
+DCN_CONFIG = "benchmark/configs/mlperf-dlrm-dcnv2-int4.json"  # the DLRM-DCNv2 configuration as trained
+
+
+def phase_kernel_k1_bags(flush):
+    """K1 at per-slot widths on the group that the DLRM-DCNv2 train step
+    builds (`make_table_routes` with the configuration's bags): one launch
+    at B = 8192 against its plain version on the same inputs within the
+    atomic-order bound, the launches counted by the wrapper and in the
+    trace, timed beside the plain version and one flat `index_add_`."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import DLRMConfig, TrainConfig
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+        dense_grad_grouped_plain,
+        onehot_dense_grad_grouped,
+    )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import make_table_routes
+
+    t0 = time.perf_counter()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), DCN_CONFIG)) as f:
+        spec = json.load(f)
+    cfg = DLRMConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in spec["model"].items()})
+    tc = TrainConfig(batch_size=B_STREAM, optimizer=spec["train"]["optimizer"],
+                     onehot_update_max_rows=spec["train"]["onehot_update_max_rows"],
+                     stream_update_max_rows=spec["train"]["stream_update_max_rows"])
+    routes = make_table_routes(cfg.table_sizes, tc, bags=cfg.bags())
+    check(len(routes.groups) == 1, f"K1 bags: one group, got {len(routes.groups)}")
+    group = routes.groups[0]
+    B, d = B_STREAM, cfg.embedding_dim
+    rng = np.random.RandomState(19)
+    ids = torch.from_numpy(np.concatenate(
+        [rng.randint(0, n, size=(B, w)) for n, w in zip(cfg.table_sizes, cfg.multi_hot_sizes)],
+        axis=1).astype(np.int32)).to(DEVICE)
+    g = torch.from_numpy(rng.normal(size=(cfg.num_tables, B, d)).astype(np.float32)).to(DEVICE)
+    calls = onehot_dense_grad_grouped.launches
+    err = k1_check(group, g, ids, None, f"per-slot widths, DLRM-DCNv2 at B = {B}")
+    check(onehot_dense_grad_grouped.launches - calls == 1, "K1 bags: one launch a call")
+    lib_ids, lib_vals = k1_updates(group, g, ids, None)
+    keep = lib_ids >= 0
+    lib_ids, lib_vals = lib_ids[keep].long(), lib_vals[keep]
+
+    def kernel():
+        return onehot_dense_grad_grouped(group, g, ids)
+
+    def plain():
+        return dense_grad_grouped_plain(group, g, ids)
+
+    def library():
+        return torch.zeros((group.total_rows, d), device=DEVICE).index_add_(0, lib_ids, lib_vals)
+
+    ops, _ = device_ops(kernel, 5)
+    check(kernel_runs_per_call(ops, "dense_grad_grouped_kernel") == 1, "K1 bags: one kernel run a call in the trace")
+    widths = [w for _, w in group.bags]
+    row = {
+        "phase": "kernel", "kernel": "onehot_dense_grad", "case": f"dcnv2_{len(group.rows)}_small_tables_b{B}",
+        "entry": "grouped", "tables": len(group.rows), "launches_per_call": 1, "batch": B, "d": d,
+        "widths": widths, "ids_per_sample": sum(widths), "rows": group.total_rows, "max_abs_err": err,
+        "tol": "2 (c-1) u sum|v| per element",
+        "kernel_ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
+        "library_ms": time_ms(library, flush), "kernel_device_ms": device_ms(kernel),
+        "plain_device_ms": device_ms(plain), "library_device_ms": device_ms(library),
+        "library": f"one index_add_ into the flat [{group.total_rows}, D] gradient",
+        # roofline_dcn.k1_step: the gradient written once, each table's slot
+        # of g and its bag's ids read once
+        "bytes": group.total_rows * d * 4 + sum(B * (d * 4 + w * 4) for w in widths),
+    }
+    row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    row["bound_by"] = "bytes"
+    row["phase_s"] = time.perf_counter() - t0
+    emit(row)
+    return err
 
 
 WIDE_D = 512  # wider than a K1 block's 256 threads
@@ -5827,6 +5912,7 @@ def main() -> int:
     k3_wide_err = phase_kernel_k3_wide(flush)
     del sm
     k1_row, k1_err = phase_kernel_k1(cfg, flush)
+    k1_err = max(k1_err, phase_kernel_k1_bags(flush))
     k4_row, k4_err = phase_kernel_k4(cfg, params, flush)
     k5_row, k5_err = phase_kernel_k5(cfg, params, flush)
     k6_row, k6_err = phase_kernel_k6(cfg, params, flush)

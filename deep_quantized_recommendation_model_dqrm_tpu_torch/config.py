@@ -9,6 +9,7 @@ functions.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -105,6 +106,16 @@ class QuantConfig:
             )
 
 
+def top_input_dim(num_tables: int, d: int, interaction: str, interact_itself: bool = False) -> int:
+    """Input width of the top MLP for `num_tables` tables and a bottom MLP
+    of output width `d` (`DLRMConfig.top_input_dim`)."""
+    num_fea = num_tables + 1
+    if interaction == "dot":
+        offset = 1 if interact_itself else 0
+        return (num_fea * (num_fea - 1)) // 2 + num_fea * offset + d
+    return num_fea * d  # cat, and dcn's cross network, which keeps its width
+
+
 @dataclass(frozen=True)
 class DLRMConfig:
     """DLRM architecture configuration.
@@ -122,7 +133,11 @@ class DLRMConfig:
     # top[-1] = 1 (the click logit).
     mlp_bot: Tuple[int, ...] = (4, 3, 4)
     mlp_top: Tuple[int, ...] = (8, 4, 2, 1)
-    # `--arch-interaction-op`: "dot" | "cat".
+    # `--arch-interaction-op`: "dot" | "cat" | "dcn". "dcn" (a port-only
+    # option, MLPerf Training's DLRM-DCNv2: torchrec's `LowRankCrossNet`)
+    # concatenates the bottom-MLP output with the pooled lookups, as "cat"
+    # does, and runs `dcn_num_layers` low-rank cross layers of rank
+    # `dcn_low_rank_dim` over that before the top MLP.
     interaction: str = "dot"
     # `--arch-interaction-itself`: include self-interaction diagonal.
     interact_itself: bool = False
@@ -140,6 +155,16 @@ class DLRMConfig:
     # Max pooling size per lookup (Criteo = 1 index per feature). P>1
     # batches use a mask for variable-length bags.
     pooling_size: int = 1
+    # Cross layers and their rank under interaction="dcn" (torchrec's
+    # `--dcn_num_layers`, `--dcn_low_rank_dim`).
+    dcn_num_layers: int = 0
+    dcn_low_rank_dim: int = 0
+    # Per-table fixed bag widths (torchrec's `--multi_hot_sizes`; a
+    # port-only option): table k pools exactly multi_hot_sizes[k] ids a
+    # sample, and a batch's ids are one [B, S] tensor, S the widths' sum,
+    # table k's in the columns `bags()` gives (no padding, no mask).
+    # None keeps the [T, B, P] layout at `pooling_size`.
+    multi_hot_sizes: Optional[Tuple[int, ...]] = None
     # Sparse-index hashing modulus (`--max-ind-range`): applied in data
     # pipeline, recorded here for checkpoints.
     max_ind_range: int = -1
@@ -204,10 +229,16 @@ class DLRMConfig:
                 f"weighted_pooling must be None|fixed|learned, got "
                 f"{self.weighted_pooling!r}"
             )
-        if self.interaction not in ("dot", "cat"):
+        if self.interaction not in ("dot", "cat", "dcn"):
             raise ValueError(
                 f"unsupported interaction {self.interaction!r}"
             )  # dlrm_s_pytorch.py:500-508
+        if self.interaction == "dcn":
+            self._check_dcn()
+        elif self.dcn_num_layers or self.dcn_low_rank_dim:
+            raise ValueError("dcn_num_layers and dcn_low_rank_dim need interaction='dcn'")
+        if self.multi_hot_sizes is not None:
+            self._check_multi_hot()
         if self.mlp_bot[-1] != self.embedding_dim and self.interaction == "dot":
             raise ValueError(
                 "bottom MLP output dim must equal embedding dim for dot "
@@ -217,6 +248,46 @@ class DLRMConfig:
             raise ValueError(f"unknown qr_operation {self.qr_operation!r}")
         if self.qr_flag and self.md_flag:
             raise ValueError("qr_flag and md_flag are mutually exclusive")
+
+    def _check_dcn(self) -> None:
+        if self.dcn_num_layers < 1 or self.dcn_low_rank_dim < 1:
+            raise ValueError(
+                "interaction='dcn' needs dcn_num_layers >= 1 and dcn_low_rank_dim >= 1, got "
+                f"{self.dcn_num_layers} and {self.dcn_low_rank_dim}")
+        if self.mlp_bot[-1] != self.embedding_dim:
+            raise ValueError(
+                "bottom MLP output dim must equal embedding dim for the dcn interaction: "
+                f"{self.mlp_bot[-1]} != {self.embedding_dim}")
+        self.validate_top()  # the cross network keeps the concatenation's (T + 1) d
+        qc = self.quant
+        if qc.enabled and (qc.quant_scheme != "hawq" or qc.quantize_activation
+                           or qc.modify_feature_interaction):
+            raise ValueError(
+                "interaction='dcn' runs HAWQ weight-only QAT: no pact/lsq scheme, "
+                "quantize_activation or modify_feature_interaction")
+        if self.qr_flag or self.md_flag:
+            raise ValueError("interaction='dcn' takes plain tables (no qr_flag, md_flag)")
+
+    def _check_multi_hot(self) -> None:
+        if len(self.multi_hot_sizes) != self.num_tables or min(self.multi_hot_sizes) < 1:
+            raise ValueError(
+                f"multi_hot_sizes needs one width >= 1 for each of the {self.num_tables} tables, "
+                f"got {self.multi_hot_sizes}")
+        if (self.weighted_pooling is not None or self.qr_flag or self.md_flag
+                or self.onehot_lookup_max_rows):
+            raise ValueError(
+                "multi_hot_sizes takes plain tables with unweighted sum pooling (no "
+                "weighted_pooling, qr_flag, md_flag or onehot_lookup_max_rows)")
+        if self.quant.enabled and self.quant.quant_scheme != "hawq":
+            raise ValueError("multi_hot_sizes runs HAWQ QAT only")
+
+    def bags(self) -> Optional[Tuple[Tuple[int, int], ...]]:
+        """Each table's (first column, width) in a [B, S] id tensor under
+        `multi_hot_sizes`; None for the [T, B, P] layout."""
+        if self.multi_hot_sizes is None:
+            return None
+        cols = itertools.accumulate((0,) + tuple(self.multi_hot_sizes[:-1]))
+        return tuple(zip(cols, self.multi_hot_sizes))
 
     def table_kind(self, k: int) -> str:
         """Embedding representation for table k: "dense" | "qr" | "md"
@@ -261,12 +332,7 @@ class DLRMConfig:
     @property
     def top_input_dim(self) -> int:
         """Input width of the top MLP (arch check dlrm_s_pytorch.py:1164-1181)."""
-        num_fea = self.num_tables + 1
-        d = self.mlp_bot[-1]
-        if self.interaction == "dot":
-            offset = 1 if self.interact_itself else 0
-            return (num_fea * (num_fea - 1)) // 2 + num_fea * offset + d
-        return num_fea * d
+        return top_input_dim(self.num_tables, self.mlp_bot[-1], self.interaction, self.interact_itself)
 
     def validate_top(self) -> None:
         if self.mlp_top[0] != self.top_input_dim:

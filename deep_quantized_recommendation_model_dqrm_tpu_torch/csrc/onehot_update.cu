@@ -14,6 +14,11 @@
 //       lookups read (`rows_grad_from_pooled` followed by the TPU kernel's
 //       scatter). An id outside [0, n_i) (-1 padding included) adds
 //       nothing. The out_i are consecutive row ranges of one flat buffer.
+//       Per-slot widths: the ids may instead be one [B, S] tensor of bags
+//       of fixed, per-table widths (DLRM-DCNv2's multi-hot features), table
+//       i's bag of width P_i in columns c_i to c_i + P_i of every row; then
+//       idx[k_i, b, p] above reads idx[b, c_i + p], for p < P_i, and the
+//       mask is 1.
 //   K4: out_i[b, :] = sum_{p = 0..P-1 in order} w[k_i, b, p] * table_i[idx[k_i, b, p], :],
 //       where an id outside [0, n_i) adds nothing and a missing w means 1;
 //       out_i is the [B, D_i] block at float offset col_i * B of the output
@@ -47,7 +52,12 @@
 //   most 32 tables), passed by value: no device copy, and no raw address
 //   outlives the call.
 // - K1: the blocks are split over (table, chunk of its updates); a block
-//   finds its table from the prefix of block counts in the descriptor. D
+//   finds its table from the prefix of block counts in the descriptor.
+//   Update u of table i is (b, p) = (u / P_i, u % P_i); its id lies at
+//   id_base_i + b * P + p, P the ids' row length ([T, B, P]: id_base_i =
+//   k_i * B * P and P_i = P, so the id of update u is the u-th of the
+//   table's block; [B, S]: id_base_i = c_i and P = S). So a table of width
+//   1 reads no padding and a wide bag no other table's slots. D
 //   threads take one update (b, p), one value each, so that a warp's
 //   atomics touch at most 32 / D rows; the mask multiplies with __fmul_rn
 //   (P = 1 without a mask stays exact). A table whose rows would each see
@@ -93,13 +103,18 @@ struct GradTable {
   long long rows;
   long long slot;
   long long row_offset;  // in the flat output
-  int block_start;       // this table's first block
+  long long id_base;     // the table's first id in idx
+  long long width;       // ids a bag (P_i)
   int chunk;             // updates per block
   int smem;              // accumulate in shared memory
-  int unused;
 };
 
+// Each table's first block apart from the tables: a block finds its table by
+// walking these alone, a few contiguous words of the parameter space (read
+// strided through the tables' records, the walk cost the small-batch
+// launches, whose blocks take few updates each, a tenth of their time).
 struct GradGroup {
+  int block_start[kMaxTables];
   GradTable t[kMaxTables];
   int count;
 };
@@ -149,19 +164,26 @@ __device__ __forceinline__ float round_to(const __nv_bfloat16*, float v) {
 // global memory, [rows, D]): D threads per update, one value each, so that
 // a warp's atomics touch at most 32 / D rows; where D > kThreads, the
 // block's threads take one update, a thread every kThreads-th column.
+// Update u is (b, p) = (u / width, u % width), its id and mask value at
+// b * P + p = u + b * (P - width) from `ids` and `mask` (the table's first),
+// its gradient g[b]; where the bag is the whole row (width == P, the [T, B,
+// P] layout) that is the u-th id.
 __device__ __forceinline__ void scatter_updates(
     float* dst, const float* __restrict__ g, const int32_t* __restrict__ ids,
-    const float* __restrict__ mask, int64_t rows, int64_t u0, int64_t u1, int P, int D) {
+    const float* __restrict__ mask, int64_t rows, int64_t u0, int64_t u1, int64_t width, int P,
+    int D) {
   const int lanes = D < kThreads ? D : kThreads;  // threads per update
   const int per_pass = kThreads / lanes;
   const int sub = (int)threadIdx.x / lanes;
   const int j0 = (int)threadIdx.x - sub * lanes;
   if (sub >= per_pass) return;
   for (int64_t u = u0 + sub; u < u1; u += per_pass) {
-    const int64_t id = __ldg(ids + u);
+    const int64_t b = width == 1 ? u : u / width;
+    const int64_t at = u + b * (P - width);
+    const int64_t id = __ldg(ids + at);
     if (id < 0 || id >= rows) continue;
-    const float* gu = g + (P == 1 ? u : u / P) * D;
-    const float m = mask ? __ldg(mask + u) : 1.0f;
+    const float* gu = g + b * D;
+    const float m = mask ? __ldg(mask + at) : 1.0f;
     for (int j = j0; j < D; j += lanes) {
       float v = __ldg(gu + j);
       if (mask) v = __fmul_rn(v, m);
@@ -173,29 +195,29 @@ __device__ __forceinline__ void scatter_updates(
 __global__ void __launch_bounds__(kThreads) dense_grad_grouped_kernel(
     const __grid_constant__ GradGroup group,
     const float* __restrict__ g,      // [T, B, D]
-    const int32_t* __restrict__ idx,  // [T, B, P]
-    const float* __restrict__ mask,   // [T, B, P] or null
+    const int32_t* __restrict__ idx,  // [T, B, P] or [B, P] (bags at per-table columns)
+    const float* __restrict__ mask,   // [T, B, P], or null (with bags, null)
     float* __restrict__ out,          // [sum of rows, D], zeroed
     int B, int P, int D) {
   extern __shared__ float acc[];
   int ti = 0;
-  while (ti + 1 < group.count && (int)blockIdx.x >= group.t[ti + 1].block_start) ++ti;
+  while (ti + 1 < group.count && (int)blockIdx.x >= group.block_start[ti + 1]) ++ti;
   const GradTable& d = group.t[ti];
-  const int64_t R = (int64_t)B * P;
-  const int64_t u0 = (int64_t)((int)blockIdx.x - d.block_start) * d.chunk;
+  const int64_t R = (int64_t)B * d.width;
+  const int64_t u0 = (int64_t)((int)blockIdx.x - group.block_start[ti]) * d.chunk;
   const int64_t u1 = u0 + d.chunk < R ? u0 + d.chunk : R;
-  const int32_t* ids = idx + d.slot * R;
-  const float* msk = mask ? mask + d.slot * R : nullptr;
+  const int32_t* ids = idx + d.id_base;
+  const float* msk = mask ? mask + d.id_base : nullptr;
   const float* gk = g + d.slot * B * (int64_t)D;
   float* o = out + d.row_offset * D;
   if (!d.smem) {  // uniform over the block
-    scatter_updates(o, gk, ids, msk, d.rows, u0, u1, P, D);
+    scatter_updates(o, gk, ids, msk, d.rows, u0, u1, d.width, P, D);
     return;
   }
   const int64_t nd = d.rows * D;
   for (int64_t e = threadIdx.x; e < nd; e += kThreads) acc[e] = 0.0f;
   __syncthreads();
-  scatter_updates(acc, gk, ids, msk, d.rows, u0, u1, P, D);
+  scatter_updates(acc, gk, ids, msk, d.rows, u0, u1, d.width, P, D);
   __syncthreads();
   for (int64_t e = threadIdx.x; e < nd; e += kThreads) {
     const float s = acc[e];
@@ -259,10 +281,14 @@ void launch_lookup(const LookupGroup& group, bool vec4, dim3 grid, cudaStream_t 
 // Each entry returns cudaGetLastError() after its launch
 // (cudaErrorInvalidValue for arguments the kernels do not take).
 
-// K1 for `count` tables described by `tables` (host memory, 3 int64 each:
-// rows, slot, row offset in `out`; the offsets of consecutive row ranges,
-// checked by the caller): g [T, B, D], idx [T, B, P], mask [T, B, P] or
-// null, out [total_rows, D], which this entry zeroes first.
+// K1 for `count` tables described by `tables` (host memory, 5 int64 each:
+// rows, slot, row offset in `out`, bag column, bag width; the offsets of
+// consecutive row ranges and the slots within g, checked by the caller):
+// g [T, B, D], out [total_rows, D], which this entry zeroes first. Ids
+// whose rows are P long: where a table's bag width is 0, idx is [T, B, P]
+// and the table reads its slot's [B, P] block; else idx is [B, P] and the
+// table reads `width` ids from `column` in every row. mask: [T, B, P], or
+// null (always null with bags).
 extern "C" int dqrm_dense_grad_grouped(
     const long long* tables, int count, const void* g, const void* idx, const void* mask,
     void* out, long long total_rows, int B, int P, int D, void* stream_) {
@@ -273,32 +299,37 @@ extern "C" int dqrm_dense_grad_grouped(
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const cudaError_t zero = cudaMemsetAsync(out, 0, (size_t)total_rows * D * sizeof(float), stream);
   if (zero != cudaSuccess) return (int)zero;
-  const long long R = (long long)B * P;
-  if (R == 0) return (int)cudaGetLastError();
+  if ((long long)B * P == 0) return (int)cudaGetLastError();
   const int per_pass = D < kThreads ? kThreads / D : 1;  // updates a block takes at once
-  const long long passes = R / kUpdatesPerPass;
-  const int global_chunk =
-      per_pass * (int)(passes < kMinPasses ? kMinPasses : passes > kMaxPasses ? kMaxPasses : passes);
   const int smem_chunk = kSmemChunk > per_pass ? kSmemChunk : per_pass;
-  const long long smem_updates = R < smem_chunk ? R : smem_chunk;
   GradGroup group = {};
   group.count = count;
   long long blocks = 0;
   size_t smem = 0;
   for (int i = 0; i < count; ++i) {
     GradTable& t = group.t[i];
-    t.rows = tables[3 * i];
-    t.slot = tables[3 * i + 1];
-    t.row_offset = tables[3 * i + 2];
-    if (t.rows <= 0 || t.slot < 0 || t.row_offset < 0 || t.row_offset + t.rows > total_rows) {
+    t.rows = tables[5 * i];
+    t.slot = tables[5 * i + 1];
+    t.row_offset = tables[5 * i + 2];
+    const long long column = tables[5 * i + 3];
+    t.width = tables[5 * i + 4];
+    if (t.rows <= 0 || t.slot < 0 || t.row_offset < 0 || t.row_offset + t.rows > total_rows ||
+        t.width < 0 || column < 0 || column + t.width > P || (mask && t.width > 0)) {
       return (int)cudaErrorInvalidValue;
     }
+    t.id_base = t.width == 0 ? t.slot * B * P : column;
+    if (t.width == 0) t.width = P;
+    const long long R = (long long)B * t.width;
+    const long long passes = R / kUpdatesPerPass;
+    const int global_chunk =
+        per_pass * (int)(passes < kMinPasses ? kMinPasses : passes > kMaxPasses ? kMaxPasses : passes);
+    const long long smem_updates = R < smem_chunk ? R : smem_chunk;
     const size_t bytes = (size_t)t.rows * D * sizeof(float);
     t.smem = R >= kSmemMinPerRow * t.rows && 4 * t.rows <= smem_updates &&
              bytes <= (size_t)kSmemBytes;
     t.chunk = t.smem ? smem_chunk : global_chunk;
     if (t.smem && bytes > smem) smem = bytes;
-    t.block_start = (int)blocks;
+    group.block_start[i] = (int)blocks;
     blocks += (R + t.chunk - 1) / t.chunk;
   }
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;

@@ -45,8 +45,19 @@ def random_batch(
     (masked, not offset-encoded). Each bag is deduplicated like the
     reference's np.unique (dlrm_data_pytorch.py:1140-1148): a duplicate draw
     gets mask 0. Targets are U(0,1), rounded to {0,1} when `round_targets`.
+
+    Under `multi_hot_sizes` the ids are one [B, S] tensor: table k's bag of
+    its own fixed width, drawn the same way (duplicates in a bag kept and
+    summed, as fixed-width multi-hot bags are, with no mask);
+    `variable_pooling` and `num_indices_per_lookup` do not apply.
     """
     dev = resolve_device(device)
+    if config.multi_hot_sizes is not None:
+        if variable_pooling or num_indices_per_lookup not in (None, 1):
+            raise ValueError("multi_hot_sizes fix every bag's width: no variable pooling or "
+                             "num_indices_per_lookup")
+        return _multi_hot_batch(config, batch_size, rng, rand_data_dist, rand_data_min, rand_data_max,
+                                rand_data_mu, rand_data_sigma, round_targets, dev)
     T = config.num_tables
     P = num_indices_per_lookup or config.pooling_size
     dense = rng.uniform(0.0, 1.0, size=(batch_size, config.num_dense)).astype(np.float32)
@@ -100,6 +111,27 @@ def random_batch(
         labels=torch.from_numpy(labels).to(dev),
         mask=torch.from_numpy(mask).to(dev) if mask is not None else None,
     )
+
+
+def _multi_hot_batch(config: DLRMConfig, batch_size: int, rng: np.random.RandomState, dist: str,
+                     lo: float, hi: float, mu: float, sigma: float, round_targets: bool, dev) -> Batch:
+    """`random_batch` under `multi_hot_sizes`: dense U(0, 1), then each
+    table's [B, P_k] ids, then the targets."""
+    dense = rng.uniform(0.0, 1.0, size=(batch_size, config.num_dense)).astype(np.float32)
+    bags = []
+    for rows, w in zip(config.table_sizes, config.multi_hot_sizes):
+        if dist == "gaussian":
+            mean = (hi + lo) / 2.0 if mu == -1 else mu
+            raw = np.clip(rng.normal(mean, sigma, size=(batch_size, w)), lo, hi)
+            bags.append(np.clip(raw, 0, rows - 1).astype(np.int32))
+        else:
+            bags.append(rng.randint(0, rows, size=(batch_size, w)).astype(np.int32))
+    if round_targets:
+        labels = rng.randint(0, 2, size=(batch_size,)).astype(np.float32)
+    else:
+        labels = rng.rand(batch_size).astype(np.float32)
+    return Batch(dense=torch.from_numpy(dense).to(dev), indices=torch.from_numpy(np.concatenate(bags, 1)).to(dev),
+                 labels=torch.from_numpy(labels).to(dev))
 
 
 def _host_batch(dense, indices, labels) -> Batch:

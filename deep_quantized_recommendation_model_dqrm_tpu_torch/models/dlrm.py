@@ -2,7 +2,13 @@
 models/dlrm.py.
 
 Structure (reference `DLRM_Net.forward`): bottom MLP(dense) -> per-table
-pooled lookups -> pairwise dot interaction -> top MLP -> click logit. QAT
+pooled lookups -> pairwise dot interaction -> top MLP -> click logit. Under
+`interaction="dcn"` (MLPerf Training's DLRM-DCNv2, torchrec's `DLRM_DCN`)
+the bottom output and the pooled lookups are concatenated and pass a
+low-rank cross network (`params["cross"]`, `ops.interaction.low_rank_cross`)
+before the top MLP; its weights take the MLP's weight fake-quant. With
+`multi_hot_sizes` each table pools a bag of its own fixed width, the ids of
+a batch one [B, S] tensor (`bags`). QAT
 (reference QAT forward, dlrm_s_pytorch_comm_grad.py:809-895) under one of
 the paper's three schemes:
 
@@ -36,6 +42,7 @@ top MLP), so both packages start from bit-identical weights.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -46,6 +53,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.device import resolve_de
 from deep_quantized_recommendation_model_dqrm_tpu_torch.models import tricks
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops import quant as q
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
+    bag_of,
     group_slots,
     make_onehot_lookup_group,
     onehot_pooled_lookup_grouped,
@@ -55,9 +63,11 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import cla
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.interaction import (
     cat_interaction,
     dot_interaction,
+    low_rank_cross,
     quantized_dot_interaction,
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.matmul import linear
+from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.profiling import annotate
 
 Params = Dict[str, Any]
 
@@ -66,9 +76,11 @@ class Batch(NamedTuple):
     """One minibatch, in the JAX package's layout (models/dlrm.py:49-57)."""
 
     dense: torch.Tensor  # [B, num_dense] float32, already log1p-transformed
-    indices: torch.Tensor  # [T, B, P] int32
+    # [T, B, P] int32; under `multi_hot_sizes` [B, S] int32, S the widths'
+    # sum, table k's bag in the columns `config.bags()` gives (`bags`)
+    indices: torch.Tensor
     labels: torch.Tensor  # [B] float32 in {0, 1}
-    mask: Optional[torch.Tensor] = None  # [T, B, P] float32, None => all ones
+    mask: Optional[torch.Tensor] = None  # [T, B, P] float32, None => all ones (always None for [B, S])
 
 
 class QuantState(NamedTuple):
@@ -135,6 +147,12 @@ def init_params(
     step and a 0-d bias step per layer at `weight_bit` (QuantLinearLSQ,
     quant_learned_step_size_quan.py:32-57).
 
+    Under `interaction="dcn"` also "cross": per cross layer {"v" [r, F],
+    "w" [F, r], "b" [F]} (F the concatenation's width, r the rank): V and W
+    Xavier-normal, N(0, sqrt(2 / (F + r))), and b zeros, as torchrec's
+    `LowRankCrossNet` draws them; drawn after the top MLP, layer by layer,
+    V then W, so the other leaves keep their draws.
+
     `draw=False` gives the same structure, shapes and dtypes with nothing
     drawn (uninitialized values): a template for a checkpoint that
     replaces every leaf.
@@ -179,6 +197,20 @@ def init_params(
         else:
             emb.append(uniform(bound, (n, d)))
     params: Params = {"bot": mlp(config.mlp_bot), "top": mlp(config.mlp_top), "emb": emb}
+    if config.interaction == "dcn":
+        f, r = config.top_input_dim, config.dcn_low_rank_dim
+
+        def xavier(shape):
+            if not draw:
+                return torch.empty(shape, device=dev)
+            std = np.sqrt(2.0 / (f + r))
+            return torch.from_numpy(rng.normal(0.0, std, size=shape).astype(np.float32)).to(dev)
+
+        params["cross"] = []
+        for _ in range(config.dcn_num_layers):
+            v = xavier((r, f))
+            params["cross"].append({"v": v, "w": xavier((f, r)),
+                                    "b": torch.zeros((f,), dtype=torch.float32, device=dev)})
     if config.weighted_pooling is not None:
         params["v_W"] = [torch.ones((n,), dtype=torch.float32, device=dev) for n in config.table_sizes]
     return {**params, **init_lsq_steps(config, params)}
@@ -299,16 +331,38 @@ def _apply_mlp_fp(layers, x: torch.Tensor, last_linear: bool, bf16: bool = False
     return x
 
 
-def _quant_linear_weights(layer, wbits: int, bbits: int, per_channel: bool):
-    """Per-forward weight/bias scale + fake-quant (QuantLinear,
-    quant_modules.py:107-135)."""
-    w, b = layer["w"], layer["b"]
+def _quant_weight(w: torch.Tensor, wbits: int, per_channel: bool):
+    """A weight's scale (per tensor, or per output channel) and its
+    fake-quant."""
     if per_channel:
         w_min, w_max = w.amin(dim=1), w.amax(dim=1)
     else:
         w_min, w_max = w.min(), w.max()
     s_w = q.symmetric_quantization_params(wbits, w_min, w_max)
-    return s_w, q.fake_quant(w, s_w, wbits), q.fake_quant(b, s_w, bbits)
+    return s_w, q.fake_quant(w, s_w, wbits)
+
+
+def _quant_linear_weights(layer, wbits: int, bbits: int, per_channel: bool):
+    """Per-forward weight/bias scale + fake-quant (QuantLinear,
+    quant_modules.py:107-135)."""
+    s_w, w_fq = _quant_weight(layer["w"], wbits, per_channel)
+    return s_w, w_fq, q.fake_quant(layer["b"], s_w, bbits)
+
+
+def _cross_weights(params: Params, qc, quantizing: bool) -> List[Dict[str, torch.Tensor]]:
+    """The cross layers' {"v", "w", "b"} as the forward multiplies them:
+    under weight QAT (`quantize_mlp`) V and W fake-quantized at
+    `weight_bit` as the MLP's weights (per tensor, or per output channel
+    with `mlp_channelwise`) and b at `bias_bit` with W's scale, b being W's
+    bias; else as they are."""
+    if not (quantizing and qc.quantize_mlp):
+        return params["cross"]
+    out = []
+    for layer in params["cross"]:
+        _, v_fq = _quant_weight(layer["v"], qc.weight_bit, qc.mlp_channelwise)
+        _, w_fq, b_fq = _quant_linear_weights(layer, qc.weight_bit, qc.bias_bit, qc.mlp_channelwise)
+        out.append({"v": v_fq, "w": w_fq, "b": b_fq})
+    return out
 
 
 def _apply_mlp_quant(layers, x: torch.Tensor, qc, last_linear: bool,
@@ -429,7 +483,8 @@ def lookup_all(
     plain: bool = False,
 ) -> torch.Tensor:  # [T, B, D]
     """Raw pooled lookups of every table, differentiable through the tables
-    (and learned pooling weights), float32. The mask is composed with the
+    (and learned pooling weights), float32. Under `multi_hot_sizes` each
+    table's bag of [B, S] ids goes through `pooled_lookup`. The mask is composed with the
     pooling weights first (`pooling_weights`). The tables with at most
     `onehot_lookup_max_rows` rows, float32 or bfloat16, go through one
     launch of kernel K4 (its plain version with `plain=True`) per group of
@@ -442,6 +497,10 @@ def lookup_all(
     rows only (the K4 tables, small, are transformed whole). That gives the
     bits of transforming each table first without writing a transformed
     copy of the large tables every step. QR/MD tables take no transform."""
+    if config.multi_hot_sizes is not None:
+        if mask is not None:
+            raise ValueError("bags of multi_hot_sizes take no mask")
+        return torch.stack([pooled_lookup(t, ids).float() for t, ids in zip(params["emb"], bags(config, indices))])
     qc = config.quant
     pact = qc.enabled and qc.quantize_emb and not full_precision and qc.quant_scheme == "pact"
     emb = params["emb"]
@@ -467,6 +526,15 @@ def lookup_all(
             row_fn = lambda rows, norm=norm: q.pact_apply(rows, norm, qc.embedding_bit)  # noqa: E731
         outs[k] = pooled_lookup(table, indices[k], w, row_fn).float()
     return torch.stack([outs[k] for k in range(len(emb))])
+
+
+def bags(config: DLRMConfig, indices: torch.Tensor) -> List[torch.Tensor]:
+    """Each table's [B, P_k] ids: views of a [B, S] batch under
+    `multi_hot_sizes`."""
+    if indices.dim() != 2 or indices.shape[1] != sum(config.multi_hot_sizes):
+        raise ValueError(f"multi_hot_sizes take [B, {sum(config.multi_hot_sizes)}] ids, "
+                         f"got {tuple(indices.shape)}")
+    return [bag_of(indices, k, bag) for k, bag in enumerate(config.bags())]
 
 
 def emb_postprocess(
@@ -555,7 +623,9 @@ def forward(
     QuantState holds them (new tensors). `lsq_numel_scale`: see
     `emb_postprocess`. `compute_dtype="bfloat16"` puts the products of the
     float32 and weight-only MLPs and of the dot interaction on bf16
-    operands; the integer chain and the INT16 interaction stay float32."""
+    operands; the integer chain and the INT16 interaction stay float32.
+    Under `interaction="dcn"` the cross network's products too; its
+    forward opens the span `dqrm.train.cross` where `train`."""
     qc = config.quant
     bf16 = config.compute_dtype == "bfloat16"
     if qstate is None:
@@ -575,6 +645,9 @@ def forward(
             return quantized_dot_interaction(x, ly, qc.interaction_bit, config.interact_itself)
         if config.interaction == "dot":
             return dot_interaction(x, ly, config.interact_itself, bf16)
+        if config.interaction == "dcn":
+            with annotate("dqrm.train.cross") if train else contextlib.nullcontext():
+                return low_rank_cross(cat_interaction(x, ly), _cross_weights(params, qc, quantizing), bf16)
         return cat_interaction(x, ly)
 
     act_min, act_max = qstate.act_min, qstate.act_max

@@ -13,11 +13,13 @@ K1:
   a CPU tensor takes the plain version, a CUDA tensor launches the grouped
   kernel with one table (or raises);
 - `DenseGradGroup` / `make_dense_grad_group` — the tables whose gradients
-  one launch computes: rows, slots and the row offsets in one flat buffer;
+  one launch computes: rows, slots and the row offsets in one flat buffer,
+  and for bags of per-table widths their columns in a [B, S] id tensor;
 - `dense_grad_grouped_plain` / `onehot_dense_grad_grouped` — the dense
   gradients of a group from the pooled gradient [T, B, D], the ids and the
-  mask [T, B, P]: per table `rows_grad_from_pooled` and `dense_grad_plain`,
-  and the wrapper that launches the kernel once for the group.
+  mask ([T, B, P]; with the group's bags, [B, S] ids and no mask): per table
+  `rows_grad_from_pooled` and `dense_grad_plain`, and the wrapper that
+  launches the kernel once for the group.
 
 K4:
 - `pooled_lookup_weighted_plain` — `sum_p w[b,p] * table[idx[b,p]]` with
@@ -143,37 +145,66 @@ def dense_grad_plain(ids: torch.Tensor, vals: torch.Tensor, num_rows: int) -> to
 
 class DenseGradGroup(NamedTuple):
     """Tables whose dense gradients one K1 launch computes: table i has
-    `rows[i]` rows, reads slot `slots[i]` of the [T, B, D] pooled gradient
-    and the [T, B, P] ids and mask, and owns rows `offsets[i]` to
-    `offsets[i] + rows[i]` of the flat [total_rows, D] result. `descs` is
-    the kernel's descriptor (one row of 3 int64 per table: rows, slot,
-    offset) in host memory."""
+    `rows[i]` rows, reads slot `slots[i]` of the [T, B, D] pooled gradient,
+    and owns rows `offsets[i]` to `offsets[i] + rows[i]` of the flat
+    [total_rows, D] result. Its ids and mask are slot `slots[i]` of [T, B,
+    P] ones where `bags` is None, else its ids are the `bags[i]` = (column,
+    width) columns of every row of a [B, S] id tensor (bags of per-table
+    widths, with no mask).
+    `descs` is the kernel's descriptor (one row of 5 int64 per table: rows,
+    slot, offset, bag column, bag width; the bag 0, 0 for the [T, B, P]
+    layout) in host memory."""
 
     rows: Tuple[int, ...]
     slots: Tuple[int, ...]
     offsets: Tuple[int, ...]
     total_rows: int
     descs: torch.Tensor
+    bags: Optional[Tuple[Tuple[int, int], ...]] = None
 
 
-def make_dense_grad_group(rows: Sequence[int], slots: Sequence[int]) -> DenseGradGroup:
-    """The group of tables with `rows[i]` rows at `slots[i]`, their
-    gradients laid out in that order; built once by the caller."""
+def make_dense_grad_group(rows: Sequence[int], slots: Sequence[int],
+                          bags: Optional[Sequence[Tuple[int, int]]] = None) -> DenseGradGroup:
+    """The group of tables with `rows[i]` rows at `slots[i]` (and with
+    `bags`, their ids at `bags[i]` = (column, width) of a [B, S] id tensor),
+    their gradients laid out in that order; built once by the caller."""
     rows, slots = tuple(int(n) for n in rows), tuple(int(k) for k in slots)
     _check_slots(slots, len(rows))
     if min(rows) <= 0:
         raise ValueError(f"tables need rows, got {rows}")
+    if bags is not None:
+        bags = tuple((int(c), int(w)) for c, w in bags)
+        if len(bags) != len(rows) or any(c < 0 or w < 1 for c, w in bags):
+            raise ValueError(f"each table of a group needs a bag (column >= 0, width >= 1), got {bags}")
     offsets = tuple(itertools.accumulate((0,) + rows[:-1]))
-    descs = torch.tensor(list(zip(rows, slots, offsets)), dtype=torch.int64)
-    return DenseGradGroup(rows=rows, slots=slots, offsets=offsets, total_rows=sum(rows), descs=descs)
+    cols = bags if bags is not None else [(0, 0)] * len(rows)
+    descs = torch.tensor([(n, k, o, c, w) for n, k, o, (c, w) in zip(rows, slots, offsets, cols)],
+                         dtype=torch.int64)
+    return DenseGradGroup(rows=rows, slots=slots, offsets=offsets, total_rows=sum(rows), descs=descs,
+                          bags=bags)
+
+
+def bag_of(indices: torch.Tensor, slot: int, bag: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """One table's [B, P_i] ids (or mask values): slot `slot` of a [T, B, P]
+    tensor, or the `bag` = (column, width) columns of a [B, S] one."""
+    return indices[slot] if bag is None else indices[:, bag[0]:bag[0] + bag[1]]
 
 
 def _check_grad_args(group: DenseGradGroup, g: torch.Tensor, indices: torch.Tensor,
                      mask: Optional[torch.Tensor]) -> None:
-    check_slots_fit(group.slots, indices)
     _check_mask(mask, indices)
-    if g.dim() != 3 or g.shape[:2] != indices.shape[:2]:
-        raise ValueError(f"g {tuple(g.shape)} must be [T, B, D] for indices {tuple(indices.shape)}")
+    if group.bags is None:
+        check_slots_fit(group.slots, indices)
+        if g.dim() != 3 or g.shape[:2] != indices.shape[:2]:
+            raise ValueError(f"g {tuple(g.shape)} must be [T, B, D] for indices {tuple(indices.shape)}")
+        return
+    if mask is not None:
+        raise ValueError("a group of bags takes no mask: every slot of a bag is an id")
+    if indices.dim() != 2 or max(c + w for c, w in group.bags) > indices.shape[1]:
+        raise ValueError(f"the group's bags {group.bags} need [B, S] ids, got {tuple(indices.shape)}")
+    if g.dim() != 3 or g.shape[1] != indices.shape[0] or max(group.slots) >= g.shape[0]:
+        raise ValueError(f"g {tuple(g.shape)} must be [T, B, D] for slots {group.slots} and "
+                         f"indices {tuple(indices.shape)}")
 
 
 def dense_grad_grouped_plain(
@@ -186,15 +217,18 @@ def dense_grad_grouped_plain(
     of its slot and `dense_grad_plain`. Returns the flat [total_rows, D]
     float32 gradient and each table's [rows, D] view of it."""
     _check_grad_args(group, g, indices, mask)
+    bags = group.bags or [None] * len(group.rows)
     flat = torch.cat([
-        dense_grad_plain(*rows_grad_from_pooled(g[k], indices[k], None if mask is None else mask[k]), n)
-        for n, k in zip(group.rows, group.slots)
+        dense_grad_plain(*rows_grad_from_pooled(g[k], bag_of(indices, k, bag),
+                                                None if mask is None else bag_of(mask, k, bag)), n)
+        for n, k, bag in zip(group.rows, group.slots, bags)
     ])
     return flat, flat.split(group.rows)
 
 
 def _launch_dense_grad(group: DenseGradGroup, g, indices, mask, out, B: int, P: int, D: int,
                        dev: torch.device) -> None:
+    """One K1 launch; P is the length of the ids' rows ([T, B, P] or [B, P])."""
     lib = _build.load("onehot_update", _SIGNATURES)
     err = lib.dqrm_dense_grad_grouped(
         group.descs.data_ptr(), len(group.rows), g.data_ptr(), indices.data_ptr(),
@@ -213,8 +247,10 @@ def onehot_dense_grad_grouped(
     """K1 for every table of `group` in one launch (the zeroing included):
     the plain version for a CPU tensor, the CUDA kernel for a CUDA tensor.
     Table i receives g[k][b] * mask[k][b, p] at row indices[k][b, p] for
-    every (b, p), k = slots[i]; ids outside [0, rows[i]) add nothing.
-    Returns the flat [total_rows, D] float32 gradient and each table's view.
+    every (b, p), k = slots[i] (with the group's bags, indices[b, c_i + p]
+    for p below the bag's width, and no mask); ids outside [0,
+    rows[i]) add nothing. Returns the flat [total_rows, D] float32 gradient
+    and each table's view.
 
     Counts its kernel launches in `onehot_dense_grad_grouped.launches`."""
     if g.device.type == "cpu":
@@ -222,7 +258,7 @@ def onehot_dense_grad_grouped(
     dev = _cuda_device(g, indices, mask)
     _check_types(indices, g, mask)
     _check_grad_args(group, g, indices, mask)
-    _, B, P = indices.shape
+    B, P = indices.shape[-2:]
     D = g.shape[2]
     flat = torch.empty((group.total_rows, D), dtype=torch.float32, device=dev)
     _launch_dense_grad(group, g, indices, mask, flat, B, P, D, dev)

@@ -1,8 +1,8 @@
-"""Pairwise feature interaction ops.
+"""Feature interaction ops.
 
 Reference: `DLRM_Net.interact_features` (dlrm_s_pytorch.py:476-509) and the
 integer variant `modify_feature_interaction` (dlrm_s_pytorch_comm_grad.py:
-744-792). The dot
+744-792); DLRM-DCNv2's low-rank cross network (`low_rank_cross`). The dot
 interaction stacks the bottom-MLP output with all pooled embeddings, takes
 the pairwise Gram matrix with one batched matmul, and gathers its strictly
 lower triangle with static indices in the (i, j < i) order of the JAX
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops import quant as q
-from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.matmul import gram
+from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.matmul import gram, linear
 
 
 def _tril_indices(num_fea: int, interact_itself: bool) -> Tuple[np.ndarray, np.ndarray]:
@@ -90,3 +90,15 @@ def quantized_dot_interaction(
     z = torch.bmm(tb, tb.transpose(1, 2)) * (scale * scale)
     flat = z.reshape(z.shape[0], -1)[:, _tril_index(tb.shape[1], interact_itself, z.device)]
     return torch.cat([x, flat], dim=1)
+
+
+def low_rank_cross(x0: torch.Tensor, layers, bf16: bool = False) -> torch.Tensor:
+    """DCNv2's low-rank cross network (torchrec's `LowRankCrossNet`, MLPerf
+    Training's DLRM-DCNv2) over x0 [B, F]: x_{l+1} = x0 * (W_l (V_l x_l) +
+    b_l) + x_l for each layer {"v" [r, F], "w" [F, r], "b" [F]}, in
+    torchrec's order of operations; the products in float32, or on bf16
+    operands with float32 sums (`ops.matmul.linear`)."""
+    x = x0
+    for layer in layers:
+        x = x0 * (linear(linear(x, layer["v"], bf16), layer["w"], bf16) + layer["b"]) + x
+    return x

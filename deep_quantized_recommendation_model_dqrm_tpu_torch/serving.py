@@ -83,6 +83,16 @@ class ServingModel(NamedTuple):
     vw: Optional[List[torch.Tensor]] = None  # per-row pooling weights, float32 [n_k]
 
 
+def _refuse_unserved(config: DLRMConfig) -> None:
+    """The packed serving path has the dot and cat interactions over bags of
+    one width: raise for a model it would not compute (DLRM-DCNv2's cross
+    network, bags of per-table widths)."""
+    if config.interaction == "dcn" or config.multi_hot_sizes is not None:
+        raise ValueError("packed serving does not serve interaction='dcn' or multi_hot_sizes models "
+                         "(no cross network, one bag width): serve such a model unpacked, through "
+                         "train_step.make_eval_step")
+
+
 def _pack_entry(t, emb_bits: int, rowwise: bool, row_chunk: int = 0):
     """A table packed, or each component of a QR/MD dict (the projection
     kept as it is); JAX serving.py:98-114."""
@@ -114,6 +124,7 @@ def ptq_export(
     reference's PTQ packs plain tables only); INT4 needs even widths, so an
     MD model with odd widths packs at 8 bits. The pooling weights ride
     along in float32. The model stays on the params' device."""
+    _refuse_unserved(config)
     if emb_bits not in (4, 8):
         raise ValueError("emb_bits must be 4 or 8 for packed serving")
     bot, top = _quantize_mlp(params["bot"], params["top"], mlp_bits)
@@ -141,6 +152,7 @@ def ptq_export_streaming(
     temporaries, where `ptq_export` of a whole params dict holds every
     table's float32 temporaries in turn beside the source tables. The
     result is bit-identical to `ptq_export` of the same tables."""
+    _refuse_unserved(config)
     if emb_bits not in (4, 8):
         raise ValueError("emb_bits must be 4 or 8 for packed serving")
     bot, top = _quantize_mlp(bot, top, mlp_bits)
@@ -364,6 +376,7 @@ def make_serving_fn(
     nothing: there they choose the Pallas kernels over XLA's gather and
     matmul, and here the kernels are the only path. `export_stablehlo`
     traces the same body (`_serve`)."""
+    _refuse_unserved(sm.config)
     del use_pallas_lookup, use_pallas_mlp  # the kernels are the only path
     if mlp_impl not in (None, "int8"):
         raise ValueError(f"unknown mlp_impl {mlp_impl!r}")

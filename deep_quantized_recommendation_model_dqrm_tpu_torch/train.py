@@ -76,6 +76,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.config import (
     QuantConfig,
     TrainConfig,
     dash_separated_ints,
+    top_input_dim,
 )
 
 # --stream-update-max-rows auto rule: off, as in the JAX package (its
@@ -99,8 +100,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--arch-embedding-size", type=str, default="4-3-2")
     p.add_argument("--arch-mlp-bot", type=str, default="13-512-256-64-16")
     p.add_argument("--arch-mlp-top", type=str, default="512-256-1")
-    p.add_argument("--arch-interaction-op", type=str, default="dot")
+    p.add_argument("--arch-interaction-op", type=str, default="dot",
+                   help="dot | cat | dcn (the port's: MLPerf DLRM-DCNv2's low-rank cross network)")
     p.add_argument("--arch-interaction-itself", action="store_true")
+    # the port's own flags, torchrec's DLRM-DCNv2 names (dlrm_main.py)
+    p.add_argument("--dcn-num-layers", type=int, default=3,
+                   help="cross layers under --arch-interaction-op=dcn")
+    p.add_argument("--dcn-low-rank-dim", type=int, default=512,
+                   help="the cross layers' rank under --arch-interaction-op=dcn")
+    p.add_argument("--multi-hot-sizes", type=str, default=None,
+                   help="comma-separated fixed bag width of each table (one [B, sum] id tensor a batch)")
     p.add_argument("--loss-threshold", type=float, default=0.0)
     p.add_argument("--loss-function", type=str, default="bce",
                    choices=("mse", "bce", "wbce"))
@@ -503,6 +512,13 @@ def make_configs(args) -> tuple:
     table_sizes = dash_separated_ints(args.arch_embedding_size)
     mlp_bot = dash_separated_ints(args.arch_mlp_bot)
     mlp_top = dash_separated_ints(args.arch_mlp_top)
+    dcn = args.arch_interaction_op == "dcn"
+    # derive ln_top input like the reference (dlrm_s_pytorch.py:1141-1164);
+    # before the config, which checks it under dcn
+    top_in = top_input_dim(len(table_sizes), mlp_bot[-1], args.arch_interaction_op,
+                           args.arch_interaction_itself)
+    if mlp_top[0] != top_in:
+        mlp_top = (top_in,) + mlp_top
     cfg = DLRMConfig(
         table_sizes=table_sizes,
         embedding_dim=args.arch_sparse_feature_size,
@@ -510,6 +526,10 @@ def make_configs(args) -> tuple:
         mlp_top=mlp_top,
         interaction=args.arch_interaction_op,
         interact_itself=args.arch_interaction_itself,
+        dcn_num_layers=args.dcn_num_layers if dcn else 0,
+        dcn_low_rank_dim=args.dcn_low_rank_dim if dcn else 0,
+        multi_hot_sizes=None if args.multi_hot_sizes is None else tuple(
+            int(w) for w in args.multi_hot_sizes.split(",")),
         loss_threshold=args.loss_threshold,
         loss_function=args.loss_function,
         loss_weights=tuple(float(x) for x in args.loss_weights.split("-")),
@@ -529,9 +549,6 @@ def make_configs(args) -> tuple:
         onehot_lookup_max_rows=args.onehot_lookup_max_rows,
         quant=quant,
     )
-    # derive ln_top input like the reference (dlrm_s_pytorch.py:1141-1164)
-    if mlp_top[0] != cfg.top_input_dim:
-        cfg = dataclasses.replace(cfg, mlp_top=(cfg.top_input_dim,) + mlp_top)
     tc = TrainConfig(
         batch_size=args.mini_batch_size,
         test_batch_size=args.test_mini_batch_size,
@@ -659,9 +676,9 @@ def make_loaders(args, cfg, tc, rank: int = 0, nproc: int = 1):
         test_ds = CriteoDataset(args.processed_data_dir, "test", args.max_ind_range)
         # val = the second half of the last day (dlrm_data_pytorch.py:144-145)
         val_ds = CriteoDataset(args.processed_data_dir, "val", args.max_ind_range)
-        cfg = dataclasses.replace(cfg, table_sizes=train_ds.table_sizes)
-        if cfg.mlp_top[0] != cfg.top_input_dim:
-            cfg = dataclasses.replace(cfg, mlp_top=(cfg.top_input_dim,) + cfg.mlp_top[1:])
+        # the top MLP's input follows the tables (in one replace: dcn checks it)
+        top_in = top_input_dim(len(train_ds.table_sizes), cfg.mlp_bot[-1], cfg.interaction, cfg.interact_itself)
+        cfg = dataclasses.replace(cfg, table_sizes=train_ds.table_sizes, mlp_top=(top_in,) + cfg.mlp_top[1:])
         return (cfg, DatasetLoader(train_ds, tc.batch_size, args.data_randomize, args.numpy_rand_seed),
                 DatasetLoader(test_ds, tc.test_batch_size), DatasetLoader(val_ds, tc.test_batch_size))
     # binary (mlperf format). The reference ships train/test as separate bin
@@ -894,6 +911,10 @@ def _run(args, device, rank: int, nproc: int) -> dict:
             "--onehot-update-max-rows / --stream-update-max-rows: dp-nosync updates via dense "
             "autograd; only --onehot-lookup-max-rows applies there"
         )
+    if (args.arch_interaction_op == "dcn" or args.multi_hot_sizes) and step_mode != "none":
+        raise SystemExit("--arch-interaction-op=dcn and --multi-hot-sizes train under --parallelism=none")
+    if args.multi_hot_sizes and (args.data_generation != "random" or args.data_trace_file):
+        raise SystemExit("--multi-hot-sizes draws its bags with --data-generation=random (no trace file)")
     cfg, tc = make_configs(args)
     cfg, train_loader, test_loader, val_loader = make_loaders(args, cfg, tc, rank, nproc)
     if args.val_freq > 0 and val_loader is None:

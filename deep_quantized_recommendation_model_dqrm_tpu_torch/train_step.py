@@ -67,6 +67,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.device import resolve_de
 from deep_quantized_recommendation_model_dqrm_tpu_torch.models import dlrm
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update import (
     DenseGradGroup,
+    bag_of,
     dense_grad_grouped_plain,
     group_slots,
     make_dense_grad_group,
@@ -286,24 +287,35 @@ class TableRoutes(NamedTuple):
     `onehot_update_max_rows` rows (one launch each per step), `stream` the
     tables above that with at most `stream_update_max_rows` rows (one sort
     and one K5 launch per 32 of them), `scatter` the others. QR/MD tables
-    take none."""
+    take none. `bags`: each table's (column, width) in a [B, S] id tensor
+    (bags of per-table widths), or None for [T, B, P] ids."""
 
     groups: Tuple[DenseGradGroup, ...]
     stream: Tuple[int, ...]
     scatter: Tuple[int, ...]
+    bags: Optional[Tuple[Tuple[int, int], ...]] = None
 
 
 def make_table_routes(table_sizes: Sequence[int], tc: TrainConfig,
-                      tricks: Sequence[int] = ()) -> TableRoutes:
+                      tricks: Sequence[int] = (),
+                      bags: Optional[Sequence[Tuple[int, int]]] = None) -> TableRoutes:
     """The routes of tables with `table_sizes` rows under `tc`'s
     `onehot_update_max_rows` and `stream_update_max_rows`, the QR/MD slots
-    `tricks` left out; built once with a step."""
+    `tricks` left out, their ids at `bags` (see `TableRoutes`); built once
+    with a step. K5's batched sort takes bags of one width: the stream
+    route refuses `bags`."""
     plain = [k for k in range(len(table_sizes)) if k not in tricks]
     small = [k for k in plain if 0 < table_sizes[k] <= tc.onehot_update_max_rows]
     stream = tuple(k for k in plain if tc.onehot_update_max_rows < table_sizes[k] <= tc.stream_update_max_rows)
-    groups = tuple(make_dense_grad_group([table_sizes[k] for k in ks], ks) for ks in group_slots(small))
+    if bags is not None and stream:
+        raise ValueError("bags of per-table widths take no stream route (stream_update_max_rows): "
+                         "K5's batched sort takes gradients of one length")
+    bags = None if bags is None else tuple((int(c), int(w)) for c, w in bags)
+    groups = tuple(make_dense_grad_group([table_sizes[k] for k in ks], ks,
+                                         None if bags is None else [bags[k] for k in ks])
+                   for ks in group_slots(small))
     scatter = tuple(k for k in plain if k not in small and k not in stream)
-    return TableRoutes(groups=groups, stream=stream, scatter=scatter)
+    return TableRoutes(groups=groups, stream=stream, scatter=scatter, bags=bags)
 
 
 def apply_table_updates(
@@ -312,8 +324,8 @@ def apply_table_updates(
     tables: Sequence[torch.Tensor],
     accs: Optional[Sequence[Optional[torch.Tensor]]],
     g: torch.Tensor,  # [T, B, D] gradient w.r.t. the pooled lookups
-    indices: torch.Tensor,  # [T, B, P] int32
-    mask: Optional[torch.Tensor],  # [T, B, P] or None
+    indices: torch.Tensor,  # [T, B, P] int32, or [B, S] at `routes.bags`
+    mask: Optional[torch.Tensor],  # indices' shape, or None
     lr: LR,
     plain: bool = False,
     presum: bool = True,
@@ -322,6 +334,8 @@ def apply_table_updates(
     lookups: lookup (b, p) of table k adds g[k, b] * mask[k, b, p] to row
     indices[k, b, p]. A sparse gradient given as (ids [T, R], values
     [T, R, D]) is the case P = 1: g = values, indices = ids[..., None].
+    With `routes.bags` table k's ids (and mask) are its bag's columns of
+    [B, S] ids.
     `accs` holds the tables' Adagrad or RWSAdagrad accumulators (None under
     SGD). `plain=True` takes the plain versions of K1 and K5.
 
@@ -341,7 +355,8 @@ def apply_table_updates(
     accs = accs if accs is not None else [None] * len(tables)
 
     def grad(k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        return rows_grad_from_pooled(g[k], indices[k], None if mask is None else mask[k])
+        bag = None if routes.bags is None else routes.bags[k]
+        return rows_grad_from_pooled(g[k], bag_of(indices, k, bag), None if mask is None else bag_of(mask, k, bag))
 
     if routes.groups:
         gc = g.contiguous()
@@ -489,7 +504,7 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
     qc = config.quant
     opt = tc.optimizer
     ks = dlrm.trick_slots(config)
-    routes = make_table_routes(config.table_sizes, tc, ks)
+    routes = make_table_routes(config.table_sizes, tc, ks, config.bags())
     vw_ks = [k for k in range(config.num_tables) if k not in ks] \
         if config.weighted_pooling == "learned" else []
 
@@ -604,7 +619,13 @@ class _GraphedSparseStep:
     the step drops its graph, its memory pool and its static buffers.
 
     Counters: `graph_replays`, `graph_captures`, `eager_steps` (the warm-up
-    steps), and the same summed over every instance in the class's `totals`,
+    steps), `bag_ids` (the ids the steps' lookups pool: under
+    `multi_hot_sizes` the batch times the configuration's bag widths; for a
+    masked [T, B, P] batch the mask's live slots, counted on the device, so
+    that the counter is then a 0-d device tensor, read after the steps;
+    else every slot) and `bag_slots` (the id slots the steps' gathers, K1
+    and scatters read, padding included: the id tensor's elements), and the
+    same summed over every instance in the class's `totals`,
     which a reader sets to 0 and reads after, as it does the kernel
     wrappers' `launches`. A wrapper's `launches` counts the calls that reach
     it: one per eager step and one per capture, none per replay; a
@@ -612,12 +633,12 @@ class _GraphedSparseStep:
     step run eagerly without the graph (new MLP tensors), the reference the
     graph is held against."""
 
-    totals = {"graph_replays": 0, "graph_captures": 0, "eager_steps": 0}
+    totals = {"graph_replays": 0, "graph_captures": 0, "eager_steps": 0, "bag_ids": 0, "bag_slots": 0}
 
     def __init__(self, config: DLRMConfig, tc: TrainConfig, dev: torch.device, body: Callable,
                  eager: Step):
         self.config, self.tc, self.dev, self.body, self.eager = config, tc, dev, body, eager
-        self.graph_replays = self.graph_captures = self.eager_steps = 0
+        self.graph_replays = self.graph_captures = self.eager_steps = self.bag_ids = self.bag_slots = 0
         self.stream = torch.cuda.Stream(dev)
         self.refs = self.key = self.graph = self.batch = self.lr = self.loss = self.freed = None
         self.warm = 0
@@ -626,9 +647,16 @@ class _GraphedSparseStep:
         with annotate("dqrm.train.step"):
             return self._step(state, batch)
 
-    def _count(self, name: str) -> None:
-        setattr(self, name, getattr(self, name) + 1)
-        _GraphedSparseStep.totals[name] += 1
+    def _count(self, name: str, n: int = 1) -> None:
+        setattr(self, name, getattr(self, name) + n)
+        _GraphedSparseStep.totals[name] += n
+
+    def _pooled_ids(self, batch: dlrm.Batch):
+        if self.config.multi_hot_sizes is not None:
+            return batch.dense.shape[0] * sum(self.config.multi_hot_sizes)
+        if batch.mask is not None:
+            return torch.count_nonzero(batch.mask)
+        return batch.indices.numel()
 
     def _counts(self) -> str:
         return f"replays={self.graph_replays} captures={self.graph_captures} eager_steps={self.eager_steps}"
@@ -657,6 +685,8 @@ class _GraphedSparseStep:
                 self.graph.replay()
             self._count("graph_replays")
             loss = self.loss.clone()
+        self._count("bag_ids", self._pooled_ids(batch))
+        self._count("bag_slots", batch.indices.numel())
         return state._replace(qstate=qs._replace(step=qs.step + 1)), loss
 
     def _release(self) -> None:

@@ -2,8 +2,9 @@
 step (`train_step._GraphedSparseStep`), against the same step run eagerly
 (`step.eager`): bit for bit over two megasteps of k = 4, with a scale refresh
 inside each call (`scale_update_period` = 3) and a learning rate that changes
-every step, under each optimizer, route and QAT scheme, QR/MD tables and
-learned pooling weights. Each table's ids are distinct within a step, so no
+every step, under each optimizer, route and QAT scheme, QR/MD tables,
+learned pooling weights and DLRM-DCNv2 (cross network, bags of per-table
+widths). Each table's ids are distinct within a step, so no
 row takes two atomic adds and the kernels' sums are exact in any order.
 
 Also: the graph's counters, K1 run once in each replay (read from a
@@ -118,6 +119,56 @@ def test_graphed_step_equals_eager_step(card, name):
     assert_bits_equal(leaves(s0), leaves(s1))
     assert (step.graph_captures, step.eager_steps) == (1, tts.GRAPH_WARMUP_STEPS)
     assert step.graph_replays == 2 * K - tts.GRAPH_WARMUP_STEPS
+    # a masked batch pools the mask's live slots, a quarter fewer than it reads
+    assert step.bag_slots == sum(b.indices.numel() for b in bs)
+    assert int(step.bag_ids) == sum(int(torch.count_nonzero(b.mask)) for b in bs) < step.bag_slots
+
+
+# DLRM-DCNv2: the cross network and bags of per-table widths (one [B, 15]
+# id tensor a batch), row-wise Adagrad; K1 on the 60- and 90-row tables at
+# widths 3 and 4, the coalesced scatter on the others (no stream route).
+DCN_WIDTHS = (3, 2, 1, 4, 5)
+
+
+def dcn_setup(optimizer):
+    qc = tcfg.QuantConfig(enabled=True, embedding_bit=4, weight_bit=4, scale_update_period=3)
+    cfg = tcfg.DLRMConfig(table_sizes=SIZES, embedding_dim=16, mlp_bot=(13, 32, 16),
+                          mlp_top=(16 * (len(SIZES) + 1), 32, 1), interaction="dcn", dcn_num_layers=2,
+                          dcn_low_rank_dim=8, multi_hot_sizes=DCN_WIDTHS, quant=qc)
+    tc = tcfg.TrainConfig(batch_size=B, learning_rate=0.05, onehot_update_max_rows=100,
+                          lr_num_warmup_steps=100, optimizer=optimizer)
+    return cfg, tc
+
+
+def dcn_batches(cfg, n, dev, seed=0):
+    """n batches of [B, 15] ids on `dev`, each table's B * P_k ids distinct
+    within a batch."""
+    g = torch.Generator().manual_seed(seed)
+    return [Batch(dense=torch.rand(B, 13, generator=g).to(dev),
+                  indices=torch.cat([torch.randperm(rows, generator=g)[:B * w].view(B, w)
+                                     for rows, w in zip(cfg.table_sizes, cfg.multi_hot_sizes)], 1).int().to(dev),
+                  labels=(torch.rand(B, generator=g) < 0.3).float().to(dev)) for _ in range(n)]
+
+
+@pytest.mark.parametrize("optimizer", ["rwsadagrad", "sgd"])
+def test_graphed_dcn_step_equals_eager_step(card, optimizer):
+    cfg, tc = dcn_setup(optimizer)
+    step = tts.make_train_step(cfg, tc, sparse_emb_grad=True, device=card)
+    assert isinstance(step, tts._GraphedSparseStep)
+    s0 = tts.init_train_state(cfg, tc, seed=3, device=card)
+    s1 = tts.clone_state(s0)
+    bs = dcn_batches(cfg, 2 * K, card)
+    graphed, eager = tts.repeat_step(step, K), tts.repeat_step(step.eager, K)
+    for c in range(2):
+        mine = bs[c * K:(c + 1) * K]
+        s0, _ = graphed(s0, mine)
+        s1, _ = eager(s1, mine)
+        assert_bits_equal([graphed.losses], [eager.losses])
+    torch.cuda.synchronize()
+    assert_bits_equal(leaves(s0), leaves(s1))
+    assert step.graph_replays == 2 * K - tts.GRAPH_WARMUP_STEPS
+    # every id slot a step reads is an id its lookups pool: no padding
+    assert step.bag_ids == step.bag_slots == 2 * K * B * sum(DCN_WIDTHS)
 
 
 def test_counters_and_a_new_capture_for_a_clone(card):
