@@ -278,6 +278,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -937,6 +938,174 @@ def phase_kernel_k1_bags(flush):
     row["phase_s"] = time.perf_counter() - t0
     emit(row)
     return err
+
+
+def qat_cell_widths():
+    """The train cells' dense widths: (MLP bottom, MLP top, cross (layers,
+    rank) or None, optimizer) of the Kaggle, Terabyte and DLRM-DCNv2 cells."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import kaggle_config, terabyte_config
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), DCN_CONFIG)) as f:
+        dcn = json.load(f)
+    kg, tb, m = kaggle_config(), terabyte_config(), dcn["model"]
+    return {"kaggle": (kg.mlp_bot, kg.mlp_top, None, "sgd"),
+            "terabyte": (tb.mlp_bot, tb.mlp_top, None, "sgd"),
+            "dcnv2": (tuple(m["mlp_bot"]), tuple(m["mlp_top"]), (m["dcn_num_layers"], m["dcn_low_rank_dim"]),
+                      dcn["train"]["optimizer"])}
+
+
+def qat_leaves(bot, top, cross, seed):
+    """(weights, biases) of one cell's MLPs and cross network, drawn on the
+    card with init_params' laws (the cross biases drawn too), in
+    `dlrm._fake_quant_dense`'s order."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def t(std, shape):
+        return torch.randn(shape, generator=g, device=DEVICE) * std
+
+    weights, biases = [], []
+    for ln in (bot, top):
+        for n, m in zip(ln[:-1], ln[1:]):
+            weights.append(t(math.sqrt(2.0 / (m + n)), (m, n)))
+            biases.append(t(math.sqrt(1.0 / m), (m,)))
+    if cross is not None:
+        layers, r = cross
+        f = top[0]
+        for _ in range(layers):
+            weights += [t(math.sqrt(2.0 / (f + r)), (r, f)), t(math.sqrt(2.0 / (f + r)), (f, r))]
+            biases += [None, t(0.1, (f,))]
+    return weights, biases
+
+
+def bits_equal(a, b) -> bool:
+    return all(torch.equal(x.reshape(-1).view(torch.int32), y.reshape(-1).view(torch.int32)) for x, y in zip(a, b))
+
+
+def qat_graph_launches(name, bot, top, cross, optimizer):
+    """The graphed sparse step at the cell's dense widths (26 small tables):
+    each kernel of the dense leaves called once per eager step and capture,
+    run once per replayed step in the trace, over the cell's leaves."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.config import DLRMConfig, QuantConfig, TrainConfig
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.models.dlrm import Batch
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda import qat_dense
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import (
+        init_train_state,
+        make_multi_train_step,
+    )
+
+    sizes = tuple(40 + 3 * k for k in range(26))
+    extra = {} if cross is None else dict(interaction="dcn", dcn_num_layers=cross[0], dcn_low_rank_dim=cross[1],
+                                          multi_hot_sizes=(2,) * 26)
+    cfg = DLRMConfig(table_sizes=sizes, embedding_dim=bot[-1], mlp_bot=bot, mlp_top=top,
+                     quant=QuantConfig(enabled=True, embedding_bit=4, weight_bit=4, scale_update_period=200),
+                     **extra)
+    tc = TrainConfig(batch_size=B_TRAIN, learning_rate=0.01, onehot_update_max_rows=SMALL_ROWS, optimizer=optimizer)
+    k = 4
+    multi = make_multi_train_step(cfg, tc, k, sparse_emb_grad=True, device=DEVICE)
+    state = init_train_state(cfg, tc, seed=3, device=DEVICE)
+    rng = np.random.RandomState(5)
+    width = 1 if cross is None else 2
+    batches = []
+    for _ in range(2 * k):
+        ids = rng.randint(0, 40, size=(B_TRAIN, 26 * width) if cross else (26, B_TRAIN, 1)).astype(np.int32)
+        batches.append(Batch(dense=torch.rand(B_TRAIN, 13, device=DEVICE), indices=torch.from_numpy(ids).to(DEVICE),
+                             labels=(torch.rand(B_TRAIN, device=DEVICE) < 0.3).float()))
+    wrappers = {"fake_quant_dense": qat_dense.fake_quant_dense,
+                "fake_quant_dense_backward": qat_dense.fake_quant_dense_backward,
+                "dense_update_": qat_dense.dense_update_}
+    for w in wrappers.values():
+        w.launches = 0
+    graph_counts_zero()
+    state, _ = multi(state, batches[:k])
+    calls = graphed_calls(k, f"qat_dense {name}")
+    ops, _ = device_ops(lambda: multi(state, batches[k:]), 1)
+    for label, w in wrappers.items():
+        check(w.launches == calls,
+              f"qat_dense {name}: {label} called {w.launches} times, {calls} eager steps and captures")
+    leaves = 2 * (len(bot) + len(top) - 2) + (3 * cross[0] if cross else 0)
+    check(all(w.leaves == leaves for w in wrappers.values()),
+          f"qat_dense {name}: {[w.leaves for w in wrappers.values()]} leaves, {leaves} expected")
+    check_runs(ops, k, {"qat_extrema_kernel": 1, "qat_fake_quant_kernel": 1, "qat_ste_backward_kernel": 1,
+                        "dense_update_kernel": 1}, f"qat_dense {name}")
+    return {"calls": calls, "leaves": leaves, "graph": graph_counts()}
+
+
+def phase_kernel_qat_dense(flush):
+    """The dense leaves' kernels (`ops/cuda/qat_dense.py`) at each train
+    cell's leaf set: the fake-quant (two launches), its straight-through
+    backward and the cell's in-place update (SGD, or Adagrad for
+    DLRM-DCNv2), each against its plain version bit for bit, timed beside
+    it and the bytes bound; then the graphed step at each cell's widths,
+    counting the kernels' calls and their runs a replayed step."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops import quant as q
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.qat_dense import (
+        dense_update_,
+        dense_update_plain_,
+        fake_quant_dense,
+        fake_quant_dense_backward,
+        fake_quant_dense_plain,
+    )
+
+    t0 = time.perf_counter()
+    for name, (bot, top, cross, optimizer) in qat_cell_widths().items():
+        weights, biases = qat_leaves(bot, top, cross, seed=21)
+        leaves = [t for pair in zip(weights, biases) for t in pair if t is not None]
+        owners = []
+        for b in biases:
+            owners.append(len(owners))
+            if b is not None:
+                owners.append(owners[-1])
+        n = sum(t.numel() for t in leaves)
+        with torch.no_grad():
+            fq_k = fake_quant_dense(weights, biases, 4, 32)
+            fq_p = fake_quant_dense_plain(weights, biases, 4, 32)
+        out_k = [t for pair in zip(*fq_k) for t in pair if t is not None]
+        out_p = [t for pair in zip(*fq_p) for t in pair if t is not None]
+        check(bits_equal(out_k, out_p), f"qat_dense {name}: fake-quant kernel == plain, bit for bit")
+        scales_p = []
+        for i, (x, o) in enumerate(zip(leaves, owners)):
+            scales_p.append(q.symmetric_quantization_params(4, x.min(), x.max()) if o == i else scales_p[o])
+        scales = torch.stack(scales_p)
+        ups = [torch.randn_like(t) for t in leaves]
+        bwd_k = fake_quant_dense_backward(ups, scales, owners)
+        bwd_p = [(g * s) / s for g, s in zip(ups, scales_p)]
+        check(bits_equal(bwd_k, bwd_p), f"qat_dense {name}: backward kernel == plain, bit for bit")
+        accs = None if optimizer == "sgd" else [g * g for g in ups]
+        pk, pp = [t.clone() for t in leaves], [t.clone() for t in leaves]
+        ak, ap = (None, None) if accs is None else ([a.clone() for a in accs], [a.clone() for a in accs])
+        lr = torch.tensor(0.01, device=DEVICE)
+        dense_update_(pk, ups, ak, lr)
+        dense_update_plain_(pp, ups, ap, lr)
+        check(bits_equal(pk, pp) and (ak is None or bits_equal(ak, ap)),
+              f"qat_dense {name}: {optimizer} update kernel == plain, bit for bit")
+
+        def fwd_kernel():
+            with torch.no_grad():
+                return fake_quant_dense(weights, biases, 4, 32)
+
+        def fwd_plain():
+            with torch.no_grad():
+                return fake_quant_dense_plain(weights, biases, 4, 32)
+
+        adagrad = accs is not None
+        cases = [
+            ("fake_quant", fwd_kernel, fwd_plain, 8 * n, 2),
+            ("ste_backward", lambda: fake_quant_dense_backward(ups, scales, owners),
+             lambda: [(g * s) / s for g, s in zip(ups, scales_p)], 8 * n, 1),
+            (f"update_{'adagrad' if adagrad else 'sgd'}", lambda: dense_update_(pk, ups, ak, lr),
+             lambda: dense_update_plain_(pp, ups, ap, lr), (20 if adagrad else 12) * n, 1),
+        ]
+        for case, kernel, plain, nbytes, launches in cases:
+            row = {"phase": "kernel", "kernel": "qat_dense", "case": f"{name}_{case}", "leaves": len(leaves),
+                   "floats": n, "launches_per_call": launches, "max_abs_err": 0.0, "tol": "bit for bit",
+                   "kernel_ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
+                   "kernel_device_ms": device_ms(kernel), "plain_device_ms": device_ms(plain),
+                   # each leaf (and gradient, accumulator) read once, each result written once
+                   "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+            emit(row)
+        emit({"phase": "kernel", "kernel": "qat_dense", "case": f"{name}_graphed_step",
+              **qat_graph_launches(name, bot, top, cross, optimizer)})
+    emit({"phase": "kernel", "kernel": "qat_dense", "phase_s": time.perf_counter() - t0})
 
 
 WIDE_D = 512  # wider than a K1 block's 256 threads
@@ -5916,6 +6085,7 @@ def main() -> int:
     k4_row, k4_err = phase_kernel_k4(cfg, params, flush)
     k5_row, k5_err = phase_kernel_k5(cfg, params, flush)
     k6_row, k6_err = phase_kernel_k6(cfg, params, flush)
+    phase_kernel_qat_dense(flush)
 
     # the streaming path and the parallel engines start from the untrained
     # params, which phase_train trains in place

@@ -59,6 +59,10 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update i
     onehot_pooled_lookup_grouped,
     onehot_pooled_lookup_grouped_plain,
 )
+from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.qat_dense import (
+    fake_quant_dense,
+    fake_quant_dense_plain,
+)
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import clamp_ids, pooled_lookup
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.interaction import (
     cat_interaction,
@@ -349,6 +353,47 @@ def _quant_linear_weights(layer, wbits: int, bbits: int, per_channel: bool):
     return s_w, w_fq, q.fake_quant(layer["b"], s_w, bbits)
 
 
+def _fused_weight_quant(qc) -> bool:
+    """Whether the forward fake-quantizes its dense weights in one
+    multi-tensor pass (`_fake_quant_dense`): HAWQ weight-only QAT at
+    per-tensor scales, outside tracing (`torch.export` takes the per-layer
+    code). PACT, LSQ, per-channel scales and the integer-activation chain
+    keep their per-layer code."""
+    return (qc.quantize_mlp and not qc.quantize_activation and qc.quant_scheme == "hawq"
+            and not qc.mlp_channelwise and not torch.compiler.is_compiling())
+
+
+def _fake_quant_dense(params: Params, qc, plain: bool) -> Params:
+    """{"bot", "top"[, "cross"]} with every weight and bias fake-quantized
+    as `_quant_linear_weights` and `_cross_weights` do it, per tensor, in
+    one multi-tensor pass with its straight-through gradient
+    (`ops.cuda.qat_dense.fake_quant_dense`: the kernels on a CUDA tensor,
+    the plain version on the CPU or with `plain`); a cross layer's V has
+    its own scale and no bias."""
+    parts = [part for part in ("bot", "top", "cross") if part in params]
+    weights, biases = [], []
+    for part in parts:
+        for layer in params[part]:
+            if part == "cross":
+                weights.append(layer["v"])
+                biases.append(None)
+            weights.append(layer["w"])
+            biases.append(layer["b"])
+    fq = fake_quant_dense_plain if plain else fake_quant_dense
+    w_fq, b_fq = fq(weights, biases, qc.weight_bit, qc.bias_bit)
+    ws, bs = iter(w_fq), iter(b_fq)
+    out: Params = {}
+    for part in parts:
+        out[part] = []
+        for _ in params[part]:
+            if part == "cross":
+                v, _ = next(ws), next(bs)
+                out[part].append({"v": v, "w": next(ws), "b": next(bs)})
+            else:
+                out[part].append({"w": next(ws), "b": next(bs)})
+    return out
+
+
 def _cross_weights(params: Params, qc, quantizing: bool) -> List[Dict[str, torch.Tensor]]:
     """The cross layers' {"v", "w", "b"} as the forward multiplies them:
     under weight QAT (`quantize_mlp`) V and W fake-quantized at
@@ -625,7 +670,10 @@ def forward(
     float32 and weight-only MLPs and of the dot interaction on bf16
     operands; the integer chain and the INT16 interaction stay float32.
     Under `interaction="dcn"` the cross network's products too; its
-    forward opens the span `dqrm.train.cross` where `train`."""
+    forward opens the span `dqrm.train.cross` where `train`. Under HAWQ
+    weight-only QAT at per-tensor scales every MLP and cross weight and
+    bias is fake-quantized once at the start, in one multi-tensor pass
+    (`_fake_quant_dense`; its plain version with `plain`)."""
     qc = config.quant
     bf16 = config.compute_dtype == "bfloat16"
     if qstate is None:
@@ -640,14 +688,18 @@ def forward(
             pooled = lookup_all(config, params, batch.indices, batch.mask, fp_emb, plain=plain)
         return emb_postprocess(config, params, pooled, qstate, fp_emb, lsq_numel_scale)
 
+    fused = quantizing and _fused_weight_quant(qc)
+    fq = _fake_quant_dense(params, qc, plain) if fused else None
+
     def interact(x, ly):
         if quantizing and qc.modify_feature_interaction:
             return quantized_dot_interaction(x, ly, qc.interaction_bit, config.interact_itself)
         if config.interaction == "dot":
             return dot_interaction(x, ly, config.interact_itself, bf16)
         if config.interaction == "dcn":
+            cross = fq["cross"] if fused else _cross_weights(params, qc, quantizing)
             with annotate("dqrm.train.cross") if train else contextlib.nullcontext():
-                return low_rank_cross(cat_interaction(x, ly), _cross_weights(params, qc, quantizing), bf16)
+                return low_rank_cross(cat_interaction(x, ly), cross, bf16)
         return cat_interaction(x, ly)
 
     act_min, act_max = qstate.act_min, qstate.act_max
@@ -674,7 +726,10 @@ def forward(
         z_fq, s_feat = quant_act(1, z)
         logits = _apply_mlp_quant_act(params["top"], z_fq, s_feat, qc, True)
     else:
-        if qc.quantize_mlp:
+        if fused:
+            def mlp(part, x, last_linear):
+                return _apply_mlp_fp(fq[part], x, last_linear, bf16)
+        elif qc.quantize_mlp:
             lsq_mlp = params.get("lsq_mlp")
 
             def mlp(part, x, last_linear):

@@ -31,8 +31,9 @@ state that shares them; on a CUDA state, where it is one CUDA graph replayed
 per step (`_GraphedSparseStep`), it updates the MLPs, their optimizer state
 and the QAT state's tensors in place too. A caller that needs the old state
 (tables or MLPs) clones it first (`clone_state`). `plain=True` makes the
-steps call the plain versions of K1, K4 and K5 on any device, eagerly: the
-reference the kernels are held against on the card.
+steps call the plain versions of K1, K4, K5 and the dense leaves'
+fake-quant on any device, eagerly, and update the dense leaves out of
+place: the reference the kernels are held against on the card.
 
 Every QAT scheme of the model runs through both steps: HAWQ, PACT and LSQ,
 with or without the integer-activation chain. The parameters other than the
@@ -80,6 +81,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.stream_update i
     stream_scatter_grouped_plain,
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops import quant as q
+from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.qat_dense import dense_update_
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import (
     clamp_ids,
     coalesce_sparse_grad,
@@ -444,7 +446,8 @@ def _sparse_forward(config: DLRMConfig, params: dlrm.Params, qstate: dlrm.QuantS
         weights = dlrm.pooling_weights(config, dense.get("v_W"), batch.indices, batch.mask)
         fwd_in = dlrm.splice_trick_pooled(config, emb, weights, batch.indices, pooled)
     logits, new_qs = dlrm.forward(config, {**dense, "emb": params["emb"]}, batch, qstate,
-                                  train=True, raw_pooled=fwd_in, lsq_numel_scale=lsq_numel_scale)
+                                  train=True, raw_pooled=fwd_in, lsq_numel_scale=lsq_numel_scale,
+                                  plain=plain)
     loss = dlrm.training_loss(config, logits, batch.labels)
     return loss, new_qs, dense, emb_trick, pooled
 
@@ -493,10 +496,13 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
 
     On a CPU state, and with `plain=True`, the step runs eagerly and the
     QR/MD tables, learned pooling weights and the MLPs take new tensors. On
-    a CUDA state the step is `_GraphedSparseStep`: one CUDA graph replayed
-    per step, every leaf of the state, the MLPs and the QAT state's tensors
-    included, updated in place. Each step opens the spans `dqrm.train.step`,
-    `.refresh` (on the steps the scales refresh), and `.forward`,
+    a CUDA state the dense leaves (MLPs, cross network, pooling weights,
+    LSQ's steps) and their Adagrad state take one in-place update kernel
+    (`ops.cuda.qat_dense.dense_update_`), and the step is
+    `_GraphedSparseStep`: one CUDA graph replayed per step, every leaf of
+    the state, the QAT state's tensors included, updated in place. Each
+    step opens the spans `dqrm.train.step`, `.refresh` (on the steps the
+    scales refresh), and `.forward`,
     `.backward` and `.update` where it runs eagerly, `.graph` where it
     replays (`utils.profiling`)."""
     _check(tc)
@@ -507,11 +513,14 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
     routes = make_table_routes(config.table_sizes, tc, ks, config.bags())
     vw_ks = [k for k in range(config.num_tables) if k not in ks] \
         if config.weighted_pooling == "learned" else []
+    in_place = dev.type == "cuda" and not plain  # the dense leaves' update
 
     def body(params: dlrm.Params, opt_state: Any, qstate: dlrm.QuantState, batch: dlrm.Batch, lr: LR):
         """One step after the refresh: (params, optimizer state, the
         forward's QuantState, loss), the tables and their accumulators
-        updated in place, new tensors for the rest."""
+        updated in place, on a CUDA state (not `plain`) the dense leaves and
+        their accumulators too (one `dense_update_` launch), new tensors for
+        the rest."""
         with annotate("dqrm.train.forward"):
             fwd = _sparse_forward(config, params, qstate, batch, plain)
         with annotate("dqrm.train.backward"):
@@ -523,17 +532,22 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
         trick_grads = mlp_grads.pop("emb_trick", {})
 
         with annotate("dqrm.train.update"), torch.no_grad():
+            if vw_ks:  # from the tables before their update
+                vw_ids, vw_vals = _learned_vw_grads(config, params, batch, g_pooled, vw_ks)
+            weights = dlrm.pooling_weights(config, params.get("v_W"), batch.indices, batch.mask)
             mlp_params = {key: params[key] for key in mlp_grads}
-            if opt == "sgd":
+            if in_place:  # one launch for every dense leaf, classic Adagrad under both Adagrads
+                dense_update_(tree_leaves(mlp_params), tree_leaves(mlp_grads),
+                              None if opt == "sgd" else tree_leaves({key: opt_state[key] for key in mlp_params}),
+                              lr)
+                new_params = dict(params)
+            elif opt == "sgd":
                 new_params = dict(params, **sgd_update(mlp_params, mlp_grads, lr))
             else:  # classic Adagrad on the rest under both optimizers
                 new_mlp, new_acc = adagrad_update(
                     mlp_params, mlp_grads, {key: opt_state[key] for key in mlp_params}, lr)
                 new_params = dict(params, **new_mlp)
                 opt_state = dict(opt_state, **new_acc)
-            if vw_ks:  # from the tables before their update
-                vw_ids, vw_vals = _learned_vw_grads(config, params, batch, g_pooled, vw_ks)
-            weights = dlrm.pooling_weights(config, params.get("v_W"), batch.indices, batch.mask)
             apply_table_updates(routes, opt, params["emb"], opt_state["emb"] if opt != "sgd" else None,
                                 g_pooled, batch.indices, weights, lr, plain=plain)
             if ks:
@@ -604,8 +618,9 @@ class _GraphedSparseStep:
     step), the learning rate (a 0-d float32 tensor, filled each step with
     `_lr`'s float32 value, which multiplies to the same bits as the Python
     float), and the state's own tensors, which it updates in place: the
-    tables and accumulators as the eager step does, the new MLP leaves,
-    optimizer state and activation ranges copied into the state's tensors.
+    tables, the dense leaves and their accumulators as the eager step does,
+    the new QR/MD leaves and activation ranges copied into the state's
+    tensors.
     The QAT scale refresh, 1 step in `scale_update_period`, runs eagerly
     and copies the scales into the state's `emb_scales`.
 
@@ -630,8 +645,8 @@ class _GraphedSparseStep:
     wrappers' `launches`. A wrapper's `launches` counts the calls that reach
     it: one per eager step and one per capture, none per replay; a
     profiler's trace lists the kernels a replay runs. `eager` is the same
-    step run eagerly without the graph (new MLP tensors), the reference the
-    graph is held against."""
+    step run eagerly without the graph, the reference the graph is held
+    against; it updates the same leaves in place."""
 
     totals = {"graph_replays": 0, "graph_captures": 0, "eager_steps": 0, "bag_ids": 0, "bag_slots": 0}
 

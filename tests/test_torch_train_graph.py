@@ -7,6 +7,10 @@ learned pooling weights and DLRM-DCNv2 (cross network, bags of per-table
 widths). Each table's ids are distinct within a step, so no
 row takes two atomic adds and the kernels' sums are exact in any order.
 
+The graphed step also against the `plain=True` step, bit for bit, where
+every kernel's plain version rounds as the kernel (the dense leaves'
+fake-quant, its backward and the in-place update among them).
+
 Also: the graph's counters, K1 run once in each replay (read from a
 profiler trace) and a new capture for a `clone_state` copy; a dropped
 state's tables and the graph freed; no
@@ -55,6 +59,9 @@ CASES = {
     "vw_rwsadagrad": ({}, dict(weighted_pooling="learned"), dict(optimizer="rwsadagrad")),
     "bf16_tables": ({}, dict(table_dtype="bfloat16"), {}),
     "bf16_compute": ({}, dict(compute_dtype="bfloat16"), {}),
+    # the Kaggle model's MLP widths (the top's input is this model's 31)
+    "adagrad_kaggle_mlp": ({}, dict(mlp_bot=(13, 512, 256, 64, 16), mlp_top=(31, 512, 256, 1)),
+                           dict(optimizer="adagrad", learning_rate=0.01)),
 }
 
 
@@ -69,10 +76,11 @@ def setup(name, period=3):
     quant, model, train = CASES[name]
     qc = tcfg.QuantConfig(enabled=True, embedding_bit=4, weight_bit=4, scale_update_period=period, **quant)
     n_fea = len(SIZES) + 1
-    cfg = tcfg.DLRMConfig(table_sizes=SIZES, embedding_dim=16, mlp_bot=(13, 32, 16),
-                          mlp_top=(16 + n_fea * (n_fea - 1) // 2, 32, 1), quant=qc, **model)
-    tc = tcfg.TrainConfig(batch_size=B, learning_rate=0.05, onehot_update_max_rows=100,
-                          stream_update_max_rows=5000, lr_num_warmup_steps=100, **train)
+    model = dict(dict(mlp_bot=(13, 32, 16), mlp_top=(16 + n_fea * (n_fea - 1) // 2, 32, 1)), **model)
+    cfg = tcfg.DLRMConfig(table_sizes=SIZES, embedding_dim=16, quant=qc, **model)
+    train = dict(dict(learning_rate=0.05), **train)
+    tc = tcfg.TrainConfig(batch_size=B, onehot_update_max_rows=100, stream_update_max_rows=5000,
+                          lr_num_warmup_steps=100, **train)
     return cfg, tc
 
 
@@ -169,6 +177,35 @@ def test_graphed_dcn_step_equals_eager_step(card, optimizer):
     assert step.graph_replays == 2 * K - tts.GRAPH_WARMUP_STEPS
     # every id slot a step reads is an id its lookups pool: no padding
     assert step.bag_ids == step.bag_slots == 2 * K * B * sum(DCN_WIDTHS)
+
+
+# the cases whose every kernel sums each row's updates exactly (the ids of a
+# step distinct) and whose plain versions round as the kernels: K4's plain
+# lookups sum a bag in another order
+PLAIN_CASES = ["sgd", "adagrad", "rwsadagrad", "adagrad_kaggle_mlp", "bf16_tables", "dcn_sgd",
+               "dcn_rwsadagrad"]
+
+
+@pytest.mark.parametrize("name", PLAIN_CASES)
+def test_graphed_step_equals_plain_step(card, name):
+    """The graphed step (the dense leaves' fake-quant, backward and update
+    kernels among its kernels) against the `plain=True` step (their plain
+    versions, the per-leaf update out of place), bit for bit."""
+    cfg, tc = dcn_setup(name[4:]) if name.startswith("dcn_") else setup(name)
+    make = batches if cfg.multi_hot_sizes is None else dcn_batches
+    step = tts.make_train_step(cfg, tc, sparse_emb_grad=True, device=card)
+    plain = tts.make_train_step(cfg, tc, sparse_emb_grad=True, plain=True, device=card)
+    s0 = tts.init_train_state(cfg, tc, seed=3, device=card)
+    s1 = tts.clone_state(s0)
+    bs = make(cfg, 2 * K, card)
+    graphed, ref = tts.repeat_step(step, K), tts.repeat_step(plain, K)
+    for c in range(2):
+        mine = bs[c * K:(c + 1) * K]
+        s0, _ = graphed(s0, mine)
+        s1, _ = ref(s1, mine)
+        assert_bits_equal([graphed.losses], [ref.losses])
+    torch.cuda.synchronize()
+    assert_bits_equal(leaves(s0), leaves(s1))
 
 
 def test_counters_and_a_new_capture_for_a_clone(card):
