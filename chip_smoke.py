@@ -29,7 +29,7 @@ timed beside the least time the card could take and a PyTorch library
 yardstick. Then it runs the main paths as users run them, each with the
 launch counters of its kernels set to 0 just before and read just after.
 The single-device sparse step is one CUDA graph replayed per step
-(`train_step._GraphedSparseStep`): a kernel's wrapper counts the calls that
+(`train_step._SparseStep`): a kernel's wrapper counts the calls that
 reach it, one per eager step and one per capture, the graph counters
 (`graph_counts`) the eager, captured and replayed steps, and each profiled
 megastep of that step checks in the trace that K1 (and K5 where routed)
@@ -367,21 +367,21 @@ K5_KERNEL = "stream_scatter_grouped_kernel"
 
 
 def graph_counts_zero() -> None:
-    """Sets the graphed sparse steps' counters, summed over every step
-    object, to 0, as the phases set the kernel wrappers' `launches`."""
-    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import _GraphedSparseStep
+    """Sets the sparse steps' counters, summed over every step object, to
+    0, as the phases set the kernel wrappers' `launches`."""
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import _SparseStep
 
-    for name in _GraphedSparseStep.totals:
-        _GraphedSparseStep.totals[name] = 0
+    for name in _SparseStep.totals:
+        _SparseStep.totals[name] = 0
 
 
 def graph_counts() -> dict:
-    """The graphed sparse steps' counters since `graph_counts_zero`: steps
+    """The sparse steps' counters since `graph_counts_zero`: warm-up steps
     run eagerly, CUDA graphs captured, steps replayed, ids pooled and slots
     read (a masked batch's ids are a device count: read here)."""
-    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import _GraphedSparseStep
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.train_step import _SparseStep
 
-    return {name: int(n) for name, n in _GraphedSparseStep.totals.items()}
+    return {name: int(n) for name, n in _SparseStep.totals.items()}
 
 
 def graphed_calls(steps: int, label: str) -> int:

@@ -25,15 +25,15 @@ policy -> optimizer, with the QAT scale refresh folded in as explicit state.
     4096 updates (train_step.py:427-443 of the JAX package); under Adagrad
     and RWSAdagrad a coalesced update of the touched rows.
 
-There is no jit to donate the state to, so the sparse step updates the
-embedding tables and their optimizer accumulators in place and returns a
-state that shares them; on a CUDA state, where it is one CUDA graph replayed
-per step (`_GraphedSparseStep`), it updates the MLPs, their optimizer state
-and the QAT state's tensors in place too. A caller that needs the old state
-(tables or MLPs) clones it first (`clone_state`). `plain=True` makes the
-steps call the plain versions of K1, K4, K5 and the dense leaves'
-fake-quant on any device, eagerly, and update the dense leaves out of
-place: the reference the kernels are held against on the card.
+There is no jit to donate the state to, so the sparse step updates every
+tensor of the state passed to it in place, on any device (the tables, the
+dense leaves, their optimizer state, the QAT state's tensors), and returns
+that state with its step count advanced; on a CUDA state it runs as one
+CUDA graph replayed per step (`_SparseStep`). A caller that needs the old
+state clones it first (`clone_state`). `plain=True` makes the steps call the
+plain versions of K1, K4, K5 and the dense leaves' kernels on any device,
+eagerly: the reference the kernels are held against on the card. The dense
+step returns new parameters.
 
 Every QAT scheme of the model runs through both steps: HAWQ, PACT and LSQ,
 with or without the integer-activation chain. The parameters other than the
@@ -81,7 +81,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.stream_update i
     stream_scatter_grouped_plain,
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops import quant as q
-from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.qat_dense import dense_update_
+from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.qat_dense import dense_update_, dense_update_plain_
 from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.embedding import (
     clamp_ids,
     coalesce_sparse_grad,
@@ -488,39 +488,31 @@ def _learned_vw_grads(config: DLRMConfig, params: dlrm.Params, batch: dlrm.Batch
 
 
 def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = False,
-                          device: Device = None) -> Step:
+                          device: Device = None) -> "_SparseStep":
     """The train step with explicit sparse embedding updates (the reference's
     nn.EmbeddingBag(sparse=True) + manual optimizer, sgd_quantized_gradients_
-    parallel_comm.py:601-685). Updates the embedding tables and their
-    accumulators in place.
+    parallel_comm.py:601-685), as a `_SparseStep`.
 
-    On a CPU state, and with `plain=True`, the step runs eagerly and the
-    QR/MD tables, learned pooling weights and the MLPs take new tensors. On
-    a CUDA state the dense leaves (MLPs, cross network, pooling weights,
-    LSQ's steps) and their Adagrad state take one in-place update kernel
-    (`ops.cuda.qat_dense.dense_update_`), and the step is
-    `_GraphedSparseStep`: one CUDA graph replayed per step, every leaf of
-    the state, the QAT state's tensors included, updated in place. Each
-    step opens the spans `dqrm.train.step`, `.refresh` (on the steps the
-    scales refresh), and `.forward`,
-    `.backward` and `.update` where it runs eagerly, `.graph` where it
-    replays (`utils.profiling`)."""
+    It updates every leaf of the state passed to it in place, on any device:
+    the tables and their accumulators (`apply_table_updates`), the dense
+    leaves (MLPs, cross network, pooling weights, LSQ's steps) and their
+    Adagrad state (`ops.cuda.qat_dense.dense_update_`, one launch on the
+    card, its plain version on the CPU or with `plain=True`), the QR/MD
+    leaves (the optimizers' own arithmetic, written into the state's
+    tensors), the scales and the activation ranges."""
     _check(tc)
     dev = resolve_device(device)
-    qc = config.quant
     opt = tc.optimizer
     ks = dlrm.trick_slots(config)
     routes = make_table_routes(config.table_sizes, tc, ks, config.bags())
     vw_ks = [k for k in range(config.num_tables) if k not in ks] \
         if config.weighted_pooling == "learned" else []
-    in_place = dev.type == "cuda" and not plain  # the dense leaves' update
+    update_dense = dense_update_plain_ if plain else dense_update_
 
-    def body(params: dlrm.Params, opt_state: Any, qstate: dlrm.QuantState, batch: dlrm.Batch, lr: LR):
-        """One step after the refresh: (params, optimizer state, the
-        forward's QuantState, loss), the tables and their accumulators
-        updated in place, on a CUDA state (not `plain`) the dense leaves and
-        their accumulators too (one `dense_update_` launch), new tensors for
-        the rest."""
+    def body(state: TrainState, batch: dlrm.Batch, lr: torch.Tensor) -> torch.Tensor:
+        """One step after the refresh, every leaf of `state` updated in
+        place; returns the loss."""
+        params, opt_state, qstate = state.params, state.opt_state, state.qstate
         with annotate("dqrm.train.forward"):
             fwd = _sparse_forward(config, params, qstate, batch, plain)
         with annotate("dqrm.train.backward"):
@@ -535,35 +527,25 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
             if vw_ks:  # from the tables before their update
                 vw_ids, vw_vals = _learned_vw_grads(config, params, batch, g_pooled, vw_ks)
             weights = dlrm.pooling_weights(config, params.get("v_W"), batch.indices, batch.mask)
-            mlp_params = {key: params[key] for key in mlp_grads}
-            if in_place:  # one launch for every dense leaf, classic Adagrad under both Adagrads
-                dense_update_(tree_leaves(mlp_params), tree_leaves(mlp_grads),
-                              None if opt == "sgd" else tree_leaves({key: opt_state[key] for key in mlp_params}),
-                              lr)
-                new_params = dict(params)
-            elif opt == "sgd":
-                new_params = dict(params, **sgd_update(mlp_params, mlp_grads, lr))
-            else:  # classic Adagrad on the rest under both optimizers
-                new_mlp, new_acc = adagrad_update(
-                    mlp_params, mlp_grads, {key: opt_state[key] for key in mlp_params}, lr)
-                new_params = dict(params, **new_mlp)
-                opt_state = dict(opt_state, **new_acc)
+            # classic Adagrad on the dense leaves under both Adagrads; the
+            # accumulators paired by key (an imported state orders its keys)
+            mlp = {key: params[key] for key in mlp_grads}
+            accs = None if opt == "sgd" else tree_leaves(
+                tree_map(lambda _, acc: acc, mlp, {key: opt_state[key] for key in mlp}))
+            update_dense(tree_leaves(mlp), tree_leaves(mlp_grads), accs, lr)
             apply_table_updates(routes, opt, params["emb"], opt_state["emb"] if opt != "sgd" else None,
                                 g_pooled, batch.indices, weights, lr, plain=plain)
-            if ks:
-                new_params["emb"] = list(params["emb"])
-                if opt != "sgd":
-                    opt_state = dict(opt_state, emb=list(opt_state["emb"]))
-                for k in ks:
-                    if opt == "sgd":
-                        new_params["emb"][k] = sgd_update(params["emb"][k], trick_grads[k], lr)
-                        continue
-                    update = adagrad_update if opt == "adagrad" else rwsadagrad_update
-                    one, acc = update({"emb": [params["emb"][k]]}, {"emb": [trick_grads[k]]},
-                                      {"emb": [opt_state["emb"][k]]}, lr)
-                    new_params["emb"][k], opt_state["emb"][k] = one["emb"][0], acc["emb"][0]
+            pairs = []  # (the state's leaves, their new values)
+            for k in ks:
+                if opt == "sgd":
+                    pairs.append((params["emb"][k], sgd_update(params["emb"][k], trick_grads[k], lr)))
+                    continue
+                update = adagrad_update if opt == "adagrad" else rwsadagrad_update
+                one, acc = update({"emb": [params["emb"][k]]}, {"emb": [trick_grads[k]]},
+                                  {"emb": [opt_state["emb"][k]]}, lr)
+                pairs += [(params["emb"][k], one["emb"][0]), (opt_state["emb"][k], acc["emb"][0])]
             for i, k in enumerate(vw_ks):
-                vw = new_params["v_W"][k]
+                vw = params["v_W"][k]
                 if opt == "sgd":
                     scatter_add_drop(vw, vw_ids[i], -lr * vw_vals[i])
                     continue
@@ -572,26 +554,14 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
                 scatter_add_drop(acc, vw_ids[i], vw_vals[i] * vw_vals[i])
                 denom = torch.sqrt(acc[clamp_ids(vw_ids[i], acc.shape[0])[0]]) + EPS
                 scatter_add_drop(vw, vw_ids[i], -lr * vw_vals[i] / denom)
-        return new_params, opt_state, new_qs, loss.detach()
+            pairs += [(qstate.act_min, new_qs.act_min), (qstate.act_max, new_qs.act_max)]
+            pairs = [(old, new) for olds, news in pairs
+                     for old, new in zip(tree_leaves(olds), tree_leaves(news)) if new is not old]
+            if pairs:
+                torch._foreach_copy_([old for old, _ in pairs], [new for _, new in pairs])
+        return loss.detach()
 
-    def step(state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
-        _params_device(state.params, dev)
-        batch = _on(batch, dev)
-        qstate = state.qstate
-        if qc.enabled and dlrm.emb_scales_due(config, qstate):
-            with annotate("dqrm.train.refresh"):
-                qstate = dlrm.update_emb_scales(config, state.params, qstate)
-        params, opt_state, new_qs, loss = body(state.params, state.opt_state, qstate, batch,
-                                               _lr(tc, qstate.step + 1))
-        return TrainState(params, opt_state, new_qs._replace(step=qstate.step + 1)), loss
-
-    def step_fn(state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
-        with annotate("dqrm.train.step"):
-            return step(state, batch)
-
-    if dev.type != "cuda" or plain:
-        return step_fn
-    return _GraphedSparseStep(config, tc, dev, body, step_fn)
+    return _SparseStep(config, tc, dev, body, graphed=dev.type == "cuda" and not plain)
 
 
 # Eager steps a new capture key takes first. They are real steps of the run
@@ -608,30 +578,33 @@ def _state_leaves(state: TrainState) -> List[torch.Tensor]:
     return tree_leaves(state.params) + opt + [qs.emb_scales, qs.act_min, qs.act_max]
 
 
-class _GraphedSparseStep:
-    """The sparse step on a CUDA state as one CUDA graph, replayed for every
-    step: the forward, `autograd.grad`, the MLP update and
-    `apply_table_updates` run as one graph launch instead of some 440
-    kernel launches from Python.
-
-    The graph reads and writes static buffers: the batch (copied in each
-    step), the learning rate (a 0-d float32 tensor, filled each step with
+class _SparseStep:
+    """The sparse train step: the QAT scale refresh (1 step in
+    `scale_update_period`, into the state's `emb_scales`), the learning
+    rate (a 0-d float32 tensor on the state's device, filled each step with
     `_lr`'s float32 value, which multiplies to the same bits as the Python
-    float), and the state's own tensors, which it updates in place: the
-    tables, the dense leaves and their accumulators as the eager step does,
-    the new QR/MD leaves and activation ranges copied into the state's
-    tensors.
-    The QAT scale refresh, 1 step in `scale_update_period`, runs eagerly
-    and copies the scales into the state's `emb_scales`.
+    float), then the body, which updates the state's own tensors in place;
+    returns the state with `qstate.step` advanced, and the loss.
 
-    A capture bakes in the state's tensors, the batch's shapes and dtypes
-    and `act_fixed`: its key. A call whose key differs (another state, such
-    as a `clone_state` copy, or another batch shape) takes
-    `GRAPH_WARMUP_STEPS` eager steps on the capture stream, then a new
-    capture, which replaces the old graph; the capture does not execute, so
-    it is replayed for the step it was captured on. The key holds the
-    state's tensors by weak reference: when the first of them is freed,
-    the step drops its graph, its memory pool and its static buffers.
+    On a CUDA state (not `plain`) the body runs as one CUDA graph, replayed
+    for every step: the forward, `autograd.grad` and the updates as one
+    graph launch instead of some 440 kernel launches from Python. The graph
+    reads static buffers: the batch (copied in each step), the learning
+    rate and the state's tensors. A capture bakes in the state's tensors,
+    the batch's shapes and dtypes and `act_fixed`: its key. A call whose
+    key differs (another state, such as a `clone_state` copy, or another
+    batch shape) takes `GRAPH_WARMUP_STEPS` eager steps on the capture
+    stream, then a new capture, which replaces the old graph; the capture
+    does not execute, so it is replayed for the step it was captured on.
+    The key holds the state's tensors by weak reference: when the first of
+    them is freed, the step drops its graph, its memory pool and its static
+    buffers. On a CPU state, and with `plain=True`, every step runs eagerly.
+    `eager` is the step run eagerly, never captured: the reference the
+    graph is held against.
+
+    Each step opens the spans `dqrm.train.step`, `.refresh` (on the steps
+    the scales refresh), and `.forward`, `.backward` and `.update` where it
+    runs eagerly, `.graph` where it replays (`utils.profiling`).
 
     Counters: `graph_replays`, `graph_captures`, `eager_steps` (the warm-up
     steps), `bag_ids` (the ids the steps' lookups pool: under
@@ -639,32 +612,40 @@ class _GraphedSparseStep:
     masked [T, B, P] batch the mask's live slots, counted on the device, so
     that the counter is then a 0-d device tensor, read after the steps;
     else every slot) and `bag_slots` (the id slots the steps' gathers, K1
-    and scatters read, padding included: the id tensor's elements), and the
-    same summed over every instance in the class's `totals`,
-    which a reader sets to 0 and reads after, as it does the kernel
-    wrappers' `launches`. A wrapper's `launches` counts the calls that reach
-    it: one per eager step and one per capture, none per replay; a
-    profiler's trace lists the kernels a replay runs. `eager` is the same
-    step run eagerly without the graph, the reference the graph is held
-    against; it updates the same leaves in place."""
+    and scatters read, padding included: the id tensor's elements), of the
+    calls of the step (not of `eager`), and the same summed over every
+    instance in the class's `totals`, which a reader sets to 0 and reads
+    after, as it does the kernel wrappers' `launches`. A wrapper's
+    `launches` counts the calls that reach it: one per eager step and one
+    per capture, none per replay; a profiler's trace lists the kernels a
+    replay runs."""
 
     totals = {"graph_replays": 0, "graph_captures": 0, "eager_steps": 0, "bag_ids": 0, "bag_slots": 0}
 
     def __init__(self, config: DLRMConfig, tc: TrainConfig, dev: torch.device, body: Callable,
-                 eager: Step):
-        self.config, self.tc, self.dev, self.body, self.eager = config, tc, dev, body, eager
+                 graphed: bool):
+        self.config, self.tc, self.dev, self.body, self.graphed = config, tc, dev, body, graphed
         self.graph_replays = self.graph_captures = self.eager_steps = self.bag_ids = self.bag_slots = 0
-        self.stream = torch.cuda.Stream(dev)
-        self.refs = self.key = self.graph = self.batch = self.lr = self.loss = self.freed = None
+        self.stream = torch.cuda.Stream(dev) if graphed else None
+        self.lr = torch.zeros((), dtype=torch.float32, device=dev)
+        self.refs = self.key = self.graph = self.batch = self.loss = self.freed = None
         self.warm = 0
 
     def __call__(self, state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
         with annotate("dqrm.train.step"):
-            return self._step(state, batch)
+            out = self._step(state, batch, self.graphed)
+            self._count("bag_ids", self._pooled_ids(batch))
+            self._count("bag_slots", batch.indices.numel())
+        return out
+
+    def eager(self, state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
+        """The step run eagerly on the current stream, uncounted."""
+        with annotate("dqrm.train.step"):
+            return self._step(state, batch, False)
 
     def _count(self, name: str, n: int = 1) -> None:
         setattr(self, name, getattr(self, name) + n)
-        _GraphedSparseStep.totals[name] += n
+        _SparseStep.totals[name] += n
 
     def _pooled_ids(self, batch: dlrm.Batch):
         if self.config.multi_hot_sizes is not None:
@@ -676,39 +657,39 @@ class _GraphedSparseStep:
     def _counts(self) -> str:
         return f"replays={self.graph_replays} captures={self.graph_captures} eager_steps={self.eager_steps}"
 
-    def _step(self, state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
+    def _step(self, state: TrainState, batch: dlrm.Batch, graphed: bool) -> Tuple[TrainState, torch.Tensor]:
         _params_device(state.params, self.dev)
         qs = state.qstate
         if self.config.quant.enabled and dlrm.emb_scales_due(self.config, qs):
-            with annotate("dqrm.train.refresh"):
+            with annotate("dqrm.train.refresh"), torch.no_grad():
                 qs.emb_scales.copy_(dlrm.compute_emb_scales(self.config, state.params))
+        self.lr.fill_(_lr(self.tc, qs.step + 1))
+        loss = self._graphed(state, batch) if graphed else self.body(state, _on(batch, self.dev), self.lr)
+        return state._replace(qstate=qs._replace(step=qs.step + 1)), loss
+
+    def _graphed(self, state: TrainState, batch: dlrm.Batch) -> torch.Tensor:
         leaves = _state_leaves(state)
-        key = (qs.act_fixed, tuple(None if t is None else (t.shape, t.dtype) for t in batch))
+        key = (state.qstate.act_fixed, tuple(None if t is None else (t.shape, t.dtype) for t in batch))
         if not (key == self.key and len(leaves) == len(self.refs)
                 and all(r() is t for r, t in zip(self.refs, leaves))):
             self._rekey(key, leaves, batch)
         for buf, t in zip(self.batch, batch):
             if buf is not None:
                 buf.copy_(t, non_blocking=True)
-        self.lr.fill_(_lr(self.tc, qs.step + 1))
         if self.graph is None and self.warm < GRAPH_WARMUP_STEPS:
-            loss = self._warm_up(state)
-        else:
-            if self.graph is None:
-                self._capture(state)
-            with annotate("dqrm.train.graph", self._counts):
-                self.graph.replay()
-            self._count("graph_replays")
-            loss = self.loss.clone()
-        self._count("bag_ids", self._pooled_ids(batch))
-        self._count("bag_slots", batch.indices.numel())
-        return state._replace(qstate=qs._replace(step=qs.step + 1)), loss
+            return self._warm_up(state)
+        if self.graph is None:
+            self._capture(state)
+        with annotate("dqrm.train.graph", self._counts):
+            self.graph.replay()
+        self._count("graph_replays")
+        return self.loss.clone()
 
     def _release(self) -> None:
         """Drops the graph, its memory pool and the static buffers."""
         if self.freed is not None:
             self.freed.detach()
-        self.refs = self.key = self.graph = self.batch = self.lr = self.loss = self.freed = None
+        self.refs = self.key = self.graph = self.batch = self.loss = self.freed = None
 
     def _rekey(self, key, leaves: List[torch.Tensor], batch: dlrm.Batch) -> None:
         self._release()
@@ -718,28 +699,12 @@ class _GraphedSparseStep:
         self.freed = weakref.finalize(leaves[0], _release_step, weakref.ref(self))
         self.batch = dlrm.Batch(*(None if t is None else torch.empty(t.shape, dtype=t.dtype, device=self.dev)
                                   for t in batch))
-        self.lr = torch.zeros((), dtype=torch.float32, device=self.dev)
-
-    def _in_place(self, state: TrainState) -> torch.Tensor:
-        """The step on the static buffers, every new tensor of its result
-        copied into the state's own; returns the loss."""
-        qs = state.qstate
-        params, opt_state, new_qs, loss = self.body(state.params, state.opt_state, qs, self.batch, self.lr)
-        pairs = []
-        tree_map(lambda old, new: pairs.append((old, new)), [state.params, state.opt_state],
-                 [params, opt_state])
-        pairs += [(qs.act_min, new_qs.act_min), (qs.act_max, new_qs.act_max)]
-        pairs = [(old, new) for old, new in pairs if new is not old]
-        if pairs:
-            with torch.no_grad():
-                torch._foreach_copy_([old for old, _ in pairs], [new for _, new in pairs])
-        return loss
 
     def _warm_up(self, state: TrainState) -> torch.Tensor:
         current = torch.cuda.current_stream(self.dev)
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
-            loss = self._in_place(state)
+            loss = self.body(state, self.batch, self.lr)
         current.wait_stream(self.stream)
         self.warm += 1
         self._count("eager_steps")
@@ -755,14 +720,14 @@ class _GraphedSparseStep:
         gc.disable()
         try:
             with torch.cuda.graph(self.graph, stream=self.stream):
-                self.loss = self._in_place(state)
+                self.loss = self.body(state, self.batch, self.lr)
         finally:
             if collecting:
                 gc.enable()
         self._count("graph_captures")
 
 
-def _release_step(ref: "weakref.ref[_GraphedSparseStep]") -> None:
+def _release_step(ref: "weakref.ref[_SparseStep]") -> None:
     step = ref()
     if step is not None:
         step._release()
@@ -797,7 +762,7 @@ def make_multi_train_step(config: DLRMConfig, tc: TrainConfig, k: int,
     Takes (TrainState, a list of k Batches or one Batch with a leading [k]
     axis) and returns (state, last loss). The k losses of the last call stay
     in `multi.losses` ([k] tensor on the device). The sparse step on a CUDA
-    state replays one CUDA graph per step (`_GraphedSparseStep`)."""
+    state replays one CUDA graph per step (`_SparseStep`)."""
     return repeat_step(make_train_step(config, tc, sparse_emb_grad, plain=plain, device=device), k)
 
 

@@ -1,5 +1,5 @@
 """The sparse train step on the card, where it is one CUDA graph replayed per
-step (`train_step._GraphedSparseStep`), against the same step run eagerly
+step (`train_step._SparseStep`), against the same step run eagerly
 (`step.eager`): bit for bit over two megasteps of k = 4, with a scale refresh
 inside each call (`scale_update_period` = 3) and a learning rate that changes
 every step, under each optimizer, route and QAT scheme, QR/MD tables,
@@ -112,7 +112,7 @@ def assert_bits_equal(a, b):
 def test_graphed_step_equals_eager_step(card, name):
     cfg, tc = setup(name)
     step = tts.make_train_step(cfg, tc, sparse_emb_grad=True, device=card)
-    assert isinstance(step, tts._GraphedSparseStep)
+    assert step.graphed
     s0 = tts.init_train_state(cfg, tc, seed=3, device=card)
     s1 = tts.clone_state(s0)
     bs = batches(cfg, 2 * K, card)
@@ -162,7 +162,7 @@ def dcn_batches(cfg, n, dev, seed=0):
 def test_graphed_dcn_step_equals_eager_step(card, optimizer):
     cfg, tc = dcn_setup(optimizer)
     step = tts.make_train_step(cfg, tc, sparse_emb_grad=True, device=card)
-    assert isinstance(step, tts._GraphedSparseStep)
+    assert step.graphed
     s0 = tts.init_train_state(cfg, tc, seed=3, device=card)
     s1 = tts.clone_state(s0)
     bs = dcn_batches(cfg, 2 * K, card)
@@ -190,7 +190,7 @@ PLAIN_CASES = ["sgd", "adagrad", "rwsadagrad", "adagrad_kaggle_mlp", "bf16_table
 def test_graphed_step_equals_plain_step(card, name):
     """The graphed step (the dense leaves' fake-quant, backward and update
     kernels among its kernels) against the `plain=True` step (their plain
-    versions, the per-leaf update out of place), bit for bit."""
+    versions), bit for bit."""
     cfg, tc = dcn_setup(name[4:]) if name.startswith("dcn_") else setup(name)
     make = batches if cfg.multi_hot_sizes is None else dcn_batches
     step = tts.make_train_step(cfg, tc, sparse_emb_grad=True, device=card)
@@ -316,9 +316,16 @@ def test_lr_as_a_device_scalar_gives_the_float_bits(card):
 
 
 def test_cpu_and_plain_steps_stay_eager(card):
+    """A step on a CPU state, and a `plain=True` step on the card, are the
+    same step run eagerly: they never capture, and update their state in
+    place as the graphed step does."""
     cfg, tc = setup("sgd")
-    assert not isinstance(tts.make_train_step(cfg, tc, sparse_emb_grad=True, device="cpu"),
-                          tts._GraphedSparseStep)
-    assert not isinstance(tts.make_train_step(cfg, tc, sparse_emb_grad=True, plain=True, device=card),
-                          tts._GraphedSparseStep)
-    assert not isinstance(tts.make_train_step(cfg, tc, device=card), tts._GraphedSparseStep)
+    for dev, plain in (("cpu", False), (card, True)):
+        multi = tts.make_multi_train_step(cfg, tc, K, sparse_emb_grad=True, plain=plain, device=dev)
+        state = tts.init_train_state(cfg, tc, seed=7, device=dev)
+        passed = leaves(state)
+        for c in range(2):
+            state, _ = multi(state, batches(cfg, K, dev, seed=7 + c))
+        assert (multi.step.graph_captures, multi.step.graph_replays, multi.step.eager_steps) == (0, 0, 0)
+        assert all(a is b for a, b in zip(leaves(state), passed)) and state.qstate.step == 2 * K
+    assert not isinstance(tts.make_train_step(cfg, tc, device=card), tts._SparseStep)

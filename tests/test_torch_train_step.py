@@ -3,7 +3,8 @@ rate bit for bit, a 30-step sparse-step trajectory on the Kaggle table count
 (both the K1 branch and the scatter branch), the coalesce branch, the
 streaming (K5) branch and the Adagrad/RWSAdagrad branches of the sparse step,
 the grouped K1 branch bit for bit against a per-table reference, megasteps,
-the dense step through K4's backward and under Adagrad and RWSAdagrad,
+the sparse step's in-place update of the state passed to it (with and
+without `plain`) against the out-of-place dense step, the dense step through K4's backward and under Adagrad and RWSAdagrad,
 `clone_state`, `config_for_epoch`, `make_grad_probe`, and evaluation with
 ROC AUC; and the paper's other QAT configurations (PACT, LSQ, the
 integer-activation chain with the INT16 interaction): 20-step sparse
@@ -294,28 +295,55 @@ def test_a_dropped_megastep_frees_its_step_at_once():
             gc.enable()
 
 
-def test_cpu_megastep_stays_eager_and_out_of_place():
-    """On the CPU (and with `plain=True`) the sparse step runs eagerly, as
-    before the CUDA graph: the MLPs and the QAT state take new tensors, the
-    state passed in keeps them, only its tables move in place."""
-    jc, tc = configs((300, 40, 7), INT4)
-    _, ttc = train_configs(batch_size=32, learning_rate=0.2, onehot_update_max_rows=100,
+IN_PLACE_CASES = {
+    "hawq_sgd": (INT4, {}, "sgd"),
+    "hawq_adagrad": (INT4, {}, "adagrad"),
+    "qr_learned_vw": (INT4, dict(qr_flag=True, qr_threshold=100, weighted_pooling="learned"), "sgd"),
+    "md_learned_vw": (INT4, dict(md_flag=True, md_threshold=30, weighted_pooling="learned"), "adagrad"),
+    "act_chain": (dict(INT4, quantize_activation=True, modify_feature_interaction=True), {}, "sgd"),
+}
+
+
+@pytest.mark.parametrize("plain", [False, True], ids=["kernels", "plain"])
+@pytest.mark.parametrize("case", sorted(IN_PLACE_CASES))
+def test_cpu_megastep_updates_the_state_passed_in_place(case, plain):
+    """On the CPU, with and without `plain`, the sparse step updates every
+    tensor of the state passed to it in place, as on the card: after a k = 2
+    megastep the returned state's leaves are the very tensors passed in
+    (tables, MLPs, QR/MD leaves, `v_W`, accumulators, scales, activation
+    ranges), `qstate.step` advanced, and they hold the new values: those of
+    the dense step, which returns new tensors, from a clone (within 1e-6).
+    Every leaf moved, the activation ranges only under the
+    integer-activation chain."""
+    quant, model, optimizer = IN_PLACE_CASES[case]
+    _, tc = configs((300, 40, 7), dict(quant, scale_update_period=1), **model)
+    lr = ADAGRAD_LR if optimizer == "adagrad" else 0.2
+    _, ttc = train_configs(batch_size=32, learning_rate=lr, optimizer=optimizer, onehot_update_max_rows=100,
                            lr_num_warmup_steps=3)
-    for plain in (False, True):
-        multi = tts.make_multi_train_step(tc, ttc, 2, sparse_emb_grad=True, plain=plain, device="cpu")
-        single = tts.make_train_step(tc, ttc, sparse_emb_grad=True, plain=plain, device="cpu")
-        assert not isinstance(single, tts._GraphedSparseStep)
-        s0 = tts.init_train_state(tc, ttc, seed=2, device="cpu")
-        mlp = [t.clone() for t in tree_leaves({"bot": s0.params["bot"], "top": s0.params["top"]})]
-        qs = [t.clone() for t in (s0.qstate.emb_scales, s0.qstate.act_min, s0.qstate.act_max)]
-        rng = np.random.RandomState(6)
-        s1, _ = multi(s0, [tsyn.random_batch(tc, 32, rng, device="cpu") for _ in range(2)])
-        assert s1.params is not s0.params and s1.params["emb"][0] is s0.params["emb"][0]
-        for a, b in zip(mlp, tree_leaves({"bot": s0.params["bot"], "top": s0.params["top"]})):
-            assert torch.equal(a, b)
-        for a, b in zip(qs, (s0.qstate.emb_scales, s0.qstate.act_min, s0.qstate.act_max)):
-            assert torch.equal(a, b)
-        assert s0.qstate.step == 0 and s1.qstate.step == 2
+    kinds = {"qr_learned_vw": ["qr", "dense", "dense"], "md_learned_vw": ["md", "md", "dense"]}
+    assert [tc.table_kind(k) for k in range(3)] == kinds.get(case, ["dense"] * 3)
+    multi = tts.make_multi_train_step(tc, ttc, 2, sparse_emb_grad=True, plain=plain, device="cpu")
+    s0 = tts.init_train_state(tc, ttc, seed=2, device="cpu")
+    passed = tts._state_leaves(s0)
+    before = [t.clone() for t in passed]
+    ref = tts.clone_state(s0)
+    rng = np.random.RandomState(6)
+    bs = [tsyn.random_batch(tc, 32, rng, device="cpu") for _ in range(2)]
+    s1, _ = multi(s0, bs)
+    assert multi.step.graph_captures == multi.step.eager_steps == 0
+    assert s0.qstate.step == 0 and s1.qstate.step == 2
+    assert all(a is b for a, b in zip(tts._state_leaves(s1), passed))
+    dense = tts.make_train_step(tc, ttc, device="cpu")
+    for b in bs:
+        ref_leaves = [t.clone() for t in tts._state_leaves(ref)]
+        new_ref, _ = dense(ref, b)
+        assert all(torch.equal(a, b_) for a, b_ in zip(tts._state_leaves(ref), ref_leaves))  # out of place
+        ref = new_ref
+    for i, (a, b_) in enumerate(zip(passed, tts._state_leaves(ref))):
+        np.testing.assert_allclose(a.numpy(), b_.numpy(), rtol=0, atol=1e-6, err_msg=f"leaf {i}")
+    still = 0 if case == "act_chain" else 2  # HAWQ weight-only leaves the activation ranges
+    assert [not torch.equal(a, b_) for a, b_ in zip(before, passed)] == \
+        [True] * (len(passed) - still) + [False] * still
 
 
 @pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "rwsadagrad"])
