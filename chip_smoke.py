@@ -54,7 +54,9 @@ step, read "one run per step":
 3. eval: `make_eval_step` and ROC AUC on a held-out batch;
 4. export: `ptq_export` of the trained params (INT4 tables, INT8 MLP);
 5. serve: `ServingEngine` and `MicroBatcher` (kernel K2, one grouped launch
-   for the 26 tables, and kernel K3, 7 launches, per device batch);
+   for the 26 tables, and kernel K3, 7 launches, per device batch; each
+   bucket is one CUDA graph, so the kernels' wrappers count the eager
+   warm-ups and the captures, and a profiler's trace the replays' kernels);
 6. serve_onehot: a second engine with `onehot_lookup_max_rows=20000`
    (one grouped K4 launch for the 18 small tables, unpacked once, and one
    grouped K2 launch for the other 8) answering the same requests;
@@ -362,6 +364,8 @@ def check(cond: bool, what: str) -> None:
 # The kernels' names in a profiler's trace, which lists the kernels of a
 # CUDA graph's replay one by one
 K1_KERNEL = "dense_grad_grouped_kernel"
+K2_KERNEL = "packed_pooled_lookup_kernel"
+K3_KERNEL = "int8_linear_tc_kernel"
 K4_KERNEL = "pooled_lookup_grouped_kernel"
 K5_KERNEL = "stream_scatter_grouped_kernel"
 
@@ -2002,11 +2006,13 @@ def dense_reference(sm, dense, idx):
     return torch.sigmoid(mlp(sm.top, dot_interaction(x, ly), True).reshape(-1)).cpu().numpy()
 
 
-def phase_profile(eng, batch, of: str, n: int = 10) -> None:
+def phase_profile(eng, batch, of: str, runs: dict, n: int = 10) -> None:
     """Where one device batch's time goes: device time by kernel name over
     `n` batches of the serving function, and the device's idle share of the
-    host wall time."""
+    host wall time. Checks that each batch (a graph replay on the graphed
+    engine) ran each kernel of `runs` the given number of times."""
     ops, wall_ms = device_ops(lambda: eng.fn(batch), n)
+    check_runs(ops, 1, runs, f"{of} profile")
     busy = sum(o["ms_per_call"] for o in ops)
     emit({"phase": "profile", "of": of, "batches": n, "batch": int(batch.dense.shape[0]),
           "wall_ms_per_batch": wall_ms / n,
@@ -2015,6 +2021,20 @@ def phase_profile(eng, batch, of: str, n: int = 10) -> None:
           "device_launches_per_batch": sum(o["launches_per_call"] for o in ops)
           if ops else "not measured",
           "top_device_ops": ops[:12]})
+
+
+def served_calls(eng) -> int:
+    """The calls of the serving function that reached the kernels' wrappers
+    (each counts its launches there) since the engine was made: its eager
+    batches (the warm-ups) and its CUDA graph captures, one for each bucket;
+    a replay reaches none. Checks that the eager batches and the replays
+    are the device batches."""
+    check(eng.eager_batches + eng.graph_replays == eng.batches,
+          f"eager batches {eng.eager_batches} + graph replays {eng.graph_replays} == {eng.batches} device batches")
+    check(eng.graph_captures == len(BUCKETS), f"{eng.graph_captures} graph captures, one for each bucket")
+    calls = eng.eager_batches + eng.graph_captures
+    check(calls > 0, f"{calls} calls of the serving function reached the kernels' wrappers")
+    return calls
 
 
 def phase_serve(cfg, sm, nbytes, flush):
@@ -2030,15 +2050,18 @@ def phase_serve(cfg, sm, nbytes, flush):
         MicroBatcher,
         ServingEngine,
     )
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.cuda_graph import WARMUP_CALLS
 
     eng = ServingEngine(sm, buckets=BUCKETS)
     plain = ServingEngine(sm, buckets=BUCKETS, plain=True)
     reqs = requests(cfg, SIZES, seed=4)
+    k2.launches = k2_one.launches = k3.launches = 0  # the warm-ups and the captures reach them
     for n, (dense, idx) in zip(BUCKETS, requests(cfg, BUCKETS, seed=5)):
-        eng.predict(dense, idx)  # warm-up of every bucket shape
+        for _ in range(WARMUP_CALLS + 1):
+            eng.predict(dense, idx)  # every bucket shape's warm-ups and CUDA graph capture
     torch.cuda.synchronize()
+    warm = eng.batches
 
-    k2.launches = k2_one.launches = k3.launches = eng.batches = 0
     latency, outs = {}, []
     for n, (dense, idx) in zip(SIZES, reqs):
         times = []
@@ -2050,7 +2073,7 @@ def phase_serve(cfg, sm, nbytes, flush):
         check(out.shape == (n,) and bool(np.all(np.isfinite(out))), f"serve {n}: finite, shape")
         check(bool(np.all((out >= 0) & (out <= 1))), f"serve {n}: in [0, 1]")
         outs.append(out)
-    direct_batches = eng.batches
+    direct_batches = eng.batches - warm
     expect = 5 * sum(-(-n // BUCKETS[-1]) for n in SIZES)
     check(direct_batches == expect, f"device batches {direct_batches} == {expect}")
 
@@ -2071,9 +2094,10 @@ def phase_serve(cfg, sm, nbytes, flush):
     mb.close()
     launches = {"packed_pooled_lookup": k2.launches, "int8_linear": k3.launches}
     batches = eng.batches
-    check(launches["packed_pooled_lookup"] == batches and k2_one.launches == 0,
-          f"K2 launches {launches}, per-table {k2_one.launches}: one grouped launch x {batches} device batches")
-    check(launches["int8_linear"] == 7 * batches, f"K3 launches {launches} == 7 x {batches}")
+    calls = served_calls(eng)
+    check(launches["packed_pooled_lookup"] == calls and k2_one.launches == 0,
+          f"K2 launches {launches}, per-table {k2_one.launches}: one grouped launch x {calls} calls")
+    check(launches["int8_linear"] == 7 * calls, f"K3 launches {launches} == 7 x {calls}")
 
     err = 0.0
     for (dense, idx), out in list(zip(reqs, outs)) + list(zip(reqs_mb, results)):
@@ -2086,11 +2110,11 @@ def phase_serve(cfg, sm, nbytes, flush):
     batch = random_batch(cfg, B_MAIN, np.random.RandomState(8))
     batch_ms = time_ms(lambda: eng.fn(batch), flush)
     plain_ms = time_ms(lambda: plain.fn(batch), flush)
-    phase_profile(eng, batch, "serve")
+    phase_profile(eng, batch, "serve", {K2_KERNEL: 1, K3_KERNEL: 7})
     emit({"phase": "serve", "serving_model_bytes": nbytes, "buckets": list(BUCKETS),
-          "request_latency_ms": latency, "device_batches": batches,
-          "micro_batcher_requests": len(reqs_mb), "micro_batcher_batches": batches - direct_batches,
-          "launches": launches, "launches_per_batch": {k: v / batches for k, v in launches.items()},
+          "request_latency_ms": latency, "device_batches": batches, "warm_up_batches": warm,
+          "micro_batcher_requests": len(reqs_mb), "micro_batcher_batches": batches - warm - direct_batches,
+          "launches": launches, "wrapper_calls": calls, "graph_replays": eng.graph_replays,
           "max_abs_err_vs_plain": err, "max_abs_err_vs_library_reference": ref_err,
           "batch_ms_device": batch_ms, "preds_per_s_device": B_MAIN / batch_ms * 1e3,
           "batch_ms_device_plain": plain_ms,
@@ -2116,13 +2140,16 @@ def phase_serve_onehot(cfg, sm, reqs, outs, flush):
         int8_linear as k3,
     )
     from deep_quantized_recommendation_model_dqrm_tpu_torch.serving import ServingEngine
+    from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.cuda_graph import WARMUP_CALLS
 
     t0 = time.perf_counter()
     eng = ServingEngine(sm, buckets=BUCKETS, onehot_lookup_max_rows=SMALL_ROWS)
+    # the warm-ups and the captures reach the wrappers
+    k2.launches = k2_one.launches = k3.launches = k4.launches = k4_one.launches = 0
     for dense, idx in requests(cfg, BUCKETS, seed=5):
-        eng.predict(dense, idx)  # warm-up of every bucket shape
+        for _ in range(WARMUP_CALLS + 1):
+            eng.predict(dense, idx)  # every bucket shape's warm-ups and CUDA graph capture
     torch.cuda.synchronize()
-    k2.launches = k2_one.launches = k3.launches = k4.launches = k4_one.launches = eng.batches = 0
     err, latency = 0.0, {}
     for n, (dense, idx), want in zip(SIZES, reqs, outs):
         h0 = time.perf_counter()
@@ -2131,21 +2158,22 @@ def phase_serve_onehot(cfg, sm, reqs, outs, flush):
         check(got.shape == (n,) and bool(np.all(np.isfinite(got))), f"serve_onehot {n}: finite, shape")
         err = max(err, float(np.max(np.abs(got - want))))
     batches = eng.batches
+    calls = served_calls(eng)
     launches = {"onehot_pooled_lookup": k4.launches, "packed_pooled_lookup": k2.launches,
                 "int8_linear": k3.launches}
-    check(launches["onehot_pooled_lookup"] == batches and k4_one.launches == 0,
+    check(launches["onehot_pooled_lookup"] == calls and k4_one.launches == 0,
           f"K4 {launches}, per-table {k4_one.launches}: one grouped launch for the "
-          f"{len(small_tables(cfg))} small tables x {batches}")
-    check(launches["packed_pooled_lookup"] == batches and k2_one.launches == 0,
+          f"{len(small_tables(cfg))} small tables x {calls} calls")
+    check(launches["packed_pooled_lookup"] == calls and k2_one.launches == 0,
           f"K2 {launches}, per-table {k2_one.launches}: one grouped launch for the "
-          f"{cfg.num_tables - len(small_tables(cfg))} big tables x {batches}")
-    check(launches["int8_linear"] == 7 * batches, f"K3 {launches} == 7 x {batches}")
+          f"{cfg.num_tables - len(small_tables(cfg))} big tables x {calls} calls")
+    check(launches["int8_linear"] == 7 * calls, f"K3 {launches} == 7 x {calls}")
     check(err <= SERVE_ATOL, f"serve_onehot vs the K2 engine {err} <= {SERVE_ATOL}")
     batch = random_batch(cfg, B_MAIN, np.random.RandomState(8))
     batch_ms = time_ms(lambda: eng.fn(batch), flush)
-    phase_profile(eng, batch, "serve_onehot")
+    phase_profile(eng, batch, "serve_onehot", {K4_KERNEL: 1, K2_KERNEL: 1, K3_KERNEL: 7})
     emit({"phase": "serve_onehot", "onehot_lookup_max_rows": SMALL_ROWS, "device_batches": batches,
-          "launches": launches, "launches_per_batch": {k: v / batches for k, v in launches.items()},
+          "launches": launches, "wrapper_calls": calls, "graph_replays": eng.graph_replays,
           "max_abs_err_vs_serve": err, "request_latency_ms": latency, "batch_ms_device": batch_ms,
           "phase_s": time.perf_counter() - t0})
     return launches

@@ -17,8 +17,10 @@ Port of the JAX package's serving.py:
   `mlp_impl="int8"` dynamic int8 activations and an int8 product; dot or
   cat interaction, sigmoid, `loss_threshold` clip;
 - `ServingEngine` pads requests on the host to the nearest bucket size and
-  chunks large ones; `MicroBatcher` aggregates concurrent requests from many
-  threads into one device batch per dispatch.
+  chunks large ones; on a card it stages each device batch in its bucket's
+  pinned buffers and runs the serving function as one CUDA graph replay per
+  batch; `MicroBatcher` aggregates concurrent requests from many threads
+  into one device batch per dispatch.
 
 - `export_stablehlo` / `load_stablehlo` write a `torch.export` program of
   the serving function (`ServingModule`: the model's tensors as buffers,
@@ -31,6 +33,7 @@ Port of the JAX package's serving.py:
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 import time
@@ -69,6 +72,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.interaction import (
     cat_interaction,
     dot_interaction,
 )
+from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.cuda_graph import GraphedCall
 from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.profiling import annotate
 
 
@@ -527,14 +531,59 @@ def load_stablehlo(path: str) -> Callable[[torch.Tensor, torch.Tensor], torch.Te
     return fn
 
 
+def _inputs(batch: dlrm.Batch) -> tuple:
+    """What the serving function reads of a batch (not its labels)."""
+    return batch.dense, batch.indices, batch.mask
+
+
+class _Graph(GraphedCall):
+    """One batch shape's CUDA graph of the serving function over its static
+    inputs, `batch`."""
+
+    def __init__(self, batch: dlrm.Batch, stream: torch.cuda.Stream):
+        super().__init__(stream)
+        dense, indices, mask = (None if t is None else torch.empty_like(t) for t in _inputs(batch))
+        self.batch = dlrm.Batch(dense=dense, indices=indices, labels=None, mask=mask)
+
+
+class _Stage(NamedTuple):
+    """A bucket's host buffers: its dense rows and ids going up (pinned on
+    the graphed path) and its probabilities coming back (pinned; None on
+    the eager path)."""
+
+    dense: torch.Tensor
+    indices: torch.Tensor
+    probs: Optional[torch.Tensor]
+
+
 class ServingEngine:
     """Bucketed-batch inference host loop.
 
     Pads request batches up to the nearest bucket so the device sees a few
     fixed shapes, chunks requests larger than the biggest bucket, and slices
-    the padding off. `batches` counts the device batches dispatched. Each
-    device batch opens the spans `dqrm.serve.pad`, `dqrm.serve.h2d` and
-    `dqrm.serve.readback` (`utils.profiling`).
+    the padding off. Each device batch opens the spans `dqrm.serve.pad`,
+    `dqrm.serve.h2d` and `dqrm.serve.readback` (`utils.profiling`) and calls
+    `fn` once, with a batch of its own device tensors. One lock holds a
+    `predict` call, so concurrent callers take turns.
+
+    On a card (and not `plain`) a device batch is copied into its bucket's
+    pinned host buffers (zeroed past the chunk only where the chunk is
+    short), uploaded without waiting, and answered by one replay of the
+    serving function's CUDA graph for its shapes (`fn`: the batch copied on
+    the device into the graph's static inputs, then the replay, in the span
+    `dqrm.serve.graph`); the readback copies the graph's output into a
+    pinned buffer, waits for the device and copies the live rows into the
+    caller's own array. A shape's first `utils.cuda_graph.WARMUP_CALLS`
+    calls run eagerly on a side stream, building every cache the forward
+    keeps, and one more wherever the last did not run in the caller's
+    thread; the next is captured there and answered by the graph's first
+    replay. On the CPU, and with `plain=True`, every batch is padded in new
+    host arrays, uploaded as it is and run eagerly.
+
+    Counters: `batches` (device batches dispatched), `graph_captures`,
+    `graph_replays` and `eager_batches` (the warm-ups, and every batch on
+    the CPU or with `plain`): `eager_batches + graph_replays == batches`
+    for the batches `predict` dispatched.
     """
 
     def __init__(
@@ -554,12 +603,17 @@ class ServingEngine:
         self.buckets = sorted(buckets)
         e = sm.emb[0]
         self.device = (next(iter(e.values())) if isinstance(e, dict) else e).data.device
-        self.fn = make_serving_fn(
+        self._serve = make_serving_fn(
             sm, mlp_impl=mlp_impl, onehot_lookup_max_rows=onehot_lookup_max_rows,
             plain=plain,
         )
-        self.batches = 0
-        self._count_lock = threading.Lock()
+        self.graphed = self.device.type == "cuda" and not plain
+        self.fn = self._replay if self.graphed else self._eager
+        self.batches = self.graph_captures = self.graph_replays = self.eager_batches = 0
+        self._lock = threading.Lock()
+        self._stages = {}  # the chunk's shapes at its bucket -> _Stage (graphed path)
+        self._graphs = {}  # the batch's shapes and dtypes -> _Graph
+        self._stream = torch.cuda.Stream(self.device) if self.graphed else None
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -572,28 +626,85 @@ class ServingEngine:
         B = dense.shape[0]
         out = np.empty(B, np.float32)
         pos = 0
-        while pos < B:
-            chunk = min(B - pos, self.buckets[-1])
-            nb = self._bucket(chunk)
-            with annotate("dqrm.serve.pad"):
-                d = np.zeros((nb, dense.shape[1]), np.float32)
-                d[:chunk] = dense[pos : pos + chunk]
-                ix = np.zeros((indices.shape[0], nb, indices.shape[2]), np.int32)
-                ix[:, :chunk] = indices[:, pos : pos + chunk]
-            with annotate("dqrm.serve.h2d"):
-                batch = dlrm.Batch(
-                    dense=torch.from_numpy(d).to(self.device),
-                    indices=torch.from_numpy(ix).to(self.device),
-                    labels=torch.zeros((nb,), dtype=torch.float32, device=self.device),
-                    mask=None,
-                )
-            probs = self.fn(batch)
-            with annotate("dqrm.serve.readback"):
-                out[pos : pos + chunk] = probs.cpu().numpy()[:chunk]
-            with self._count_lock:
+        with self._lock:
+            while pos < B:
+                chunk = min(B - pos, self.buckets[-1])
+                rows = slice(pos, pos + chunk)
+                with annotate("dqrm.serve.pad"):
+                    stage = self._pad(self._bucket(chunk), dense[rows], indices[:, rows])
+                with annotate("dqrm.serve.h2d"):
+                    batch = dlrm.Batch(dense=stage.dense.to(self.device, non_blocking=True),
+                                       indices=stage.indices.to(self.device, non_blocking=True),
+                                       labels=None, mask=None)
+                probs = self.fn(batch)
+                with annotate("dqrm.serve.readback"):
+                    if self.graphed:
+                        stage.probs.copy_(probs, non_blocking=True)
+                        torch.cuda.current_stream(self.device).synchronize()
+                        out[rows] = stage.probs.numpy()[:chunk]
+                    else:
+                        out[rows] = probs.cpu().numpy()[:chunk]
                 self.batches += 1
-            pos += chunk
+                pos += chunk
         return out
+
+    def _pad(self, nb: int, dense: np.ndarray, indices: np.ndarray) -> _Stage:
+        """The chunk at the bucket's `nb` rows, zero past it: in the bucket's
+        pinned buffers on the graphed path, else in new host arrays."""
+        chunk = dense.shape[0]
+        shapes = ((nb, dense.shape[1]), (indices.shape[0], nb, indices.shape[2]))
+        if not self.graphed:
+            d = np.zeros(shapes[0], np.float32)
+            d[:chunk] = dense
+            ix = np.zeros(shapes[1], np.int32)
+            ix[:, :chunk] = indices
+            return _Stage(torch.from_numpy(d), torch.from_numpy(ix), None)
+        stage = self._stages.get(shapes)
+        if stage is None:
+            stage = self._stages[shapes] = _Stage(
+                torch.empty(shapes[0], dtype=torch.float32, pin_memory=True),
+                torch.empty(shapes[1], dtype=torch.int32, pin_memory=True),
+                torch.empty((nb,), dtype=torch.float32, pin_memory=True))
+        # numpy's copy, on the caller's thread: torch's spreads over its
+        # intra-op threads, whose spinning slows a caller that is not the
+        # main thread more than the copy gains
+        d, ix = stage.dense.numpy(), stage.indices.numpy()
+        d[:chunk] = dense
+        ix[:, :chunk] = indices
+        if chunk < nb:
+            d[chunk:] = 0
+            ix[:, chunk:] = 0
+        return stage
+
+    def _eager(self, batch: dlrm.Batch) -> torch.Tensor:
+        self.eager_batches += 1
+        return self._serve(batch)
+
+    @torch.inference_mode()
+    def _replay(self, batch: dlrm.Batch) -> torch.Tensor:
+        """The probabilities of `batch` from the CUDA graph of its shapes: the
+        graph's output, which the next call of those shapes overwrites."""
+        key = tuple(None if t is None else (t.shape, t.dtype) for t in _inputs(batch))
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = _Graph(batch, self._stream)
+        for buf, t in zip(_inputs(g.batch), _inputs(batch)):
+            if buf is not None:
+                buf.copy_(t)
+        if g.graph is None:
+            serve = functools.partial(self._serve, g.batch)
+            if not g.due():
+                self.eager_batches += 1
+                return g.warm_up(serve)
+            g.capture(serve)
+            self.graph_captures += 1
+        with annotate("dqrm.serve.graph", self._counts):
+            probs = g.replay()
+        self.graph_replays += 1
+        return probs
+
+    def _counts(self) -> str:
+        return f"replays={self.graph_replays} captures={self.graph_captures}"
 
 
 class MicroBatcher:

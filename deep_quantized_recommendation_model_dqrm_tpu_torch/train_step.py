@@ -57,7 +57,7 @@ train_step.py:186-230, 280-290, 325-362, 499-560):
 from __future__ import annotations
 
 import dataclasses
-import gc
+import functools
 import weakref
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -98,6 +98,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.optim.sgd import (
     rwsadagrad_update,
     sgd_update,
 )
+from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.cuda_graph import GraphedCall
 from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.profiling import annotate
 from deep_quantized_recommendation_model_dqrm_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -564,13 +565,6 @@ def _build_sparse_step_fn(config: DLRMConfig, tc: TrainConfig, plain: bool = Fal
     return _SparseStep(config, tc, dev, body, graphed=dev.type == "cuda" and not plain)
 
 
-# Eager steps a new capture key takes first. They are real steps of the run
-# and set up what a capture may not: the kernels' libraries, the cached
-# constants, cuBLAS's workspace and the autograd threads on the capture
-# stream.
-GRAPH_WARMUP_STEPS = 2
-
-
 def _state_leaves(state: TrainState) -> List[torch.Tensor]:
     """Every tensor of a state that a captured step reads or writes."""
     qs = state.qstate
@@ -593,9 +587,11 @@ class _SparseStep:
     rate and the state's tensors. A capture bakes in the state's tensors,
     the batch's shapes and dtypes and `act_fixed`: its key. A call whose
     key differs (another state, such as a `clone_state` copy, or another
-    batch shape) takes `GRAPH_WARMUP_STEPS` eager steps on the capture
-    stream, then a new capture, which replaces the old graph; the capture
-    does not execute, so it is replayed for the step it was captured on.
+    batch shape) takes `utils.cuda_graph.WARMUP_CALLS` eager steps on the
+    capture stream (the last on the capturing thread; they are real steps of
+    the run and also start autograd's threads on that stream), then a new
+    capture, which replaces the old graph; the capture does not execute, so
+    it is replayed for the step it was captured on.
     The key holds the state's tensors by weak reference: when the first of
     them is freed, the step drops its graph, its memory pool and its static
     buffers. On a CPU state, and with `plain=True`, every step runs eagerly.
@@ -628,8 +624,7 @@ class _SparseStep:
         self.graph_replays = self.graph_captures = self.eager_steps = self.bag_ids = self.bag_slots = 0
         self.stream = torch.cuda.Stream(dev) if graphed else None
         self.lr = torch.zeros((), dtype=torch.float32, device=dev)
-        self.refs = self.key = self.graph = self.batch = self.loss = self.freed = None
-        self.warm = 0
+        self.refs = self.key = self.graph = self.batch = self.freed = None
 
     def __call__(self, state: TrainState, batch: dlrm.Batch) -> Tuple[TrainState, torch.Tensor]:
         with annotate("dqrm.train.step"):
@@ -676,55 +671,33 @@ class _SparseStep:
         for buf, t in zip(self.batch, batch):
             if buf is not None:
                 buf.copy_(t, non_blocking=True)
-        if self.graph is None and self.warm < GRAPH_WARMUP_STEPS:
-            return self._warm_up(state)
-        if self.graph is None:
-            self._capture(state)
+        g = self.graph
+        if g.graph is None:
+            step = functools.partial(self.body, state, self.batch, self.lr)
+            if not g.due():
+                self._count("eager_steps")
+                return g.warm_up(step)
+            g.capture(step)
+            self._count("graph_captures")
         with annotate("dqrm.train.graph", self._counts):
-            self.graph.replay()
+            loss = g.replay()
         self._count("graph_replays")
-        return self.loss.clone()
+        return loss.clone()
 
     def _release(self) -> None:
         """Drops the graph, its memory pool and the static buffers."""
         if self.freed is not None:
             self.freed.detach()
-        self.refs = self.key = self.graph = self.batch = self.loss = self.freed = None
+        self.refs = self.key = self.graph = self.batch = self.freed = None
 
     def _rekey(self, key, leaves: List[torch.Tensor], batch: dlrm.Batch) -> None:
         self._release()
-        self.key, self.refs, self.warm = key, [weakref.ref(t) for t in leaves], 0
+        self.key, self.refs, self.graph = key, [weakref.ref(t) for t in leaves], GraphedCall(self.stream)
         # a finalizer on the first leaf; it holds the step weakly, so an
         # unused step is freed whatever becomes of the state
         self.freed = weakref.finalize(leaves[0], _release_step, weakref.ref(self))
         self.batch = dlrm.Batch(*(None if t is None else torch.empty(t.shape, dtype=t.dtype, device=self.dev)
                                   for t in batch))
-
-    def _warm_up(self, state: TrainState) -> torch.Tensor:
-        current = torch.cuda.current_stream(self.dev)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            loss = self.body(state, self.batch, self.lr)
-        current.wait_stream(self.stream)
-        self.warm += 1
-        self._count("eager_steps")
-        return loss
-
-    def _capture(self, state: TrainState) -> None:
-        self.graph = torch.cuda.CUDAGraph()
-        # `torch.cuda.graph` collects garbage before the capture; none may be
-        # collected inside it. A graph held in a reference cycle (by a
-        # traceback's frames, say) waits for the cycle collector, and freeing
-        # a graph inside a capture is a call the capture refuses, which ends it
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(self.graph, stream=self.stream):
-                self.loss = self.body(state, self.batch, self.lr)
-        finally:
-            if collecting:
-                gc.enable()
-        self._count("graph_captures")
 
 
 def _release_step(ref: "weakref.ref[_SparseStep]") -> None:

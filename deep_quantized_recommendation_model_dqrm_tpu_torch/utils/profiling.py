@@ -27,9 +27,11 @@ The spans the program opens, in eager host loops only (none in code that
   `dqrm.train.graph` (the replay; its args hold the step's replay,
   capture and eager-step counts before it);
 - `serving.ServingEngine.predict`, per device batch: `dqrm.serve.pad` (the
-  bucket's host buffers), `dqrm.serve.h2d` (the uploads) and
-  `dqrm.serve.readback` (the result's copy to the host, which waits for
-  the forward).
+  chunk copied into the bucket's host buffers), `dqrm.serve.h2d` (the
+  uploads, which do not wait on the graphed path), on the batches a CUDA
+  graph replays `dqrm.serve.graph` (the replay; its args hold the engine's
+  replay and capture counts before it) and `dqrm.serve.readback` (the
+  result's copy to the host, which waits for the forward).
 """
 
 from __future__ import annotations

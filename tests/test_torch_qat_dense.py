@@ -35,6 +35,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.qat_dense impor
     fake_quant_dense_plain,
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.optim.sgd import adagrad_update, sgd_update
+from deep_quantized_recommendation_model_dqrm_tpu_torch.utils import cuda_graph
 
 # MLP widths (bottom, top) and the cross network (layers, rank) of each leaf set
 LEAF_SETS = {
@@ -384,7 +385,7 @@ def test_one_launch_per_eager_step_or_capture(card, name, optimizer, leaves):
     wrappers = (fake_quant_dense, fake_quant_dense_backward, dense_update_)
     before = [w.launches for w in wrappers]
     state, _ = multi(state, bs[:K])
-    expect = tts.GRAPH_WARMUP_STEPS + 1  # the eager steps and the capture
+    expect = cuda_graph.WARMUP_CALLS + 1  # the eager steps and the capture
     assert [w.launches - b for w, b in zip(wrappers, before)] == [expect] * 3
     assert [w.leaves for w in wrappers] == [leaves] * 3
     with profile(activities=[ProfilerActivity.CUDA]) as prof:

@@ -12,17 +12,18 @@ every kernel's plain version rounds as the kernel (the dense leaves'
 fake-quant, its backward and the in-place update among them).
 
 Also: the graph's counters, K1 run once in each replay (read from a
-profiler trace) and a new capture for a `clone_state` copy; a dropped
-state's tables and the graph freed; no
-host synchronization in an eager sparse step or in a replayed megastep
-(`torch.cuda.set_sync_debug_mode("error")`); the learning rate as a device
-scalar multiplies to the bits of the Python float.
+profiler trace) and a new capture for a `clone_state` copy; a capture on
+another thread than the warm-ups; a dropped state's tables and the graph
+freed; no host synchronization in an eager sparse step or in a replayed
+megastep (`torch.cuda.set_sync_debug_mode("error")`); the learning rate as
+a device scalar multiplies to the bits of the Python float.
 
 Card tests (marker `card`): they skip without a card and import no JAX. On
 the card: `python -m pytest --noconftest -m card tests/test_torch_train_graph.py`
 (the tests' conftest imports JAX, which the card's machine lacks)."""
 
 import contextlib
+import threading
 import weakref
 
 import numpy as np
@@ -39,6 +40,7 @@ from deep_quantized_recommendation_model_dqrm_tpu_torch.ops.cuda.onehot_update i
 )
 from deep_quantized_recommendation_model_dqrm_tpu_torch.optim.lr_policy import lr_policy
 from deep_quantized_recommendation_model_dqrm_tpu_torch.optim.sgd import sgd_update
+from deep_quantized_recommendation_model_dqrm_tpu_torch.utils import cuda_graph
 
 pytestmark = pytest.mark.card
 
@@ -125,11 +127,37 @@ def test_graphed_step_equals_eager_step(card, name):
     torch.cuda.synchronize()
     assert s0.qstate.step == s1.qstate.step == 2 * K
     assert_bits_equal(leaves(s0), leaves(s1))
-    assert (step.graph_captures, step.eager_steps) == (1, tts.GRAPH_WARMUP_STEPS)
-    assert step.graph_replays == 2 * K - tts.GRAPH_WARMUP_STEPS
+    assert (step.graph_captures, step.eager_steps) == (1, cuda_graph.WARMUP_CALLS)
+    assert step.graph_replays == 2 * K - cuda_graph.WARMUP_CALLS
     # a masked batch pools the mask's live slots, a quarter fewer than it reads
     assert step.bag_slots == sum(b.indices.numel() for b in bs)
     assert int(step.bag_ids) == sum(int(torch.count_nonzero(b.mask)) for b in bs) < step.bag_slots
+
+
+def test_a_capture_in_another_thread(card):
+    """The warm-up steps in this thread, the next steps in a new one: the
+    new thread takes one more eager step, so that its first cuBLAS product
+    comes before the capture, then captures; every step equals the eager
+    step bit for bit."""
+    cfg, tc = setup("adagrad_kaggle_mlp")
+    step = tts.make_train_step(cfg, tc, sparse_emb_grad=True, device=card)
+    s0 = tts.init_train_state(cfg, tc, seed=4, device=card)
+    s1 = tts.clone_state(s0)
+    bs = batches(cfg, 2 * K, card, seed=4)
+    first = cuda_graph.WARMUP_CALLS
+    s0, _ = tts.repeat_step(step, first)(s0, bs[:first])
+    rest, out = tts.repeat_step(step, 2 * K - first), {}
+    t = threading.Thread(target=lambda: out.update(state=rest(s0, bs[first:])[0]))
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive() and "state" in out
+    eager = tts.repeat_step(step.eager, 2 * K)
+    s1, _ = eager(s1, bs)
+    torch.cuda.synchronize()
+    assert_bits_equal([rest.losses], [eager.losses[first:]])
+    assert_bits_equal(leaves(out["state"]), leaves(s1))
+    assert (step.graph_captures, step.eager_steps) == (1, first + 1)
+    assert step.graph_replays == 2 * K - first - 1
 
 
 # DLRM-DCNv2: the cross network and bags of per-table widths (one [B, 15]
@@ -174,7 +202,7 @@ def test_graphed_dcn_step_equals_eager_step(card, optimizer):
         assert_bits_equal([graphed.losses], [eager.losses])
     torch.cuda.synchronize()
     assert_bits_equal(leaves(s0), leaves(s1))
-    assert step.graph_replays == 2 * K - tts.GRAPH_WARMUP_STEPS
+    assert step.graph_replays == 2 * K - cuda_graph.WARMUP_CALLS
     # every id slot a step reads is an id its lookups pool: no padding
     assert step.bag_ids == step.bag_slots == 2 * K * B * sum(DCN_WIDTHS)
 
@@ -220,17 +248,17 @@ def test_counters_and_a_new_capture_for_a_clone(card):
     assert state.params is params  # every leaf updated in place
     # K1's wrapper counts the calls that reach it: the eager steps and the
     # capture; the profiler lists the kernel once in each replay
-    assert onehot_dense_grad_grouped.launches - k1 == tts.GRAPH_WARMUP_STEPS + 1
+    assert onehot_dense_grad_grouped.launches - k1 == cuda_graph.WARMUP_CALLS + 1
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, _ = multi(state, bs[K:2 * K])
         torch.cuda.synchronize()
-    assert onehot_dense_grad_grouped.launches - k1 == tts.GRAPH_WARMUP_STEPS + 1
+    assert onehot_dense_grad_grouped.launches - k1 == cuda_graph.WARMUP_CALLS + 1
     assert kernel_runs(prof, "dense_grad_grouped_kernel") == K
-    assert (step.graph_captures, step.graph_replays) == (1, 2 * K - tts.GRAPH_WARMUP_STEPS)
+    assert (step.graph_captures, step.graph_replays) == (1, 2 * K - cuda_graph.WARMUP_CALLS)
     before = [t.clone() for t in leaves(state)]
     copy = tts.clone_state(state)
     copy, _ = multi(copy, bs[2 * K:])
-    assert step.graph_captures == 2 and step.eager_steps == 2 * tts.GRAPH_WARMUP_STEPS
+    assert step.graph_captures == 2 and step.eager_steps == 2 * cuda_graph.WARMUP_CALLS
     assert_bits_equal(leaves(state), before)  # the graph of the copy left the original alone
     ref = tts.clone_state(state)
     ref, _ = tts.repeat_step(step.eager, K)(ref, bs[2 * K:])
